@@ -1,0 +1,19 @@
+"""PyTorch + CUDA port of ``distributedkernelshap_tpu`` (KernelSHAP on an
+NVIDIA GPU).
+
+The JAX package stays the reference; this package imports neither JAX nor
+anything of it.  Entry points run on the current CUDA device unless the
+caller passes ``device='cpu'``, and raise when there is no GPU and no device
+was given.  The masked evaluation of the linear fast path runs in the
+hand-written kernel ``csrc/fused_linear_ey.cu`` (``ops/cuda_kernels.py``).
+"""
+
+from distributedkernelshap_tpu_torch.data import DenseData  # noqa: F401
+from distributedkernelshap_tpu_torch.interface import Explanation  # noqa: F401
+from distributedkernelshap_tpu_torch.kernel_shap import (  # noqa: F401
+    EngineConfig,
+    KernelExplainerEngine,
+    KernelShap,
+    rank_by_importance,
+    sum_categories,
+)

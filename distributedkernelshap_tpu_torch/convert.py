@@ -1,0 +1,52 @@
+"""Carry the JAX package's parameters and fitted state over to the port.
+
+Both directions go through numpy, so neither package imports the other: a
+caller holding a JAX predictor passes ``np.asarray(jax_pred.W)`` and so on,
+and gets the port's objects on ``device`` (default: the current CUDA
+device; raises without one).
+"""
+
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from distributedkernelshap_tpu_torch.kernel_shap import EngineConfig, KernelShap
+from distributedkernelshap_tpu_torch.models.predictors import LinearPredictor
+
+
+def linear_predictor_from_numpy(W: np.ndarray, b: np.ndarray, activation: str,
+                                vector_out: bool = True,
+                                device: Optional[Union[str, torch.device]] = None
+                                ) -> LinearPredictor:
+    """The port's :class:`LinearPredictor` with the same ``(W, b)`` float32
+    parameters and activation as a JAX ``LinearPredictor``."""
+
+    return LinearPredictor(np.asarray(W, dtype=np.float32),
+                           np.asarray(b, dtype=np.float32), activation,
+                           vector_out=vector_out, device=device)
+
+
+def kernel_shap_from_numpy(W: np.ndarray, b: np.ndarray, activation: str,
+                           background: np.ndarray,
+                           group_names: Optional[Sequence[str]] = None,
+                           groups: Optional[Sequence[Sequence[int]]] = None,
+                           weights: Optional[np.ndarray] = None,
+                           link: str = 'identity',
+                           seed: Optional[int] = None,
+                           vector_out: bool = True,
+                           engine_config: Optional[EngineConfig] = None,
+                           device: Optional[Union[str, torch.device]] = None
+                           ) -> KernelShap:
+    """A fitted port :class:`KernelShap` over a linear predictor with the
+    given parameters, on the same background, grouping, weights, link and
+    seed as the JAX explainer it mirrors (the seed fixes the coalition plan,
+    which both packages build identically)."""
+
+    predictor = linear_predictor_from_numpy(W, b, activation, vector_out, device)
+    explainer = KernelShap(predictor, link=link, seed=seed,
+                           engine_config=engine_config, device=predictor.W.device)
+    return explainer.fit(np.asarray(background, dtype=np.float32),
+                         group_names=group_names,
+                         groups=None if groups is None else [list(g) for g in groups],
+                         weights=weights)

@@ -1,0 +1,5 @@
+from distributedkernelshap_tpu_torch.models.predictors import (  # noqa: F401
+    BasePredictor,
+    LinearPredictor,
+    as_predictor,
+)

@@ -1,0 +1,223 @@
+"""Hand-written CUDA kernels of the PyTorch port, their wrappers, their build,
+and the plain PyTorch version of each.
+
+``fused_linear_ey`` replaces the TPU kernel
+``distributedkernelshap_tpu/ops/pallas_kernels.py:fused_linear_ey``: the
+masked-evaluation reduction
+
+    ey[b,s,k] = Σ_n bgw[n] · act(p1[b,s,k] + bgW[n,k] − t2[s,n,k])
+
+of the linear fast path.  Its source is ``csrc/fused_linear_ey.cu``; it is
+compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at first use and
+bound through a plain C interface with ``ctypes`` (nothing here compiles or
+imports CUDA code when the module is imported).
+
+The wrapper runs the kernel for CUDA tensors and raises when it cannot —
+there is no fallback.  Only a tensor that lies on the CPU takes the plain
+version, :func:`fused_linear_ey_plain`, which is also what ``chip_smoke.py``
+holds the kernel against on the card.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+from distributedkernelshap_tpu_torch.models.predictors import ACTIVATIONS
+from distributedkernelshap_tpu_torch.utils import REPO_ROOT
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(REPO_ROOT) / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: every kernel source of the port (``csrc/<name>.cu``)
+KERNELS = ("fused_linear_ey",)
+#: widest class axis the kernel's register tiles take (``kMaxK`` in the .cu)
+MAX_K = 32
+
+_ACTIVATION_CODE = {"softmax": 0, "sigmoid": 1}
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the port's kernels")
+    return path
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: named by a digest of the source
+    and the flags, so an edited source never loads a stale library."""
+
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
+    """Compile every named kernel source that is not built yet, one ``nvcc``
+    per source, all started together.  The compiler's report (``-Xptxas -v``:
+    registers, shared memory, spills) lands beside each library as
+    ``<library>.log``.  Raises on any failed build."""
+
+    out = {name: library_path(name) for name in names}
+    todo = {name: path for name, path in out.items() if not path.exists()}
+    if not todo:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log = proc.communicate()[0]
+        path = todo[name]
+        path.with_name(path.name + ".log").write_text(log)
+        if proc.returncode:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return out
+
+
+def _library(name: str) -> ctypes.CDLL:
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            fn = lib.fused_linear_ey_launch
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            lib.fused_linear_ey_max_k.argtypes = []
+            lib.fused_linear_ey_max_k.restype = ctypes.c_int
+            if lib.fused_linear_ey_max_k() != MAX_K:
+                raise RuntimeError("csrc/fused_linear_ey.cu and MAX_K disagree")
+            _libs[name] = lib
+        return _libs[name]
+
+
+def _check(XWg, bgWg, bgW, bgw, mask, activation: str):
+    """Validate the wrapper's inputs; returns ``(B, S, N, M, K)``."""
+
+    if activation == "identity":
+        raise ValueError("identity never reaches fused_linear_ey: _ey_linear "
+                         "collapses the background axis analytically")
+    if activation not in _ACTIVATION_CODE:
+        raise ValueError(f"activation must be softmax or sigmoid, got {activation!r}")
+    args = {"XWg": XWg, "bgWg": bgWg, "bgW": bgW, "bgw": bgw, "mask": mask}
+    for name, t in args.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != XWg.device:
+            raise ValueError(f"{name} is on {t.device}, XWg on {XWg.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if XWg.ndim != 3 or bgWg.ndim != 3 or bgW.ndim != 2 or bgw.ndim != 1 \
+            or mask.ndim != 2:
+        raise ValueError("expected XWg (B,M,K), bgWg (N,M,K), bgW (N,K), "
+                         "bgw (N,), mask (S,M)")
+    B, M, K = XWg.shape
+    N, S = bgWg.shape[0], mask.shape[0]
+    if tuple(bgWg.shape) != (N, M, K) or tuple(bgW.shape) != (N, K) \
+            or tuple(bgw.shape) != (N,) or mask.shape[1] != M:
+        raise ValueError(
+            f"shape mismatch: XWg {tuple(XWg.shape)}, bgWg {tuple(bgWg.shape)}, "
+            f"bgW {tuple(bgW.shape)}, bgw {tuple(bgw.shape)}, mask {tuple(mask.shape)}")
+    return B, S, N, M, K
+
+
+def fused_linear_ey(XWg: torch.Tensor, bgWg: torch.Tensor, bgW: torch.Tensor,
+                    bgw: torch.Tensor, mask: torch.Tensor,
+                    activation: str = "softmax") -> torch.Tensor:
+    """Fused ``ey`` for a logits-linear predictor.
+
+    ``XWg (B, M, K)`` per-group instance logits, ``bgWg (N, M, K)`` per-group
+    background logits, ``bgW (N, K)`` full background logits (bias
+    included), ``bgw (N,)`` background weights (normalised here: the binary
+    softmax path needs Σ bgw = 1), ``mask (S, M)`` coalition masks; all
+    contiguous float32 on one device.  Returns ``ey (B, S, K)``.
+
+    CUDA tensors launch ``csrc/fused_linear_ey.cu`` (building it on first
+    use) and count one in ``fused_linear_ey.launches``; a failed build or
+    launch raises.  CPU tensors run :func:`fused_linear_ey_plain`."""
+
+    B, S, N, M, K = _check(XWg, bgWg, bgW, bgw, mask, activation)
+    if XWg.device.type == "cpu":
+        return fused_linear_ey_plain(XWg, bgWg, bgW, bgw, mask, activation)
+    if K > MAX_K:
+        raise ValueError(
+            f"the fused_linear_ey kernel takes at most {MAX_K} classes, got {K}; "
+            "explain wider models with ShapConfig(use_kernel=False)")
+    if XWg.device.type != "cuda":
+        raise ValueError(f"fused_linear_ey runs on cuda or cpu, not {XWg.device}")
+    lib = _library("fused_linear_ey")
+    bgw = (bgw / bgw.sum()).contiguous()
+    out = torch.empty((B, S, K), dtype=torch.float32, device=XWg.device)
+    if B == 0 or S == 0:
+        return out
+    with torch.cuda.device(XWg.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fused_linear_ey_launch(
+            XWg.data_ptr(), bgWg.data_ptr(), bgW.data_ptr(), bgw.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), B, S, N, M, K,
+            _ACTIVATION_CODE[activation], stream)
+    if err:
+        raise RuntimeError(f"fused_linear_ey launch failed with CUDA error {err}")
+    fused_linear_ey.launches += 1
+    return out
+
+
+fused_linear_ey.launches = 0
+
+
+def fused_linear_ey_plain(XWg: torch.Tensor, bgWg: torch.Tensor, bgW: torch.Tensor,
+                          bgw: torch.Tensor, mask: torch.Tensor,
+                          activation: str = "softmax",
+                          chunk: Optional[int] = None) -> torch.Tensor:
+    """:func:`fused_linear_ey` in plain PyTorch, on any device and for any
+    number of classes: the same branches (the binary-softmax shortcut with
+    k=0 as the complement), with the ``(B, c, N, K)`` logits tensor
+    materialised ``chunk`` coalitions at a time (default: ``2**25`` elements
+    a chunk).  The binary branch's largest intermediate is K-free, so it
+    takes twice the rows per chunk."""
+
+    B, S, N, M, K = _check(XWg, bgWg, bgW, bgw, mask, activation)
+    bgw = bgw / bgw.sum()
+    out = torch.empty((B, S, K), dtype=torch.float32, device=XWg.device)
+    c = chunk or max(1, min(S, (1 << 25) // max(1, B * N * K)))
+    if activation == "softmax" and K == 2:
+        dX = XWg[:, :, 1] - XWg[:, :, 0]                 # (B, M)
+        dbg = bgWg[:, :, 1] - bgWg[:, :, 0]              # (N, M)
+        dW = bgW[:, 1] - bgW[:, 0]                       # (N,)
+        for s0 in range(0, S, 2 * c):
+            mc = mask[s0:s0 + 2 * c]
+            dp = (mc @ dX.T).T                           # (B, c)
+            dt2 = mc @ dbg.T - dW[None, :]               # (c, N)
+            ey1 = torch.sigmoid(dp[:, :, None] - dt2[None]) @ bgw
+            out[:, s0:s0 + 2 * c, 1] = ey1
+            out[:, s0:s0 + 2 * c, 0] = 1.0 - ey1
+        return out
+    act = ACTIVATIONS[activation]
+    for s0 in range(0, S, c):
+        mc = mask[s0:s0 + c]
+        p1 = torch.einsum("sm,bmk->bsk", mc, XWg)        # (B, c, K)
+        t2 = torch.einsum("sm,nmk->snk", mc, bgWg)       # (c, N, K)
+        logits = p1[:, :, None, :] + bgW[None, None] - t2[None]
+        out[:, s0:s0 + c] = torch.einsum("bcnk,n->bck", act(logits), bgw)
+    return out

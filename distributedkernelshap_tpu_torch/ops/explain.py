@@ -1,0 +1,247 @@
+"""The KernelSHAP pipeline in PyTorch: masked evaluation + constrained WLS.
+
+Port of ``distributedkernelshap_tpu/ops/explain.py`` (``:146-181``,
+``:231-245``, ``:305-416``, ``:589-733``) for logits-linear predictors:
+
+1. group masks stay in group space: the model's matmul is pushed through the
+   mask, so the ``B×S×N×D`` synthetic-data tensor never exists;
+2. ``ey[b,s,k] = Σ_n bgw[n] · f(x_b ⊙ z_s + bg_n ⊙ (1-z_s))[k]`` runs in
+   the hand-written CUDA kernel ``fused_linear_ey`` (``ops/cuda_kernels.py``)
+   or in its plain, chunked PyTorch version;
+3. the Shapley-kernel weighted least squares with the additivity constraint
+   eliminated by substitution, with one Cholesky factor shared by all
+   ``B·K`` right-hand sides.
+
+Matrix products run in full float32 as long as PyTorch's float32 matmul
+precision is left at its default ("highest": no TF32), which is the
+reference's ``matmul_precision="highest"``.  The coalition axis is a Python
+loop of chunks (JAX's ``lax.map``); PyTorch runs eagerly, so there is no jit.
+"""
+
+import contextvars
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from distributedkernelshap_tpu_torch.models.predictors import BasePredictor
+from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+    fused_linear_ey,
+    fused_linear_ey_plain,
+)
+from distributedkernelshap_tpu_torch.ops.links import convert_to_link
+
+# ---------------------------------------------------------------------- #
+# Kernel-path recording: every result must say which evaluation route ran.
+# Tags: 'ey' (sampled masked eval).  Paths: 'cuda' (the fused kernel
+# launched), 'plain' (the kernel's plain version: CPU tensors, or
+# use_kernel=False), 'einsum' (identity activation: the background axis
+# collapses analytically).  Recorded where the route is taken, on every call.
+
+_KERNEL_PATHS: contextvars.ContextVar = contextvars.ContextVar(
+    "dks_torch_kernel_paths", default=None)
+
+
+class capture_kernel_paths:
+    """Context manager collecting the ``{tag: path}`` choices made inside it."""
+
+    def __enter__(self):
+        self._d: dict = {}
+        self._token = _KERNEL_PATHS.set(self._d)
+        return self._d
+
+    def __exit__(self, *exc):
+        _KERNEL_PATHS.reset(self._token)
+        return False
+
+
+def record_kernel_path(tag: str, path: str) -> None:
+    """Record a kernel choice into the active capture (no-op without one)."""
+
+    d = _KERNEL_PATHS.get()
+    if d is not None:
+        d[tag] = path
+
+
+@dataclass(frozen=True)
+class ShapConfig:
+    """Static configuration of the explain pipeline."""
+
+    link: str = "identity"
+    ridge: float = 1e-6
+    # target element count of the per-chunk synthetic tensor (f32: 4 bytes/el)
+    target_chunk_elems: int = 1 << 25
+    coalition_chunk: Optional[int] = None  # override auto chunking
+    # fused CUDA kernel for the linear masked eval: None = on for CUDA
+    # tensors, off elsewhere; True on CPU tensors runs the kernel's plain
+    # version; False runs the plain version on any device
+    use_kernel: Optional[bool] = None
+
+
+def groups_to_matrix(groups: Optional[Sequence[Sequence[int]]], n_columns: int) -> np.ndarray:
+    """Build the static ``(M, D)`` 0/1 group-assignment matrix (identity
+    without grouping: each column is its own group)."""
+
+    if groups is None:
+        return np.eye(n_columns, dtype=np.float32)
+    G = np.zeros((len(groups), n_columns), dtype=np.float32)
+    for i, cols in enumerate(groups):
+        G[i, list(cols)] = 1.0
+    return G
+
+
+def resolve_use_kernel(use_kernel: Optional[bool], device: torch.device) -> bool:
+    """``ShapConfig.use_kernel`` for tensors on ``device``: ``None`` = the
+    kernel exactly when the tensors are on a CUDA device."""
+
+    if use_kernel is None:
+        return torch.device(device).type == "cuda"
+    return bool(use_kernel)
+
+
+def _auto_chunk(S: int, per_row_elems: int, target: int) -> int:
+    return max(1, min(S, target // max(per_row_elems, 1)))
+
+
+def _ey_linear(W, b, activation: str, X, bg, bgw_n, mask, G, chunk: int,
+               use_kernel: bool = False):
+    """Fast path for logits-linear predictors, in **group space**.
+
+    For masked input ``m = x⊙z + bg⊙(1-z)`` with ``z = mask @ G`` the logits
+    decompose as ``m @ W + b = p1[b,s] + bgW[n] - t2[s,n]`` where
+    ``p1 = mask @ XWg``, ``XWg[b,m,k] = Σ_{d∈group m} X[b,d] W[d,k]``,
+    ``t2 = mask @ bgWg`` (the same per-group reduction of the background)
+    and ``bgW = bg @ W + b``.  For ``activation='identity'`` the whole N axis
+    collapses analytically; otherwise ``use_kernel`` selects the fused
+    kernel or its plain version, chunked over the coalition axis."""
+
+    GW = G[:, :, None] * W[None, :, :]                    # (M, D, K)
+    XWg = torch.einsum("bd,mdk->bmk", X, GW)              # (B, M, K)
+    bgWg = torch.einsum("nd,mdk->nmk", bg, GW)            # (N, M, K)
+    bgW = bg @ W + b                                      # (N, K)
+
+    if activation == "identity":
+        # E_n[p1 + bgW - t2] = p1 + E[bgW] - E_n[t2]: no (B,S,N,K) tensor
+        record_kernel_path("ey", "einsum")
+        p1 = torch.einsum("sm,bmk->bsk", mask, XWg)
+        e_bgW = torch.einsum("nk,n->k", bgW, bgw_n)
+        t2w = torch.einsum("sm,nmk,n->sk", mask, bgWg, bgw_n)
+        return p1 + e_bgW[None, None, :] - t2w[None, :, :]
+
+    args = (XWg.contiguous(), bgWg.contiguous(), bgW.contiguous(),
+            bgw_n.contiguous(), mask.contiguous(), activation)
+    if use_kernel:
+        # a CUDA tensor launches the kernel or raises; a CPU tensor runs
+        # the kernel's plain version
+        record_kernel_path("ey", "cuda" if X.is_cuda else "plain")
+        return fused_linear_ey(*args)
+    record_kernel_path("ey", "plain")
+    return fused_linear_ey_plain(*args, chunk=chunk)
+
+
+def normal_equations(mask, w, ey_adj, fx_minus_e):
+    """Gram matrix and right-hand sides of the constrained WLS."""
+
+    zl = mask[:, -1]
+    Zt = mask[:, :-1] - zl[:, None]            # (S, M-1)
+    Aw = Zt * w[:, None]                       # (S, M-1)
+    A = Aw.T @ Zt
+    rhs = torch.einsum("sm,bsk->bkm", Aw,
+                       ey_adj - zl[None, :, None] * fx_minus_e[:, None, :])
+    return A, rhs
+
+
+def solve_from_factor(chol, rhs, fx_minus_e):
+    """Solve the eliminated system from a lower Cholesky factor and restore
+    the last coefficient from the additivity constraint."""
+
+    B, K = fx_minus_e.shape
+    M1 = chol.shape[0]
+    sol = torch.cholesky_solve(rhs.reshape(B * K, M1).T, chol)   # (M1, B*K)
+    phi_rest = sol.T.reshape(B, K, M1)
+    phi_last = fx_minus_e - phi_rest.sum(-1)
+    return torch.cat([phi_rest, phi_last[..., None]], dim=-1)
+
+
+def solve_from_normal(A, rhs, fx_minus_e, ridge):
+    """Cholesky-solve the eliminated system (ridge on the diagonal) and
+    restore the last coefficient from the additivity constraint."""
+
+    M1 = A.shape[0]
+    A = A + ridge * torch.eye(M1, dtype=A.dtype, device=A.device)
+    return solve_from_factor(torch.linalg.cholesky(A), rhs, fx_minus_e)
+
+
+def _wls_solve(mask, w, ey_adj, fx_minus_e, ridge):
+    """Constrained weighted least squares, shared Gram matrix: eliminates the
+    last group's coefficient with the additivity constraint, then solves the
+    ``(M-1)``-dim normal equations once for all ``B·K`` right-hand sides."""
+
+    if mask.shape[1] == 1:
+        return fx_minus_e[:, :, None]
+    A, rhs = normal_equations(mask, w, ey_adj, fx_minus_e)
+    return solve_from_normal(A, rhs, fx_minus_e, ridge)
+
+
+def build_explainer_fn(predictor: BasePredictor, config: ShapConfig = ShapConfig(),
+                       with_ey: bool = False):
+    """Build the explain function for a logits-linear ``predictor``.
+
+    Returns ``explain(X, bg, bgw, mask, weights, G) -> dict`` over tensors on
+    one device, with ``shap_values (B, K, M)``, ``expected_value (K,)`` and
+    ``raw_prediction (B, K)`` (both in link space), plus ``ey_adj
+    (B, S, K)`` when ``with_ey``."""
+
+    linear = predictor.linear_decomposition
+    if linear is None:
+        raise NotImplementedError(
+            "the PyTorch port explains logits-linear predictors only; the "
+            "masked-eval and generic paths are ROADMAP.md queue A item 3")
+    link_fn = convert_to_link(config.link)
+    W, b, activation = linear
+
+    @torch.no_grad()
+    def explain(X, bg, bgw, mask, weights, G):
+        X = X.to(torch.float32)
+        bg = bg.to(torch.float32)
+        B = X.shape[0]
+        S = mask.shape[0]
+        K = predictor.n_outputs
+        N = bg.shape[0]
+        bgw_n = bgw / bgw.sum()
+
+        chunk = config.coalition_chunk or _auto_chunk(S, B * N * K,
+                                                      config.target_chunk_elems)
+        ey = _ey_linear(W, b, activation, X, bg, bgw_n, mask, G, chunk,
+                        use_kernel=resolve_use_kernel(config.use_kernel, X.device))
+
+        fx = link_fn(predictor(X))                                # (B, K)
+        e_out = torch.einsum("nk,n->k", predictor(bg), bgw_n)     # raw expected output
+        expected_value = link_fn(e_out)                           # (K,)
+
+        ey_adj = link_fn(ey) - expected_value[None, None, :]
+        fx_minus_e = fx - expected_value[None, :]
+        phi = _wls_solve(mask, weights, ey_adj, fx_minus_e, config.ridge)
+
+        out = {
+            "shap_values": phi,                # (B, K, M)
+            "expected_value": expected_value,  # (K,)
+            "raw_prediction": fx,              # (B, K) in link space
+        }
+        if with_ey:
+            out["ey_adj"] = ey_adj
+        return out
+
+    return explain
+
+
+def split_shap_values(phi: np.ndarray, vector_out: bool = True) -> List[np.ndarray]:
+    """Convert the packed ``(B, K, M)`` array into the reference's output
+    layout: a list of ``K`` arrays of shape ``(B, M)`` (multi-output), or a
+    single ``(B, M)`` array for scalar-output models."""
+
+    phi = np.asarray(phi)
+    if not vector_out:
+        return phi[:, 0, :]
+    return [phi[:, k, :] for k in range(phi.shape[1])]

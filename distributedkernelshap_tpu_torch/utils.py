@@ -1,0 +1,110 @@
+"""Utilities: device resolution, ``Bunch``, ``methdispatch`` and the Adult
+data/model loaders.
+
+``Bunch``, ``methdispatch``, ``load_data``, ``load_model`` and
+``data_provenance`` are copies of ``distributedkernelshap_tpu/utils.py``
+(the JAX package's ``__init__`` imports JAX, so the port keeps its own).  The
+loaders here only READ the cached pickles: they never generate the data,
+because the generator scripts import the JAX package and scikit-learn.
+"""
+
+import logging
+import os
+import pickle
+
+from functools import singledispatch, update_wrapper
+from typing import Callable, Optional, Union
+
+import torch
+
+logger = logging.getLogger(__name__)
+
+# caches are anchored to the repo root (parent of this package) so behaviour
+# does not depend on the caller's working directory
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXPLANATIONS_SET_LOCAL = os.path.join(REPO_ROOT, "data", "adult_processed.pkl")
+BACKGROUND_SET_LOCAL = os.path.join(REPO_ROOT, "data", "adult_background.pkl")
+MODEL_LOCAL = os.path.join(REPO_ROOT, "assets", "predictor.pkl")
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    current CUDA device.  Without a GPU and without an explicit device this
+    raises — the port never carries on quietly on the CPU."""
+
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "PyTorch port on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+class Bunch(dict):
+    """Dictionary exposing its keys as attributes (reference utils.py:22-40)."""
+
+    def __init__(self, **kwargs):
+        super().__init__(kwargs)
+
+    def __setattr__(self, key, value):
+        self[key] = value
+
+    def __dir__(self):
+        return self.keys()
+
+    def __getattr__(self, key):
+        try:
+            return self[key]
+        except KeyError:
+            raise AttributeError(key)
+
+
+def methdispatch(func: Callable):
+    """singledispatch on ``args[1]`` so it works for instance methods
+    (reference utils.py:43-64)."""
+
+    dispatcher = singledispatch(func)
+
+    def wrapper(*args, **kw):
+        return dispatcher.dispatch(args[1].__class__)(*args, **kw)
+
+    wrapper.register = dispatcher.register
+    update_wrapper(wrapper, dispatcher)
+    return wrapper
+
+
+def _read_pickle(path: str, script: str):
+    try:
+        with open(path, "rb") as f:
+            return pickle.load(f)
+    except FileNotFoundError:
+        raise FileNotFoundError(
+            f"{path} is missing; generate it with `python scripts/{script}` "
+            "(needs the JAX package and scikit-learn)") from None
+
+
+def load_model(path: str = MODEL_LOCAL):
+    """Load the cached Adult predictor (unpickling it needs scikit-learn)."""
+
+    return _read_pickle(path, "fit_adult_model.py")
+
+
+def load_data():
+    """Load the cached Adult instances to explain + background data."""
+
+    return {
+        "background": _read_pickle(BACKGROUND_SET_LOCAL, "process_adult_data.py"),
+        "all": _read_pickle(EXPLANATIONS_SET_LOCAL, "process_adult_data.py"),
+    }
+
+
+def data_provenance(data: dict) -> str:
+    """Which data a ``load_data()`` dict carries: ``'uci'`` (real fetch),
+    ``'synthetic'`` (offline lookalike) or ``'unknown-cache'`` for cache
+    files written before provenance stamping."""
+
+    try:
+        return str(data["all"].get("provenance", "unknown-cache"))
+    except (KeyError, TypeError, AttributeError):
+        return "unknown-cache"

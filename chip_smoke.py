@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``distributedkernelshap_tpu_torch``) on one
 CUDA card: builds every kernel from ``csrc/``, holds each against its plain
-PyTorch version on the card, drives the Adult headline explain through the
-public API, checks the answer, and times kernel, plain version and explain.
+PyTorch version on the card, drives the Adult headline explain and the exact
+TreeSHAP explain of an Adult-shaped GBT through the public API, checks the
+answers, and times kernels, plain versions and explains.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -23,7 +24,23 @@ Phases (each raises on failure, so the script exits non-zero):
    through the kernel's plain version on the card, and with the port on the
    CPU on the first rows;
 5. times: explain wall (one warm-up, median of 3), kernel and plain version
-   by CUDA events at the headline shape, and the kernel's bound.
+   by CUDA events at the headline shape, and the kernel's bound;
+6. exact TreeSHAP (``exact_tree_phi``): an Adult-shaped GBT made from
+   ``--seed`` (50 trees grown best-first to <= 31 leaves by random splits
+   over the 48 columns, leaf values ~N(0, 0.1)) and its packed plan; then
+   ``KernelShap(pred).fit(bg, group_names, groups).explain(X,
+   nsamples='exact')`` at B=256, N=100, M=12 on the packed route and on the
+   dense route, each with launch counts set to 0 just before and read just
+   after (one launch per depth bucket, one on the dense route); each answer
+   must be additive (< 1e-4), agree with the plain route on the card and
+   with the port on the CPU (first 16 rows) within 2e-5·max(1, max|phi|),
+   and repeat bit for bit; the exact values must match a brute-force
+   Shapley enumeration on 2 rows;
+7. ``exact_tree_phi`` against its plain version on the card at the main
+   path's bucket inputs and at edge shapes (ragged, N=300, dmax=1), two
+   launches bit-identical, its Beta weights against the f64 table (rtol
+   5e-5); times: exact explain wall at B=256 and B=2560, kernel and plain
+   version by CUDA events per bucket, and the kernel's bound.
 
 The second-to-last line of stdout is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -57,6 +74,14 @@ PHI_ATOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 SFU_OPS_PER_SM_PER_CLOCK = 16      # special-function unit results per SM per clock
+FP32_LANES_PER_SM = 128            # f32 results (adds) per SM per clock
+INT32_LANES_PER_SM = 64            # 32-bit integer results per SM per clock
+
+# exact TreeSHAP phase: the Adult GBT's widths (benchmarks/configs.py:240-282)
+N_TREES, MAX_LEAVES = 50, 31
+B_EXACT, B_EXACT_BIG, N_CPU_ROWS = 256, 2560, 16
+PHI_REL = 2e-5          # x max(1, max|phi|): tests/test_treeshap.py:780
+EXACT_ADDITIVITY = 1e-4
 
 
 def adult_groups():
@@ -251,6 +276,385 @@ def check_explanation(expl, B):
     return phi, err
 
 
+# ---------------------------------------------------------------------- #
+# exact TreeSHAP (exact_tree_phi)
+
+
+def adult_shaped_gbt(seed):
+    """Node tables of an Adult-shaped boosted ensemble: ``N_TREES`` trees,
+    each grown best-first (split the leaf holding the most sample rows) to
+    at most ``MAX_LEAVES`` leaves by a random column and a threshold drawn
+    from that column's values at the leaf; leaf values ~N(0, 0.1)."""
+
+    rng = np.random.default_rng([seed, 7])
+    sample = adult_shaped_rows(rng, 2000)
+    n_nodes = 2 * MAX_LEAVES - 1
+    T = N_TREES
+    feature = np.zeros((T, n_nodes), np.int64)
+    threshold = np.full((T, n_nodes), np.inf, np.float32)
+    left = np.tile(np.arange(n_nodes), (T, 1))
+    right = left.copy()
+    value = np.zeros((T, n_nodes, 1), np.float32)
+    depth = 0
+    for t in range(T):
+        rows = {0: np.arange(sample.shape[0])}   # leaf -> sample rows
+        node_depth = {0: 0}
+        n_used = 1
+        while len(rows) < MAX_LEAVES:
+            j = max(rows, key=lambda leaf: rows[leaf].shape[0])
+            sub = sample[rows[j]]
+            cols = [c for c in range(sub.shape[1]) if np.ptp(sub[:, c]) > 0]
+            if not cols:
+                break
+            c = int(rng.choice(cols))
+            vals = np.unique(sub[:, c])
+            thr = np.float32(rng.choice(vals[:-1]))
+            go_left = sub[:, c] <= thr
+            lc, rc = n_used, n_used + 1
+            n_used += 2
+            feature[t, j], threshold[t, j] = c, thr
+            left[t, j], right[t, j] = lc, rc
+            rows[lc], rows[rc] = rows[j][go_left], rows[j][~go_left]
+            del rows[j]
+            node_depth[lc] = node_depth[rc] = node_depth[j] + 1
+        for leaf in rows:
+            value[t, leaf, 0] = rng.normal(scale=0.1)
+        depth = max(depth, max(node_depth.values()))
+    return dict(feature=feature, threshold=threshold, left=left, right=right,
+                value=value, depth=depth)
+
+
+def tree_predictor(tables, device):
+    from distributedkernelshap_tpu_torch import TreeEnsemblePredictor
+
+    return TreeEnsemblePredictor(
+        tables["feature"], tables["threshold"], tables["left"], tables["right"],
+        tables["value"], depth=tables["depth"], aggregation="sum", base=[0.24],
+        out_transform="identity", vector_out=False, device=device)
+
+
+def explain_exact(tables, X, bg, device, pack_paths=None, use_kernel=None):
+    from distributedkernelshap_tpu_torch import EngineConfig, KernelShap
+    from distributedkernelshap_tpu_torch.ops.explain import ShapConfig
+
+    explainer = KernelShap(tree_predictor(tables, device), task="regression", seed=0,
+                           device=device, engine_config=EngineConfig(shap=ShapConfig(
+                               pack_paths=pack_paths, use_kernel=use_kernel)))
+    explainer.fit(bg, group_names=ADULT_GROUP_NAMES, groups=adult_groups())
+    return explainer, explainer.explain(X, nsamples="exact", silent=True)
+
+
+def exact_phi(expl, B):
+    phi = np.asarray(expl.shap_values[0])
+    if phi.shape != (B, len(ADULT_WIDTHS)) or not np.isfinite(phi).all():
+        raise AssertionError(f"bad exact shap values: shape {phi.shape}, "
+                             f"finite={np.isfinite(phi).all()}")
+    err = additivity(expl)
+    if not err < EXACT_ADDITIVITY:
+        raise AssertionError(f"exact additivity violated: {err}")
+    return phi, err
+
+
+def phi_tol(ref) -> float:
+    return PHI_REL * max(1.0, float(np.abs(ref).max()))
+
+
+def brute_force_exact(tables, x, bg, device):
+    """Interventional Shapley values of the ensemble's margin at ``x`` by
+    enumerating all 2^12 group coalitions against ``bg`` (uniform weights),
+    the predictor evaluated on the card, the Shapley sum in float64."""
+
+    import torch
+    from math import factorial
+
+    M = len(ADULT_WIDTHS)
+    masks = ((np.arange(2 ** M)[:, None] >> np.arange(M)[None]) & 1).astype(bool)
+    G = np.zeros((M, sum(ADULT_WIDTHS)), bool)
+    for m, cols in enumerate(adult_groups()):
+        G[m, cols] = True
+    colmask = (masks.astype(np.float32) @ G.astype(np.float32)) > 0.5   # (2^M, D)
+    rows = np.where(colmask[:, None, :], x[None, None, :], bg[None])      # (2^M, N, D)
+    pred = tree_predictor(tables, device)
+    with torch.no_grad():
+        f = pred(torch.as_tensor(rows.reshape(-1, rows.shape[-1]), device=device))
+    v = f.reshape(2 ** M, bg.shape[0]).double().mean(1).cpu().numpy()
+    size = masks.sum(1)
+    phi = np.zeros(M)
+    for j in range(M):
+        without = ~masks[:, j]
+        s = size[without]
+        w = np.array([factorial(k) * factorial(M - k - 1) / factorial(M) for k in s])
+        phi[j] = np.sum(w * (v[np.flatnonzero(without) | (1 << j)] - v[without]))
+    return phi
+
+
+def bucket_inputs(explainer, X, device):
+    """The ``exact_tree_phi`` inputs of each depth bucket of the packed
+    route for ``X``, as the engine forms them: ``[(args, dmax), ...]``."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.ops import treeshap
+
+    eng = explainer._explainer
+    consts = eng._exact_consts()
+    packed, pred = consts["packed"], eng.predictor
+    T, L, _ = pred.path_sign.shape
+    M, B = eng.M, X.shape[0]
+    bgw = consts["bgw"] / consts["bgw"].sum()
+    with torch.no_grad():
+        xo, xn = treeshap._x_reach(pred, torch.as_tensor(X, device=device), consts["G"],
+                                   consts["reach"]["onpath_g"], 1 << 25)
+    xo, xn = xo.reshape(B, T * L, M), xn.reshape(B, T * L, M)
+    out = []
+    for start, stop, dmax in consts["plan"].buckets:
+        idx = packed["perm"][start:stop]
+        args = tuple(a.contiguous() for a in (
+            xo[:, idx], xn[:, idx], packed["z_ok"][:, start:stop],
+            packed["z_dead"][:, start:stop].float(), packed["lv"][start:stop], bgw))
+        out.append((args, int(dmax)))
+    return out
+
+
+def phi_bound_ms(args, sm_count, sm_clock_hz):
+    """The least time the card could take for one ``exact_tree_phi`` call on
+    these inputs: the larger of its bytes (each input read once, the output
+    written once) over HBM bandwidth and its operations over the peak rate
+    of their unit, per unit.  Operations, counted from the data: for every
+    (b, p, n) triple whose path holds a group of the instance, 3 masked
+    population counts (6 integer operations); for every live triple (alive,
+    u + v > 0), 3 f32 divisions (one SFU reciprocal each) and u + v f32 adds
+    into the per-group sums."""
+
+    import torch
+
+    xo, xn, zo, zd, lv, bgw = args
+    B, P, M = xo.shape
+    N, K = zo.shape[0], lv.shape[1]
+    nz = 1.0 - zo
+    u = torch.einsum("bpm,npm->bnp", xo, nz)
+    v = torch.einsum("bpm,npm->bnp", xn, zo)
+    dead = torch.einsum("bpm,npm->bnp", xn, nz)
+    live = (dead < 0.5) & (zd[None] < 0.5) & (u + v > 0.5)
+    on_path = int(((xo + xn).sum(-1) > 0.5).sum()) * N
+    n_live = int(live.sum())
+    adds = float((u + v)[live].sum())
+    nbytes = 4 * (2 * B * P * M + N * P * M + N * P + P * K + N + B * M * K)
+    per_s = sm_count * sm_clock_hz
+    times = {
+        "bytes": nbytes / HBM_BYTES_PER_S,
+        "operations": max(6 * on_path / (per_s * INT32_LANES_PER_SM),
+                          3 * n_live / (per_s * SFU_OPS_PER_SM_PER_CLOCK),
+                          adds / (per_s * FP32_LANES_PER_SM)),
+    }
+    bound_by = max(times, key=times.get)
+    return 1e3 * times[bound_by], bound_by, {"triples": B * P * N, "on_path": on_path,
+                                              "live": n_live, "adds": adds}
+
+
+def phi_edge_inputs(rng, B, P, N, M, K, device):
+    """Random 0/1 ``exact_tree_phi`` inputs (disjoint x_only/x_not on each
+    path's groups, normalised weights)."""
+
+    import torch
+
+    x_ok = (rng.random((B, P, M)) < 0.6).astype(np.float32)
+    onpath = (rng.random((P, M)) < 0.4).astype(np.float32)
+    arrays = (x_ok * onpath, (1 - x_ok) * onpath,
+              (rng.random((N, P, M)) < 0.7).astype(np.float32),
+              (rng.random((N, P)) < 0.1).astype(np.float32),
+              rng.normal(size=(P, K)).astype(np.float32),
+              (lambda w: w / w.sum())(rng.random(N).astype(np.float32) + 0.1))
+    return tuple(torch.tensor(a, device=device) for a in arrays)
+
+
+def beta_weight_inputs(D, device):
+    """Inputs whose phi IS the Beta weights (see
+    tests/test_torch_port_treeshap.py): instance b holds one (u, v) pair on
+    one path, one background row, leaf value 1; groups 0..D-1 are x-only
+    (z_ok = 0), D..2D-1 x-not (z_ok = 1)."""
+
+    import torch
+
+    pairs = [(u, v) for u in range(D + 1) for v in range(D + 1) if u + v > 0]
+    M = 2 * D
+    xo = np.zeros((len(pairs), 1, M), np.float32)
+    xn = np.zeros_like(xo)
+    for b, (u, v) in enumerate(pairs):
+        xo[b, 0, :u] = 1.0
+        xn[b, 0, D:D + v] = 1.0
+    z_ok = np.zeros((1, 1, M), np.float32)
+    z_ok[0, 0, D:] = 1.0
+    arrays = (xo, xn, z_ok, np.zeros((1, 1), np.float32), np.ones((1, 1), np.float32),
+              np.ones(1, np.float32))
+    return tuple(torch.tensor(a, device=device) for a in arrays), np.array(pairs)
+
+
+def compare_exact_kernel(buckets, seed, device):
+    """Phase 7a: ``exact_tree_phi`` against its plain version on the card at
+    the main path's bucket inputs and at edge shapes; bit-identical
+    repeats; the Beta weights against the f64 table."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+        exact_tree_phi,
+        exact_tree_phi_plain,
+    )
+    from distributedkernelshap_tpu_torch.ops.treeshap import _beta_tables
+
+    rng = np.random.default_rng([seed, 11])
+    cases = [(f"bucket {i} dmax={d}", a, d) for i, (a, d) in enumerate(buckets)]
+    for name, (B, P, N, M, K, dmax) in [
+            ("ragged", (13, 77, 77, 6, 1, 6)), ("N=300", (64, 300, 300, 12, 1, 12)),
+            ("dmax=1", (64, 256, 100, 12, 1, 1)), ("K=3 M=40", (9, 50, 30, 40, 3, 40))]:
+        cases.append((name, phi_edge_inputs(rng, B, P, N, M, K, device), dmax))
+    worst = 0.0
+    for name, args, dmax in cases:
+        got = exact_tree_phi(*args, dmax=dmax)
+        again = exact_tree_phi(*args, dmax=dmax)
+        ref = exact_tree_phi_plain(*args, dmax=dmax)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        tol = phi_tol(ref.cpu().numpy())
+        same = bool(torch.equal(got, again))
+        print(f"exact_tree_phi vs plain [{name}] shape B,P,N,M,K="
+              f"{tuple(args[0].shape[:2]) + (args[2].shape[0], args[0].shape[2], args[4].shape[1])}"
+              f" dmax={dmax}: max_abs_diff={err:.3e} (tol {tol:.2e}), bit-identical "
+              f"repeat={same}", flush=True)
+        if not (bool(got.isfinite().all()) and err <= tol and same):
+            raise AssertionError(f"exact_tree_phi disagrees with its plain version or "
+                                 f"with itself at {name}")
+        worst = max(worst, err)
+    D = 31
+    args, pairs = beta_weight_inputs(D, device)
+    phi = exact_tree_phi(*args, dmax=2 * D)[:, :, 0].cpu().numpy()
+    wp_t, wm_t = _beta_tables(2 * D)
+    u, v = pairs.T
+    rel = max(float(np.max(np.abs(phi[u > 0, 0] / wp_t[u[u > 0], v[u > 0]] - 1))),
+              float(np.max(np.abs(-phi[v > 0, D] / wm_t[u[v > 0], v[v > 0]] - 1))))
+    print(f"exact_tree_phi Beta weights on the card vs the f64 table, u + v <= {2 * D}: "
+          f"max rel err {rel:.3e} (tol 5e-5)", flush=True)
+    if not rel <= 5e-5:
+        raise AssertionError("exact_tree_phi's Beta weights miss the f64 table")
+    return worst
+
+
+def exact_phase(seed, X_all, bg, device, sm_count, sm_clock_hz, card):
+    """Phases 6 and 7: the exact TreeSHAP path, counted, checked and timed.
+    Returns the kernel's JSON record."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+        exact_tree_phi,
+        exact_tree_phi_plain,
+    )
+    from distributedkernelshap_tpu_torch.ops.explain import groups_to_matrix
+    from distributedkernelshap_tpu_torch.ops.treeshap import (
+        build_packed_plan,
+        resolve_pack_paths,
+    )
+
+    tables = adult_shaped_gbt(seed)
+    X = X_all[:B_EXACT]
+    plan = build_packed_plan(tree_predictor(tables, "cpu"),
+                             groups_to_matrix(adult_groups(), X.shape[1]))
+    auto_packs = resolve_pack_paths(None, plan)
+    print(f"exact: seeded Adult-shaped GBT, T={N_TREES}, depth {tables['depth']}, "
+          f"plan: live paths {plan.n_live}, gain {plan.gain:.3f}, buckets {plan.buckets} "
+          f"(Pp={plan.n_packed}); auto route: {'packed' if auto_packs else 'dense'}",
+          flush=True)
+    # the packed route is the main path; force it if the auto rule keeps dense
+    pack = None if auto_packs else True
+    if not auto_packs:
+        print("exact: the auto rule keeps this ensemble dense; the packed run "
+              "forces pack_paths=True", flush=True)
+    runs = {}
+    for route, pack_paths, want in (("packed", pack, len(plan.buckets)),
+                                    ("dense", False, 1)):
+        exact_tree_phi.launches = 0
+        explainer, expl = explain_exact(tables, X, bg, device, pack_paths=pack_paths)
+        torch.cuda.synchronize()
+        launches = exact_tree_phi.launches
+        path = explainer.kernel_path
+        print(f"exact {route} route: launches exact_tree_phi={launches} (want {want}), "
+              f"kernel_path={path}", flush=True)
+        packed_on = explainer._explainer._exact_consts()["packed"] is not None
+        if launches != want or path != {"exact_phi": "cuda"} or packed_on != (route == "packed"):
+            raise AssertionError(f"the exact {route} explain did not go through "
+                                 "exact_tree_phi as planned")
+        phi, add_err = exact_phi(expl, B_EXACT)
+        phi_again, _ = exact_phi(explainer.explain(X, nsamples="exact", silent=True), B_EXACT)
+        _, expl_plain = explain_exact(tables, X, bg, device, pack_paths=pack_paths,
+                                      use_kernel=False)
+        d_plain = float(np.abs(phi - exact_phi(expl_plain, B_EXACT)[0]).max())
+        _, expl_cpu = explain_exact(tables, X[:N_CPU_ROWS], bg, "cpu", pack_paths=pack_paths)
+        d_cpu = float(np.abs(phi[:N_CPU_ROWS] - exact_phi(expl_cpu, N_CPU_ROWS)[0]).max())
+        tol = phi_tol(phi)
+        bitwise = bool(np.array_equal(phi, phi_again))
+        print(f"exact {route} route: additivity={add_err:.3e} (< {EXACT_ADDITIVITY:g}); "
+              f"|phi kernel - phi plain route|={d_plain:.3e}, |phi card - phi cpu| "
+              f"(first {N_CPU_ROWS} rows)={d_cpu:.3e} (tol {tol:.2e}); repeat "
+              f"bit-identical={bitwise}; max|phi|={np.abs(phi).max():.4f}", flush=True)
+        if not (d_plain <= tol and d_cpu <= tol and bitwise):
+            raise AssertionError(f"the exact {route} explain disagrees with its references")
+        runs[route] = (explainer, phi, launches)
+    packed_explainer, phi_packed, launches = runs["packed"]
+    d_routes = float(np.abs(phi_packed - runs["dense"][1]).max())
+    bg10 = bg[:10]
+    _, expl_bf = explain_exact(tables, X[:2], bg10, device, pack_paths=pack)
+    bf = np.stack([brute_force_exact(tables, X[i], bg10, device) for i in range(2)])
+    d_bf = float(np.abs(np.asarray(expl_bf.shap_values[0]) - bf).max())
+    print(f"exact: |phi packed - phi dense|={d_routes:.3e}; |phi - brute-force Shapley| "
+          f"(2 rows, 10 background rows, 4096 coalitions)={d_bf:.3e} (tol {phi_tol(bf):.2e})",
+          flush=True)
+    if not (d_routes <= phi_tol(phi_packed) and d_bf <= phi_tol(bf)):
+        raise AssertionError("the exact routes disagree with each other or with "
+                             "brute-force Shapley values")
+
+    # 7. kernel vs plain at the main path's inputs and edges, then times
+    buckets = bucket_inputs(packed_explainer, X, device)
+    max_err = compare_exact_kernel(buckets, seed, device)
+    walls = {}
+    for B in (B_EXACT, B_EXACT_BIG):
+        Xb = X_all[:B]
+        packed_explainer.explain(Xb, nsamples="exact", silent=True)
+        runs_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            packed_explainer.explain(Xb, nsamples="exact", silent=True)
+            torch.cuda.synchronize()
+            runs_s.append(time.perf_counter() - t0)
+        walls[B] = (1e3 * statistics.median(runs_s), [round(1e3 * w, 3) for w in runs_s])
+    kernel_ms = plain_ms = bound_ms = 0.0
+    bound_parts = []
+    for (args, dmax), (start, stop, _) in zip(buckets, packed_explainer._explainer
+                                               ._exact_consts()["plan"].buckets):
+        k_ms = cuda_time_ms(lambda: exact_tree_phi(*args, dmax=dmax), 50)
+        p_ms = cuda_time_ms(lambda: exact_tree_phi_plain(*args, dmax=dmax), 5)
+        b_ms, b_by, counts = phi_bound_ms(args, sm_count, sm_clock_hz)
+        print(f"exact_tree_phi bucket [{start}:{stop}) dmax={dmax} at B={B_EXACT} "
+              f"P={stop - start} N={args[2].shape[0]} M={args[0].shape[2]} K=1: kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"counts {counts}", flush=True)
+        kernel_ms += k_ms
+        plain_ms += p_ms
+        bound_ms += b_ms
+        bound_parts.append(b_by)
+    bound_by = max(set(bound_parts), key=bound_parts.count)
+    print(f"times on {card}: exact explain wall median of 3 = {walls[B_EXACT][0]:.3f} ms "
+          f"at B={B_EXACT} (runs {walls[B_EXACT][1]}), {walls[B_EXACT_BIG][0]:.3f} ms at "
+          f"B={B_EXACT_BIG} (runs {walls[B_EXACT_BIG][1]}); exact_tree_phi per explain "
+          f"at B={B_EXACT} ({len(buckets)} launches): kernel {kernel_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{100 * bound_ms / kernel_ms:.1f}% of bound; library_ms null: no single "
+          f"PyTorch call computes this function", flush=True)
+    return {"name": "exact_tree_phi", "route": "cuda",
+            "source": "distributedkernelshap_tpu_torch/csrc/exact_tree_phi.cu",
+            "replaces": "distributedkernelshap_tpu/ops/pallas_kernels.py:262",
+            "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -334,6 +738,10 @@ def main() -> int:
           f"bound; library_ms null: no single PyTorch call computes this function",
           flush=True)
 
+    # 6-7. exact TreeSHAP
+    exact_record = exact_phase(args.seed, X, bg, device, props.multi_processor_count,
+                               max_sm_clock_hz(), card)
+
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "fused_linear_ey", "route": "cuda",
@@ -341,7 +749,7 @@ def main() -> int:
         "replaces": "distributedkernelshap_tpu/ops/pallas_kernels.py:497",
         "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "library_ms": None}, exact_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

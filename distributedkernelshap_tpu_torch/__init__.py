@@ -5,7 +5,9 @@ The JAX package stays the reference; this package imports neither JAX nor
 anything of it.  Entry points run on the current CUDA device unless the
 caller passes ``device='cpu'``, and raise when there is no GPU and no device
 was given.  The masked evaluation of the linear fast path runs in the
-hand-written kernel ``csrc/fused_linear_ey.cu`` (``ops/cuda_kernels.py``).
+hand-written kernel ``csrc/fused_linear_ey.cu``, exact TreeSHAP
+(``nsamples='exact'`` on lifted tree ensembles) in ``csrc/exact_tree_phi.cu``
+(wrappers in ``ops/cuda_kernels.py``).
 """
 
 from distributedkernelshap_tpu_torch.data import DenseData  # noqa: F401
@@ -17,3 +19,4 @@ from distributedkernelshap_tpu_torch.kernel_shap import (  # noqa: F401
     rank_by_importance,
     sum_categories,
 )
+from distributedkernelshap_tpu_torch.models.trees import TreeEnsemblePredictor  # noqa: F401

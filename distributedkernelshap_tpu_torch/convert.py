@@ -13,6 +13,7 @@ import torch
 
 from distributedkernelshap_tpu_torch.kernel_shap import EngineConfig, KernelShap
 from distributedkernelshap_tpu_torch.models.predictors import LinearPredictor
+from distributedkernelshap_tpu_torch.models.trees import TreeEnsemblePredictor
 
 
 def linear_predictor_from_numpy(W: np.ndarray, b: np.ndarray, activation: str,
@@ -25,6 +26,30 @@ def linear_predictor_from_numpy(W: np.ndarray, b: np.ndarray, activation: str,
     return LinearPredictor(np.asarray(W, dtype=np.float32),
                            np.asarray(b, dtype=np.float32), activation,
                            vector_out=vector_out, device=device)
+
+
+def tree_ensemble_from_numpy(feature: np.ndarray, threshold: np.ndarray,
+                             left: np.ndarray, right: np.ndarray, value: np.ndarray,
+                             depth: int, aggregation: str = "sum",
+                             base: Optional[np.ndarray] = None, scale: float = 1.0,
+                             out_transform: str = "identity",
+                             missing_left: Optional[np.ndarray] = None,
+                             vector_out: bool = True,
+                             device: Optional[Union[str, torch.device]] = None
+                             ) -> TreeEnsemblePredictor:
+    """The port's :class:`TreeEnsemblePredictor` over the same node tables
+    as a JAX ``TreeEnsemblePredictor`` (pass ``np.asarray`` of its
+    ``feature``, ``threshold``, ``left``, ``right``, ``value``, ``base`` and
+    ``missing_left``, and its ``depth``, ``aggregation``, ``scale``,
+    ``out_transform`` and ``vector_out``)."""
+
+    return TreeEnsemblePredictor(
+        np.asarray(feature), np.asarray(threshold, np.float32), np.asarray(left),
+        np.asarray(right), np.asarray(value, np.float32), depth=int(depth),
+        aggregation=aggregation, base=None if base is None else np.asarray(base),
+        scale=float(scale), out_transform=out_transform,
+        missing_left=None if missing_left is None else np.asarray(missing_left),
+        vector_out=vector_out, device=device)
 
 
 def kernel_shap_from_numpy(W: np.ndarray, b: np.ndarray, activation: str,

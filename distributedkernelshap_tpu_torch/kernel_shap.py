@@ -1,15 +1,18 @@
-"""Public KernelShap explainer of the PyTorch port (sampled path).
+"""Public KernelShap explainer of the PyTorch port (sampled and exact paths).
 
 Port of ``distributedkernelshap_tpu/kernel_shap.py``: the same public surface
 (``KernelShap(predictor, link, feature_names, categorical_names, task,
 seed).fit(background, ...).explain(X, ...) -> Explanation``, plus
 ``rank_by_importance`` / ``sum_categories`` and the warn-and-degrade input
-validation), with the computation in ``ops/explain.py`` on a torch device.
+validation), with the computation in ``ops/explain.py`` (sampled) and
+``ops/treeshap.py`` (``nsamples='exact'`` on lifted tree ensembles) on a
+torch device.
 
-Not in this slice (ROADMAP.md, queue A): the exact, anytime and host-eval
-paths, host-side l1 feature selection, ``instance_chunk`` pipelining,
-staging, the plan-constant cache, packed transfers, the memory ledger,
-profiler phases, ``save``/``load`` and multi-device execution.
+Not in this slice (ROADMAP.md, queue A): exact interactions, the exact
+tensor-network and DeepSHAP flavors, the anytime and host-eval paths,
+host-side l1 feature selection, ``instance_chunk`` pipelining, staging,
+the plan-constant cache, packed transfers, the memory ledger, profiler
+phases, ``save``/``load`` and multi-device execution.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 without a GPU and without a device they raise.  pandas is only touched when
@@ -46,6 +49,16 @@ from distributedkernelshap_tpu_torch.ops.explain import (
 )
 from distributedkernelshap_tpu_torch.ops.links import convert_to_link
 from distributedkernelshap_tpu_torch.ops.summarise import kmeans_summary, subsample
+from distributedkernelshap_tpu_torch.ops.treeshap import (
+    background_reach,
+    build_packed_plan,
+    exact_shap_from_reach,
+    exact_shap_packed,
+    pack_reach,
+    resolve_pack_paths,
+    supports_exact,
+    validate_exact,
+)
 from distributedkernelshap_tpu_torch.utils import methdispatch, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -228,9 +241,10 @@ class KernelExplainerEngine:
         self._plan_cache: Dict[Any, Any] = {}
         self._fn_cache: Dict[Any, Any] = {}
         self._dev_cache: Dict[str, Tuple[torch.Tensor, ...]] = {}
+        self._exact_cache: Dict[Any, Dict[str, Any]] = {}
         self.last_raw_prediction: Optional[np.ndarray] = None
         #: which evaluation route each explain took ({'ey': 'cuda'|'plain'|
-        #: 'einsum'}), persisted across explains
+        #: 'einsum', 'exact_phi': 'cuda'|'plain'}), persisted across explains
         self._kernel_paths: Dict[str, str] = {}
 
         # expected value: link-space weighted mean background prediction
@@ -294,9 +308,9 @@ class KernelExplainerEngine:
     @property
     def kernel_path(self) -> Dict[str, Any]:
         """Which evaluation route the explains took: ``{'ey': 'cuda'}`` when
-        the fused kernel launched, ``'plain'`` for its plain version on the
-        CPU, ``'einsum'`` for the chunked torch route.  Empty until the first
-        explain."""
+        the fused kernel launched, ``'plain'`` for its plain version,
+        ``'einsum'`` for the identity collapse; ``'exact_phi'`` likewise for
+        the exact TreeSHAP kernel.  Empty until the first explain."""
 
         return dict(self._kernel_paths)
 
@@ -335,6 +349,93 @@ class KernelExplainerEngine:
     def _explain_array(self, X: np.ndarray, nsamples) -> Dict[str, np.ndarray]:
         return self._dispatch_array(X, self._plan(nsamples))()
 
+    # ------------------------------------------------------------------ #
+    # exact TreeSHAP (ops/treeshap.py)
+
+    def _exact_flavor(self) -> Optional[str]:
+        """Which sampling-free path the predictor admits under
+        ``nsamples='exact'``: ``'tree'`` (lifted ensemble), ``'tn'``
+        (tensor-train structure) or ``'deepshap'`` (lifted neural graph),
+        duck-typed as the reference does, or ``None``."""
+
+        if supports_exact(self.predictor):
+            return 'tree'
+        if hasattr(self.predictor, 'tt_structure'):
+            return 'tn'
+        if hasattr(self.predictor, 'graph_spec'):
+            return 'deepshap'
+        return None
+
+    def _exact_consts(self) -> Dict[str, Any]:
+        """X-independent exact-path device constants, computed once per
+        engine and ``pack_paths`` setting: the background reach tensors, the
+        host-side packed-path plan and (when packing engages) the packed
+        gathers, plus the background weights and group matrix."""
+
+        pack_paths = self.config.shap.pack_paths
+        key = ('exact', pack_paths)
+        if key in self._exact_cache:
+            return self._exact_cache[key]
+        budget = self.config.shap.target_chunk_elems
+        G = torch.as_tensor(self.G, device=self.device)
+        with torch.no_grad():
+            reach = background_reach(
+                self.predictor, torch.as_tensor(self.background, device=self.device),
+                G, target_chunk_elems=budget)
+            plan = build_packed_plan(self.predictor, self.G)
+            packed = None
+            if resolve_pack_paths(pack_paths, plan):
+                packed = pack_reach(self.predictor, reach, plan)
+                # the packed route reads only onpath_g from the dense reach
+                reach = {'onpath_g': reach['onpath_g']}
+        consts = {'reach': reach, 'plan': plan, 'packed': packed,
+                  'bgw': torch.as_tensor(self.bg_weights, device=self.device),
+                  'G': G}
+        self._exact_cache[key] = consts
+        return consts
+
+    def _dispatch_exact(self, X: np.ndarray):
+        """Launch the exact phi computation for ``X`` and return a
+        ``finalize() -> {'shap_values', 'raw_prediction'}`` that copies the
+        result to the host: the packed route when the plan engages, the
+        dense route otherwise."""
+
+        Xp, B = self._pad_to_bucket(X)
+        Xt = torch.as_tensor(Xp, device=self.device)
+        consts = self._exact_consts()
+        shap = self.config.shap
+        with torch.no_grad(), capture_kernel_paths() as kp:
+            if consts['packed'] is not None:
+                phi = exact_shap_packed(
+                    self.predictor, Xt, consts['reach']['onpath_g'], consts['packed'],
+                    consts['bgw'], consts['G'], consts['plan'].buckets,
+                    target_chunk_elems=shap.target_chunk_elems,
+                    use_kernel=shap.use_kernel)
+            else:
+                phi = exact_shap_from_reach(
+                    self.predictor, Xt, consts['reach'], consts['bgw'], consts['G'],
+                    target_chunk_elems=shap.target_chunk_elems,
+                    use_kernel=shap.use_kernel)
+            fx = self.predictor(Xt)
+        self._kernel_paths.update(kp)
+
+        def finalize() -> Dict[str, np.ndarray]:
+            return {'shap_values': phi[:B].cpu().numpy(),
+                    'raw_prediction': fx[:B].cpu().numpy()}
+
+        return finalize
+
+    def _exact_tree_explanation(self, X: np.ndarray, l1_reg):
+        """``nsamples='exact'``: closed-form interventional Shapley values
+        of a lifted tree ensemble's raw margin (no coalition plan, no WLS)."""
+
+        validate_exact(self.predictor, self.config.link)
+        if l1_reg not in (None, False, 0, 'auto'):
+            logger.warning(
+                "l1_reg=%r is ignored with nsamples='exact': there is no "
+                "sampling noise to regularise away.", l1_reg)
+        return self._dispatch_exact(X)()
+
     def _l1_active(self, l1_reg, nsamples) -> bool:
         """Whether the reference would run host-side l1 feature selection
         (its 'auto' rule: sampled fraction of the coalition space < 0.2)."""
@@ -354,18 +455,32 @@ class KernelExplainerEngine:
                         silent: bool = False,
                         interactions: bool = False,
                         **kwargs) -> Any:
-        """Compute SHAP values for ``X`` on the sampled path.
+        """Compute SHAP values for ``X``: sampled KernelSHAP, or with
+        ``nsamples='exact'`` the exact interventional TreeSHAP values of a
+        lifted tree ensemble's raw margin.
 
         Accepts a plain array or a ``(batch_idx, batch)`` tuple.  Returns a
         list of ``K`` ``(B, M)`` arrays for multi-output predictors, a single
         array otherwise; tuple input returns ``(batch_idx, result)``."""
 
         del kwargs, silent
-        if interactions or nsamples == 'exact':
+        if interactions:
             raise NotImplementedError(
-                "the exact paths (nsamples='exact', interactions=True) are "
-                "ROADMAP.md queue A item 5 and not ported yet")
-        if self._l1_active(l1_reg, nsamples):
+                "exact Shapley interactions (interactions=True) are ROADMAP.md "
+                "queue A item 5 and kernel queue item B.3 (exact_tree_inter), "
+                "not ported yet")
+        exact = nsamples == 'exact'
+        if exact:
+            flavor = self._exact_flavor()
+            if flavor == 'tn':
+                raise NotImplementedError(
+                    "the exact tensor-network path is ROADMAP.md queue A "
+                    "item 7 and not ported yet")
+            if flavor == 'deepshap':
+                raise NotImplementedError(
+                    "the DeepSHAP exact path is ROADMAP.md queue A item 8 and "
+                    "not ported yet")
+        elif self._l1_active(l1_reg, nsamples):
             raise NotImplementedError(
                 "l1_reg would run host-side feature selection here, which the "
                 "PyTorch port does not have yet (ROADMAP.md queue A item 4); "
@@ -380,7 +495,8 @@ class KernelExplainerEngine:
             X = X.toarray()
         X = np.atleast_2d(np.asarray(X, dtype=np.float32))
 
-        r = self._explain_array(X, nsamples)
+        r = (self._exact_tree_explanation(X, l1_reg) if exact
+             else self._explain_array(X, nsamples))
         # stash the link-space predictions so build_explanation doesn't need
         # a second predictor pass for the same instances
         self.last_raw_prediction = r['raw_prediction']
@@ -755,8 +871,9 @@ class KernelShap(Explainer, FitMixin):
         """Explain the instances in ``X`` (reference kernel_shap.py:810-898).
 
         Keyword arguments mirror the reference: ``nsamples`` (coalition
-        budget), ``l1_reg`` (feature selection; only its inactive settings
-        are supported so far), ``silent``."""
+        budget, or ``'exact'`` for lifted tree ensembles), ``l1_reg``
+        (feature selection; only its inactive settings are supported so
+        far), ``silent``."""
 
         if not self._fitted:
             raise TypeError(

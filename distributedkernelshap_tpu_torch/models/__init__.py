@@ -3,3 +3,4 @@ from distributedkernelshap_tpu_torch.models.predictors import (  # noqa: F401
     LinearPredictor,
     as_predictor,
 )
+from distributedkernelshap_tpu_torch.models.trees import TreeEnsemblePredictor  # noqa: F401

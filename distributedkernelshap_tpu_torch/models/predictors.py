@@ -1,17 +1,19 @@
 """Predictor protocol — how models under explanation run on the device.
 
 Port of ``distributedkernelshap_tpu/models/predictors.py`` (``:97-192``,
-``:469-555``, ``:614-676``) for the linear fast path only.  A predictor is an
-``nn.Module`` of signature ``(n, D) -> (n, K)``; ``LinearPredictor`` exposes
-its ``(W, b, activation)`` decomposition, which the explain pipeline uses to
-collapse the ``B×S×N×D`` synthetic-data tensor into group-space products and
-the fused ``fused_linear_ey`` kernel.
+``:469-555``, ``:614-676``) for the linear and tree lifts only.  A predictor
+is an ``nn.Module`` of signature ``(n, D) -> (n, K)``; ``LinearPredictor``
+exposes its ``(W, b, activation)`` decomposition, which the explain pipeline
+uses to collapse the ``B×S×N×D`` synthetic-data tensor into group-space
+products and the fused ``fused_linear_ey`` kernel.
 
 ``as_predictor`` lifts linear scikit-learn estimators by duck typing (a bound
 ``predict_proba``/``decision_function``/``predict`` whose owner carries
-``coef_`` and ``intercept_``), so scikit-learn is never imported.  Black-box
-callables need the host-eval, generic and masked-eval paths, which the port
-does not have yet (ROADMAP.md, queue A item 2): they raise.
+``coef_`` and ``intercept_``), then tree ensembles (``models/trees.py``),
+each checked numerically against the original callable; scikit-learn is
+never imported.  Black-box callables need the host-eval, generic and
+masked-eval paths, which the port does not have yet (ROADMAP.md, queue A
+item 2): they raise.
 """
 
 import logging
@@ -32,7 +34,8 @@ ACTIVATIONS = {
 }
 
 _UNLIFTABLE = (
-    "the PyTorch port evaluates only logits-linear predictors so far; "
+    "the PyTorch port evaluates only logits-linear predictors and lifted "
+    "tree ensembles so far; "
     "host-eval, generic and masked-eval predictors are ROADMAP.md queue A "
     "item 2 (models/predictors.py) and not ported yet")
 
@@ -145,7 +148,8 @@ def _lift_is_faithful(lifted: BasePredictor, method, example_dim: int,
         return False
     try:
         with torch.no_grad():
-            got = lifted(torch.as_tensor(probe, device=lifted.W.device)).cpu().numpy()
+            device = next(lifted.buffers()).device
+            got = lifted(torch.as_tensor(probe, device=device)).cpu().numpy()
     except RuntimeError:
         # structurally mismatched lift (shape errors): reject
         return False
@@ -164,8 +168,9 @@ def as_predictor(predictor, example_dim: Optional[int] = None,
                  device: Optional[Union[str, torch.device]] = None) -> BasePredictor:
     """Normalise what the user passed into a :class:`BasePredictor` on
     ``device``: port predictors pass through (moved to ``device``), linear
-    estimators are lifted and probe-checked; anything else raises
-    ``NotImplementedError``."""
+    estimators and then tree ensembles are lifted and probe-checked (the
+    tree lift only when ``example_dim`` lets the probe run); anything else
+    raises ``NotImplementedError``."""
 
     dev = resolve_device(device)
     if isinstance(predictor, BasePredictor):
@@ -181,4 +186,17 @@ def as_predictor(predictor, example_dim: Optional[int] = None,
         raise NotImplementedError(
             "estimator exposes linear coefficients but its outputs do not "
             "match the lifted linear model; " + _UNLIFTABLE)
+    if example_dim is not None:
+        from distributedkernelshap_tpu_torch.models.trees import lift_tree_ensemble
+
+        tree = lift_tree_ensemble(predictor, device=dev)
+        if tree is not None and _lift_is_faithful(tree, predictor, example_dim,
+                                                  probe_data=probe_data):
+            logger.info("Lifted tree ensemble into a TreeEnsemblePredictor "
+                        "(T=%d, K=%d)", tree.n_trees, tree.n_outputs)
+            return tree
+        if tree is not None:
+            raise NotImplementedError(
+                "the tree lift did not reproduce the original callable; "
+                + _UNLIFTABLE)
     raise NotImplementedError(f"cannot lift {predictor!r}: " + _UNLIFTABLE)

@@ -1,5 +1,7 @@
 from distributedkernelshap_tpu_torch.ops.coalitions import CoalitionPlan, coalition_plan  # noqa: F401
 from distributedkernelshap_tpu_torch.ops.cuda_kernels import (  # noqa: F401
+    exact_tree_phi,
+    exact_tree_phi_plain,
     fused_linear_ey,
     fused_linear_ey_plain,
 )

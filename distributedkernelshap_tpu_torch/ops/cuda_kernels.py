@@ -7,15 +7,18 @@ masked-evaluation reduction
 
     ey[b,s,k] = Σ_n bgw[n] · act(p1[b,s,k] + bgW[n,k] − t2[s,n,k])
 
-of the linear fast path.  Its source is ``csrc/fused_linear_ey.cu``; it is
-compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at first use and
-bound through a plain C interface with ``ctypes`` (nothing here compiles or
-imports CUDA code when the module is imported).
+of the linear fast path.  ``exact_tree_phi`` replaces
+``pallas_kernels.py:exact_tree_phi``: the exact-TreeSHAP main-effect
+contraction (see :func:`exact_tree_phi_plain`).  Each source
+``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
+``build/kernels/`` at first use and bound through a plain C interface with
+``ctypes`` (nothing here compiles or imports CUDA code when the module is
+imported).
 
-The wrapper runs the kernel for CUDA tensors and raises when it cannot —
+A wrapper runs its kernel for CUDA tensors and raises when it cannot —
 there is no fallback.  Only a tensor that lies on the CPU takes the plain
-version, :func:`fused_linear_ey_plain`, which is also what ``chip_smoke.py``
-holds the kernel against on the card.
+version (:func:`fused_linear_ey_plain`, :func:`exact_tree_phi_plain`),
+which is also what ``chip_smoke.py`` holds each kernel against on the card.
 """
 
 import ctypes
@@ -37,9 +40,30 @@ BUILD_DIR = Path(REPO_ROOT) / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: every kernel source of the port (``csrc/<name>.cu``)
-KERNELS = ("fused_linear_ey",)
+KERNELS = ("fused_linear_ey", "exact_tree_phi")
 #: widest class axis the kernel's register tiles take (``kMaxK`` in the .cu)
 MAX_K = 32
+#: most feature groups exact_tree_phi takes: one 64-bit word per
+#: (background row, path) holds the M z_ok bits and the z_dead bit
+#: (``kMaxM`` in the .cu)
+MAX_TREE_M = 63
+
+_VOID, _INT = ctypes.c_void_p, ctypes.c_int
+#: per kernel library: its C symbols as ``name: (argtypes, restype)``, and
+#: the limit function the wrapper's constant must agree with
+_SYMBOLS = {
+    "fused_linear_ey": {
+        "fused_linear_ey_launch": ([_VOID] * 6 + [_INT] * 6 + [_VOID], _INT),
+        "fused_linear_ey_max_k": ([], _INT),
+    },
+    "exact_tree_phi": {
+        "exact_tree_phi_launch": ([_VOID] * 10 + [_INT] * 6 + [_VOID], _INT),
+        "exact_tree_phi_partial_tiles": ([_INT], _INT),
+        "exact_tree_phi_max_m": ([], _INT),
+    },
+}
+_LIMITS = {"fused_linear_ey": ("fused_linear_ey_max_k", MAX_K),
+           "exact_tree_phi": ("exact_tree_phi_max_m", MAX_TREE_M)}
 
 _ACTIVATION_CODE = {"softmax": 0, "sigmoid": 1}
 _lock = threading.Lock()
@@ -96,16 +120,19 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
 
 
 def _library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``, binding its symbols
+    from ``_SYMBOLS`` and checking its limit against the wrapper's."""
+
     with _lock:
         if name not in _libs:
             lib = ctypes.CDLL(str(build([name])[name]))
-            fn = lib.fused_linear_ey_launch
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            lib.fused_linear_ey_max_k.argtypes = []
-            lib.fused_linear_ey_max_k.restype = ctypes.c_int
-            if lib.fused_linear_ey_max_k() != MAX_K:
-                raise RuntimeError("csrc/fused_linear_ey.cu and MAX_K disagree")
+            for sym, (argtypes, restype) in _SYMBOLS[name].items():
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            limit_fn, limit = _LIMITS[name]
+            if getattr(lib, limit_fn)() != limit:
+                raise RuntimeError(f"csrc/{name}.cu and the wrapper's limit disagree")
             _libs[name] = lib
         return _libs[name]
 
@@ -221,3 +248,137 @@ def fused_linear_ey_plain(XWg: torch.Tensor, bgWg: torch.Tensor, bgW: torch.Tens
         logits = p1[:, :, None, :] + bgW[None, None] - t2[None]
         out[:, s0:s0 + c] = torch.einsum("bcnk,n->bck", act(logits), bgw)
     return out
+
+
+# ---------------------------------------------------------------------- #
+# exact_tree_phi: exact-TreeSHAP main effects
+
+
+def _check_phi(x_only, x_not, z_ok, z_dead, leaf_val, bgw, dmax: int):
+    """Validate :func:`exact_tree_phi`'s inputs; returns ``(B, P, N, M, K)``."""
+
+    args = {"x_only": x_only, "x_not": x_not, "z_ok": z_ok, "z_dead": z_dead,
+            "leaf_val": leaf_val, "bgw": bgw}
+    for name, t in args.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != x_only.device:
+            raise ValueError(f"{name} is on {t.device}, x_only on {x_only.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x_only.ndim != 3 or z_ok.ndim != 3 or z_dead.ndim != 2 \
+            or leaf_val.ndim != 2 or bgw.ndim != 1:
+        raise ValueError("expected x_only/x_not (B,P,M), z_ok (N,P,M), "
+                         "z_dead (N,P), leaf_val (P,K), bgw (N,)")
+    B, P, M = x_only.shape
+    N, K = z_ok.shape[0], leaf_val.shape[1]
+    if tuple(x_not.shape) != (B, P, M) or tuple(z_ok.shape) != (N, P, M) \
+            or tuple(z_dead.shape) != (N, P) or tuple(leaf_val.shape) != (P, K) \
+            or tuple(bgw.shape) != (N,):
+        raise ValueError(
+            f"shape mismatch: x_only {tuple(x_only.shape)}, x_not "
+            f"{tuple(x_not.shape)}, z_ok {tuple(z_ok.shape)}, z_dead "
+            f"{tuple(z_dead.shape)}, leaf_val {tuple(leaf_val.shape)}, "
+            f"bgw {tuple(bgw.shape)}")
+    if int(dmax) < 1:
+        raise ValueError(f"dmax must be >= 1, got {dmax}")
+    return B, P, N, M, K
+
+
+def exact_tree_phi(x_only: torch.Tensor, x_not: torch.Tensor, z_ok: torch.Tensor,
+                   z_dead: torch.Tensor, leaf_val: torch.Tensor, bgw: torch.Tensor,
+                   dmax: int) -> torch.Tensor:
+    """Exact-TreeSHAP main effects ``phi (B, M, K)`` (see
+    :func:`exact_tree_phi_plain` for the function and the layouts).
+
+    ``x_only/x_not/z_ok/z_dead`` are 0/1 indicators (the kernel reads them
+    as ``> 0.5``), ``bgw`` the normalised background weights and ``dmax``
+    the bound on the conjunction counts.  CUDA tensors launch
+    ``csrc/exact_tree_phi.cu`` (building it on first use) and count one in
+    ``exact_tree_phi.launches``; the kernel takes any N, P, K and dmax and
+    at most ``MAX_TREE_M`` groups, and above that it raises.  Two launches
+    on the same inputs give bit-identical phi.  CPU tensors run the plain
+    version."""
+
+    B, P, N, M, K = _check_phi(x_only, x_not, z_ok, z_dead, leaf_val, bgw, dmax)
+    if x_only.device.type == "cpu":
+        return exact_tree_phi_plain(x_only, x_not, z_ok, z_dead, leaf_val, bgw, dmax)
+    if M > MAX_TREE_M:
+        raise ValueError(
+            f"the exact_tree_phi kernel takes at most {MAX_TREE_M} feature "
+            f"groups, got {M}; explain wider groupings with "
+            "ShapConfig(use_kernel=False)")
+    if x_only.device.type != "cuda":
+        raise ValueError(f"exact_tree_phi runs on cuda or cpu, not {x_only.device}")
+    lib = _library("exact_tree_phi")
+    dev = x_only.device
+    out = torch.empty((B, M, K), dtype=torch.float32, device=dev)
+    if 0 in (B, P, N, M, K):
+        return out.zero_()
+    dm = min(int(dmax), M)
+    # scratch: the packed background bits, the binomial table and one
+    # partial phi per path tile (summed in a fixed order by a second pass)
+    zbits = torch.empty((N, P), dtype=torch.int64, device=dev)
+    table = torch.empty(((dm + 1) * (M + 1),), dtype=torch.float32, device=dev)
+    partial = torch.empty((lib.exact_tree_phi_partial_tiles(P), B, M, K),
+                          dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.exact_tree_phi_launch(
+            x_only.data_ptr(), x_not.data_ptr(), z_ok.data_ptr(), z_dead.data_ptr(),
+            leaf_val.data_ptr(), bgw.data_ptr(), zbits.data_ptr(), table.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), B, P, N, M, K, dm, stream)
+    if err:
+        raise RuntimeError(f"exact_tree_phi launch failed with CUDA error {err}")
+    exact_tree_phi.launches += 1
+    return out
+
+
+exact_tree_phi.launches = 0
+
+
+def exact_tree_phi_plain(x_only: torch.Tensor, x_not: torch.Tensor,
+                         z_ok: torch.Tensor, z_dead: torch.Tensor,
+                         leaf_val: torch.Tensor, bgw: torch.Tensor, dmax: int,
+                         chunk: Optional[int] = None) -> torch.Tensor:
+    """:func:`exact_tree_phi` in plain PyTorch, on any device.
+
+    Per instance ``b``, path ``p`` and background row ``n``: the
+    conjunction counts ``u = Σ_m x_only·(1-z_ok)``, ``v = Σ_m x_not·z_ok``
+    and ``dead = Σ_m x_not·(1-z_ok)``; the row is alive when ``dead = 0``
+    and ``z_dead = 0``; the binomial ``C(u+v, u)`` as the reference's
+    ``dmax``-step masked product ``Π_{i<=u} (v+i)/i``; ``a = bgw/binom``,
+    the Beta weights ``wp = a/u`` and ``wm = a/v``; then
+    ``s_p = Σ_n wp·(1-z_ok)``, ``s_m = Σ_n wm·z_ok`` and
+    ``phi[b,m,k] = Σ_p (s_p·x_only − s_m·x_not)[b,p,m] · leaf_val[p,k]``.
+
+    Layouts as the JAX function's: ``x_only/x_not (B,P,M)``, ``z_ok
+    (N,P,M)``, ``z_dead (N,P)``, ``leaf_val (P,K)``, ``bgw (N,)``.  The
+    background is processed ``chunk`` rows at a time (default: ``(B,
+    chunk, P)`` intermediates of at most ``2**23`` elements)."""
+
+    B, P, N, M, K = _check_phi(x_only, x_not, z_ok, z_dead, leaf_val, bgw, dmax)
+    # steps past M multiply by exactly 1 (u <= M): the clamp is exact
+    dm = min(int(dmax), M)
+    c = chunk or max(1, min(N, (1 << 23) // max(1, B * P)))
+    s_p = torch.zeros((B, P, M), dtype=torch.float32, device=x_only.device)
+    s_m = torch.zeros_like(s_p)
+    for n0 in range(0, N, c):
+        z = z_ok[n0:n0 + c]
+        nz = 1.0 - z
+        u = torch.einsum("bpm,npm->bnp", x_only, nz)
+        v = torch.einsum("bpm,npm->bnp", x_not, z)
+        dead = torch.einsum("bpm,npm->bnp", x_not, nz)
+        alive = (dead < 0.5) & (z_dead[None, n0:n0 + c] < 0.5)
+        binom = torch.ones_like(u)
+        for i in range(1, dm + 1):
+            binom = binom * torch.where(u + 0.5 >= i, (v + i) / i, 1.0)
+        a = torch.where(alive, bgw[None, n0:n0 + c, None] / binom, 0.0)
+        wp = torch.where(u > 0.5, a / u.clamp(min=1.0), 0.0)
+        wm = torch.where(v > 0.5, a / v.clamp(min=1.0), 0.0)
+        s_p += torch.einsum("bnp,npm->bpm", wp, nz)
+        s_m += torch.einsum("bnp,npm->bpm", wm, z)
+    d = s_p * x_only - s_m * x_not
+    return torch.einsum("bpm,pk->bmk", d, leaf_val)

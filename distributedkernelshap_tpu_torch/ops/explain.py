@@ -34,10 +34,11 @@ from distributedkernelshap_tpu_torch.ops.links import convert_to_link
 
 # ---------------------------------------------------------------------- #
 # Kernel-path recording: every result must say which evaluation route ran.
-# Tags: 'ey' (sampled masked eval).  Paths: 'cuda' (the fused kernel
-# launched), 'plain' (the kernel's plain version: CPU tensors, or
-# use_kernel=False), 'einsum' (identity activation: the background axis
-# collapses analytically).  Recorded where the route is taken, on every call.
+# Tags: 'ey' (sampled masked eval), 'exact_phi' (exact TreeSHAP).  Paths:
+# 'cuda' (the kernel launched), 'plain' (the kernel's plain version: CPU
+# tensors, or use_kernel=False), 'einsum' ('ey' with the identity
+# activation: the background axis collapses analytically).  Recorded where
+# the route is taken, on every call.
 
 _KERNEL_PATHS: contextvars.ContextVar = contextvars.ContextVar(
     "dks_torch_kernel_paths", default=None)
@@ -73,10 +74,15 @@ class ShapConfig:
     # target element count of the per-chunk synthetic tensor (f32: 4 bytes/el)
     target_chunk_elems: int = 1 << 25
     coalition_chunk: Optional[int] = None  # override auto chunking
-    # fused CUDA kernel for the linear masked eval: None = on for CUDA
+    # the hand-written CUDA kernels (fused_linear_ey on the linear masked
+    # eval, exact_tree_phi on the exact tree path): None = on for CUDA
     # tensors, off elsewhere; True on CPU tensors runs the kernel's plain
     # version; False runs the plain version on any device
     use_kernel: Optional[bool] = None
+    # exact TreeSHAP path layout: None = auto (packed when the planner's
+    # modelled gain clears treeshap_pack.PACK_AUTO_GAIN), True/False force
+    # the packed/dense layout
+    pack_paths: Optional[bool] = None
 
 
 def groups_to_matrix(groups: Optional[Sequence[Sequence[int]]], n_columns: int) -> np.ndarray:
@@ -196,8 +202,10 @@ def build_explainer_fn(predictor: BasePredictor, config: ShapConfig = ShapConfig
     linear = predictor.linear_decomposition
     if linear is None:
         raise NotImplementedError(
-            "the PyTorch port explains logits-linear predictors only; the "
-            "masked-eval and generic paths are ROADMAP.md queue A item 3")
+            "the PyTorch port's sampled path explains logits-linear predictors "
+            "only; the masked-eval and generic paths are ROADMAP.md queue A "
+            "item 3 (for tree ensembles: masked_ey, queue A item 5). Tree "
+            "ensembles with raw-margin outputs take nsamples='exact'")
     link_fn = convert_to_link(config.link)
     W, b, activation = linear
 

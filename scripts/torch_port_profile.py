@@ -2,7 +2,9 @@
 """Where the PyTorch port's explain time goes, on one CUDA card.
 
 Drives the Adult-shaped headline task of ``chip_smoke.py`` (same generator,
-same ``--seed``) through ``KernelShap.explain`` and reports, on the card:
+same ``--seed``) through ``KernelShap.explain`` — or, with ``--exact``, the
+exact TreeSHAP explain (``nsamples='exact'``) of ``chip_smoke.py``'s seeded
+Adult-shaped GBT on the same rows — and reports, on the card:
 
 * the explain wall per batch size (one warm-up, then ``--reps`` rounds),
   and in the same rounds, right after each explain, the engine call (device
@@ -13,7 +15,7 @@ same ``--seed``) through ``KernelShap.explain`` and reports, on the card:
   busy time per explain, the device's idle share of the wall, and device
   time by kernel name.
 
-    python3 scripts/torch_port_profile.py [--seed 0] [--reps 20] [--batches 1 16 256 2560]
+    python3 scripts/torch_port_profile.py [--exact] [--seed 0] [--reps 20] [--batches 1 16 256 2560]
 
 Prints one line per measurement and writes the JSON record to
 ``chiprun_out/torch_port_profile.json``.  Exits 2 without a CUDA device.
@@ -53,6 +55,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 16, 256, 2560])
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--exact", action="store_true",
+                    help="profile the exact TreeSHAP explain instead of the headline")
     args = ap.parse_args()
 
     import torch
@@ -66,18 +70,25 @@ def main() -> int:
 
     card = cs.card_line()
     X, bg, est = cs.adult_task(args.seed)
-    explainer, _ = cs.explain_headline(X[:1], bg, est, "cuda")
+    if args.exact:
+        explainer, _ = cs.explain_exact(cs.adult_shaped_gbt(args.seed), X[:1], bg, "cuda")
+        kw = {"nsamples": "exact", "silent": True}
+    else:
+        explainer, _ = cs.explain_headline(X[:1], bg, est, "cuda")
+        kw = {"silent": True}
     engine = explainer._explainer
-    record = {"card": card, "batches": []}
+    record = {"card": card, "path": "exact" if args.exact else "headline", "batches": []}
     for B in args.batches:
         Xb = X[:B]
-        explainer.explain(Xb, silent=True)
+        explainer.explain(Xb, **kw)
         walls, engs, hosts = [], [], []
         for _ in range(args.reps):
             t0 = time.perf_counter()
-            explainer.explain(Xb, silent=True)      # ends in D2H copies: synced
+            explainer.explain(Xb, **kw)             # ends in D2H copies: synced
             t1 = time.perf_counter()
-            values = engine.get_explanation(Xb, silent=True)
+            values = engine.get_explanation(Xb, **kw)
+            if isinstance(values, np.ndarray):
+                values = [values]                   # as KernelShap.explain wraps it
             t2 = time.perf_counter()
             explainer.build_explanation(Xb, values, list(np.atleast_1d(engine.expected_value)))
             t3 = time.perf_counter()
@@ -94,12 +105,12 @@ def main() -> int:
 
     B = args.batches[-1]
     Xb = X[:B]
-    explainer.explain(Xb, silent=True)
+    explainer.explain(Xb, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(3):
-            explainer.explain(Xb, silent=True)
+            explainer.explain(Xb, **kw)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]

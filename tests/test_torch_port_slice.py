@@ -125,7 +125,9 @@ def test_l1_and_exact_paths_raise():
     ks = kernel_shap_from_numpy(W, b, "softmax", bg, link="logit", seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match="l1_reg"):
         ks.explain(X, nsamples=100)          # 'auto' l1 is active at 100/16382
-    with pytest.raises(NotImplementedError, match="exact"):
+    # the exact path takes lifted tree ensembles; a linear model is refused
+    # as the JAX package refuses it
+    with pytest.raises(ValueError, match="exact"):
         ks.explain(X, nsamples="exact")
     assert ks.explain(X, nsamples=100, l1_reg=False).shap_values[0].shape == (4, 14)
 

@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port (``distributedkernelshap_tpu_torch``) on one
 CUDA card: builds every kernel from ``csrc/``, holds each against its plain
 PyTorch version on the card, drives the Adult headline explain and the exact
-TreeSHAP explain of an Adult-shaped GBT through the public API, checks the
-answers, and times kernels, plain versions and explains.
+TreeSHAP and exact interaction explains of an Adult-shaped GBT through the
+public API, checks the answers, and times kernels, plain versions and
+explains.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -40,7 +41,25 @@ Phases (each raises on failure, so the script exits non-zero):
    path's bucket inputs and at edge shapes (ragged, N=300, dmax=1), two
    launches bit-identical, its Beta weights against the f64 table (rtol
    5e-5); times: exact explain wall at B=256 and B=2560, kernel and plain
-   version by CUDA events per bucket, and the kernel's bound.
+   version by CUDA events per bucket, and the kernel's bound;
+8. exact Shapley interactions (``exact_tree_inter``): on the same GBT,
+   ``explain(X, nsamples='exact', interactions=True)`` at B=256, N=100,
+   M=12 with ``pack_paths`` at its auto value (phi packs, so the engine
+   rebuilds the dense reach for the pairs), launch counts set to 0 just
+   before and read just after: exactly one ``exact_tree_inter`` and one
+   dense ``exact_tree_phi`` launch; the matrices must be finite, symmetric
+   with rows summing to the shap values (1e-5), agree with the plain route
+   on the card and with the port on the CPU (first 16 rows) within
+   2e-5·max(1, max|·|), repeat bit for bit, and their off-diagonal entries
+   must match half the brute-force Shapley interaction index on 2 rows;
+9. ``exact_tree_inter`` against its plain version on the card (atol = rtol
+   = 3e-5) at the main path's dense inputs and at edge shapes (ragged,
+   N=300, dmax=1, M=40 K=3), two launches bit-identical, its weights against
+   the f64 table (rtol 5e-5); the path's dense ``exact_tree_phi`` launch
+   against its plain version on the same inputs (2e-5·max(1, max|phi|)),
+   bit-identical; times: interaction explain wall at B=256 and B=2560, and
+   for each of the two kernels at the dense inputs the kernel and plain
+   version by CUDA events and the kernel's bound.
 
 The second-to-last line of stdout is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -82,6 +101,11 @@ N_TREES, MAX_LEAVES = 50, 31
 B_EXACT, B_EXACT_BIG, N_CPU_ROWS = 256, 2560, 16
 PHI_REL = 2e-5          # x max(1, max|phi|): tests/test_treeshap.py:780
 EXACT_ADDITIVITY = 1e-4
+# interactions: the raw pairwise sum, kernel vs plain (atol and rtol), the bar
+# of tests/test_treeshap.py:903; symmetry and row sums of the finished
+# matrices, tests/test_treeshap.py:518-519
+RAW_TOL = 3e-5
+CONVENTION_ATOL = 1e-5
 
 
 def adult_groups():
@@ -333,7 +357,8 @@ def tree_predictor(tables, device):
         out_transform="identity", vector_out=False, device=device)
 
 
-def explain_exact(tables, X, bg, device, pack_paths=None, use_kernel=None):
+def explain_exact(tables, X, bg, device, pack_paths=None, use_kernel=None,
+                  interactions=False):
     from distributedkernelshap_tpu_torch import EngineConfig, KernelShap
     from distributedkernelshap_tpu_torch.ops.explain import ShapConfig
 
@@ -341,7 +366,8 @@ def explain_exact(tables, X, bg, device, pack_paths=None, use_kernel=None):
                            device=device, engine_config=EngineConfig(shap=ShapConfig(
                                pack_paths=pack_paths, use_kernel=use_kernel)))
     explainer.fit(bg, group_names=ADULT_GROUP_NAMES, groups=adult_groups())
-    return explainer, explainer.explain(X, nsamples="exact", silent=True)
+    return explainer, explainer.explain(X, nsamples="exact", silent=True,
+                                        interactions=interactions)
 
 
 def exact_phi(expl, B):
@@ -359,13 +385,15 @@ def phi_tol(ref) -> float:
     return PHI_REL * max(1.0, float(np.abs(ref).max()))
 
 
-def brute_force_exact(tables, x, bg, device):
-    """Interventional Shapley values of the ensemble's margin at ``x`` by
-    enumerating all 2^12 group coalitions against ``bg`` (uniform weights),
-    the predictor evaluated on the card, the Shapley sum in float64."""
+def coalition_values(tables, x, bg, device):
+    """The value of every one of the 2^12 group coalitions at ``x`` against
+    ``bg`` (uniform weights): the ensemble's mean margin over the background
+    rows with the coalition's columns taken from ``x``, the predictor
+    evaluated on the card, the mean in float64.  Returns ``(masks (2^M, M)
+    bool, values (2^M,))``; coalition ``i`` holds group ``m`` iff bit ``m``
+    of ``i`` is set."""
 
     import torch
-    from math import factorial
 
     M = len(ADULT_WIDTHS)
     masks = ((np.arange(2 ** M)[:, None] >> np.arange(M)[None]) & 1).astype(bool)
@@ -377,7 +405,18 @@ def brute_force_exact(tables, x, bg, device):
     pred = tree_predictor(tables, device)
     with torch.no_grad():
         f = pred(torch.as_tensor(rows.reshape(-1, rows.shape[-1]), device=device))
-    v = f.reshape(2 ** M, bg.shape[0]).double().mean(1).cpu().numpy()
+    return masks, f.reshape(2 ** M, bg.shape[0]).double().mean(1).cpu().numpy()
+
+
+def brute_force_exact(tables, x, bg, device):
+    """Interventional Shapley values of the ensemble's margin at ``x`` by
+    enumerating all 2^12 group coalitions (:func:`coalition_values`), the
+    Shapley sum in float64."""
+
+    from math import factorial
+
+    masks, v = coalition_values(tables, x, bg, device)
+    M = masks.shape[1]
     size = masks.sum(1)
     phi = np.zeros(M)
     for j in range(M):
@@ -386,6 +425,27 @@ def brute_force_exact(tables, x, bg, device):
         w = np.array([factorial(k) * factorial(M - k - 1) / factorial(M) for k in s])
         phi[j] = np.sum(w * (v[np.flatnonzero(without) | (1 << j)] - v[without]))
     return phi
+
+
+def brute_force_interactions(tables, x, bg, device):
+    """The pairwise Shapley interaction index ``I (M, M)`` of the same game
+    by enumeration: ``I_ij = Σ_{S ∌ i,j} |S|! (M-|S|-2)! / (M-1)! · (v(S+ij)
+    − v(S+i) − v(S+j) + v(S))``, in float64 (zero diagonal)."""
+
+    from math import factorial
+
+    masks, v = coalition_values(tables, x, bg, device)
+    M = masks.shape[1]
+    size = masks.sum(1)
+    I = np.zeros((M, M))
+    for i in range(M):
+        for j in range(i + 1, M):
+            S = np.flatnonzero(~masks[:, i] & ~masks[:, j])
+            w = np.array([factorial(k) * factorial(M - k - 2) / factorial(M - 1)
+                          for k in size[S]])
+            bi, bj = 1 << i, 1 << j
+            I[i, j] = I[j, i] = np.sum(w * (v[S | bi | bj] - v[S | bi] - v[S | bj] + v[S]))
+    return I
 
 
 def bucket_inputs(explainer, X, device):
@@ -538,7 +598,7 @@ def compare_exact_kernel(buckets, seed, device):
     return worst
 
 
-def exact_phase(seed, X_all, bg, device, sm_count, sm_clock_hz, card):
+def exact_phase(tables, X_all, bg, device, sm_count, sm_clock_hz, card, seed):
     """Phases 6 and 7: the exact TreeSHAP path, counted, checked and timed.
     Returns the kernel's JSON record."""
 
@@ -553,7 +613,6 @@ def exact_phase(seed, X_all, bg, device, sm_count, sm_clock_hz, card):
         resolve_pack_paths,
     )
 
-    tables = adult_shaped_gbt(seed)
     X = X_all[:B_EXACT]
     plan = build_packed_plan(tree_predictor(tables, "cpu"),
                              groups_to_matrix(adult_groups(), X.shape[1]))
@@ -655,6 +714,261 @@ def exact_phase(seed, X_all, bg, device, sm_count, sm_clock_hz, card):
             "library_ms": None}
 
 
+# ---------------------------------------------------------------------- #
+# exact Shapley interactions (exact_tree_inter)
+
+
+def interaction_values(expl, B):
+    """The explanation's interaction matrices ``(B, 12, 12)``, checked:
+    finite, symmetric and with rows summing to the shap values (1e-5)."""
+
+    inter = np.asarray(expl.data["raw"]["interaction_values"][0])
+    phi = np.asarray(expl.shap_values[0])
+    M = len(ADULT_WIDTHS)
+    if inter.shape != (B, M, M) or not np.isfinite(inter).all():
+        raise AssertionError(f"bad interaction values: shape {inter.shape}, "
+                             f"finite={np.isfinite(inter).all()}")
+    sym = float(np.abs(inter - inter.transpose(0, 2, 1)).max())
+    rows = float(np.abs(inter.sum(-1) - phi).max())
+    if not (sym <= CONVENTION_ATOL and rows <= CONVENTION_ATOL):
+        raise AssertionError(f"interaction matrices break the shap convention: "
+                             f"asymmetry {sym}, |row sums - phi| {rows}")
+    return inter, sym, rows
+
+
+def dense_inputs(explainer, X, device):
+    """The ``exact_tree_inter`` inputs of the interaction explain for ``X``,
+    as the engine forms them on the dense layout: ``(args, dmax)``."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.ops import treeshap
+
+    eng = explainer._explainer
+    consts = eng._exact_consts()
+    with torch.no_grad():
+        args, dmax = treeshap._dense_inputs(
+            eng.predictor, torch.as_tensor(X, device=device), eng._exact_full_reach(),
+            consts["G"], eng.config.shap.target_chunk_elems)
+    return treeshap._kernel_args(*args, consts["bgw"] / consts["bgw"].sum()), dmax
+
+
+def inter_bound_ms(args, sm_count, sm_clock_hz):
+    """The least time the card could take for one ``exact_tree_inter`` call
+    on these inputs: the larger of its bytes (each input read once, the
+    ``(B, M, M, K)`` output written once) over HBM bandwidth and its
+    operations over the peak rate of their unit.  Operations, counted from
+    the data: for every (b, p, n) triple whose path holds a group of the
+    instance, 3 masked population counts (6 integer operations); for every
+    alive triple, one f32 division for the base weight when any pairwise
+    weight is nonzero, and one each for W_uu (u >= 2), W_uv (u, v >= 1)
+    and W_vv (v >= 2) (SFU reciprocals); and the f32 adds into the pair
+    sums: u² for the UU block (u >= 2), u for the UV sums (u, v >= 1) and
+    one for the VV sum (v >= 2)."""
+
+    import torch
+
+    xo, xn, zo, zd, lv, bgw = args
+    B, P, M = xo.shape
+    N, K = zo.shape[0], lv.shape[1]
+    nz = 1.0 - zo
+    u = torch.einsum("bpm,npm->bnp", xo, nz)
+    v = torch.einsum("bpm,npm->bnp", xn, zo)
+    dead = torch.einsum("bpm,npm->bnp", xn, nz)
+    alive = (dead < 0.5) & (zd[None] < 0.5)
+    uu, uv, vv = alive & (u > 1.5), alive & (u > 0.5) & (v > 0.5), alive & (v > 1.5)
+    live = uu | uv | vv
+    on_path = int(((xo + xn).sum(-1) > 0.5).sum()) * N
+    divisions = float(live.sum() + uu.sum() + uv.sum() + vv.sum())
+    adds = float((u * u)[uu].sum() + u[uv].sum() + vv.sum())
+    nbytes = 4 * (2 * B * P * M + N * P * M + N * P + P * K + N + B * M * M * K)
+    per_s = sm_count * sm_clock_hz
+    times = {
+        "bytes": nbytes / HBM_BYTES_PER_S,
+        "operations": max(6 * on_path / (per_s * INT32_LANES_PER_SM),
+                          divisions / (per_s * SFU_OPS_PER_SM_PER_CLOCK),
+                          adds / (per_s * FP32_LANES_PER_SM)),
+    }
+    bound_by = max(times, key=times.get)
+    return 1e3 * times[bound_by], bound_by, {
+        "triples": B * P * N, "on_path": on_path, "live": int(live.sum()),
+        "divisions": divisions, "adds": adds, "bytes": nbytes}
+
+
+def raw_close(got, ref):
+    """``(max |got - ref|, within atol/rtol RAW_TOL)``."""
+
+    diff = (got - ref).abs()
+    return float(diff.max()), bool((diff <= RAW_TOL + RAW_TOL * ref.abs()).all())
+
+
+def compare_inter_kernel(dense, seed, device):
+    """Phase 9a: ``exact_tree_inter`` against its plain version on the card
+    at the main path's dense inputs and at edge shapes; bit-identical
+    repeats; the interaction weights against the f64 table."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+        exact_tree_inter,
+        exact_tree_inter_plain,
+    )
+    from distributedkernelshap_tpu_torch.ops.treeshap import _interaction_tables
+
+    rng = np.random.default_rng([seed, 13])
+    cases = [("dense main path", *dense)]
+    for name, (B, P, N, M, K, dmax) in [
+            ("ragged", (13, 77, 77, 6, 1, 6)), ("N=300", (64, 300, 300, 12, 1, 12)),
+            ("dmax=1", (64, 256, 100, 12, 1, 1)), ("K=3 M=40", (9, 50, 30, 40, 3, 40))]:
+        cases.append((name, phi_edge_inputs(rng, B, P, N, M, K, device), dmax))
+    worst = 0.0
+    for name, args, dmax in cases:
+        got = exact_tree_inter(*args, dmax=dmax)
+        again = exact_tree_inter(*args, dmax=dmax)
+        ref = exact_tree_inter_plain(*args, dmax=dmax)
+        torch.cuda.synchronize()
+        err, close = raw_close(got, ref)
+        same = bool(torch.equal(got, again))
+        print(f"exact_tree_inter vs plain [{name}] shape B,P,N,M,K="
+              f"{tuple(args[0].shape[:2]) + (args[2].shape[0], args[0].shape[2], args[4].shape[1])}"
+              f" dmax={dmax}: max_abs_diff={err:.3e} (atol = rtol = {RAW_TOL:g}: {close}), "
+              f"bit-identical repeat={same}", flush=True)
+        if not (bool(got.isfinite().all()) and close and same):
+            raise AssertionError(f"exact_tree_inter disagrees with its plain version or "
+                                 f"with itself at {name}")
+        worst = max(worst, err)
+    D = 31
+    args, pairs = beta_weight_inputs(D, device)   # raw sum = the pairwise weights
+    inter = exact_tree_inter(*args, dmax=2 * D)[..., 0].cpu().numpy()
+    w_uu, w_vv, w_uv = _interaction_tables(2 * D)
+    u, v = pairs.T
+    rel = 0.0
+    for got, table, sel in ((inter[:, 0, 1], w_uu, u >= 2),
+                            (inter[:, 0, D], w_uv, (u >= 1) & (v >= 1)),
+                            (inter[:, D, D + 1], w_vv, v >= 2)):
+        rel = max(rel, float(np.max(np.abs(got[sel] / table[u[sel], v[sel]] - 1))))
+    print(f"exact_tree_inter weights W_uu, W_uv, W_vv on the card vs the f64 table, "
+          f"u + v <= {2 * D}: max rel err {rel:.3e} (tol 5e-5)", flush=True)
+    if not rel <= 5e-5:
+        raise AssertionError("exact_tree_inter's weights miss the f64 table")
+    return worst
+
+
+def inter_phase(tables, X_all, bg, device, sm_count, sm_clock_hz, card, seed):
+    """Phases 8 and 9: the exact interaction path, counted, checked and
+    timed, its dense ``exact_tree_phi`` launch too.  Returns the
+    ``exact_tree_inter`` JSON record and that phi launch's max |kernel -
+    plain|."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+        exact_tree_inter,
+        exact_tree_inter_plain,
+        exact_tree_phi,
+        exact_tree_phi_plain,
+    )
+
+    X = X_all[:B_EXACT]
+    # 8. the main path, counted: pack_paths at its auto value
+    exact_tree_inter.launches = exact_tree_phi.launches = 0
+    explainer, expl = explain_exact(tables, X, bg, device, interactions=True)
+    torch.cuda.synchronize()
+    launches, phi_launches = exact_tree_inter.launches, exact_tree_phi.launches
+    path = explainer.kernel_path
+    eng = explainer._explainer
+    packed = eng._exact_consts()["packed"] is not None
+    rebuilt = ("exact_reach_full",) in eng._exact_cache
+    print(f"interactions: launches exact_tree_inter={launches} (want 1), exact_tree_phi="
+          f"{phi_launches} (want 1, dense), kernel_path={path}; phi constants packed="
+          f"{packed}, dense reach rebuilt for the pairs={rebuilt}", flush=True)
+    if launches != 1 or phi_launches != 1 or path != {"exact_phi": "cuda",
+                                                      "exact_inter": "cuda"}:
+        raise AssertionError("the interaction explain did not go through "
+                             "exact_tree_inter and exact_tree_phi as planned")
+    if packed != rebuilt:
+        raise AssertionError("the interaction explain did not rebuild the dense reach")
+    inter, sym, rows = interaction_values(expl, B_EXACT)
+    again, _, _ = interaction_values(
+        explainer.explain(X, nsamples="exact", silent=True, interactions=True), B_EXACT)
+    _, expl_plain = explain_exact(tables, X, bg, device, use_kernel=False, interactions=True)
+    d_plain = float(np.abs(inter - interaction_values(expl_plain, B_EXACT)[0]).max())
+    _, expl_cpu = explain_exact(tables, X[:N_CPU_ROWS], bg, "cpu", interactions=True)
+    d_cpu = float(np.abs(inter[:N_CPU_ROWS]
+                         - interaction_values(expl_cpu, N_CPU_ROWS)[0]).max())
+    tol = phi_tol(inter)
+    bitwise = bool(np.array_equal(inter, again))
+    print(f"interactions: shape {inter.shape}, asymmetry {sym:.3e}, |row sums - phi| "
+          f"{rows:.3e} (tol {CONVENTION_ATOL:g}); |kernel - plain route|={d_plain:.3e}, "
+          f"|card - cpu| (first {N_CPU_ROWS} rows)={d_cpu:.3e} (tol {tol:.2e}); repeat "
+          f"bit-identical={bitwise}; max|inter|={np.abs(inter).max():.4f}", flush=True)
+    if not (d_plain <= tol and d_cpu <= tol and bitwise):
+        raise AssertionError("the interaction explain disagrees with its references")
+    bg10 = bg[:10]
+    _, expl_bf = explain_exact(tables, X[:2], bg10, device, interactions=True)
+    got_bf = interaction_values(expl_bf, 2)[0]
+    half = np.stack([brute_force_interactions(tables, X[i], bg10, device) / 2.0
+                     for i in range(2)])
+    off = ~np.eye(len(ADULT_WIDTHS), dtype=bool)
+    d_bf = float(np.abs(got_bf[:, off] - half[:, off]).max())
+    print(f"interactions: |off-diagonal - brute-force interaction index / 2| (2 rows, "
+          f"10 background rows, 4096 coalitions)={d_bf:.3e} (tol {phi_tol(half):.2e})",
+          flush=True)
+    if not d_bf <= phi_tol(half):
+        raise AssertionError("the interaction matrices miss the brute-force index")
+
+    # 9. kernel vs plain at the main path's inputs and edges, then times
+    args, dmax = dense_inputs(explainer, X, device)
+    max_err = compare_inter_kernel((args, dmax), seed, device)
+    # the path's dense exact_tree_phi launch (the same inputs), held alone
+    phi_got = exact_tree_phi(*args, dmax=dmax)
+    phi_again = exact_tree_phi(*args, dmax=dmax)
+    phi_ref = exact_tree_phi_plain(*args, dmax=dmax)
+    torch.cuda.synchronize()
+    phi_err = float((phi_got - phi_ref).abs().max())
+    tol = phi_tol(phi_ref.cpu().numpy())
+    same = bool(torch.equal(phi_got, phi_again))
+    print(f"exact_tree_phi vs plain [interaction path, dense] shape B,P,N,M,K="
+          f"{tuple(args[0].shape[:2]) + (args[2].shape[0], args[0].shape[2], args[4].shape[1])}"
+          f" dmax={dmax}: max_abs_diff={phi_err:.3e} (tol {tol:.2e}), bit-identical "
+          f"repeat={same}", flush=True)
+    if not (bool(phi_got.isfinite().all()) and phi_err <= tol and same):
+        raise AssertionError("the interaction path's dense exact_tree_phi disagrees "
+                             "with its plain version or with itself")
+    walls = {}
+    for B in (B_EXACT, B_EXACT_BIG):
+        Xb = X_all[:B]
+        explainer.explain(Xb, nsamples="exact", silent=True, interactions=True)
+        runs_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            explainer.explain(Xb, nsamples="exact", silent=True, interactions=True)
+            torch.cuda.synchronize()
+            runs_s.append(time.perf_counter() - t0)
+        walls[B] = (1e3 * statistics.median(runs_s), [round(1e3 * w, 3) for w in runs_s])
+    kernel_ms = cuda_time_ms(lambda: exact_tree_inter(*args, dmax=dmax), 20)
+    plain_ms = cuda_time_ms(lambda: exact_tree_inter_plain(*args, dmax=dmax), 3)
+    bound_ms, bound_by, counts = inter_bound_ms(args, sm_count, sm_clock_hz)
+    phi_ms = cuda_time_ms(lambda: exact_tree_phi(*args, dmax=dmax), 20)
+    phi_plain_ms = cuda_time_ms(lambda: exact_tree_phi_plain(*args, dmax=dmax), 3)
+    phi_b_ms, phi_b_by, phi_counts = phi_bound_ms(args, sm_count, sm_clock_hz)
+    print(f"times on {card}: the interaction path's dense exact_tree_phi at B={B_EXACT} "
+          f"P={args[0].shape[1]} N={args[2].shape[0]} M={args[0].shape[2]} K=1 "
+          f"dmax={dmax}: kernel {phi_ms:.4f} ms, plain {phi_plain_ms:.4f} ms, bound "
+          f"{phi_b_ms:.4f} ms ({phi_b_by}), {100 * phi_b_ms / phi_ms:.1f}% of bound; "
+          f"counts {phi_counts}", flush=True)
+    print(f"times on {card}: interaction explain wall median of 3 = {walls[B_EXACT][0]:.3f} "
+          f"ms at B={B_EXACT} (runs {walls[B_EXACT][1]}), {walls[B_EXACT_BIG][0]:.3f} ms at "
+          f"B={B_EXACT_BIG} (runs {walls[B_EXACT_BIG][1]}); exact_tree_inter at B={B_EXACT} "
+          f"P={args[0].shape[1]} N={args[2].shape[0]} M={args[0].shape[2]} K=1 dmax={dmax}: "
+          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), {100 * bound_ms / kernel_ms:.1f}% of bound; counts {counts}; "
+          f"library_ms null: no single PyTorch call computes this function", flush=True)
+    return {"name": "exact_tree_inter", "route": "cuda",
+            "source": "distributedkernelshap_tpu_torch/csrc/exact_tree_inter.cu",
+            "replaces": "distributedkernelshap_tpu/ops/pallas_kernels.py:440",
+            "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}, phi_err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -739,8 +1053,15 @@ def main() -> int:
           flush=True)
 
     # 6-7. exact TreeSHAP
-    exact_record = exact_phase(args.seed, X, bg, device, props.multi_processor_count,
-                               max_sm_clock_hz(), card)
+    tables = adult_shaped_gbt(args.seed)
+    exact_record = exact_phase(tables, X, bg, device, props.multi_processor_count,
+                               max_sm_clock_hz(), card, args.seed)
+
+    # 8-9. exact Shapley interactions
+    inter_record, phi_dense_err = inter_phase(tables, X, bg, device,
+                                              props.multi_processor_count,
+                                              max_sm_clock_hz(), card, args.seed)
+    exact_record["max_abs_err"] = max(exact_record["max_abs_err"], phi_dense_err)
 
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
@@ -749,7 +1070,7 @@ def main() -> int:
         "replaces": "distributedkernelshap_tpu/ops/pallas_kernels.py:497",
         "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}, exact_record]}))
+        "library_ms": None}, exact_record, inter_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -7,7 +7,8 @@ caller passes ``device='cpu'``, and raise when there is no GPU and no device
 was given.  The masked evaluation of the linear fast path runs in the
 hand-written kernel ``csrc/fused_linear_ey.cu``, exact TreeSHAP
 (``nsamples='exact'`` on lifted tree ensembles) in ``csrc/exact_tree_phi.cu``
-(wrappers in ``ops/cuda_kernels.py``).
+and its Shapley interactions (``interactions=True``) in
+``csrc/exact_tree_inter.cu`` (wrappers in ``ops/cuda_kernels.py``).
 """
 
 from distributedkernelshap_tpu_torch.data import DenseData  # noqa: F401
@@ -17,6 +18,7 @@ from distributedkernelshap_tpu_torch.kernel_shap import (  # noqa: F401
     KernelExplainerEngine,
     KernelShap,
     rank_by_importance,
+    rank_interaction_pairs,
     sum_categories,
 )
 from distributedkernelshap_tpu_torch.models.trees import TreeEnsemblePredictor  # noqa: F401

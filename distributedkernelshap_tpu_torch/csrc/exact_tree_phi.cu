@@ -37,52 +37,16 @@
 // launches on the same inputs give bit-identical phi (the TPU kernel
 // accumulated over a sequential grid axis instead).  Limit: M <= 63 groups
 // (one 64-bit word per (n, p) holds the z_ok bits and the z_dead bit).
+// The packing, staging, tile sum and launch sequence are in
+// exact_tree_common.cuh, shared with exact_tree_inter.cu.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "exact_tree_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTP = 32;                  // paths per block: one per lane
-constexpr int kTB = kThreads / kTP;      // instances per block: one per warp
 constexpr int kNC = 64;                  // background rows staged per chunk
-constexpr int kMaxM = 63;
-constexpr int kDeadBit = 63;
-constexpr int kMaxTable = (kMaxM + 1) * (kMaxM + 1);
-constexpr size_t kSmemMax =
-    sizeof(unsigned long long) * kNC * kTP + sizeof(float) * (kNC + kMaxTable);
-static_assert(kSmemMax <= 48 * 1024, "staging must fit without an opt-in");
-static_assert(kTP == 32, "one path per lane: the shuffle reduction spans a warp");
-
-typedef unsigned long long u64;
-
-// Pack z_ok/z_dead into one word per (n, p) and build the binomial table
-// table[u*(M+1)+v] = prod_{i=1..u} (v+i)/i for u <= dm, v <= M.
-__global__ void prep_kernel(const float* __restrict__ z_ok,
-                            const float* __restrict__ z_dead,
-                            u64* __restrict__ zbits, float* __restrict__ table,
-                            long long NP, int M, int dm) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < NP) {
-    const float* z = z_ok + idx * M;
-    u64 bits = 0;
-    for (int m = 0; m < M; ++m)
-      if (z[m] > 0.5f) bits |= 1ull << m;
-    if (z_dead[idx] > 0.5f) bits |= 1ull << kDeadBit;
-    zbits[idx] = bits;
-  }
-  if (idx < (long long)(dm + 1) * (M + 1)) {
-    const int u = (int)(idx / (M + 1));
-    const float fv = (float)(idx % (M + 1));
-    float binom = 1.0f;
-    for (int i = 1; i <= u; ++i) {
-      const float fi = (float)i;
-      binom = binom * ((fv + fi) / fi);
-    }
-    table[idx] = binom;
-  }
-}
+static_assert(smem_bytes(kNC, kMaxM, kMaxM) <= 48 * 1024,
+              "staging must fit without an opt-in");
 
 template <int MT>
 __global__ void __launch_bounds__(kThreads)
@@ -119,15 +83,9 @@ phi_tile_kernel(const float* __restrict__ x_only, const float* __restrict__ x_no
 #pragma unroll
   for (int m = 0; m < MT; ++m) acc[m] = 0.0f;
 
-  for (int n0 = 0; n0 < N; n0 += kNC) {
-    const int nc = min(kNC, N - n0);
-    __syncthreads();  // the previous chunk (and the table copy) is done
-    for (int i = threadIdx.x; i < nc * kTP; i += kThreads) {
-      const int pl = p0 + i % kTP;
-      zs[i] = pl < P ? zbits[(size_t)(n0 + i / kTP) * P + pl] : (1ull << kDeadBit);
-    }
-    for (int i = threadIdx.x; i < nc; i += kThreads) ws[i] = bgw[n0 + i];
-    __syncthreads();
+  const int nchunks = (N + kNC - 1) / kNC;
+  for (int c = 0; c < nchunks; ++c) {
+    const int nc = stage_chunk<kNC>(zs, ws, zbits, bgw, c, N, P, p0);
     if ((xo | xn) == 0) continue;   // no group on this path: phi adds nothing
     for (int n = 0; n < nc; ++n) {
       const u64 z = zs[n * kTP + lane];
@@ -169,30 +127,6 @@ phi_tile_kernel(const float* __restrict__ x_only, const float* __restrict__ x_no
   }
 }
 
-// phi[i] = sum over path tiles t = 0, 1, ... of partial[t][i], in order.
-__global__ void sum_tiles_kernel(const float* __restrict__ partial,
-                                 float* __restrict__ out, long long total,
-                                 int tiles) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float s = 0.0f;
-  for (int t = 0; t < tiles; ++t) s += partial[(size_t)t * total + i];
-  out[i] = s;
-}
-
-template <int MT>
-int launch_tiles(const float* x_only, const float* x_not, const u64* zbits,
-                 const float* leaf_val, const float* bgw, const float* table,
-                 float* partial, int B, int P, int N, int M, int K, int dm,
-                 cudaStream_t st) {
-  const size_t smem = sizeof(u64) * kNC * kTP +
-                      sizeof(float) * (kNC + (size_t)(dm + 1) * (M + 1));
-  dim3 grid((B + kTB - 1) / kTB, (P + kTP - 1) / kTP);
-  phi_tile_kernel<MT><<<grid, kThreads, smem, st>>>(
-      x_only, x_not, zbits, leaf_val, bgw, table, partial, B, P, N, M, K, dm);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -200,44 +134,19 @@ extern "C" {
 int exact_tree_phi_max_m() { return kMaxM; }
 
 // number of path tiles = leading dimension of the partial-phi scratch
-int exact_tree_phi_partial_tiles(int P) { return (P + kTP - 1) / kTP; }
+int exact_tree_phi_partial_tiles(int P) { return partial_tiles(P); }
 
-// All pointers are device pointers to contiguous arrays: float32 inputs
-// x_only/x_not (B,P,M), z_ok (N,P,M), z_dead (N,P), leaf_val (P,K),
-// bgw (N,) (normalised); scratch zbits (N,P) 64-bit, table
-// ((dmax+1)*(M+1)) float32, partial (tiles,B,M,K) float32; out (B,M,K).
-// dmax must be in [1, M].  Returns the cudaError_t of the launches.
+// The arguments of launch_exact (exact_tree_common.cuh): partial is
+// (tiles,B,M,K) and out (B,M,K).
 int exact_tree_phi_launch(const float* x_only, const float* x_not,
                           const float* z_ok, const float* z_dead,
                           const float* leaf_val, const float* bgw, void* zbits,
                           float* table, float* partial, float* out, int B,
                           int P, int N, int M, int K, int dmax, void* stream) {
-  if (B <= 0 || P <= 0 || N <= 0 || M <= 0 || K <= 0 || M > kMaxM ||
-      dmax < 1 || dmax > M || (P + kTP - 1) / kTP > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  u64* zb = static_cast<u64*>(zbits);
-  const long long NP = (long long)N * P;
-  const long long prep_n = NP > (long long)(dmax + 1) * (M + 1)
-                               ? NP : (long long)(dmax + 1) * (M + 1);
-  prep_kernel<<<(unsigned)((prep_n + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      z_ok, z_dead, zb, table, NP, M, dmax);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  if (M <= 16)
-    err = launch_tiles<16>(x_only, x_not, zb, leaf_val, bgw, table, partial,
-                           B, P, N, M, K, dmax, st);
-  else if (M <= 32)
-    err = launch_tiles<32>(x_only, x_not, zb, leaf_val, bgw, table, partial,
-                           B, P, N, M, K, dmax, st);
-  else
-    err = launch_tiles<64>(x_only, x_not, zb, leaf_val, bgw, table, partial,
-                           B, P, N, M, K, dmax, st);
-  if (err) return err;
-  const long long total = (long long)B * M * K;
-  sum_tiles_kernel<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      partial, out, total, (P + kTP - 1) / kTP);
-  return (int)cudaGetLastError();
+  return launch_exact<kNC>(phi_tile_kernel<16>, phi_tile_kernel<32>,
+                           phi_tile_kernel<64>, (long long)M * K, x_only, x_not,
+                           z_ok, z_dead, leaf_val, bgw, zbits, table, partial,
+                           out, B, P, N, M, K, dmax, stream);
 }
 
 }  // extern "C"

@@ -3,13 +3,14 @@
 Port of ``distributedkernelshap_tpu/kernel_shap.py``: the same public surface
 (``KernelShap(predictor, link, feature_names, categorical_names, task,
 seed).fit(background, ...).explain(X, ...) -> Explanation``, plus
-``rank_by_importance`` / ``sum_categories`` and the warn-and-degrade input
-validation), with the computation in ``ops/explain.py`` (sampled) and
-``ops/treeshap.py`` (``nsamples='exact'`` on lifted tree ensembles) on a
-torch device.
+``rank_by_importance`` / ``rank_interaction_pairs`` / ``sum_categories``
+and the warn-and-degrade input validation), with the computation in
+``ops/explain.py`` (sampled) and ``ops/treeshap.py`` (``nsamples='exact'``
+on lifted tree ensembles, with ``interactions=True`` the exact Shapley
+interaction matrices) on a torch device.
 
-Not in this slice (ROADMAP.md, queue A): exact interactions, the exact
-tensor-network and DeepSHAP flavors, the anytime and host-eval paths,
+Not ported yet (ROADMAP.md, queue A): the exact tensor-network and DeepSHAP
+flavors, the anytime and host-eval paths,
 host-side l1 feature selection, ``instance_chunk`` pipelining, staging,
 the plan-constant cache, packed transfers, the memory ledger, profiler
 phases, ``save``/``load`` and multi-device execution.
@@ -52,6 +53,7 @@ from distributedkernelshap_tpu_torch.ops.summarise import kmeans_summary, subsam
 from distributedkernelshap_tpu_torch.ops.treeshap import (
     background_reach,
     build_packed_plan,
+    exact_shap_and_interactions,
     exact_shap_from_reach,
     exact_shap_packed,
     pack_reach,
@@ -106,6 +108,47 @@ def rank_by_importance(shap_values: List[np.ndarray],
     imp = np.stack([np.abs(values).mean(axis=0) for values in shap_values])
     return ranking_from_importance(
         imp, _resolve_feature_names(feature_names, imp.shape[1]))
+
+
+def rank_interaction_pairs(interaction_values: List[np.ndarray],
+                           feature_names: Union[List[str], Tuple[str], None] = None,
+                           top: Optional[int] = None) -> Dict:
+    """Rank feature PAIRS by mean |interaction| — the pairwise analog of
+    :func:`rank_by_importance` for the exact interaction matrices
+    (``explain(..., nsamples='exact', interactions=True)``; reference
+    ``kernel_shap.py:467-508``).
+
+    ``interaction_values``: list of ``K`` ``(B, M, M)`` arrays (shap
+    TreeExplainer convention — symmetric, off-diagonal ``[i, j]`` holds
+    half the pairwise index, so a pair's total effect is ``2 * |[i, j]|``).
+    Returns the reference-style structure ``{'0': {'ranked_effect',
+    'names'}, ..., 'aggregated': {...}}`` where each name is an ``(i, j)``
+    feature-name tuple, sorted most- to least-interacting; ``top`` keeps
+    only the strongest pairs."""
+
+    def batched(values: np.ndarray) -> np.ndarray:
+        vals = np.asarray(values)
+        return vals[None] if vals.ndim == 2 else vals   # single instance
+
+    M = batched(interaction_values[0]).shape[-1]
+    if not feature_names or len(feature_names) != M:
+        if feature_names:
+            logger.warning(
+                "Feature names do not match the interaction matrices: got "
+                "%d names for %d features; falling back to default names.",
+                len(feature_names), M)
+        feature_names = [f'feature_{i}' for i in range(M)]
+    iu, ju = np.triu_indices(M, k=1)
+    pair_names = [(feature_names[i], feature_names[j]) for i, j in zip(iu, ju)]
+
+    # a pair's total effect is its two symmetric halves -> 2x one entry
+    pair_values = [2.0 * batched(v)[:, iu, ju] for v in interaction_values]
+    importances = rank_by_importance(pair_values, pair_names)
+    if top is not None:
+        for entry in importances.values():
+            entry['ranked_effect'] = entry['ranked_effect'][:top]
+            entry['names'] = entry['names'][:top]
+    return importances
 
 
 def _resolve_feature_names(feature_names, n_feats: int) -> List[str]:
@@ -243,8 +286,12 @@ class KernelExplainerEngine:
         self._dev_cache: Dict[str, Tuple[torch.Tensor, ...]] = {}
         self._exact_cache: Dict[Any, Dict[str, Any]] = {}
         self.last_raw_prediction: Optional[np.ndarray] = None
+        #: the last explain's exact interaction matrices (``interactions=True``):
+        #: a list of K ``(B, M, M)`` arrays; None after any other explain
+        self.last_interaction_values: Optional[List[np.ndarray]] = None
         #: which evaluation route each explain took ({'ey': 'cuda'|'plain'|
-        #: 'einsum', 'exact_phi': 'cuda'|'plain'}), persisted across explains
+        #: 'einsum', 'exact_phi'/'exact_inter': 'cuda'|'plain'}), persisted
+        #: across explains
         self._kernel_paths: Dict[str, str] = {}
 
         # expected value: link-space weighted mean background prediction
@@ -309,8 +356,9 @@ class KernelExplainerEngine:
     def kernel_path(self) -> Dict[str, Any]:
         """Which evaluation route the explains took: ``{'ey': 'cuda'}`` when
         the fused kernel launched, ``'plain'`` for its plain version,
-        ``'einsum'`` for the identity collapse; ``'exact_phi'`` likewise for
-        the exact TreeSHAP kernel.  Empty until the first explain."""
+        ``'einsum'`` for the identity collapse; ``'exact_phi'`` and
+        ``'exact_inter'`` likewise for the exact TreeSHAP and interaction
+        kernels.  Empty until the first explain."""
 
         return dict(self._kernel_paths)
 
@@ -394,6 +442,24 @@ class KernelExplainerEngine:
         self._exact_cache[key] = consts
         return consts
 
+    def _exact_full_reach(self) -> Dict[str, torch.Tensor]:
+        """The dense reach tensors for the interactions path.  When the
+        packed plan engages, :meth:`_exact_consts` keeps only ``onpath_g``
+        of them (the packed phi route needs nothing else), so the dense
+        tensors are rebuilt here once and cached under their own key."""
+
+        consts = self._exact_consts()
+        if 'z_ok' in consts['reach']:
+            return consts['reach']
+        key = ('exact_reach_full',)
+        if key not in self._exact_cache:
+            with torch.no_grad():
+                self._exact_cache[key] = background_reach(
+                    self.predictor,
+                    torch.as_tensor(self.background, device=self.device), consts['G'],
+                    target_chunk_elems=self.config.shap.target_chunk_elems)
+        return self._exact_cache[key]
+
     def _dispatch_exact(self, X: np.ndarray):
         """Launch the exact phi computation for ``X`` and return a
         ``finalize() -> {'shap_values', 'raw_prediction'}`` that copies the
@@ -425,15 +491,41 @@ class KernelExplainerEngine:
 
         return finalize
 
-    def _exact_tree_explanation(self, X: np.ndarray, l1_reg):
+    def _exact_inter_explanation(self, X: np.ndarray) -> Dict[str, np.ndarray]:
+        """The interactions variant of the exact path: phi and the pairwise
+        matrices from one reach pass over the DENSE path layout (the packed
+        plan serves the phi-only path; the pairwise pass is dense), sets
+        ``last_interaction_values`` (K arrays ``(B, M, M)``)."""
+
+        Xp, B = self._pad_to_bucket(X)
+        Xt = torch.as_tensor(Xp, device=self.device)
+        consts = self._exact_consts()
+        reach = self._exact_full_reach()
+        shap = self.config.shap
+        with torch.no_grad(), capture_kernel_paths() as kp:
+            phi, inter = exact_shap_and_interactions(
+                self.predictor, Xt, reach, consts['bgw'], consts['G'],
+                target_chunk_elems=shap.target_chunk_elems,
+                use_kernel=shap.use_kernel)
+            fx = self.predictor(Xt)
+        self._kernel_paths.update(kp)
+        inter = inter[:B].cpu().numpy()                      # (B, K, M, M)
+        self.last_interaction_values = [inter[:, k] for k in range(inter.shape[1])]
+        return {'shap_values': phi[:B].cpu().numpy(),
+                'raw_prediction': fx[:B].cpu().numpy()}
+
+    def _exact_tree_explanation(self, X: np.ndarray, l1_reg, interactions: bool):
         """``nsamples='exact'``: closed-form interventional Shapley values
-        of a lifted tree ensemble's raw margin (no coalition plan, no WLS)."""
+        of a lifted tree ensemble's raw margin (no coalition plan, no WLS),
+        with ``interactions=True`` also the interaction matrices."""
 
         validate_exact(self.predictor, self.config.link)
         if l1_reg not in (None, False, 0, 'auto'):
             logger.warning(
                 "l1_reg=%r is ignored with nsamples='exact': there is no "
                 "sampling noise to regularise away.", l1_reg)
+        if interactions:
+            return self._exact_inter_explanation(X)
         return self._dispatch_exact(X)()
 
     def _l1_active(self, l1_reg, nsamples) -> bool:
@@ -461,14 +553,24 @@ class KernelExplainerEngine:
 
         Accepts a plain array or a ``(batch_idx, batch)`` tuple.  Returns a
         list of ``K`` ``(B, M)`` arrays for multi-output predictors, a single
-        array otherwise; tuple input returns ``(batch_idx, result)``."""
+        array otherwise; tuple input returns ``(batch_idx, result)``.
+
+        ``interactions=True`` (``nsamples='exact'`` only) also computes the
+        exact Shapley interaction matrices, exposed as
+        ``last_interaction_values`` (list of ``K`` ``(B, M, M)`` arrays, shap
+        TreeExplainer convention); the returned shap values are their row
+        sums."""
 
         del kwargs, silent
-        if interactions:
-            raise NotImplementedError(
-                "exact Shapley interactions (interactions=True) are ROADMAP.md "
-                "queue A item 5 and kernel queue item B.3 (exact_tree_inter), "
-                "not ported yet")
+        if interactions and nsamples != 'exact':
+            raise ValueError(
+                "interactions=True requires nsamples='exact' (closed-form "
+                "interventional TreeSHAP); the sampled KernelSHAP estimator "
+                "does not produce interaction values.")
+        if not interactions:
+            # never let interaction tensors from an earlier explain pair
+            # with this call's fingerprint/raw predictions
+            self.last_interaction_values = None
         exact = nsamples == 'exact'
         if exact:
             flavor = self._exact_flavor()
@@ -495,7 +597,7 @@ class KernelExplainerEngine:
             X = X.toarray()
         X = np.atleast_2d(np.asarray(X, dtype=np.float32))
 
-        r = (self._exact_tree_explanation(X, l1_reg) if exact
+        r = (self._exact_tree_explanation(X, l1_reg, interactions) if exact
              else self._explain_array(X, nsamples))
         # stash the link-space predictions so build_explanation doesn't need
         # a second predictor pass for the same instances
@@ -871,7 +973,9 @@ class KernelShap(Explainer, FitMixin):
         """Explain the instances in ``X`` (reference kernel_shap.py:810-898).
 
         Keyword arguments mirror the reference: ``nsamples`` (coalition
-        budget, or ``'exact'`` for lifted tree ensembles), ``l1_reg``
+        budget, or ``'exact'`` for lifted tree ensembles), ``interactions``
+        (with ``'exact'``: the interaction matrices go to
+        ``explanation.data['raw']['interaction_values']``), ``l1_reg``
         (feature selection; only its inactive settings are supported so
         far), ``silent``."""
 
@@ -892,7 +996,7 @@ class KernelShap(Explainer, FitMixin):
         if isinstance(expected_value, (float, np.floating)):
             expected_value = [expected_value]
 
-        return self.build_explanation(
+        explanation = self.build_explanation(
             X,
             shap_values,
             expected_value,
@@ -900,6 +1004,16 @@ class KernelShap(Explainer, FitMixin):
             cat_vars_start_idx=cat_vars_start_idx,
             cat_vars_enc_dim=cat_vars_enc_dim,
         )
+        inter = self._explainer.last_interaction_values
+        if kwargs.get('interactions') and inter is not None:
+            # summarise exactly when the shap values were (the decision
+            # build_explanation took after validation), so rows keep summing
+            # to the shap values
+            if self.summarise_result:
+                inter = [sum_categories(v, cat_vars_start_idx, cat_vars_enc_dim)
+                         for v in inter]
+            explanation.data['raw']['interaction_values'] = inter
+        return explanation
 
     @property
     def kernel_path(self) -> Dict[str, Any]:

@@ -9,16 +9,22 @@ masked-evaluation reduction
 
 of the linear fast path.  ``exact_tree_phi`` replaces
 ``pallas_kernels.py:exact_tree_phi``: the exact-TreeSHAP main-effect
-contraction (see :func:`exact_tree_phi_plain`).  Each source
-``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-``build/kernels/`` at first use and bound through a plain C interface with
-``ctypes`` (nothing here compiles or imports CUDA code when the module is
-imported).
+contraction (see :func:`exact_tree_phi_plain`).  ``exact_tree_inter``
+replaces ``pallas_kernels.py:exact_tree_inter``: the raw pairwise
+Shapley-interaction sum of the same inputs (see
+:func:`exact_tree_inter_plain`).  These are all the TPU kernels of the JAX
+package.  Each source ``csrc/<name>.cu`` is compiled by ``nvcc`` for
+``sm_90a`` into ``build/kernels/`` at first use (the two exact kernels
+share their packing, staging, tile sum and launch sequence through
+``csrc/exact_tree_common.cuh``) and bound through a plain C
+interface with ``ctypes`` (nothing here compiles or imports CUDA code when
+the module is imported).
 
 A wrapper runs its kernel for CUDA tensors and raises when it cannot —
 there is no fallback.  Only a tensor that lies on the CPU takes the plain
-version (:func:`fused_linear_ey_plain`, :func:`exact_tree_phi_plain`),
-which is also what ``chip_smoke.py`` holds each kernel against on the card.
+version (:func:`fused_linear_ey_plain`, :func:`exact_tree_phi_plain`,
+:func:`exact_tree_inter_plain`), which is also what ``chip_smoke.py`` holds
+each kernel against on the card.
 """
 
 import ctypes
@@ -40,12 +46,12 @@ BUILD_DIR = Path(REPO_ROOT) / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: every kernel source of the port (``csrc/<name>.cu``)
-KERNELS = ("fused_linear_ey", "exact_tree_phi")
+KERNELS = ("fused_linear_ey", "exact_tree_phi", "exact_tree_inter")
 #: widest class axis the kernel's register tiles take (``kMaxK`` in the .cu)
 MAX_K = 32
-#: most feature groups exact_tree_phi takes: one 64-bit word per
-#: (background row, path) holds the M z_ok bits and the z_dead bit
-#: (``kMaxM`` in the .cu)
+#: most feature groups exact_tree_phi and exact_tree_inter take: one 64-bit
+#: word per (background row, path) holds the M z_ok bits and the z_dead bit
+#: (``kMaxM`` in each .cu)
 MAX_TREE_M = 63
 
 _VOID, _INT = ctypes.c_void_p, ctypes.c_int
@@ -61,9 +67,15 @@ _SYMBOLS = {
         "exact_tree_phi_partial_tiles": ([_INT], _INT),
         "exact_tree_phi_max_m": ([], _INT),
     },
+    "exact_tree_inter": {
+        "exact_tree_inter_launch": ([_VOID] * 10 + [_INT] * 6 + [_VOID], _INT),
+        "exact_tree_inter_partial_tiles": ([_INT], _INT),
+        "exact_tree_inter_max_m": ([], _INT),
+    },
 }
 _LIMITS = {"fused_linear_ey": ("fused_linear_ey_max_k", MAX_K),
-           "exact_tree_phi": ("exact_tree_phi_max_m", MAX_TREE_M)}
+           "exact_tree_phi": ("exact_tree_phi_max_m", MAX_TREE_M),
+           "exact_tree_inter": ("exact_tree_inter_max_m", MAX_TREE_M)}
 
 _ACTIVATION_CODE = {"softmax": 0, "sigmoid": 1}
 _lock = threading.Lock()
@@ -79,10 +91,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: named by a digest of the source
-    and the flags, so an edited source never loads a stale library."""
+    """Where ``csrc/<name>.cu`` builds to: named by a digest of the source,
+    the shared headers and the flags, so an edited source never loads a
+    stale library."""
 
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
@@ -305,38 +320,61 @@ def exact_tree_phi(x_only: torch.Tensor, x_not: torch.Tensor, z_ok: torch.Tensor
     B, P, N, M, K = _check_phi(x_only, x_not, z_ok, z_dead, leaf_val, bgw, dmax)
     if x_only.device.type == "cpu":
         return exact_tree_phi_plain(x_only, x_not, z_ok, z_dead, leaf_val, bgw, dmax)
+    return _exact_launch(exact_tree_phi, (B, M, K),
+                         (x_only, x_not, z_ok, z_dead, leaf_val, bgw), dmax)
+
+
+exact_tree_phi.launches = 0
+
+
+def _exact_launch(wrapper, out_shape, args, dmax: int) -> torch.Tensor:
+    """Launch the kernel of ``wrapper`` (:func:`exact_tree_phi` or
+    :func:`exact_tree_inter`, whose ``csrc/<name>.cu`` share their inputs and
+    their C interface) on card tensors that :func:`_check_phi` passed, and
+    return its output of ``out_shape``.  Raises above the group limit, off a
+    CUDA device, and on a failed build or launch."""
+
+    name, x_only = wrapper.__name__, args[0]
+    M = x_only.shape[2]
     if M > MAX_TREE_M:
         raise ValueError(
-            f"the exact_tree_phi kernel takes at most {MAX_TREE_M} feature "
-            f"groups, got {M}; explain wider groupings with "
-            "ShapConfig(use_kernel=False)")
+            f"the {name} kernel takes at most {MAX_TREE_M} feature groups, "
+            f"got {M}; explain wider groupings with ShapConfig(use_kernel=False)")
     if x_only.device.type != "cuda":
-        raise ValueError(f"exact_tree_phi runs on cuda or cpu, not {x_only.device}")
-    lib = _library("exact_tree_phi")
+        raise ValueError(f"{name} runs on cuda or cpu, not {x_only.device}")
+    lib = _library(name)
+    with torch.cuda.device(x_only.device):
+        return _exact_run(wrapper, lib, torch.cuda.current_stream().cuda_stream,
+                          out_shape, args, dmax)
+
+
+def _exact_run(wrapper, lib, stream, out_shape, args, dmax: int) -> torch.Tensor:
+    """Call the loaded kernel library ``lib`` of ``wrapper`` on ``stream``
+    and count one in ``wrapper.launches`` once the launch succeeded.  A
+    problem with a zero size launches nothing, counts nothing and returns
+    zeros."""
+
+    name, x_only = wrapper.__name__, args[0]
+    B, P, M = x_only.shape
+    N, K = args[2].shape[0], args[4].shape[1]
     dev = x_only.device
-    out = torch.empty((B, M, K), dtype=torch.float32, device=dev)
+    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
     if 0 in (B, P, N, M, K):
         return out.zero_()
     dm = min(int(dmax), M)
     # scratch: the packed background bits, the binomial table and one
-    # partial phi per path tile (summed in a fixed order by a second pass)
+    # partial output per path tile (summed in a fixed order by a second pass)
     zbits = torch.empty((N, P), dtype=torch.int64, device=dev)
     table = torch.empty(((dm + 1) * (M + 1),), dtype=torch.float32, device=dev)
-    partial = torch.empty((lib.exact_tree_phi_partial_tiles(P), B, M, K),
+    partial = torch.empty((getattr(lib, f"{name}_partial_tiles")(P), *out_shape),
                           dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.exact_tree_phi_launch(
-            x_only.data_ptr(), x_not.data_ptr(), z_ok.data_ptr(), z_dead.data_ptr(),
-            leaf_val.data_ptr(), bgw.data_ptr(), zbits.data_ptr(), table.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), B, P, N, M, K, dm, stream)
+    err = getattr(lib, f"{name}_launch")(
+        *(t.data_ptr() for t in args), zbits.data_ptr(), table.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), B, P, N, M, K, dm, stream)
     if err:
-        raise RuntimeError(f"exact_tree_phi launch failed with CUDA error {err}")
-    exact_tree_phi.launches += 1
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    wrapper.launches += 1
     return out
-
-
-exact_tree_phi.launches = 0
 
 
 def exact_tree_phi_plain(x_only: torch.Tensor, x_not: torch.Tensor,
@@ -382,3 +420,91 @@ def exact_tree_phi_plain(x_only: torch.Tensor, x_not: torch.Tensor,
         s_m += torch.einsum("bnp,npm->bpm", wm, z)
     d = s_p * x_only - s_m * x_not
     return torch.einsum("bpm,pk->bmk", d, leaf_val)
+
+
+# ---------------------------------------------------------------------- #
+# exact_tree_inter: exact pairwise Shapley interactions
+
+
+def exact_tree_inter(x_only: torch.Tensor, x_not: torch.Tensor, z_ok: torch.Tensor,
+                     z_dead: torch.Tensor, leaf_val: torch.Tensor, bgw: torch.Tensor,
+                     dmax: int) -> torch.Tensor:
+    """Raw pairwise Shapley-interaction sum ``inter (B, M, M, K)``
+    (``[b, g, h, k]``, diagonal included; see :func:`exact_tree_inter_plain`)
+    of :func:`exact_tree_phi`'s inputs.
+
+    CUDA tensors launch ``csrc/exact_tree_inter.cu`` (building it on first
+    use) and count one in ``exact_tree_inter.launches``; the kernel takes any
+    N, P, K and dmax and at most ``MAX_TREE_M`` groups, and above that it
+    raises.  Two launches on the same inputs give bit-identical output.  CPU
+    tensors run the plain version."""
+
+    B, P, N, M, K = _check_phi(x_only, x_not, z_ok, z_dead, leaf_val, bgw, dmax)
+    if x_only.device.type == "cpu":
+        return exact_tree_inter_plain(x_only, x_not, z_ok, z_dead, leaf_val, bgw, dmax)
+    return _exact_launch(exact_tree_inter, (B, M, M, K),
+                         (x_only, x_not, z_ok, z_dead, leaf_val, bgw), dmax)
+
+
+exact_tree_inter.launches = 0
+
+
+def exact_tree_inter_plain(x_only: torch.Tensor, x_not: torch.Tensor,
+                           z_ok: torch.Tensor, z_dead: torch.Tensor,
+                           leaf_val: torch.Tensor, bgw: torch.Tensor, dmax: int,
+                           chunk: Optional[int] = None) -> torch.Tensor:
+    """:func:`exact_tree_inter` in plain PyTorch, on any device.
+
+    Per instance ``b``, path ``p`` and background row ``n``: the counts
+    ``u``, ``v``, ``dead`` and the alive gate as in
+    :func:`exact_tree_phi_plain`; ONE binomial ``C(u+v-1, v)`` as the
+    reference's ``dmax``-step masked product ``Π_{i<=u-1} (v+i)/i``;
+    ``base = bgw/C`` on alive rows and the pairwise Beta weights
+
+        W_uu = base/(u-1)        (u >= 2)
+        W_uv = -base/v           (u, v >= 1)
+        W_vv = base·u/(v(v-1))   (v >= 2, u >= 1);  base·(1/(v-1)) at u = 0.
+
+    Then for each group ``g``, with ``ag = x_only[g]·(1-z_ok[g])`` (g in U)
+    and ``cg = x_not[g]·z_ok[g]`` (g in V): ``w_p = W_uu·ag + W_uv·cg``
+    pairs with ``(x_only, 1-z_ok)``, ``w_m = W_vv·cg + W_uv·ag`` with
+    ``(x_not, z_ok)``, and ``inter[b,g,h,k] = Σ_p (s_p·x_only +
+    s_m·x_not)[b,p,h]·leaf_val[p,k]`` over ``s_p = Σ_n w_p·(1-z_ok)``,
+    ``s_m = Σ_n w_m·z_ok``.  The diagonal ``g = h`` is included, as the TPU
+    kernel returns it.
+
+    Layouts as :func:`exact_tree_phi_plain`'s; returns ``(B, M, M, K)``.
+    The background is processed ``chunk`` rows at a time (default: ``(B,
+    chunk, P)`` intermediates of at most ``2**23`` elements) and g in an
+    outer loop, so no ``(B, P, M, M)`` tensor is built."""
+
+    B, P, N, M, K = _check_phi(x_only, x_not, z_ok, z_dead, leaf_val, bgw, dmax)
+    # steps past M multiply by exactly 1 (u - 1 < M): the clamp is exact
+    dm = min(int(dmax), M)
+    c = chunk or max(1, min(N, (1 << 23) // max(1, B * P)))
+    out = torch.zeros((B, M, M, K), dtype=torch.float32, device=x_only.device)
+    for n0 in range(0, N, c):
+        z = z_ok[n0:n0 + c]
+        nz = 1.0 - z
+        u = torch.einsum("bpm,npm->bnp", x_only, nz)
+        v = torch.einsum("bpm,npm->bnp", x_not, z)
+        dead = torch.einsum("bpm,npm->bnp", x_not, nz)
+        alive = (dead < 0.5) & (z_dead[None, n0:n0 + c] < 0.5)
+        binom = torch.ones_like(u)
+        for i in range(1, dm + 1):
+            binom = binom * torch.where(u - 0.5 >= i, (v + i) / i, 1.0)
+        base = torch.where(alive, bgw[None, n0:n0 + c, None] / binom, 0.0)
+        w_uu = torch.where(u > 1.5, base / (u - 1.0).clamp(min=1.0), 0.0)
+        w_uv = -torch.where((u > 0.5) & (v > 0.5), base / v.clamp(min=1.0), 0.0)
+        w_vv = torch.where(v > 1.5, base * torch.where(
+            u > 0.5, u / (v * (v - 1.0)).clamp(min=1.0),
+            1.0 / (v - 1.0).clamp(min=1.0)), 0.0)
+        for g in range(M):
+            ag = x_only[:, None, :, g] * nz[None, :, :, g]    # (B, c, P)
+            cg = x_not[:, None, :, g] * z[None, :, :, g]
+            w_p = w_uu * ag + w_uv * cg
+            w_m = w_vv * cg + w_uv * ag
+            d = (torch.einsum("bnp,npm->bpm", w_p, nz) * x_only
+                 + torch.einsum("bnp,npm->bpm", w_m, z) * x_not)
+            out[:, g] += torch.einsum("bpm,pk->bmk", d, leaf_val)
+    return out

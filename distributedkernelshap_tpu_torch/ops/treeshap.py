@@ -1,7 +1,8 @@
-"""Exact interventional TreeSHAP main effects on a torch device.
+"""Exact interventional TreeSHAP main effects and Shapley interactions on a
+torch device.
 
-Port of the main-effect part of ``distributedkernelshap_tpu/ops/treeshap.py``
-(``:112-781`` and ``exact_tree_shap`` ``:1003-1040``).  For one instance
+Port of ``distributedkernelshap_tpu/ops/treeshap.py`` (``:112-950`` and
+``exact_tree_shap`` ``:1003-1040``).  For one instance
 ``x``, one background row ``z`` and one leaf with value ``val``, each group
 on the leaf's path is satisfied by both rows, by ``x`` only (the leaf needs
 the group IN the coalition), by ``z`` only (needs it OUT) or by neither (the
@@ -15,18 +16,25 @@ summed over leaves, trees and weighted background rows.  Scope: lifted
 ensembles with raw-margin outputs (``out_transform='identity'``) and path
 tensors, explained with ``link='identity'``.
 
+The pairwise Shapley interaction index of the same conjunction game pairs
+groups of U with weight ``(u-2)! v! / (u+v-1)!``, groups of V with
+``u! (v-2)! / (u+v-1)!`` and one of each with ``-(u-1)! (v-1)! / (u+v-1)!``
+(:func:`_interaction_tables`); ``exact_interactions_from_reach`` returns
+the shap TreeExplainer convention of it.
+
 The reach indicators (``background_reach``, ``_x_reach``) are plain torch
 products.  The contraction over (instance, path, background row) is the
 hand-written kernel ``exact_tree_phi`` (``ops/cuda_kernels.py``), launched
 once per call on the dense route and once per depth bucket on the packed
-route (``ops/treeshap_pack.py``); both routes' non-kernel branch is the
-kernel's plain version — there is no second plain route.  The TPU gates of
-the JAX package (VMEM footprint, the 256-row background slice, the dmax cap
-of 64) do not exist here: one launch takes any N and any dmax.
+route (``ops/treeshap_pack.py``); the interactions take one
+``exact_tree_inter`` launch and one dense ``exact_tree_phi`` launch for the
+diagonal.  Every non-kernel branch is the kernel's plain version — there is
+no second plain route.  The TPU gates of the JAX package (VMEM footprint,
+the 256-row background slice, the dmax cap of 64) do not exist here: one
+launch takes any N and any dmax.
 
-Not in this slice (ROADMAP.md): exact interactions
-(``exact_interactions_from_reach`` and the ``exact_tree_inter`` kernel)
-and affine output heads (``_unwrap`` keeps only the bare-tree case).
+Not ported yet (ROADMAP.md): affine output heads (``_unwrap`` keeps only
+the bare-tree case).
 """
 
 from typing import Optional
@@ -36,6 +44,8 @@ import torch
 
 from distributedkernelshap_tpu_torch.models.trees import TreeEnsemblePredictor
 from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+    exact_tree_inter,
+    exact_tree_inter_plain,
     exact_tree_phi,
     exact_tree_phi_plain,
 )
@@ -99,6 +109,30 @@ def _beta_tables(dmax: int):
     wp[0, :] = 0.0
     wm[:, 0] = 0.0
     return wp.astype(np.float32), wm.astype(np.float32)
+
+
+def _interaction_tables(dmax: int):
+    """``(W_uu, W_vv, W_uv)`` for u, v <= dmax: the pairwise interaction
+    weights ``(u-2)! v! / (u+v-1)!`` (0 for u < 2), ``u! (v-2)! /
+    (u+v-1)!`` (0 for v < 2) and ``-(u-1)! (v-1)! / (u+v-1)!`` (0 unless
+    u, v >= 1), in float64 via ``gammaln`` — the oracle the kernel's weights
+    are held to."""
+
+    from scipy.special import gammaln
+
+    u = np.arange(dmax + 1)[:, None].astype(np.float64)
+    v = np.arange(dmax + 1)[None, :].astype(np.float64)
+    lg_uv = gammaln(np.maximum(u + v, 1.0))
+    w_uu = np.exp(gammaln(np.maximum(u - 1.0, 1.0)) + gammaln(v + 1.0) - lg_uv)
+    w_vv = np.exp(gammaln(u + 1.0) + gammaln(np.maximum(v - 1.0, 1.0)) - lg_uv)
+    w_uv = -np.exp(gammaln(np.maximum(u, 1.0)) + gammaln(np.maximum(v, 1.0))
+                   - lg_uv)
+    w_uu[u[:, 0] < 2, :] = 0.0
+    w_vv[:, v[0] < 2] = 0.0
+    w_uv[u[:, 0] < 1, :] = 0.0
+    w_uv[:, v[0] < 1] = 0.0
+    return (w_uu.astype(np.float32), w_vv.astype(np.float32),
+            w_uv.astype(np.float32))
 
 
 def _unsat(pred, rows, onpath, want_left):
@@ -189,17 +223,34 @@ def _exact_dmax(pred, M: int) -> int:
     return max(1, min(int(M), onpath_nodes))
 
 
+def _kernel_args(xo, xn, zo, zd, lv, bgw):
+    """The kernels' six inputs, contiguous, ``z_dead`` as 0/1 floats."""
+
+    return (xo.contiguous(), xn.contiguous(), zo.contiguous(),
+            zd.to(torch.float32).contiguous(), lv.contiguous(), bgw.contiguous())
+
+
 def _phi_call(xo, xn, zo, zd, lv, bgw, dmax: int, use_kernel: bool):
     """One contraction: the kernel's wrapper (which runs the plain version
     for CPU tensors) or, with ``use_kernel=False``, the plain version."""
 
-    args = (xo.contiguous(), xn.contiguous(), zo.contiguous(),
-            zd.to(torch.float32).contiguous(), lv.contiguous(), bgw.contiguous())
+    args = _kernel_args(xo, xn, zo, zd, lv, bgw)
     if use_kernel:
         record_kernel_path("exact_phi", "cuda" if xo.is_cuda else "plain")
         return exact_tree_phi(*args, dmax=dmax)
     record_kernel_path("exact_phi", "plain")
     return exact_tree_phi_plain(*args, dmax=dmax)
+
+
+def _inter_call(xo, xn, zo, zd, lv, bgw, dmax: int, use_kernel: bool):
+    """:func:`_phi_call`'s twin for the raw pairwise sum ``(B, M, M, K)``."""
+
+    args = _kernel_args(xo, xn, zo, zd, lv, bgw)
+    if use_kernel:
+        record_kernel_path("exact_inter", "cuda" if xo.is_cuda else "plain")
+        return exact_tree_inter(*args, dmax=dmax)
+    record_kernel_path("exact_inter", "plain")
+    return exact_tree_inter_plain(*args, dmax=dmax)
 
 
 def _finish_phi(tree, phi, head_scale: float):
@@ -209,6 +260,22 @@ def _finish_phi(tree, phi, head_scale: float):
     if tree.aggregation == "mean":
         phi = phi / tree.n_trees
     return phi.transpose(1, 2)
+
+
+def _dense_inputs(tree, X, reach, G, target_chunk_elems: Optional[int]):
+    """The kernels' dense inputs for ``X``: ``x_only/x_not (B, P, M)``,
+    ``z_ok (N, P, M)``, ``z_dead (N, P)`` and ``leaf_val (P, K)`` over all
+    ``P = T·L`` paths, and ``dmax``."""
+
+    T, L, _ = tree.path_sign.shape
+    M = int(G.shape[0])
+    B = X.shape[0]
+    N = reach["z_ok"].shape[0]
+    P = T * L
+    x_only, x_not = _x_reach(tree, X, G, reach["onpath_g"], target_chunk_elems)
+    return ((x_only.reshape(B, P, M), x_not.reshape(B, P, M),
+             reach["z_ok"].reshape(N, P, M), reach["z_ung_dead"].reshape(N, P),
+             tree.leaf_value.reshape(P, -1)), _exact_dmax(tree, M))
 
 
 def exact_shap_from_reach(pred, X, reach, bgw, G, normalized: bool = False,
@@ -225,18 +292,61 @@ def exact_shap_from_reach(pred, X, reach, bgw, G, normalized: bool = False,
     if not normalized:
         bgw = bgw / bgw.sum()
     G = G.to(torch.float32)
-    T, L, _ = tree.path_sign.shape
-    M = int(G.shape[0])
-    B = X.shape[0]
-    N = reach["z_ok"].shape[0]
-    P = T * L
-    x_only, x_not = _x_reach(tree, X, G, reach["onpath_g"], target_chunk_elems)
-    phi = _phi_call(x_only.reshape(B, P, M), x_not.reshape(B, P, M),
-                    reach["z_ok"].reshape(N, P, M),
-                    reach["z_ung_dead"].reshape(N, P),
-                    tree.leaf_value.reshape(P, -1), bgw, _exact_dmax(tree, M),
-                    resolve_use_kernel(use_kernel, X.device))
+    args, dmax = _dense_inputs(tree, X, reach, G, target_chunk_elems)
+    phi = _phi_call(*args, bgw, dmax, resolve_use_kernel(use_kernel, X.device))
     return _finish_phi(tree, phi, head_scale)
+
+
+def exact_shap_and_interactions(pred, X, reach, bgw, G, normalized: bool = False,
+                                target_chunk_elems: Optional[int] = None,
+                                use_kernel: Optional[bool] = None):
+    """Exact phi ``(B, K, M)`` and Shapley **interaction** values ``(B, K,
+    M, M)`` for ``X`` on the dense path layout, from one :func:`_x_reach`:
+    one ``exact_tree_phi`` and one ``exact_tree_inter`` call.
+
+    The matrices follow the shap TreeExplainer convention: symmetric,
+    off-diagonal ``[i, j]`` carries half the pairwise interaction index
+    ``I_ij`` (the other half sits at ``[j, i]``), and the diagonal absorbs
+    the rest of the main effect, so each row sums to ``phi_i`` and the
+    matrix to ``f(x) - E[f]``.  Raises above 64 groups, as the reference."""
+
+    M = int(G.shape[0])
+    if M > 64:
+        raise ValueError(
+            f"exact interactions scale as M x the main-effect pass; M={M} "
+            "groups is beyond the supported 64")
+    tree, head_scale = _unwrap(pred)
+    X = X.to(torch.float32)
+    bgw = bgw.to(torch.float32)
+    if not normalized:
+        bgw = bgw / bgw.sum()
+    G = G.to(torch.float32)
+    kernel = resolve_use_kernel(use_kernel, X.device)
+    args, dmax = _dense_inputs(tree, X, reach, G, target_chunk_elems)
+    phi = _finish_phi(tree, _phi_call(*args, bgw, dmax, kernel), head_scale)
+    inter = _inter_call(*args, bgw, dmax, kernel) * (tree.scale * head_scale)
+    if tree.aggregation == "mean":
+        inter = inter / tree.n_trees
+    inter = inter.permute(0, 3, 1, 2)           # (B, K, M, M)
+    # the raw sum pairs every (g, h), g == h included; the diagonal of the
+    # pairwise index is not defined, and the shap convention replaces it
+    # with the residual main effect
+    eye = torch.eye(M, dtype=inter.dtype, device=inter.device)
+    off = inter * (1.0 - eye) * 0.5
+    diag = phi - off.sum(-1)
+    return phi, off + diag[..., None] * eye
+
+
+def exact_interactions_from_reach(pred, X, reach, bgw, G, normalized: bool = False,
+                                  target_chunk_elems: Optional[int] = None,
+                                  use_kernel: Optional[bool] = None):
+    """Exact Shapley interaction values ``(B, K, M, M)`` for ``X`` given
+    :func:`background_reach`'s tensors (see
+    :func:`exact_shap_and_interactions`, which also returns phi)."""
+
+    return exact_shap_and_interactions(
+        pred, X, reach, bgw, G, normalized=normalized,
+        target_chunk_elems=target_chunk_elems, use_kernel=use_kernel)[1]
 
 
 def build_packed_plan(pred, G, tile: Optional[int] = None, shards: int = 1):

@@ -4,7 +4,8 @@
 Drives the Adult-shaped headline task of ``chip_smoke.py`` (same generator,
 same ``--seed``) through ``KernelShap.explain`` — or, with ``--exact``, the
 exact TreeSHAP explain (``nsamples='exact'``) of ``chip_smoke.py``'s seeded
-Adult-shaped GBT on the same rows — and reports, on the card:
+Adult-shaped GBT on the same rows, and with ``--interactions`` its exact
+interaction explain (``interactions=True``) — and reports, on the card:
 
 * the explain wall per batch size (one warm-up, then ``--reps`` rounds),
   and in the same rounds, right after each explain, the engine call (device
@@ -15,7 +16,7 @@ Adult-shaped GBT on the same rows — and reports, on the card:
   busy time per explain, the device's idle share of the wall, and device
   time by kernel name.
 
-    python3 scripts/torch_port_profile.py [--exact] [--seed 0] [--reps 20] [--batches 1 16 256 2560]
+    python3 scripts/torch_port_profile.py [--exact | --interactions] [--seed 0] [--reps 20] [--batches 1 16 256 2560]
 
 Prints one line per measurement and writes the JSON record to
 ``chiprun_out/torch_port_profile.json``.  Exits 2 without a CUDA device.
@@ -57,6 +58,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--exact", action="store_true",
                     help="profile the exact TreeSHAP explain instead of the headline")
+    ap.add_argument("--interactions", action="store_true",
+                    help="profile the exact interaction explain instead of the headline")
     args = ap.parse_args()
 
     import torch
@@ -70,14 +73,16 @@ def main() -> int:
 
     card = cs.card_line()
     X, bg, est = cs.adult_task(args.seed)
-    if args.exact:
-        explainer, _ = cs.explain_exact(cs.adult_shaped_gbt(args.seed), X[:1], bg, "cuda")
-        kw = {"nsamples": "exact", "silent": True}
-    else:
+    path = "interactions" if args.interactions else "exact" if args.exact else "headline"
+    if path == "headline":
         explainer, _ = cs.explain_headline(X[:1], bg, est, "cuda")
         kw = {"silent": True}
+    else:
+        kw = {"nsamples": "exact", "silent": True, "interactions": path == "interactions"}
+        explainer, _ = cs.explain_exact(cs.adult_shaped_gbt(args.seed), X[:1], bg, "cuda",
+                                        interactions=kw["interactions"])
     engine = explainer._explainer
-    record = {"card": card, "path": "exact" if args.exact else "headline", "batches": []}
+    record = {"card": card, "path": path, "batches": []}
     for B in args.batches:
         Xb = X[:B]
         explainer.explain(Xb, **kw)

@@ -145,8 +145,9 @@ def test_sampled_tree_explain_and_interactions_raise(gbt):
     assert isinstance(ks._explainer.predictor, ttrees.TreeEnsemblePredictor)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ks.explain(gbt["X"][:3])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ks.explain(gbt["X"][:3], nsamples="exact", interactions=True)
+    # interactions exist only on the exact path, as in the reference
+    with pytest.raises(ValueError, match="nsamples='exact'"):
+        ks.explain(gbt["X"][:3], interactions=True)
     with pytest.raises(ValueError, match="identity"):
         KernelShap(gbt["model"].predict, link="logit", device="cpu").fit(
             gbt["X"][:10]).explain(gbt["X"][:3], nsamples="exact")
@@ -290,7 +291,9 @@ def test_exact_tree_phi_wrapper_checks_and_never_gives_way_to_plain():
 
 def test_kernel_source_is_packaged():
     src = tck.CSRC_DIR / "exact_tree_phi.cu"
-    text = src.read_text()
+    common = tck.CSRC_DIR / "exact_tree_common.cuh"   # the packed-word limit
+    text = src.read_text() + common.read_text()
+    assert '#include "exact_tree_common.cuh"' in text
     assert "pallas_kernels.py:exact_tree_phi" in text
     assert f"kMaxM = {tck.MAX_TREE_M}" in text
     assert "exact_tree_phi" in tck.KERNELS and "exact_tree_phi" in tck._SYMBOLS

@@ -13,7 +13,9 @@ Phases (each raises on failure, so the script exits non-zero):
 1. device: the card's name and power limit; float32 matmuls must be full f32
    (no TF32), the reference's ``matmul_precision="highest"``;
 2. build: ``nvcc`` for ``sm_90a`` into ``build/kernels/``, one process per
-   source, all started together;
+   source, all started together; each exact tile kernel's registers, spills
+   and static shared memory from the build log, and its dynamic shared
+   memory and resident blocks per SM at M = 12 and 63;
 3. kernel vs plain on the card at the main path's shapes and the edge
    shapes, max abs diff <= 1e-5 on ``ey``; a class width above the kernel's
    limit must raise;
@@ -38,10 +40,13 @@ Phases (each raises on failure, so the script exits non-zero):
    and repeat bit for bit; the exact values must match a brute-force
    Shapley enumeration on 2 rows;
 7. ``exact_tree_phi`` against its plain version on the card at the main
-   path's bucket inputs and at edge shapes (ragged, N=300, dmax=1), two
-   launches bit-identical, its Beta weights against the f64 table (rtol
-   5e-5); times: exact explain wall at B=256 and B=2560, kernel and plain
-   version by CUDA events per bucket, and the kernel's bound;
+   path's bucket inputs and at the edge shapes of ``EXACT_EDGES`` (ragged,
+   N=300, dmax=1, M=40 K=3, M=16 K=2, M=24, all live, none live, N=1,
+   N=130, M=dmax=63 with every group on path), two launches
+   bit-identical, its Beta weights against the f64 table (rtol 5e-5); the
+   divergence of each bucket's walk (``divergence``); times: exact explain
+   wall at B=256 and B=2560, kernel and plain version by CUDA events per
+   bucket, and the kernel's bound;
 8. exact Shapley interactions (``exact_tree_inter``): on the same GBT,
    ``explain(X, nsamples='exact', interactions=True)`` at B=256, N=100,
    M=12 with ``pack_paths`` at its auto value (phi packs, so the engine
@@ -53,9 +58,10 @@ Phases (each raises on failure, so the script exits non-zero):
    2e-5·max(1, max|·|), repeat bit for bit, and their off-diagonal entries
    must match half the brute-force Shapley interaction index on 2 rows;
 9. ``exact_tree_inter`` against its plain version on the card (atol = rtol
-   = 3e-5) at the main path's dense inputs and at edge shapes (ragged,
-   N=300, dmax=1, M=40 K=3), two launches bit-identical, its weights against
-   the f64 table (rtol 5e-5); the path's dense ``exact_tree_phi`` launch
+   = 3e-5) at the main path's dense inputs and at the edge shapes of
+   ``EXACT_EDGES``, two launches bit-identical, its weights against the f64
+   table (rtol 5e-5); the divergence of both kernels' walks over the dense
+   inputs; the path's dense ``exact_tree_phi`` launch
    against its plain version on the same inputs (2e-5·max(1, max|phi|)),
    bit-identical; times: interaction explain wall at B=256 and B=2560, and
    for each of the two kernels at the dense inputs the kernel and plain
@@ -482,8 +488,10 @@ def phi_bound_ms(args, sm_count, sm_clock_hz):
     of their unit, per unit.  Operations, counted from the data: for every
     (b, p, n) triple whose path holds a group of the instance, 3 masked
     population counts (6 integer operations); for every live triple (alive,
-    u + v > 0), 3 f32 divisions (one SFU reciprocal each) and u + v f32 adds
-    into the per-group sums."""
+    u + v > 0), the two weights (an f32 multiply each: the binomials'
+    reciprocals are tabled, so no division is needed) and u + 1 f32 adds
+    into the per-group sums (v is fixed per (b, p) on alive rows, so the
+    x-not side is one sum)."""
 
     import torch
 
@@ -497,34 +505,73 @@ def phi_bound_ms(args, sm_count, sm_clock_hz):
     live = (dead < 0.5) & (zd[None] < 0.5) & (u + v > 0.5)
     on_path = int(((xo + xn).sum(-1) > 0.5).sum()) * N
     n_live = int(live.sum())
-    adds = float((u + v)[live].sum())
+    adds = float((u + 1.0)[live].sum())
     nbytes = 4 * (2 * B * P * M + N * P * M + N * P + P * K + N + B * M * K)
     per_s = sm_count * sm_clock_hz
     times = {
         "bytes": nbytes / HBM_BYTES_PER_S,
         "operations": max(6 * on_path / (per_s * INT32_LANES_PER_SM),
-                          3 * n_live / (per_s * SFU_OPS_PER_SM_PER_CLOCK),
-                          adds / (per_s * FP32_LANES_PER_SM)),
+                          (2 * n_live + adds) / (per_s * FP32_LANES_PER_SM)),
     }
     bound_by = max(times, key=times.get)
     return 1e3 * times[bound_by], bound_by, {"triples": B * P * N, "on_path": on_path,
                                               "live": n_live, "adds": adds}
 
 
-def phi_edge_inputs(rng, B, P, N, M, K, device):
+def phi_edge_inputs(rng, B, P, N, M, K, device, kind="random"):
     """Random 0/1 ``exact_tree_phi`` inputs (disjoint x_only/x_not on each
-    path's groups, normalised weights)."""
+    path's groups, normalised weights).  ``kind``: ``"random"``; ``"all
+    live"`` (each path's x-not groups are the same for every instance and
+    lie in z_ok, z_dead = 0: every row is alive); ``"none live"`` (z_dead =
+    1 everywhere); ``"all on path"`` (every group on every path, x-only at a
+    rate of 0.9 and instance 0 on all of them, z_ok drawn at a rate of
+    U(0.2, 1) per row: the widest rank sets and many pairs)."""
 
     import torch
 
     x_ok = (rng.random((B, P, M)) < 0.6).astype(np.float32)
     onpath = (rng.random((P, M)) < 0.4).astype(np.float32)
-    arrays = (x_ok * onpath, (1 - x_ok) * onpath,
-              (rng.random((N, P, M)) < 0.7).astype(np.float32),
-              (rng.random((N, P)) < 0.1).astype(np.float32),
-              rng.normal(size=(P, K)).astype(np.float32),
+    z_ok = (rng.random((N, P, M)) < 0.7).astype(np.float32)
+    z_dead = (rng.random((N, P)) < 0.1).astype(np.float32)
+    if kind == "all on path":
+        onpath[:] = 1.0
+        x_ok = (rng.random((B, P, M)) < 0.9).astype(np.float32)
+        x_ok[0] = 1.0
+        z_ok = (rng.random((N, P, M)) < rng.uniform(0.2, 1.0, (N, 1, 1))).astype(np.float32)
+    x_only, x_not = x_ok * onpath, (1 - x_ok) * onpath
+    if kind == "all live":
+        not_p = (rng.random((P, M)) < 0.5).astype(np.float32) * onpath
+        x_only = x_only * (1 - not_p)
+        x_not = np.broadcast_to(not_p, (B, P, M)).copy()
+        z_ok = np.maximum(z_ok, not_p[None])
+        z_dead[:] = 0.0
+    if kind == "none live":
+        z_dead[:] = 1.0
+    arrays = (x_only, x_not, z_ok, z_dead, rng.normal(size=(P, K)).astype(np.float32),
               (lambda w: w / w.sum())(rng.random(N).astype(np.float32) + 0.1))
     return tuple(torch.tensor(a, device=device) for a in arrays)
+
+
+#: edge shapes both exact kernels are held to their plain versions at:
+#: (name, (B, P, N, M, K, dmax), kind of phi_edge_inputs)
+EXACT_EDGES = [
+    ("ragged", (13, 77, 77, 6, 1, 6), "random"),
+    ("N=300", (64, 300, 300, 12, 1, 12), "random"),
+    ("dmax=1", (64, 256, 100, 12, 1, 1), "random"),
+    ("K=3 M=40", (9, 50, 30, 40, 3, 40), "random"),
+    ("M=16 K=2", (32, 200, 100, 16, 2, 16), "random"),
+    ("M=24", (32, 200, 100, 24, 1, 10), "random"),
+    ("all live", (64, 256, 100, 12, 2, 12), "all live"),
+    ("none live", (64, 256, 100, 12, 1, 12), "none live"),
+    ("N=1", (64, 256, 1, 12, 1, 12), "random"),
+    ("N=130, not a multiple of the chunk", (32, 200, 130, 12, 1, 12), "random"),
+    ("M=63 dmax=63 all on path", (16, 64, 40, 63, 1, 63), "all on path"),
+]
+
+
+def edge_cases(rng, device):
+    return [(name, phi_edge_inputs(rng, B, P, N, M, K, device, kind), dmax)
+            for name, (B, P, N, M, K, dmax), kind in EXACT_EDGES]
 
 
 def beta_weight_inputs(D, device):
@@ -549,6 +596,104 @@ def beta_weight_inputs(D, device):
     return tuple(torch.tensor(a, device=device) for a in arrays), np.array(pairs)
 
 
+def live_triples(args, kind):
+    """``(B, N, P)`` bool: the triples whose row a tile kernel's live mask
+    keeps -- alive (z_dead clear, every x-not group in z_ok) and adding
+    something: ``u + v > 0`` for ``"phi"``; for ``"inter"`` some pairwise
+    weight nonzero (v >= 2, or u >= 1 with v >= 1, or u >= 2)."""
+
+    import torch
+
+    xo, xn, zo, zd, _, _ = args
+    nz = 1.0 - zo
+    u = torch.einsum("bpm,npm->bnp", xo, nz)
+    v = torch.einsum("bpm,npm->bnp", xn, zo)
+    alive = (torch.einsum("bpm,npm->bnp", xn, nz) < 0.5) & (zd[None] < 0.5)
+    if kind == "phi":
+        return alive & (u + v > 0.5)
+    return alive & ((v > 1.5) | ((u > 0.5) & (v > 0.5)) | (u > 1.5))
+
+
+def divergence(args, kind):
+    """    how much predicated work the live-row masks remove, from the data:
+    per (instance b, 32-path tile, chunk of ``EXACT_CHUNK_ROWS`` rows) -- one
+    warp's walk over one staged chunk -- the rows where any lane is live (a
+    body predicated per row runs on each), the most live rows of one lane
+    (the trip count of a mask loop with one path per lane, as
+    ``exact_tree_phi``'s) and the live triples (the steps of a warp-uniform
+    walk over the warp's paths, as ``exact_tree_inter``'s), each summed over
+    all warp-chunks."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import EXACT_CHUNK_ROWS as nc
+
+    live = live_triples(args, kind)
+    B, N, P = live.shape
+    C, T = -(-N // nc), -(-P // 32)
+    padded = torch.zeros((B, C * nc, T * 32), dtype=torch.bool, device=live.device)
+    padded[:, :N, :P] = live
+    per = padded.view(B, C, nc, T, 32)
+    out = {"warp_chunks": B * C * T, "rows_staged": B * N * T,
+           "rows_any_lane_live": int(per.any(-1).sum()),
+           "max_lane_live_rows": int(per.sum(2).max(-1).values.sum()),
+           "live_triples": int(live.sum()), "triples": B * N * P}
+    out["body_steps_saved"] = 1.0 - out["max_lane_live_rows"] / max(1, out["rows_any_lane_live"])
+    out["lane_use_in_body"] = out["live_triples"] / max(1, 32 * out["max_lane_live_rows"])
+    return out
+
+
+def print_divergence(label, args, kind):
+    d = divergence(args, kind)
+    print(f"divergence [{label}]: {d['warp_chunks']} warp-chunks, {d['rows_staged']} "
+          f"staged rows; rows with any live lane (a predicated body runs) "
+          f"{d['rows_any_lane_live']}; max-over-lanes live rows (the mask loop runs) "
+          f"{d['max_lane_live_rows']} ({100 * d['body_steps_saved']:.1f}% fewer body "
+          f"steps); live triples (the steps of a warp-uniform walk) "
+          f"{d['live_triples']} of {d['triples']} "
+          f"({100 * d['live_triples'] / d['triples']:.1f}%), lanes busy in the body "
+          f"{100 * d['lane_use_in_body']:.1f}%", flush=True)
+    return d
+
+
+def tile_name(function: str) -> str:
+    """``inter_tile_kernel<unsigned, 3>`` from a mangled kernel name."""
+
+    import re
+
+    m = re.search(r"\d+([a-z_]+_kernel)(I((?:j|y|Li\d+E)+)E)?", function)
+    if not m:
+        return function
+    if not m.group(2):
+        return m.group(1)
+    names = {"j": "unsigned", "y": "u64"}
+    args = [names.get(t, t[2:-1]) for t in re.findall(r"j|y|Li\d+E", m.group(3))]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def exact_kernel_report(libs):
+    """Each exact kernel's build report (registers, static shared memory,
+    spills per kernel function, from the ``.log`` beside its library) and
+    what its tile kernel takes at the Adult width (M = 12) and at the widest
+    (M = 63): dynamic shared memory and resident blocks per SM."""
+
+    from distributedkernelshap_tpu_torch.ops import cuda_kernels
+
+    for name in ("exact_tree_phi", "exact_tree_inter"):
+        log = libs[name].with_name(libs[name].name + ".log")
+        rows = cuda_kernels.ptxas_report(log.read_text() if log.exists() else "")
+        for r in rows:
+            print(f"  ptxas {name}: {tile_name(r['function'])}: {r.get('registers')} "
+                  f"registers, {r.get('smem_bytes')} B static smem, "
+                  f"{r.get('stack_bytes')} B stack, spill stores "
+                  f"{r.get('spill_stores')} B, spill loads {r.get('spill_loads')} B",
+                  flush=True)
+        if not any("tile_kernel" in r["function"] for r in rows):
+            raise AssertionError(f"no ptxas report for {name}'s tile kernels in {log}")
+        for M in (12, 63):
+            print(f"  {name} tile kernel at M={M}: "
+                  f"{cuda_kernels.tile_kernel_info(name, M)}", flush=True)
+
+
 def compare_exact_kernel(buckets, seed, device):
     """Phase 7a: ``exact_tree_phi`` against its plain version on the card at
     the main path's bucket inputs and at edge shapes; bit-identical
@@ -563,10 +708,7 @@ def compare_exact_kernel(buckets, seed, device):
 
     rng = np.random.default_rng([seed, 11])
     cases = [(f"bucket {i} dmax={d}", a, d) for i, (a, d) in enumerate(buckets)]
-    for name, (B, P, N, M, K, dmax) in [
-            ("ragged", (13, 77, 77, 6, 1, 6)), ("N=300", (64, 300, 300, 12, 1, 12)),
-            ("dmax=1", (64, 256, 100, 12, 1, 1)), ("K=3 M=40", (9, 50, 30, 40, 3, 40))]:
-        cases.append((name, phi_edge_inputs(rng, B, P, N, M, K, device), dmax))
+    cases += edge_cases(rng, device)
     worst = 0.0
     for name, args, dmax in cases:
         got = exact_tree_phi(*args, dmax=dmax)
@@ -672,6 +814,8 @@ def exact_phase(tables, X_all, bg, device, sm_count, sm_clock_hz, card, seed):
     # 7. kernel vs plain at the main path's inputs and edges, then times
     buckets = bucket_inputs(packed_explainer, X, device)
     max_err = compare_exact_kernel(buckets, seed, device)
+    for i, (args, dmax) in enumerate(buckets):
+        print_divergence(f"exact_tree_phi, bucket {i} dmax={dmax}", args, "phi")
     walls = {}
     for B in (B_EXACT, B_EXACT_BIG):
         Xb = X_all[:B]
@@ -759,11 +903,11 @@ def inter_bound_ms(args, sm_count, sm_clock_hz):
     operations over the peak rate of their unit.  Operations, counted from
     the data: for every (b, p, n) triple whose path holds a group of the
     instance, 3 masked population counts (6 integer operations); for every
-    alive triple, one f32 division for the base weight when any pairwise
-    weight is nonzero, and one each for W_uu (u >= 2), W_uv (u, v >= 1)
-    and W_vv (v >= 2) (SFU reciprocals); and the f32 adds into the pair
-    sums: u² for the UU block (u >= 2), u for the UV sums (u, v >= 1) and
-    one for the VV sum (v >= 2)."""
+    alive triple, one f32 multiply each for W_uu (u >= 2), W_uv (u, v >= 1)
+    and W_vv (v >= 2) (the binomials' reciprocals are tabled, so no
+    division is needed); and the f32 adds into the pair sums: u(u+1)/2 for
+    the UU triangle (u >= 2; the block is symmetric), u for the UV sums
+    (u, v >= 1) and one for the VV sum (v >= 2)."""
 
     import torch
 
@@ -778,20 +922,19 @@ def inter_bound_ms(args, sm_count, sm_clock_hz):
     uu, uv, vv = alive & (u > 1.5), alive & (u > 0.5) & (v > 0.5), alive & (v > 1.5)
     live = uu | uv | vv
     on_path = int(((xo + xn).sum(-1) > 0.5).sum()) * N
-    divisions = float(live.sum() + uu.sum() + uv.sum() + vv.sum())
-    adds = float((u * u)[uu].sum() + u[uv].sum() + vv.sum())
+    multiplies = float(uu.sum() + uv.sum() + vv.sum())
+    adds = float((u * (u + 1.0) / 2.0)[uu].sum() + u[uv].sum() + vv.sum())
     nbytes = 4 * (2 * B * P * M + N * P * M + N * P + P * K + N + B * M * M * K)
     per_s = sm_count * sm_clock_hz
     times = {
         "bytes": nbytes / HBM_BYTES_PER_S,
         "operations": max(6 * on_path / (per_s * INT32_LANES_PER_SM),
-                          divisions / (per_s * SFU_OPS_PER_SM_PER_CLOCK),
-                          adds / (per_s * FP32_LANES_PER_SM)),
+                          (multiplies + adds) / (per_s * FP32_LANES_PER_SM)),
     }
     bound_by = max(times, key=times.get)
     return 1e3 * times[bound_by], bound_by, {
         "triples": B * P * N, "on_path": on_path, "live": int(live.sum()),
-        "divisions": divisions, "adds": adds, "bytes": nbytes}
+        "multiplies": multiplies, "adds": adds, "bytes": nbytes}
 
 
 def raw_close(got, ref):
@@ -814,11 +957,7 @@ def compare_inter_kernel(dense, seed, device):
     from distributedkernelshap_tpu_torch.ops.treeshap import _interaction_tables
 
     rng = np.random.default_rng([seed, 13])
-    cases = [("dense main path", *dense)]
-    for name, (B, P, N, M, K, dmax) in [
-            ("ragged", (13, 77, 77, 6, 1, 6)), ("N=300", (64, 300, 300, 12, 1, 12)),
-            ("dmax=1", (64, 256, 100, 12, 1, 1)), ("K=3 M=40", (9, 50, 30, 40, 3, 40))]:
-        cases.append((name, phi_edge_inputs(rng, B, P, N, M, K, device), dmax))
+    cases = [("dense main path", *dense)] + edge_cases(rng, device)
     worst = 0.0
     for name, args, dmax in cases:
         got = exact_tree_inter(*args, dmax=dmax)
@@ -917,6 +1056,8 @@ def inter_phase(tables, X_all, bg, device, sm_count, sm_clock_hz, card, seed):
     # 9. kernel vs plain at the main path's inputs and edges, then times
     args, dmax = dense_inputs(explainer, X, device)
     max_err = compare_inter_kernel((args, dmax), seed, device)
+    print_divergence("exact_tree_inter, dense main path", args, "inter")
+    print_divergence("exact_tree_phi, interaction path, dense", args, "phi")
     # the path's dense exact_tree_phi launch (the same inputs), held alone
     phi_got = exact_tree_phi(*args, dmax=dmax)
     phi_again = exact_tree_phi(*args, dmax=dmax)
@@ -997,10 +1138,11 @@ def main() -> int:
     libs = cuda_kernels.build()
     for name, path in libs.items():
         print(f"built {name}: {path} in {time.perf_counter() - t0:.1f} s", flush=True)
-        log = path.with_name(path.name + ".log")
-        for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}", flush=True)
+    log = libs["fused_linear_ey"].with_name(libs["fused_linear_ey"].name + ".log")
+    for line in (log.read_text().splitlines() if log.exists() else []):
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas fused_linear_ey: {line.strip()}", flush=True)
+    exact_kernel_report(libs)
 
     # 3. kernel vs plain
     max_err = compare_kernel(args.seed, device)

@@ -1,15 +1,27 @@
 // What exact_tree_phi.cu and exact_tree_inter.cu share: the packed
-// background format, the binomial table, the background staging, the
+// background format, the background staging, the live-row masks, the
 // fixed-order tile sum and the launch sequence.  Each .cu adds only its tile
-// kernel and its extern "C" names.
+// kernel, its shared-memory size and its extern "C" names.
 //
 // Packed format: one 64-bit word per (background row n, path p) holds the
 // z_ok bits of the M groups in bits 0..M-1 and z_dead in bit 63, so M <= 63
 // (kMaxM; the wrapper's MAX_TREE_M).  A tile kernel runs one thread per
 // (instance b, path p) in 256-thread blocks of 8 instances x 32 paths (one
-// path per lane), stages the background through shared memory NC rows at a
+// path per lane), stages the background through shared memory kNC rows at a
 // time and writes one partial output per 32-path tile; sum_tiles_kernel adds
 // the tiles in a fixed order, so two launches give bit-identical output.
+//
+// Live rows: after a chunk is staged each lane sweeps it once and keeps, as
+// one 64-bit mask in a register, the rows that are alive for its (b, p) and
+// add something to its sums (live_rows).  exact_tree_phi runs its body over
+// the set bits of its own mask (a warp steps max-over-lanes(live rows)
+// times a chunk); exact_tree_inter shuffles the masks and walks the warp's
+// paths one at a time (a warp steps once per live triple).
+//
+// Weights: the kernels do no division.  The wrapper builds the reciprocal
+// weight tables once per (kind, dmax, M, device) from the reference's
+// masked-product binomial and passes them in; each kernel stages them in
+// shared memory, indexed [u][v] with row length M + 1.
 
 #pragma once
 
@@ -23,57 +35,53 @@ constexpr int kTP = 32;                  // paths per block: one per lane
 constexpr int kTB = kThreads / kTP;      // instances per block: one per warp
 constexpr int kMaxM = 63;
 constexpr int kDeadBit = 63;
+constexpr int kNC = 64;                  // rows per chunk: one live-mask word
+constexpr size_t kMaxSmem = 232448;      // a block's shared memory after the opt-in
 static_assert(kTP == 32, "one path per lane: the shuffle reduction spans a warp");
+static_assert(kNC == 64, "the live mask of a chunk is one 64-bit word");
 
 typedef unsigned long long u64;
 
-// Shared memory of a tile kernel: nc rows x kTP packed words, nc weights and
-// the (dm+1)x(M+1) binomial table.
-constexpr size_t smem_bytes(int nc, int dm, int M) {
-  return sizeof(u64) * nc * kTP + sizeof(float) * (nc + (size_t)(dm + 1) * (M + 1));
+// Shared memory every tile kernel starts with: kNC rows x kTP packed words,
+// kNC weights and ntab weight tables of (M+1)x(M+1) floats.
+constexpr size_t stage_bytes(int M, int ntab) {
+  return sizeof(u64) * kNC * kTP +
+         sizeof(float) * (kNC + (size_t)ntab * (M + 1) * (M + 1));
 }
 
 constexpr int partial_tiles(int P) { return (P + kTP - 1) / kTP; }
 
-// Pack z_ok/z_dead into one word per (n, p) and build the binomial table
-// table[t*(M+1)+v] = prod_{i=1..t} (v+i)/i for t <= dm, v <= M, with the
-// reference's masked-product arithmetic.
-__global__ void prep_kernel(const float* __restrict__ z_ok,
+// Pack z_ok/z_dead into one word per (n, p).
+__global__ void pack_kernel(const float* __restrict__ z_ok,
                             const float* __restrict__ z_dead,
-                            u64* __restrict__ zbits, float* __restrict__ table,
-                            long long NP, int M, int dm) {
+                            u64* __restrict__ zbits, long long NP, int M) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < NP) {
-    const float* z = z_ok + idx * M;
-    u64 bits = 0;
-    for (int m = 0; m < M; ++m)
-      if (z[m] > 0.5f) bits |= 1ull << m;
-    if (z_dead[idx] > 0.5f) bits |= 1ull << kDeadBit;
-    zbits[idx] = bits;
-  }
-  if (idx < (long long)(dm + 1) * (M + 1)) {
-    const int t = (int)(idx / (M + 1));
-    const float fv = (float)(idx % (M + 1));
-    float binom = 1.0f;
-    for (int i = 1; i <= t; ++i) {
-      const float fi = (float)i;
-      binom = binom * ((fv + fi) / fi);
-    }
-    table[idx] = binom;
-  }
+  if (idx >= NP) return;
+  const float* z = z_ok + idx * M;
+  u64 bits = 0;
+  for (int m = 0; m < M; ++m)
+    if (z[m] > 0.5f) bits |= 1ull << m;
+  if (z_dead[idx] > 0.5f) bits |= 1ull << kDeadBit;
+  zbits[idx] = bits;
 }
 
-// Stage background chunk c (NC rows: the packed words of the block's 32
+// Copy the n weight-table floats into shared memory (ordered before their
+// first use by stage_chunk's leading barrier).
+__device__ __forceinline__ void stage_tables(float* tab, const float* __restrict__ tables,
+                                             int n) {
+  for (int i = threadIdx.x; i < n; i += kThreads) tab[i] = tables[i];
+}
+
+// Stage background chunk c (kNC rows: the packed words of the block's 32
 // paths, a dead word past P, and the weights) into shared memory; returns
 // the chunk's row count.  Starts with a barrier, so the block is done with
-// the previous chunk (and with any table copy before the first call).
-template <int NC>
+// the previous chunk (and with the table copy before the first call).
 __device__ __forceinline__ int stage_chunk(u64* zs, float* ws,
                                            const u64* __restrict__ zbits,
                                            const float* __restrict__ bgw,
                                            int c, int N, int P, int p0) {
-  const int n0 = c * NC;
-  const int nc = min(NC, N - n0);
+  const int n0 = c * kNC;
+  const int nc = min(kNC, N - n0);
   __syncthreads();
   for (int i = threadIdx.x; i < nc * kTP; i += kThreads) {
     const int pl = p0 + i % kTP;
@@ -82,6 +90,42 @@ __device__ __forceinline__ int stage_chunk(u64* zs, float* ws,
   for (int i = threadIdx.x; i < nc; i += kThreads) ws[i] = bgw[n0 + i];
   __syncthreads();
   return nc;
+}
+
+__device__ __forceinline__ int popc(unsigned x) { return __popc(x); }
+__device__ __forceinline__ int popc(u64 x) { return __popcll(x); }
+
+// Bit n set: staged row n is alive for this lane's (b, p) -- z_dead clear
+// and no x-not group outside z_ok -- and at least need_u of its x-only
+// groups lie outside z_ok (the kernel's own "adds something" test).  Group
+// masks of width MaskT: 32 bits while M <= 32.
+template <typename MaskT>
+__device__ __forceinline__ u64 live_rows(const u64* zs, int nc, int lane, MaskT xo,
+                                         MaskT xn, MaskT mmask, int need_u) {
+  u64 live = 0;
+#pragma unroll 4
+  for (int n = 0; n < nc; ++n) {
+    const u64 z = zs[n * kTP + lane];
+    const MaskT nz = ~(MaskT)z & mmask;
+    const bool keep = !(z >> kDeadBit) && !(xn & nz) && popc(xo & nz) >= need_u;
+    live |= (u64)keep << n;
+  }
+  return live;
+}
+
+// The x-only and x-not groups of (b, p) as bit masks in registers (0 for a
+// thread past B or P).
+__device__ __forceinline__ void group_bits(const float* __restrict__ x_only,
+                                           const float* __restrict__ x_not,
+                                           size_t bp, int M, bool ok, u64& xo, u64& xn) {
+  xo = xn = 0;
+  if (!ok) return;
+  const float* a = x_only + bp * M;
+  const float* c = x_not + bp * M;
+  for (int m = 0; m < M; ++m) {
+    if (a[m] > 0.5f) xo |= 1ull << m;
+    if (c[m] > 0.5f) xn |= 1ull << m;
+  }
 }
 
 // out[i] = sum over path tiles t = 0, 1, ... of partial[t][i], in order.
@@ -95,44 +139,62 @@ __global__ void sum_tiles_kernel(const float* __restrict__ partial,
   out[i] = s;
 }
 
-// A tile kernel: (x_only, x_not, zbits, leaf_val, bgw, table, partial,
-// B, P, N, M, K, dm), writing partial (tiles, B, out_per_b).
+// A tile kernel: (x_only, x_not, zbits, leaf_val, bgw, tables, partial, B,
+// P, N, M, K), writing partial (tiles, B, out_per_b).
 typedef void (*TileKernel)(const float*, const float*, const u64*, const float*,
                            const float*, const float*, float*, int, int, int,
-                           int, int, int);
+                           int, int);
 
-// The launch sequence of an exact kernel: validate, pack and build the
-// table, run the tile kernel instantiated for M <= 16, 32 or 64 groups
-// (registers per thread grow with the template width), sum the tiles.
-// out_per_b floats per instance (M*K for phi, M*M*K for the pairs).  All
-// pointers are device pointers to contiguous arrays: float32 inputs
-// x_only/x_not (B,P,M), z_ok (N,P,M), z_dead (N,P), leaf_val (P,K), bgw (N,)
-// (normalised); scratch zbits (N,P) 64-bit, table ((dmax+1)*(M+1)) float32,
+// Let the tile kernel take smem bytes of dynamic shared memory (an opt-in
+// above 48 KB); the cudaError_t, or cudaErrorInvalidValue above the card's
+// per-block limit.
+inline int allow_smem(TileKernel tile, size_t smem) {
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(tile, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+}
+
+// Resident blocks per SM of the tile kernel at smem bytes, or minus the
+// cudaError_t of the query.
+inline int blocks_per_sm(TileKernel tile, size_t smem) {
+  int err = allow_smem(tile, smem);
+  if (err) return -err;
+  int n = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, tile, kThreads, smem);
+  return err ? -err : n;
+}
+
+inline bool valid_problem(int B, int P, int N, int M, int K, int dmax) {
+  return B > 0 && P > 0 && N > 0 && M > 0 && K > 0 && M <= kMaxM && dmax >= 1 &&
+         dmax <= M && partial_tiles(P) <= 65535;
+}
+
+// The launch sequence of an exact kernel: pack, opt the tile kernel in to
+// smem bytes of shared memory, run it, sum the tiles.  out_per_b floats per
+// instance (M*K for phi, M*M*K for the pairs).  All pointers are device
+// pointers to contiguous arrays: float32 inputs x_only/x_not (B,P,M), z_ok
+// (N,P,M), z_dead (N,P), leaf_val (P,K), bgw (N,) (normalised), tables (the
+// kernel's weight tables, each (M+1)x(M+1)); scratch zbits (N,P) 64-bit,
 // partial (tiles,B,out_per_b) float32; out (B,out_per_b).  dmax must be in
-// [1, M].  Returns the cudaError_t of the launches.
-template <int NC>
-int launch_exact(TileKernel k16, TileKernel k32, TileKernel k64,
-                 long long out_per_b, const float* x_only, const float* x_not,
-                 const float* z_ok, const float* z_dead, const float* leaf_val,
-                 const float* bgw, void* zbits, float* table, float* partial,
-                 float* out, int B, int P, int N, int M, int K, int dmax,
-                 void* stream) {
-  if (B <= 0 || P <= 0 || N <= 0 || M <= 0 || K <= 0 || M > kMaxM ||
-      dmax < 1 || dmax > M || partial_tiles(P) > 65535)
-    return (int)cudaErrorInvalidValue;
+// [1, M].  Returns the cudaError_t of the first step that failed.
+inline int launch_exact(TileKernel tile, size_t smem, long long out_per_b,
+                        const float* x_only, const float* x_not, const float* z_ok,
+                        const float* z_dead, const float* leaf_val, const float* bgw,
+                        const float* tables, void* zbits, float* partial, float* out,
+                        int B, int P, int N, int M, int K, int dmax, void* stream) {
+  if (!valid_problem(B, P, N, M, K, dmax)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   u64* zb = static_cast<u64*>(zbits);
   const long long NP = (long long)N * P;
-  const long long tsize = (long long)(dmax + 1) * (M + 1);
-  const long long prep_n = NP > tsize ? NP : tsize;
-  prep_kernel<<<(unsigned)((prep_n + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      z_ok, z_dead, zb, table, NP, M, dmax);
+  pack_kernel<<<(unsigned)((NP + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      z_ok, z_dead, zb, NP, M);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  const TileKernel tile = M <= 16 ? k16 : (M <= 32 ? k32 : k64);
+  err = allow_smem(tile, smem);
+  if (err) return err;
   dim3 grid((B + kTB - 1) / kTB, partial_tiles(P));
-  tile<<<grid, kThreads, smem_bytes(NC, dmax, M), st>>>(
-      x_only, x_not, zb, leaf_val, bgw, table, partial, B, P, N, M, K, dmax);
+  tile<<<grid, kThreads, smem, st>>>(x_only, x_not, zb, leaf_val, bgw, tables, partial,
+                                     B, P, N, M, K);
   err = (int)cudaGetLastError();
   if (err) return err;
   const long long total = (long long)B * out_per_b;

@@ -16,16 +16,24 @@
 //   phi[b,m,k] = sum_p (s_p*x_only - s_m*x_not)[b,p,m] * leaf_val[p,k]
 //
 // What bounds it: the B*P*N triples (52 M at the Adult GBT's packed shapes,
-// B=256, P=2048, N=100), each a handful of integer operations and, when the
-// row is alive, three f32 divisions and u+v adds; the inputs are ~60 MB of
-// 0/1 floats read once.  So it is bound by operations, and the design
-// makes each triple cheap: the indicators are packed into bit masks (x in
-// registers, z once per launch by a prep pass), the counts are population
-// counts, the binomial is read from a (dmax+1)x(M+1) table built once per
-// launch with the reference's own masked product (the plain version's
-// arithmetic), and a row that is dead or adds nothing is skipped.  Since
-// x_only and x_not are disjoint, each thread keeps ONE accumulator per
-// group: s_p on its x-only groups, s_m on its x-not groups.
+// B=256, P=2048, N=100), each a handful of integer operations, and on a live
+// row two weights and u + 1 adds; the inputs are ~60 MB of 0/1 floats read
+// once.  So it is bound by operations (integer counts).  What the design
+// does about it:
+//
+// - The indicators are bit masks (x in registers, z packed once per launch
+//   by a prep pass) and the counts population counts.
+// - On an alive row every x-not group of (b, p) lies in z_ok, so v and the
+//   whole V side are fixed per (b, p): s_m is the same ONE scalar sum
+//   S_m = sum_n wm for every x-not group, applied in the epilogue.  Only the
+//   x-only groups outside z_ok take a per-group add, a predicated add on
+//   su = x_only & !z_ok into one register per group.
+// - The weights come from two reciprocal tables staged in shared memory,
+//   wp_tab[u][v] = 1/(u C(u+v,u)) and wm_tab[u][v] = 1/(v C(u+v,u)), built
+//   by the wrapper from the reference's masked-product binomial: a live row
+//   costs two table reads and two multiplies by bgw[n], and no division.
+// - Each lane sweeps a staged chunk once into a live-row mask (alive, and
+//   u + v > 0), and the body runs over its set bits only.
 //
 // Layout and tiling: one thread per (b, p); a block of 256 threads is 8
 // warps = 8 instances x 32 paths (one path per lane).  The background axis
@@ -37,77 +45,70 @@
 // launches on the same inputs give bit-identical phi (the TPU kernel
 // accumulated over a sequential grid axis instead).  Limit: M <= 63 groups
 // (one 64-bit word per (n, p) holds the z_ok bits and the z_dead bit).
-// The packing, staging, tile sum and launch sequence are in
+// The packing, staging, live masks, tile sum and launch sequence are in
 // exact_tree_common.cuh, shared with exact_tree_inter.cu.
 
 #include "exact_tree_common.cuh"
 
 namespace {
 
-constexpr int kNC = 64;                  // background rows staged per chunk
-static_assert(smem_bytes(kNC, kMaxM, kMaxM) <= 48 * 1024,
-              "staging must fit without an opt-in");
+constexpr int kTabs = 2;   // wp_tab, wm_tab, each (M+1)x(M+1)
 
-template <int MT>
+size_t phi_smem(int M) { return stage_bytes(M, kTabs); }
+
+// Group masks of width MaskT (32 bits while M <= 32), MT group registers.
+template <typename MaskT, int MT>
 __global__ void __launch_bounds__(kThreads)
 phi_tile_kernel(const float* __restrict__ x_only, const float* __restrict__ x_not,
                 const u64* __restrict__ zbits, const float* __restrict__ leaf_val,
-                const float* __restrict__ bgw, const float* __restrict__ table,
-                float* __restrict__ partial, int B, int P, int N, int M, int K,
-                int dm) {
+                const float* __restrict__ bgw, const float* __restrict__ tables,
+                float* __restrict__ partial, int B, int P, int N, int M, int K) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ts = M + 1;
+  const int tn = ts * ts;
   u64* zs = reinterpret_cast<u64*>(smem_raw);           // [kNC][kTP]
   float* ws = reinterpret_cast<float*>(zs + kNC * kTP);  // [kNC]
-  float* tab = ws + kNC;                                 // [(dm+1)(M+1)]
+  float* tab = ws + kNC;                                 // [kTabs][M+1][M+1]
+  stage_tables(tab, tables, kTabs * tn);
 
   const int lane = threadIdx.x % kTP;
   const int b = blockIdx.x * kTB + threadIdx.x / kTP;
   const int p0 = blockIdx.y * kTP;
   const int p = p0 + lane;
   const bool ok = b < B && p < P;
-  const int tsize = (dm + 1) * (M + 1);
-  for (int i = threadIdx.x; i < tsize; i += kThreads) tab[i] = table[i];
-
-  u64 xo = 0, xn = 0;
-  if (ok) {
-    const float* a = x_only + ((size_t)b * P + p) * M;
-    const float* c = x_not + ((size_t)b * P + p) * M;
-    for (int m = 0; m < M; ++m) {
-      if (a[m] > 0.5f) xo |= 1ull << m;
-      if (c[m] > 0.5f) xn |= 1ull << m;
-    }
-  }
-  const u64 mmask = (1ull << M) - 1;   // M <= 63
+  u64 xo64, xn64;
+  group_bits(x_only, x_not, (size_t)b * P + p, M, ok, xo64, xn64);
+  const MaskT xo = (MaskT)xo64, xn = (MaskT)xn64;
+  const MaskT mmask = (MaskT)((1ull << M) - 1);   // M <= 63
+  // column v = |x_not| of each table, read at [u * ts]
+  const float* t_p = tab + __popcll(xn64);
+  const float* t_m = t_p + tn;
+  // with an x-not group every alive row adds to S_m; without, it needs u > 0
+  const int need_u = xn ? 0 : 1;
 
   float acc[MT];
 #pragma unroll
   for (int m = 0; m < MT; ++m) acc[m] = 0.0f;
+  float sm = 0.0f;
 
   const int nchunks = (N + kNC - 1) / kNC;
   for (int c = 0; c < nchunks; ++c) {
-    const int nc = stage_chunk<kNC>(zs, ws, zbits, bgw, c, N, P, p0);
-    if ((xo | xn) == 0) continue;   // no group on this path: phi adds nothing
-    for (int n = 0; n < nc; ++n) {
-      const u64 z = zs[n * kTP + lane];
-      const u64 nz = ~z & mmask;
-      if ((z >> kDeadBit) || (xn & nz)) continue;   // not alive
-      const u64 su = xo & nz;    // groups that must be IN the coalition
-      const u64 sv = xn & z;     // groups that must be OUT
-      const int u = __popcll(su);
-      const int v = __popcll(sv);
-      if (u + v == 0) continue;  // wp = wm = 0
-      const float a = ws[n] / tab[min(u, dm) * (M + 1) + v];
-      const float wp = u ? a / (float)u : 0.0f;
-      const float wm = v ? a / (float)v : 0.0f;
+    const int nc = stage_chunk(zs, ws, zbits, bgw, c, N, P, p0);
+    for (u64 live = live_rows(zs, nc, lane, xo, xn, mmask, need_u); live;
+         live &= live - 1) {
+      const int n = __ffsll(live) - 1;
+      const MaskT su = xo & ~(MaskT)zs[n * kTP + lane];   // groups that must be IN
+      const int u = popc(su);
+      const float wn = ws[n];
+      sm += wn * t_m[u * ts];
+      const float wp = wn * t_p[u * ts];
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if ((su >> m) & 1ull) acc[m] += wp;
-        else if ((sv >> m) & 1ull) acc[m] += wm;
-      }
+      for (int m = 0; m < MT; ++m)
+        if (su & (MaskT(1) << m)) acc[m] += wp;
     }
   }
 
-  // d = s_p*x_only - s_m*x_not: +acc on x-only groups, -acc on x-not groups;
+  // d = s_p*x_only - s_m*x_not: +acc on x-only groups, -S_m on x-not groups;
   // sum d*leaf_val over the warp's 32 paths in a fixed shuffle tree
   float* out = partial + ((size_t)blockIdx.y * B + b) * M * K;
   for (int k = 0; k < K; ++k) {
@@ -115,8 +116,7 @@ phi_tile_kernel(const float* __restrict__ x_only, const float* __restrict__ x_no
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
       if (m < M) {
-        const float d = ((xo >> m) & 1ull) ? acc[m]
-                        : (((xn >> m) & 1ull) ? -acc[m] : 0.0f);
+        const float d = (xo & (MaskT(1) << m)) ? acc[m] : ((xn & (MaskT(1) << m)) ? -sm : 0.0f);
         float s = d * lv;
 #pragma unroll
         for (int off = kTP / 2; off > 0; off >>= 1)
@@ -125,6 +125,14 @@ phi_tile_kernel(const float* __restrict__ x_only, const float* __restrict__ x_no
       }
     }
   }
+}
+
+// 32-bit masks up to 32 groups; one register per group, the per-group
+// loops unrolled to the template width
+TileKernel phi_tile(int M) {
+  if (M <= 16) return phi_tile_kernel<unsigned, 16>;
+  if (M <= 32) return phi_tile_kernel<unsigned, 32>;
+  return phi_tile_kernel<u64, 64>;
 }
 
 }  // namespace
@@ -136,17 +144,27 @@ int exact_tree_phi_max_m() { return kMaxM; }
 // number of path tiles = leading dimension of the partial-phi scratch
 int exact_tree_phi_partial_tiles(int P) { return partial_tiles(P); }
 
-// The arguments of launch_exact (exact_tree_common.cuh): partial is
-// (tiles,B,M,K) and out (B,M,K).
+// the tile kernel's dynamic shared memory and resident blocks per SM at M
+// groups, or -1 (blocks: minus the cudaError_t)
+long long exact_tree_phi_smem_bytes(int M) {
+  return valid_problem(1, 1, 1, M, 1, 1) ? (long long)phi_smem(M) : -1;
+}
+int exact_tree_phi_blocks_per_sm(int M) {
+  if (!valid_problem(1, 1, 1, M, 1, 1)) return -(int)cudaErrorInvalidValue;
+  return blocks_per_sm(phi_tile(M), phi_smem(M));
+}
+
+// The arguments of launch_exact (exact_tree_common.cuh): tables is wp_tab,
+// wm_tab, each (M+1)x(M+1); partial is (tiles,B,M,K) and out (B,M,K).
 int exact_tree_phi_launch(const float* x_only, const float* x_not,
                           const float* z_ok, const float* z_dead,
-                          const float* leaf_val, const float* bgw, void* zbits,
-                          float* table, float* partial, float* out, int B,
-                          int P, int N, int M, int K, int dmax, void* stream) {
-  return launch_exact<kNC>(phi_tile_kernel<16>, phi_tile_kernel<32>,
-                           phi_tile_kernel<64>, (long long)M * K, x_only, x_not,
-                           z_ok, z_dead, leaf_val, bgw, zbits, table, partial,
-                           out, B, P, N, M, K, dmax, stream);
+                          const float* leaf_val, const float* bgw,
+                          const float* tables, void* zbits, float* partial,
+                          float* out, int B, int P, int N, int M, int K, int dmax,
+                          void* stream) {
+  return launch_exact(phi_tile(M), phi_smem(M), (long long)M * K, x_only, x_not,
+                      z_ok, z_dead, leaf_val, bgw, tables, zbits, partial, out, B, P,
+                      N, M, K, dmax, stream);
 }
 
 }  // extern "C"

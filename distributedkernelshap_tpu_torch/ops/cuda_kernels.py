@@ -15,8 +15,9 @@ Shapley-interaction sum of the same inputs (see
 :func:`exact_tree_inter_plain`).  These are all the TPU kernels of the JAX
 package.  Each source ``csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into ``build/kernels/`` at first use (the two exact kernels
-share their packing, staging, tile sum and launch sequence through
-``csrc/exact_tree_common.cuh``) and bound through a plain C
+share their packing, staging, live-row masks, tile sum and launch sequence
+through ``csrc/exact_tree_common.cuh``, and read the division-free weight
+tables :func:`build_weight_tables` makes) and bound through a plain C
 interface with ``ctypes`` (nothing here compiles or imports CUDA code when
 the module is imported).
 
@@ -30,11 +31,12 @@ each kernel against on the card.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 import torch
 
@@ -53,8 +55,11 @@ MAX_K = 32
 #: word per (background row, path) holds the M z_ok bits and the z_dead bit
 #: (``kMaxM`` in each .cu)
 MAX_TREE_M = 63
+#: background rows the exact kernels stage per chunk, one bit of a lane's
+#: live-row mask each (``kNC`` in ``csrc/exact_tree_common.cuh``)
+EXACT_CHUNK_ROWS = 64
 
-_VOID, _INT = ctypes.c_void_p, ctypes.c_int
+_VOID, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: per kernel library: its C symbols as ``name: (argtypes, restype)``, and
 #: the limit function the wrapper's constant must agree with
 _SYMBOLS = {
@@ -66,11 +71,15 @@ _SYMBOLS = {
         "exact_tree_phi_launch": ([_VOID] * 10 + [_INT] * 6 + [_VOID], _INT),
         "exact_tree_phi_partial_tiles": ([_INT], _INT),
         "exact_tree_phi_max_m": ([], _INT),
+        "exact_tree_phi_smem_bytes": ([_INT], _LONG),
+        "exact_tree_phi_blocks_per_sm": ([_INT], _INT),
     },
     "exact_tree_inter": {
         "exact_tree_inter_launch": ([_VOID] * 10 + [_INT] * 6 + [_VOID], _INT),
         "exact_tree_inter_partial_tiles": ([_INT], _INT),
         "exact_tree_inter_max_m": ([], _INT),
+        "exact_tree_inter_smem_bytes": ([_INT], _LONG),
+        "exact_tree_inter_blocks_per_sm": ([_INT], _INT),
     },
 }
 _LIMITS = {"fused_linear_ey": ("fused_linear_ey_max_k", MAX_K),
@@ -362,18 +371,114 @@ def _exact_run(wrapper, lib, stream, out_shape, args, dmax: int) -> torch.Tensor
     if 0 in (B, P, N, M, K):
         return out.zero_()
     dm = min(int(dmax), M)
-    # scratch: the packed background bits, the binomial table and one
-    # partial output per path tile (summed in a fixed order by a second pass)
+    tables = exact_weight_tables(_TABLE_KIND[name], dm, M, dev)
+    # scratch: the packed background bits and one partial output per path
+    # tile (summed in a fixed order by a second pass)
     zbits = torch.empty((N, P), dtype=torch.int64, device=dev)
-    table = torch.empty(((dm + 1) * (M + 1),), dtype=torch.float32, device=dev)
     partial = torch.empty((getattr(lib, f"{name}_partial_tiles")(P), *out_shape),
                           dtype=torch.float32, device=dev)
     err = getattr(lib, f"{name}_launch")(
-        *(t.data_ptr() for t in args), zbits.data_ptr(), table.data_ptr(),
+        *(t.data_ptr() for t in args), tables.data_ptr(), zbits.data_ptr(),
         partial.data_ptr(), out.data_ptr(), B, P, N, M, K, dm, stream)
     if err:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     wrapper.launches += 1
+    return out
+
+
+#: the weight tables each exact kernel reads (see :func:`build_weight_tables`)
+_TABLE_KIND = {"exact_tree_phi": "phi", "exact_tree_inter": "inter"}
+_tables: Dict[tuple, torch.Tensor] = {}
+
+
+def build_weight_tables(kind: str, dmax: int, M: int) -> torch.Tensor:
+    """The reciprocal weight tables of an exact kernel, on the CPU: float32
+    ``(ntab, M+1, M+1)`` indexed ``[table, u, v]``, so a live row reads its
+    weights and multiplies by ``bgw[n]`` instead of dividing.
+
+    Each comes from the reference's masked-product binomial in float32 (the
+    plain versions' arithmetic: steps ``i = 1..dmax`` of ``(v+i)/i``, taken
+    while ``i <= u`` for phi's ``C(u+v, u)`` and ``i <= u-1`` for the
+    pairs' ``C(u+v-1, v)``); the reciprocal is taken in float64 and rounded
+    once.  ``kind="phi"``: ``wp = 1/(u·C)`` (u >= 1) and ``wm = 1/(v·C)``
+    (v >= 1).  ``kind="inter"``: ``W_uu = 1/((u-1)·C)`` (u >= 2), ``W_uv =
+    -1/(v·C)`` (u, v >= 1) and ``W_vv = u/(v(v-1)·C)`` (v >= 2, u >= 1),
+    ``1/(v-1)`` at u = 0.  Zero elsewhere."""
+
+    if kind not in ("phi", "inter"):
+        raise ValueError(f"kind must be 'phi' or 'inter', got {kind!r}")
+    dm = min(int(dmax), M)
+    f = torch.arange(M + 1, dtype=torch.float32)
+    u, v = f[:, None], f[None, :]
+    steps = u if kind == "phi" else u - 1.0
+    binom = torch.ones((M + 1, M + 1), dtype=torch.float32)
+    for i in range(1, dm + 1):
+        binom = binom * torch.where(steps + 0.5 >= i, (v + i) / i, 1.0)
+    C, u, v = binom.double(), u.double(), v.double()
+    zero = torch.zeros((), dtype=torch.float64)
+    if kind == "phi":
+        tabs = (torch.where(u >= 1, 1.0 / (u.clamp(min=1.0) * C), zero),
+                torch.where(v >= 1, 1.0 / (v.clamp(min=1.0) * C), zero))
+    else:
+        vv = torch.where(u >= 1, u / (v * (v - 1.0)).clamp(min=1.0),
+                         1.0 / (v - 1.0).clamp(min=1.0)) / C
+        tabs = (torch.where(u >= 2, 1.0 / ((u - 1.0).clamp(min=1.0) * C), zero),
+                torch.where((u >= 1) & (v >= 1), -1.0 / (v.clamp(min=1.0) * C), zero),
+                torch.where(v >= 2, vv, zero))
+    return torch.stack(tabs).to(torch.float32).contiguous()
+
+
+def exact_weight_tables(kind: str, dmax: int, M: int,
+                        device: torch.device) -> torch.Tensor:
+    """:func:`build_weight_tables` on ``device``, built once per ``(kind,
+    dmax, M, device)`` and cached."""
+
+    key = (kind, min(int(dmax), M), M, str(device))
+    with _lock:
+        if key not in _tables:
+            _tables[key] = build_weight_tables(kind, dmax, M).to(device)
+        return _tables[key]
+
+
+def tile_kernel_info(name: str, M: int) -> Dict[str, int]:
+    """What the tile kernel of ``csrc/<name>.cu`` takes on the card at ``M``
+    groups: its dynamic shared memory in bytes and its resident blocks per
+    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Builds the
+    kernel if needed; raises where the card refuses the query."""
+
+    lib = _library(name)
+    info = {"smem_bytes": getattr(lib, f"{name}_smem_bytes")(M),
+            "blocks_per_sm": getattr(lib, f"{name}_blocks_per_sm")(M)}
+    if info["smem_bytes"] < 0 or info["blocks_per_sm"] < 0:
+        raise RuntimeError(f"{name} at M={M}: occupancy query failed {info}")
+    return info
+
+
+def ptxas_report(log: str) -> List[Dict[str, object]]:
+    """Per kernel function, what ``nvcc -Xptxas -v`` reported in a build
+    log: ``{"function", "registers", "smem_bytes" (static), "stack_bytes",
+    "spill_stores", "spill_loads"}``, in the log's order."""
+
+    out: List[Dict[str, object]] = []
+    cur: Optional[Dict[str, object]] = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
     return out
 
 

@@ -169,6 +169,9 @@ class _FakeLibrary:
         setattr(self, f"{name}_launch", self._launch)
 
     def _launch(self, *cargs):
+        # x_only, x_not, z_ok, z_dead, leaf_val, bgw, tables, zbits, partial,
+        # out, then B, P, N, M, K, dmax and the stream
+        assert len(cargs) == 17
         self.calls.append(cargs[-7:-1])     # B, P, N, M, K, dmax
         return self.err
 
@@ -177,10 +180,12 @@ class _FakeLibrary:
 def test_exact_launch_counts_only_launches(wrapper):
     """Each exact wrapper counts one where its kernel launched and nowhere
     else: not for a zero-size problem (nothing launches, the output is
-    zeros) and not for a failed launch.  Meta tensors stand in for the
-    card."""
+    zeros) and not for a failed launch.  The launch gets the kernel's weight
+    tables for (M, min(dmax, M)) on the tensors' device.  Meta tensors stand
+    in for the card."""
 
     fn = getattr(tck, wrapper)
+    kind, ntab = ("phi", 2) if wrapper == "exact_tree_phi" else ("inter", 3)
 
     def out_shape(B, M, K):
         return (B, M, K) if wrapper == "exact_tree_phi" else (B, M, M, K)
@@ -202,7 +207,25 @@ def test_exact_launch_counts_only_launches(wrapper):
     out = tck._exact_run(fn, lib, 0, out_shape(4, 3, 2), args, dmax=5)
     assert out.shape == out_shape(4, 3, 2)
     assert lib.calls == [(4, 10, 5, 3, 2, 3)] and fn.launches == before + 1
+    tables = tck._tables[(kind, 3, 3, "meta")]      # built for the launch
+    assert tables.shape == (ntab, 4, 4) and tables.device.type == "meta"
     fn.launches = before
+
+
+@pytest.mark.parametrize("dmax", [1, 4, 12, 31, 63])
+def test_interaction_weight_tables_match_f64(dmax):
+    """The wrapper's division-free tables W_uu, W_uv, W_vv (over the
+    masked-product C(u+v-1, v)) against the f64 gammaln tables at rtol 5e-5
+    (tests/test_treeshap.py:924-955), at M = dmax where the product is
+    exact; the u = 0 case of W_vv included."""
+
+    t = tck.build_weight_tables("inter", dmax, dmax).numpy()
+    w_uu, w_vv, w_uv = tts._interaction_tables(dmax)
+    assert t.shape == (3, dmax + 1, dmax + 1) and t.dtype == np.float32
+    for got, want in zip(t, (w_uu, w_uv, w_vv)):
+        np.testing.assert_allclose(got, want, rtol=5e-5, atol=0)
+    if dmax >= 2:
+        assert t[2, 0, 2] == 1.0     # W_vv at u = 0, v = 2: 1/(v-1)
 
 
 def test_kernel_source_is_packaged():
@@ -211,7 +234,11 @@ def test_kernel_source_is_packaged():
     assert "pallas_kernels.py:exact_tree_inter" in text
     assert '#include "exact_tree_common.cuh"' in text
     assert f"kMaxM = {tck.MAX_TREE_M}" in common
+    assert f"kNC = {tck.EXACT_CHUNK_ROWS}" in common
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in common
     assert "exact_tree_inter" in tck.KERNELS and "exact_tree_inter" in tck._SYMBOLS
+    assert {"exact_tree_inter_smem_bytes", "exact_tree_inter_blocks_per_sm"} \
+        <= set(tck._SYMBOLS["exact_tree_inter"])
     assert tck._LIMITS["exact_tree_inter"][1] == tck.MAX_TREE_M
 
 
@@ -395,3 +422,58 @@ def test_adult_gbt_interactions_match_jax(adult_gbr, pack_paths):
     _close(inter, a["ref"].data["raw"]["interaction_values"][0])
     _close(got.shap_values[0], a["ref"].shap_values[0])
     _conventions(inter, got.shap_values[0])
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's diagnostics of the exact kernels, on the CPU
+
+
+def test_divergence_counts_match_a_direct_walk():
+    """``chip_smoke.divergence`` against a loop over (instance, 32-path
+    tile, chunk) on a ragged problem (P and N not multiples of the tile and
+    the chunk)."""
+
+    import chip_smoke as cs
+
+    args = cs.phi_edge_inputs(np.random.default_rng(5), 3, 40, 70, 6, 1, "cpu")
+    nc = tck.EXACT_CHUNK_ROWS
+    for kind in ("phi", "inter"):
+        live = cs.live_triples(args, kind).numpy()        # (B, N, P)
+        B, N, P = live.shape
+        any_rows = max_lane = 0
+        for b in range(B):
+            for p0 in range(0, P, 32):
+                for n0 in range(0, N, nc):
+                    block = live[b, n0:n0 + nc, p0:p0 + 32]
+                    any_rows += int(block.any(1).sum())
+                    max_lane += int(block.sum(0).max())
+        d = cs.divergence(args, kind)
+        assert (d["rows_any_lane_live"], d["max_lane_live_rows"], d["live_triples"]) \
+            == (any_rows, max_lane, int(live.sum()))
+        assert d["warp_chunks"] == B * 2 * 2 and d["triples"] == B * N * P
+
+
+def test_edge_input_kinds_do_what_they_say():
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(6)
+    alive = {}
+    for kind in ("random", "all live", "none live", "all on path"):
+        xo, xn, zo, zd, _, bgw = cs.phi_edge_inputs(rng, 4, 40, 30, 12, 1, "cpu", kind)
+        assert float((xo * xn).sum()) == 0.0 and abs(float(bgw.sum()) - 1.0) < 1e-6
+        dead = torch.einsum("bpm,npm->bnp", xn, 1.0 - zo)
+        alive[kind] = (dead < 0.5) & (zd[None] < 0.5)
+        if kind == "all on path":
+            assert bool(((xo + xn) == 1.0).all()) and bool((xo[0] == 1.0).all())
+    assert bool(alive["all live"].all()) and not bool(alive["none live"].any())
+    assert 0 < float(alive["random"].float().mean()) < 1
+
+
+def test_tile_kernel_names_read_from_mangled_symbols():
+    import chip_smoke as cs
+
+    assert cs.tile_name("_ZN12_GLOBAL__N_117inter_tile_kernelIjLi3EEEvPKfS2_PKyS2_"
+                        "S2_S2_Pfiiiiiii") == "inter_tile_kernel<unsigned, 3>"
+    assert cs.tile_name("_ZN12_GLOBAL__N_115phi_tile_kernelIyLi64EEEvPKf") \
+        == "phi_tile_kernel<u64, 64>"
+    assert cs.tile_name("_ZN12_GLOBAL__N_116sum_tiles_kernelEPKfPfxi") == "sum_tiles_kernel"

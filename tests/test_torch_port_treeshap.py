@@ -296,8 +296,80 @@ def test_kernel_source_is_packaged():
     assert '#include "exact_tree_common.cuh"' in text
     assert "pallas_kernels.py:exact_tree_phi" in text
     assert f"kMaxM = {tck.MAX_TREE_M}" in text
+    assert f"kNC = {tck.EXACT_CHUNK_ROWS}" in text
     assert "exact_tree_phi" in tck.KERNELS and "exact_tree_phi" in tck._SYMBOLS
+    assert {"exact_tree_phi_smem_bytes", "exact_tree_phi_blocks_per_sm"} \
+        <= set(tck._SYMBOLS["exact_tree_phi"])
     assert tck.library_path("exact_tree_phi") != tck.library_path("fused_linear_ey")
+
+
+@pytest.mark.parametrize("dmax", [1, 4, 12, 31, 63])
+def test_beta_weight_tables_match_f64(dmax):
+    """The wrapper's division-free tables wp = 1/(u·C(u+v,u)) and wm =
+    1/(v·C(u+v,u)) (the masked product in f32, the reciprocal rounded once)
+    against the f64 gammaln tables at rtol 5e-5 (tests/test_treeshap.py:
+    814-834), at M = dmax where the product is exact."""
+
+    t = tck.build_weight_tables("phi", dmax, dmax).numpy()
+    wp, wm = tts._beta_tables(dmax)
+    assert t.shape == (2, dmax + 1, dmax + 1) and t.dtype == np.float32
+    np.testing.assert_allclose(t[0], wp, rtol=5e-5, atol=0)
+    np.testing.assert_allclose(t[1], wm, rtol=5e-5, atol=0)
+
+
+def test_weight_tables_follow_the_plain_binomial_past_dmax():
+    """Past dmax the tables keep the plain version's truncated product (u
+    up to M), so a kernel reading them computes what the plain version
+    does: wp[u, v] = 1/(u · Π_{i<=min(u,dmax)} (v+i)/i)."""
+
+    M, dmax = 9, 3
+    t = tck.build_weight_tables("phi", dmax, M).double().numpy()
+    for u in range(1, M + 1):
+        for v in range(M + 1):
+            C = float(np.prod([(v + i) / i for i in range(1, min(u, dmax) + 1)]))
+            assert t[0, u, v] == pytest.approx(1.0 / (u * C), rel=1e-6)
+    with pytest.raises(ValueError, match="kind"):
+        tck.build_weight_tables("pairs", dmax, M)
+
+
+def test_weight_table_cache_is_keyed_by_kind_dmax_m_device():
+    cpu, meta = torch.device("cpu"), torch.device("meta")
+    a = tck.exact_weight_tables("phi", 4, 6, cpu)
+    assert tck.exact_weight_tables("phi", 4, 6, cpu) is a
+    assert torch.equal(a, tck.build_weight_tables("phi", 4, 6))
+    others = [tck.exact_weight_tables("inter", 4, 6, cpu),
+              tck.exact_weight_tables("phi", 5, 6, cpu),
+              tck.exact_weight_tables("phi", 4, 7, cpu),
+              tck.exact_weight_tables("phi", 4, 6, meta)]
+    assert all(o is not a for o in others)
+    assert others[-1].device.type == "meta"
+    # dmax past M builds the same table as dmax = M
+    assert tck.exact_weight_tables("phi", 9, 6, cpu) is tck.exact_weight_tables("phi", 6, 6, cpu)
+    assert {("phi", 4, 6, "cpu"), ("inter", 4, 6, "cpu"), ("phi", 4, 6, "meta")} \
+        <= set(tck._tables)
+
+
+_PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117phi_tile_kernelILi16EEEvPKfS2_PKyS2_S2_S2_Pfiiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117phi_tile_kernelILi16EEEvPKfS2_PKyS2_S2_S2_Pfiiiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 464 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117phi_tile_kernelILi64EEEvPKfS2_PKyS2_S2_S2_Pfiiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117phi_tile_kernelILi64EEEvPKfS2_PKyS2_S2_S2_Pfiiiiiii
+    24 bytes stack frame, 20 bytes spill stores, 28 bytes spill loads
+ptxas info    : Used 255 registers, 16 bytes smem, 464 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    rep = tck.ptxas_report(_PTXAS_LOG)
+    assert [r["registers"] for r in rep] == [40, 255]
+    assert "phi_tile_kernelILi16E" in rep[0]["function"]
+    assert (rep[0]["spill_stores"], rep[0]["spill_loads"], rep[0]["smem_bytes"]) == (0, 0, 0)
+    assert (rep[1]["stack_bytes"], rep[1]["spill_stores"], rep[1]["spill_loads"],
+            rep[1]["smem_bytes"]) == (24, 20, 28, 16)
+    assert tck.ptxas_report("nvcc: no kernels") == []
 
 
 # ---------------------------------------------------------------------------

@@ -13,12 +13,18 @@ Phases (each raises on failure, so the script exits non-zero):
 1. device: the card's name and power limit; float32 matmuls must be full f32
    (no TF32), the reference's ``matmul_precision="highest"``;
 2. build: ``nvcc`` for ``sm_90a`` into ``build/kernels/``, one process per
-   source, all started together; each exact tile kernel's registers, spills
-   and static shared memory from the build log, and its dynamic shared
-   memory and resident blocks per SM at M = 12 and 63;
-3. kernel vs plain on the card at the main path's shapes and the edge
-   shapes, max abs diff <= 1e-5 on ``ey``; a class width above the kernel's
-   limit must raise;
+   source, all started together; each kernel function's registers and
+   spills from the build log; what the headline ``fused_linear_ey`` call
+   launches (blocks, registers, shared memory, blocks/SM, waves); each exact
+   tile kernel's dynamic shared memory and resident blocks per SM at M = 12
+   and 63;
+3. kernel vs plain on the card at the main path's shapes, the edge shapes
+   and adversarial sigmoid-form inputs (logits of ±100–200, a background
+   range past the factored route's guard, cancelling large logits, N above
+   one staged chunk), at groups in several staged slices (M = 17, 48) and
+   sigmoid classes on the grid (K = 3, 7, 32), max abs diff <= 1e-5 on
+   ``ey``, with how the guard split each sigmoid-form case; a class width
+   above the kernel's limit must raise;
 4. main path: ``KernelShap(est.predict_proba, link="logit", seed=0)
    .fit(bg, group_names=..., groups=...).explain(X)`` on an Adult-shaped task
    made from ``--seed`` (B=2560, D=48 in the Adult group widths, N=100), with
@@ -27,7 +33,10 @@ Phases (each raises on failure, so the script exits non-zero):
    through the kernel's plain version on the card, and with the port on the
    CPU on the first rows;
 5. times: explain wall (one warm-up, median of 3), kernel and plain version
-   by CUDA events at the headline shape, and the kernel's bound;
+   by CUDA events at the headline shape, and the kernel's bound (half a
+   reciprocal per activation, two sharing one) beside the floor of its own
+   design (one reciprocal) and the unfactored form's (an exp and a
+   reciprocal);
 6. exact TreeSHAP (``exact_tree_phi``): an Adult-shaped GBT made from
    ``--seed`` (50 trees grown best-first to <= 31 leaves by random splits
    over the 48 columns, leaf values ~N(0, 0.1)) and its packed plan; then
@@ -188,6 +197,104 @@ def group_space_inputs(rng, B, S, N, M, K, device, mask=None):
     return [torch.tensor(np.asarray(a, dtype=np.float32), device=device) for a in arrays]
 
 
+#: kinds of adversarial sigmoid-form inputs (:func:`adversarial_ey_inputs`)
+EY_ADVERSARIAL = ("large logits", "spread past the guard", "cancelling")
+
+
+def _quantised(a):
+    """``a`` on a 2^-10 grid: the group sums of such values (|sum| < 2^14)
+    are exact in float32 in any order, so the kernel and its plain version
+    see the same logits and differ only in the activation's arithmetic."""
+
+    return (np.round(np.asarray(a) * 1024.0) / 1024.0).astype(np.float32)
+
+
+def adversarial_ey_inputs(rng, kind, B, S, N, M, K, activation, device):
+    """``fused_linear_ey`` inputs that press on the sigmoid-form branches'
+    factored arithmetic (``csrc/fused_linear_ey.cu``, head comment), each
+    class's logits drawn per ``kind``:
+
+    - ``"large logits"``: instance group logits of ±8–17 (a sign per row)
+      and background terms t' of ±(100–200) with a range of about 60 over
+      the background: |dp| and |t'| reach 100–200 and |dp − shift| passes
+      the clamp;
+    - ``"spread past the guard"``: groups 6.. with background logits of
+      N(0, 40), groups ..5 of N(0, 1); every fourth coalition holds only
+      groups ..5 (so its range stays inside the guard) and the rest are
+      random (so most pass it): both routes in one warp;
+    - ``"cancelling"``: instance and background group logits both c_m ±
+      N(0, 0.3) with c_m of 20–30 (one sign per class): dp and t' of up
+      to ±360 that cancel to x of O(1).
+
+    Binary softmax carries the designed logit in class 1 (class 0 is 0);
+    sigmoid designs every class.  Values sit on the :func:`_quantised`
+    grid; background weights are U(0.5, 1.5)."""
+
+    import torch
+
+    A = np.zeros((B, M, K))
+    G = np.zeros((N, M, K))
+    Wn = np.zeros((N, K))
+    mask = (rng.random((S, M)) < 0.5).astype(np.float32)
+    classes = [1] if activation == "softmax" and K == 2 else range(K)
+    for k in classes:
+        if kind == "large logits":
+            c = rng.uniform(-17, 17, M)
+            A[:, :, k] = rng.choice([-1.0, 1.0], (B, 1)) * rng.uniform(8, 17, (B, M))
+            G[:, :, k] = c + rng.normal(0, 0.4, (N, M))
+            Wn[:, k] = rng.choice([-1.0, 1.0]) * rng.uniform(100, 150) + rng.uniform(-30, 30, N)
+        elif kind == "spread past the guard":
+            A[:, :, k] = rng.normal(0, 10, (B, M))
+            G[:, :, k] = rng.normal(0, 1, (N, M))
+            G[:, M // 2:, k] = rng.normal(0, 40, (N, M - M // 2))
+            Wn[:, k] = rng.normal(0, 5, N)
+        elif kind == "cancelling":
+            c = rng.choice([-1.0, 1.0]) * rng.uniform(20, 30, M)
+            A[:, :, k] = c + rng.normal(0, 0.3, (B, M))
+            G[:, :, k] = c + rng.normal(0, 0.3, (N, M))
+            Wn[:, k] = rng.normal(0, 1, N)
+        else:
+            raise ValueError(f"unknown kind {kind!r}")
+    if kind == "spread past the guard":
+        mask[::4, M // 2:] = 0.0
+    arrays = (_quantised(A), _quantised(G), _quantised(Wn),
+              (rng.random(N) + 0.5).astype(np.float32), mask)
+    return [torch.tensor(a, device=device) for a in arrays]
+
+
+def ey_guard_stats(args, activation, chunk_rows):
+    """How the sigmoid-form kernel's guard splits these inputs, counted with
+    the plain version's logits: of the (class, coalition, background chunk)
+    columns, those whose t' range passes the guard's spread (the exact
+    loop), and of the (instance, coalition, class, chunk) rows on the
+    factored route, those whose ``|dp − shift|`` passes its clamp (both
+    read from the source, ``cuda_kernels.ey_guard_constants``).
+    ``chunk_rows`` is the kernel's background rows per chunk."""
+
+    import torch
+
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import ey_guard_constants
+
+    guard = ey_guard_constants()
+    XWg, bgWg, bgW, _, mask = args
+    if activation == "softmax" and XWg.shape[2] == 2:
+        XWg, bgWg, bgW = (t[..., 1:] - t[..., :1] for t in (XWg, bgWg, bgW))
+    dp = torch.einsum("sm,bmk->bsk", mask, XWg)
+    tp = torch.einsum("sm,nmk->snk", mask, bgWg) - bgW[None]
+    out = {"columns": 0, "exact_route": 0, "rows": 0, "rows_clamped": 0}
+    for n0 in range(0, tp.shape[1], chunk_rows):
+        t = tp[:, n0:n0 + chunk_rows]
+        lo, hi = t.min(1).values, t.max(1).values        # (S, K)
+        factored = (hi - lo) <= guard["spread"]
+        shift = 0.5 * (lo + hi)
+        out["columns"] += factored.numel()
+        out["exact_route"] += int((~factored).sum())
+        rows = factored[None].expand_as(dp)
+        out["rows"] += int(rows.sum())
+        out["rows_clamped"] += int(((dp - shift[None]).abs() > guard["clamp"])[rows].sum())
+    return out
+
+
 def cuda_time_ms(fn, reps: int) -> float:
     import torch
 
@@ -202,42 +309,77 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def ey_bound_ms(B, S, N, M, K, activation, sm_count, sm_clock_hz):
+def ey_bound_ms(B, S, N, M, K, activation, sm_count, sm_clock_hz, design="paired"):
     """The least time the card could take for one ``fused_linear_ey`` call:
-    the larger of its bytes over HBM bandwidth and its operations over the
-    peak rate of their unit.  Operations: each (b, s, n) activation costs
-    one exp and one reciprocal on the special-function units for a sigmoid
-    (binary softmax is one sigmoid), K exps and one reciprocal for a general
-    softmax; the group-space products are 2·M FLOP per (b, s, class) and
-    the (s, n, class) background term, plus ~3 FLOP per activation."""
+    the larger of its bytes (each input read once, the output written once)
+    over HBM bandwidth and its operations over the peak rate of their unit,
+    the special-function units (SFUs) and the FP32 lanes working at once.
+
+    A sigmoid-form call (binary softmax carries one class, sigmoid K) has
+    B·S·N·KE activations ``w / (1 + u·v)`` and (B·S + S·N)·KE exponentials
+    ``u``, ``v``, each exponential with the M FMAs of its group contraction.
+    ``design`` says how an activation's reciprocal is counted:
+
+    - ``"paired"``, the function's floor, the bound: two activations share
+      one reciprocal (``1/(a·b)``, then ``1/a = b/(a·b)``), so an activation
+      costs half an SFU reciprocal and 3.5 FP32 instructions (of the seven
+      a pair takes: two FFMAs forming a and b, their product, the two
+      products back and two FFMAs into the sums).  At the headline (B =
+      2560, S = 2072, N = 100, K = 2) 270.7 M SFU operations: 0.0647 ms at
+      1980 MHz on 132 SMs, over the 0.0575 ms of the FP32 lanes;
+    - ``"factored"``, the floor of the kernel's own design: one reciprocal
+      per activation on the SFUs and 2 FP32 instructions (the FFMA forming
+      1 + u·v, the FFMA into the sum).  535.9 M SFU operations at the
+      headline, 0.1282 ms;
+    - ``"unfactored"``, the yardstick of the unfactored form (PRs 1–5): an
+      exp and a reciprocal per activation on the SFUs (530.4 M activations:
+      0.2537 ms at the headline), 2·M FLOP per (b, s, class) and per
+      (s, n, class) product, plus ~3 FLOP per activation.
+
+    A general softmax takes the unfactored count in every design: K exps
+    and one reciprocal per activation on the SFUs."""
 
     binary = activation == "softmax" and K == 2
     KE = 1 if binary else K
     acts = B * S * N
-    sfu = acts * (2 * KE if activation == "sigmoid" or binary else KE + 1)
-    fp32 = 2 * M * KE * (B * S + S * N) + 3 * acts * KE
+    per_s = sm_count * sm_clock_hz
+    fp32_lanes = per_s * FP32_LANES_PER_SM
+    per_act = {"paired": (0.5, 3.5), "factored": (1, 2)}
+    if design not in ("paired", "factored", "unfactored"):
+        raise ValueError(f"design must be 'paired', 'factored' or 'unfactored', "
+                         f"got {design!r}")
+    if design in per_act and (binary or activation == "sigmoid"):
+        sfu_act, fp32_act = per_act[design]
+        sfu = KE * (sfu_act * acts + B * S + S * N)
+        fp32_s = KE * (fp32_act * acts + M * (B * S + S * N)) / fp32_lanes
+    else:
+        sfu = acts * (2 * KE if activation == "sigmoid" or binary else KE + 1)
+        fp32_s = (2 * M * KE * (B * S + S * N) + 3 * acts * KE) / FP32_FLOPS_PER_S
     nbytes = 4 * (B * M * K + N * M * K + N * K + N + S * M + B * S * K)
     times = {
         "bytes": nbytes / HBM_BYTES_PER_S,
-        "operations": max(sfu / (sm_count * SFU_OPS_PER_SM_PER_CLOCK * sm_clock_hz),
-                          fp32 / FP32_FLOPS_PER_S),
+        "operations": max(sfu / (per_s * SFU_OPS_PER_SM_PER_CLOCK), fp32_s),
     }
     bound_by = max(times, key=times.get)
     return 1e3 * times[bound_by], bound_by
 
 
 def compare_kernel(seed, device):
-    """Phase 3: the wrapper (kernel) against the plain version on the card."""
+    """Phase 3: the wrapper (kernel) against the plain version on the card,
+    at the main path's shapes, the edge shapes and the adversarial
+    sigmoid-form inputs (:func:`adversarial_ey_inputs`: large logits, a
+    t' range past the guard, cancelling logits, and N above one staged
+    chunk), with the guard's split of each sigmoid-form case."""
 
     from distributedkernelshap_tpu_torch.ops import cuda_kernels
-    from distributedkernelshap_tpu_torch.ops.coalitions import coalition_plan
     from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+        ey_launch_info,
         fused_linear_ey,
         fused_linear_ey_plain,
     )
 
     rng = np.random.default_rng(seed)
-    headline_mask = coalition_plan(len(ADULT_WIDTHS), None, seed=0).mask
+    headline_mask = coalition_plan_mask()
     cases = [
         ("headline binary softmax", 2560, 2072, 100, 12, 2, "softmax", headline_mask),
         ("general softmax K=7", 512, 1024, 100, 12, 7, "softmax", None),
@@ -246,16 +388,43 @@ def compare_kernel(seed, device):
         ("ragged edges binary", 33, 700, 9, 7, 2, "softmax", None),
         ("ragged edges K=7", 33, 700, 9, 7, 7, "softmax", None),
         ("wide K=32 softmax", 40, 300, 20, 12, 32, "softmax", None),
+        ("N above one chunk, binary", 256, 1024, 300, 12, 2, "softmax", None),
+        ("N above one chunk, sigmoid K=1", 256, 1024, 300, 12, 1, "sigmoid", None),
+        # groups in several staged slices of 16 (ungrouped Adult: M = 48)
+        ("binary M=48", 256, 1024, 100, 48, 2, "softmax", None),
+        ("binary M=17", 256, 1024, 100, 17, 2, "softmax", None),
+        ("sigmoid K=2 M=48", 256, 1024, 100, 48, 2, "sigmoid", None),
+        ("sigmoid K=1 M=17", 256, 1024, 100, 17, 1, "sigmoid", None),
+        # sigmoid classes on the grid's z axis
+        ("sigmoid K=7", 512, 1024, 100, 12, 7, "sigmoid", None),
+        ("sigmoid K=32", 128, 512, 100, 12, 32, "sigmoid", None),
+        ("ragged edges sigmoid K=3", 33, 700, 9, 7, 3, "sigmoid", None),
+        ("N above one chunk, sigmoid K=3 M=20", 100, 300, 250, 20, 3, "sigmoid", None),
     ]
+    for kind in EY_ADVERSARIAL:
+        cases += [(f"{kind}, binary", 256, 1024, 100, 12, 2, "softmax", kind),
+                  (f"{kind}, sigmoid K=2", 256, 1024, 100, 12, 2, "sigmoid", kind),
+                  (f"{kind}, sigmoid K=7 M=48", 64, 300, 100, 48, 7, "sigmoid", kind),
+                  (f"{kind}, binary, N above one chunk", 128, 512, 300, 12, 2, "softmax",
+                   kind)]
     worst = 0.0
     for name, B, S, N, M, K, act, mask in cases:
-        args = group_space_inputs(rng, B, S, N, M, K, device, mask)
+        if isinstance(mask, str):
+            args = adversarial_ey_inputs(rng, mask, B, S, N, M, K, act, device)
+        else:
+            args = group_space_inputs(rng, B, S, N, M, K, device, mask)
         got = fused_linear_ey(*args, act)
         ref = fused_linear_ey_plain(*args, act)
         err = float((got - ref).abs().max())
         finite = bool(got.isfinite().all())
+        guard = ""
+        if act == "sigmoid" or K == 2:
+            st = ey_guard_stats(args, act, ey_launch_info(B, S, N, K, act)["chunk_rows"])
+            guard = (f"; guard: {st['exact_route']} of {st['columns']} (class, coalition, "
+                     f"chunk) columns on the exact loop, {st['rows_clamped']} of "
+                     f"{st['rows']} factored rows clamped")
         print(f"kernel vs plain [{name}] B={B} S={S} N={N} M={M} K={K}: "
-              f"max_abs_diff={err:.3e} (tol {EY_ATOL:g})", flush=True)
+              f"max_abs_diff={err:.3e} (tol {EY_ATOL:g}){guard}", flush=True)
         if not finite or not err <= EY_ATOL:
             raise AssertionError(f"fused_linear_ey disagrees with its plain version "
                                  f"at {name}: {err} (finite={finite})")
@@ -270,6 +439,39 @@ def compare_kernel(seed, device):
     else:
         raise AssertionError(f"fused_linear_ey took K={K} > MAX_K on the card")
     return worst
+
+
+def ey_kernel_report(lib_path, sm_count):
+    """``fused_linear_ey``'s build report (registers and spills per kernel
+    function, from the ``.log`` beside its library) and what the headline
+    call launches (``ey_launch_info``): blocks, registers, local memory,
+    shared memory, resident blocks per SM, blocks per SM over the grid and
+    waves."""
+
+    from distributedkernelshap_tpu_torch.ops import cuda_kernels
+
+    log = lib_path.with_name(lib_path.name + ".log")
+    rows = cuda_kernels.ptxas_report(log.read_text() if log.exists() else "")
+    for r in rows:
+        print(f"  ptxas fused_linear_ey: {tile_name(r['function'])}: {r.get('registers')} "
+              f"registers, {r.get('stack_bytes')} B stack, spill stores "
+              f"{r.get('spill_stores')} B, spill loads {r.get('spill_loads')} B", flush=True)
+    if not any("sigmoid_kernel" in r["function"] for r in rows):
+        raise AssertionError(f"no ptxas report for fused_linear_ey's kernels in {log}")
+    S = len(coalition_plan_mask())
+    info = cuda_kernels.ey_launch_info(B_HEADLINE, S, N_BACKGROUND, 2, "softmax")
+    waves = info["blocks"] / (sm_count * info["blocks_per_sm"])
+    print(f"  fused_linear_ey headline launch (B={B_HEADLINE} S={S} N={N_BACKGROUND} K=2, "
+          f"sigmoid_kernel<true>): {info}; {info['blocks'] / sm_count:.2f} blocks per "
+          f"SM over the grid, {waves:.2f} waves of {sm_count * info['blocks_per_sm']}",
+          flush=True)
+    return info
+
+
+def coalition_plan_mask():
+    from distributedkernelshap_tpu_torch.ops.coalitions import coalition_plan
+
+    return coalition_plan(len(ADULT_WIDTHS), None, seed=0).mask
 
 
 def adult_task(seed):
@@ -656,17 +858,18 @@ def print_divergence(label, args, kind):
 
 
 def tile_name(function: str) -> str:
-    """``inter_tile_kernel<unsigned, 3>`` from a mangled kernel name."""
+    """``inter_tile_kernel<unsigned, 3>`` (or ``sigmoid_kernel<true>``)
+    from a mangled kernel name."""
 
     import re
 
-    m = re.search(r"\d+([a-z_]+_kernel)(I((?:j|y|Li\d+E)+)E)?", function)
+    m = re.search(r"\d+([a-z_]+_kernel)(I((?:j|y|Li\d+E|Lb[01]E)+)E)?", function)
     if not m:
         return function
     if not m.group(2):
         return m.group(1)
-    names = {"j": "unsigned", "y": "u64"}
-    args = [names.get(t, t[2:-1]) for t in re.findall(r"j|y|Li\d+E", m.group(3))]
+    names = {"j": "unsigned", "y": "u64", "Lb0E": "false", "Lb1E": "true"}
+    args = [names.get(t, t[2:-1]) for t in re.findall(r"j|y|Li\d+E|Lb[01]E", m.group(3))]
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
@@ -1138,10 +1341,7 @@ def main() -> int:
     libs = cuda_kernels.build()
     for name, path in libs.items():
         print(f"built {name}: {path} in {time.perf_counter() - t0:.1f} s", flush=True)
-    log = libs["fused_linear_ey"].with_name(libs["fused_linear_ey"].name + ".log")
-    for line in (log.read_text().splitlines() if log.exists() else []):
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas fused_linear_ey: {line.strip()}", flush=True)
+    ey_info = ey_kernel_report(libs["fused_linear_ey"], props.multi_processor_count)
     exact_kernel_report(libs)
 
     # 3. kernel vs plain
@@ -1185,24 +1385,32 @@ def main() -> int:
                                  device, explainer._explainer._plan(None).mask)
     kernel_ms = cuda_time_ms(lambda: cuda_kernels.fused_linear_ey(*ey_args, "softmax"), 50)
     plain_ms = cuda_time_ms(lambda: cuda_kernels.fused_linear_ey_plain(*ey_args, "softmax"), 10)
-    bound_ms, bound_by = ey_bound_ms(B_HEADLINE, S, N, M, K, "softmax",
-                                     props.multi_processor_count, max_sm_clock_hz())
+    clock = max_sm_clock_hz()
+    floors = {d: ey_bound_ms(B_HEADLINE, S, N, M, K, "softmax", props.multi_processor_count,
+                             clock, design=d)
+              for d in ("paired", "factored", "unfactored")}
+    bound_ms, bound_by = floors["paired"]
     print(f"times on {card}: explain B={B_HEADLINE} wall median of 3 = {wall_ms:.3f} ms "
           f"(runs {[round(1e3 * w, 3) for w in walls]}); fused_linear_ey at B={B_HEADLINE} "
           f"S={S} N={N} M={M} K={K}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / kernel_ms:.1f}% of "
-          f"bound; library_ms null: no single PyTorch call computes this function",
-          flush=True)
+          f"bound {bound_ms:.4f} ms ({bound_by}: half a reciprocal per activation, "
+          f"paired), {100 * bound_ms / kernel_ms:.1f}% of bound; the design's floor "
+          f"{floors['factored'][0]:.4f} ms (one reciprocal per activation), "
+          f"{100 * floors['factored'][0] / kernel_ms:.1f}% of it; the unfactored form's "
+          f"{floors['unfactored'][0]:.4f} ms (exp + reciprocal per activation), "
+          f"{100 * floors['unfactored'][0] / kernel_ms:.1f}% of it; "
+          f"{ey_info['registers']} registers, {ey_info['blocks_per_sm']} blocks/SM; "
+          f"library_ms null: no single PyTorch call computes this function", flush=True)
 
     # 6-7. exact TreeSHAP
     tables = adult_shaped_gbt(args.seed)
     exact_record = exact_phase(tables, X, bg, device, props.multi_processor_count,
-                               max_sm_clock_hz(), card, args.seed)
+                               clock, card, args.seed)
 
     # 8-9. exact Shapley interactions
     inter_record, phi_dense_err = inter_phase(tables, X, bg, device,
                                               props.multi_processor_count,
-                                              max_sm_clock_hz(), card, args.seed)
+                                              clock, card, args.seed)
     exact_record["max_abs_err"] = max(exact_record["max_abs_err"], phi_dense_err)
 
     print(f"card: {card}")

@@ -66,6 +66,7 @@ _SYMBOLS = {
     "fused_linear_ey": {
         "fused_linear_ey_launch": ([_VOID] * 6 + [_INT] * 6 + [_VOID], _INT),
         "fused_linear_ey_max_k": ([], _INT),
+        "fused_linear_ey_launch_info": ([_INT] * 5 + [_VOID], _INT),
     },
     "exact_tree_phi": {
         "exact_tree_phi_launch": ([_VOID] * 10 + [_INT] * 6 + [_VOID], _INT),
@@ -235,6 +236,42 @@ def fused_linear_ey(XWg: torch.Tensor, bgWg: torch.Tensor, bgW: torch.Tensor,
 
 
 fused_linear_ey.launches = 0
+
+
+def ey_launch_info(B: int, S: int, N: int, K: int,
+                   activation: str = "softmax") -> Dict[str, int]:
+    """What a :func:`fused_linear_ey` call at these sizes launches on the
+    card: ``blocks``, ``threads`` a block, dynamic ``smem_bytes``, resident
+    ``blocks_per_sm`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    ``registers`` and ``local_bytes`` a thread (``cudaFuncGetAttributes``)
+    and background ``chunk_rows``.  Builds the kernel if needed; raises where
+    the card refuses the query."""
+
+    lib = _library("fused_linear_ey")
+    info = (ctypes.c_int * 7)()
+    err = lib.fused_linear_ey_launch_info(B, S, N, K, _ACTIVATION_CODE[activation],
+                                          ctypes.addressof(info))
+    if err:
+        raise RuntimeError(f"fused_linear_ey launch info failed with CUDA error {err}")
+    keys = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "registers",
+            "local_bytes", "chunk_rows")
+    return dict(zip(keys, info))
+
+
+def ey_guard_constants() -> Dict[str, float]:
+    """The guard of ``fused_linear_ey``'s factored sigmoid form, read from
+    its source: ``spread``, the widest t' range of a chunk the factored
+    route takes (``kSpread``), and ``clamp``, the bound on ``|dp − shift|``
+    (``kClamp``).  Readable without a card."""
+
+    src = (CSRC_DIR / "fused_linear_ey.cu").read_text()
+    out = {}
+    for key, name in (("spread", "kSpread"), ("clamp", "kClamp")):
+        m = re.search(rf"constexpr float {name} = ([0-9.]+)f;", src)
+        if not m:
+            raise RuntimeError(f"csrc/fused_linear_ey.cu defines no {name}")
+        out[key] = float(m.group(1))
+    return out
 
 
 def fused_linear_ey_plain(XWg: torch.Tensor, bgWg: torch.Tensor, bgW: torch.Tensor,

@@ -1,0 +1,247 @@
+#!/usr/bin/env python3
+"""Time kernels of this checkout against those of another checkout of the
+port (an earlier commit), on the same card in one process.
+
+    python3 scripts/torch_kernel_ab.py --kernel {ey,exact} --base DIR [--seed 0] [--reps 50]
+
+``DIR`` is the root of the other checkout (for instance a ``git archive`` of
+the parent commit unpacked into ``build/``).  Its kernel sources are built
+with this checkout's ``nvcc`` flags into ``build/base_kernels/`` and called
+through their C interface.
+
+- ``--kernel ey``: ``csrc/fused_linear_ey.cu`` through
+  ``fused_linear_ey_launch`` (the background weights normalised as the
+  wrapper does), at the headline inputs of ``chip_smoke.py`` (binary
+  softmax, B = 2560, S = 2072 coalitions of the Adult plan, N = 100, M = 12,
+  K = 2) and at sigmoid K = 2, 7 (B = 512, S = 1024) and 32 (B = 128,
+  S = 512), N = 100, M = 12; the outputs must agree within 1e-5.
+- ``--kernel exact``: ``csrc/exact_tree_phi.cu`` and
+  ``csrc/exact_tree_inter.cu`` through the C interface they had before the
+  weight tables moved to the wrapper (``..., bgw, zbits, table, partial,
+  out, B, P, N, M, K, dmax, stream``, the binomial table built on the card),
+  at the inputs of ``chip_smoke.py``'s exact and interaction phases: the
+  seeded Adult-shaped GBT at B = 256, N = 100, M = 12 -- the two packed
+  depth buckets of the exact explain and the dense inputs of the
+  interaction explain; the outputs must agree within the kernels' bars (phi
+  2e-5·max(1, max|phi|), the raw pair sum atol = rtol = 3e-5).
+
+Each kernel is timed by CUDA events in the order base, this, this, base.
+Prints the card's name and power limit and, as its last line, a JSON record
+with every time; exits 2 without a CUDA device.
+"""
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+_VOID, _INT = ctypes.c_void_p, ctypes.c_int
+_EXACT_ARGS = [_VOID] * 10 + [_INT] * 6 + [_VOID]
+#: per kernel choice: each source and its launch function's argument types
+SOURCES = {
+    "ey": {"fused_linear_ey": [_VOID] * 6 + [_INT] * 6 + [_VOID]},
+    "exact": {"exact_tree_phi": _EXACT_ARGS, "exact_tree_inter": _EXACT_ARGS},
+}
+
+
+def build_base(base: Path, kernel: str):
+    """Build the other checkout's sources for ``kernel``, one ``nvcc`` each,
+    all started together; returns their libraries by name."""
+
+    from distributedkernelshap_tpu_torch.ops import cuda_kernels
+
+    out_dir = REPO / "build" / "base_kernels"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    csrc = base / "distributedkernelshap_tpu_torch" / "csrc"
+    procs, libs = {}, {}
+    for name in SOURCES[kernel]:
+        so = out_dir / f"{name}.so"
+        procs[name] = (so, subprocess.Popen(
+            [cuda_kernels._nvcc(), *cuda_kernels.NVCC_FLAGS, "-o", str(so),
+             str(csrc / f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    for name, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"building the base {name} failed:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        getattr(lib, f"{name}_launch").argtypes = SOURCES[kernel][name]
+        getattr(lib, f"{name}_launch").restype = _INT
+        if kernel == "exact":
+            getattr(lib, f"{name}_partial_tiles").argtypes = [_INT]
+        libs[name] = lib
+    return libs
+
+
+def ey_base_call(lib, args, activation):
+    """One launch of the base ``fused_linear_ey``, as the wrapper makes it."""
+
+    import torch
+
+    XWg, bgWg, bgW, bgw, mask = args
+    B, M, K = XWg.shape
+    N, S = bgWg.shape[0], mask.shape[0]
+    bgw = (bgw / bgw.sum()).contiguous()
+    out = torch.empty((B, S, K), dtype=torch.float32, device=XWg.device)
+    err = lib.fused_linear_ey_launch(
+        XWg.data_ptr(), bgWg.data_ptr(), bgW.data_ptr(), bgw.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), B, S, N, M, K, {"softmax": 0, "sigmoid": 1}[activation],
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"base fused_linear_ey launch failed with CUDA error {err}")
+    return out
+
+
+def exact_base_call(lib, name, args, dmax):
+    """One launch of a base exact kernel through its earlier C interface."""
+
+    import torch
+
+    x_only = args[0]
+    B, P, M = x_only.shape
+    N, K = args[2].shape[0], args[4].shape[1]
+    dm = min(int(dmax), M)
+    dev = x_only.device
+    shape = (B, M, K) if name == "exact_tree_phi" else (B, M, M, K)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    zbits = torch.empty((N, P), dtype=torch.int64, device=dev)
+    table = torch.empty(((dm + 1) * (M + 1),), dtype=torch.float32, device=dev)
+    partial = torch.empty((getattr(lib, f"{name}_partial_tiles")(P), *shape),
+                          dtype=torch.float32, device=dev)
+    err = getattr(lib, f"{name}_launch")(
+        *(t.data_ptr() for t in args), zbits.data_ptr(), table.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), B, P, N, M, K, dm,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"base {name} launch failed with CUDA error {err}")
+    return out
+
+
+def ey_cases(base, seed, device):
+    """``(label, shape, run_base, run_this, agree)`` for ``--kernel ey``;
+    ``agree(got, ref)`` gives the max abs difference and whether it is
+    within the bar."""
+
+    import numpy as np
+
+    import chip_smoke as cs
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import fused_linear_ey
+
+    rng = np.random.default_rng(seed)
+    M, N = len(cs.ADULT_WIDTHS), cs.N_BACKGROUND
+    mask = cs.coalition_plan_mask()
+    specs = [("headline binary softmax", "softmax", cs.B_HEADLINE, len(mask), 2, mask),
+             ("sigmoid K=2", "sigmoid", 512, 1024, 2, None),
+             ("sigmoid K=7", "sigmoid", 512, 1024, 7, None),
+             ("sigmoid K=32", "sigmoid", 128, 512, 32, None)]
+
+    def agree(got, ref):
+        diff = float((got - ref).abs().max())
+        return diff, diff <= cs.EY_ATOL
+
+    cases = []
+    for label, act, B, S, K, m in specs:
+        kargs = cs.group_space_inputs(rng, B, S, N, M, K, device, m)
+        cases.append((label, [B, S, N, M, K],
+                      lambda kargs=kargs, act=act: ey_base_call(base["fused_linear_ey"],
+                                                                kargs, act),
+                      lambda kargs=kargs, act=act: fused_linear_ey(*kargs, act), agree))
+    return cases
+
+
+def exact_cases(base, seed, device):
+    """``(label, shape, run_base, run_this, agree)`` for ``--kernel exact``."""
+
+    import chip_smoke as cs
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+        exact_tree_inter,
+        exact_tree_phi,
+    )
+
+    X, bg, _ = cs.adult_task(seed)
+    X = X[:cs.B_EXACT]
+    tables = cs.adult_shaped_gbt(seed)
+    packed, _ = cs.explain_exact(tables, X, bg, device, pack_paths=True)
+    inter, _ = cs.explain_exact(tables, X, bg, device, interactions=True)
+    specs = [(f"exact_tree_phi packed bucket {i} dmax={d}", "exact_tree_phi", a, d)
+             for i, (a, d) in enumerate(cs.bucket_inputs(packed, X, device))]
+    dense, dmax = cs.dense_inputs(inter, X, device)
+    specs += [("exact_tree_phi dense", "exact_tree_phi", dense, dmax),
+              ("exact_tree_inter dense", "exact_tree_inter", dense, dmax)]
+    mine = {"exact_tree_phi": exact_tree_phi, "exact_tree_inter": exact_tree_inter}
+
+    def phi_agree(got, ref):
+        diff = float((got - ref).abs().max())
+        return diff, diff <= cs.phi_tol(ref.cpu().numpy())
+
+    cases = []
+    for label, name, kargs, d in specs:
+        shape = list(kargs[0].shape[:2]) + [kargs[2].shape[0], kargs[0].shape[2],
+                                            kargs[4].shape[1]]
+        cases.append((label, shape,
+                      lambda name=name, kargs=kargs, d=d: exact_base_call(base[name], name,
+                                                                          kargs, d),
+                      lambda name=name, kargs=kargs, d=d: mine[name](*kargs, dmax=d),
+                      cs.raw_close if name == "exact_tree_inter" else phi_agree))
+    return cases
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=sorted(SOURCES), required=True)
+    ap.add_argument("--base", type=Path, required=True)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=50)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+
+    card = cs.card_line()
+    base = build_base(args.base.resolve(), args.kernel)
+    device = torch.device("cuda", 0)
+    make = ey_cases if args.kernel == "ey" else exact_cases
+    cases = make(base, args.seed, device)
+    record = {"card": card, "kernel": args.kernel, "reps": args.reps, "cases": []}
+    for label, shape, run_base, run_mine, agree in cases:
+        got, ref = run_mine(), run_base()
+        torch.cuda.synchronize()
+        if not bool(got.isfinite().all()):
+            raise AssertionError(f"{label}: this checkout's output is not finite")
+        diff, ok = agree(got, ref)
+        if not ok:
+            raise AssertionError(f"{label}: this checkout and the base disagree ({diff})")
+        times = [cs.cuda_time_ms(fn, args.reps)
+                 for fn in (run_base, run_mine, run_mine, run_base)]
+        b_ms, m_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        record["cases"].append({"case": label, "shape": shape,
+                                "base_ms": [times[0], times[3]], "this_ms": [times[1], times[2]],
+                                "speedup": b_ms / m_ms, "max_abs_diff": diff})
+        print(f"{label} {shape} on {card}: base {times[0]:.4f} / {times[3]:.4f} ms, this "
+              f"{times[1]:.4f} / {times[2]:.4f} ms, speedup {b_ms / m_ms:.2f}x, "
+              f"max |this - base| {diff:.3e}", flush=True)
+    packed_rows = [c for c in record["cases"] if "packed" in c["case"]]
+    if packed_rows:
+        record["packed_per_explain"] = {
+            k: float(np.mean([sum(c[k][i] for c in packed_rows) for i in (0, 1)]))
+            for k in ("base_ms", "this_ms")}
+        print(f"exact_tree_phi packed per explain ({len(packed_rows)} launches) on {card}: "
+              f"base {record['packed_per_explain']['base_ms']:.4f} ms, this "
+              f"{record['packed_per_explain']['this_ms']:.4f} ms", flush=True)
+    print(f"card: {card}")
+    print(json.dumps(record))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``distributedkernelshap_tpu_torch``) on one
 CUDA card: builds every kernel from ``csrc/``, holds each against its plain
-PyTorch version on the card, drives the Adult headline explain and the exact
-TreeSHAP and exact interaction explains of an Adult-shaped GBT through the
-public API, checks the answers, and times kernels, plain versions and
-explains.
+PyTorch version on the card, drives the Adult headline explain, the exact
+TreeSHAP and exact interaction explains of an Adult-shaped GBT, and the
+sampled engine's packed copy, l1 selection, plan-constant path and
+device-side importance through the public API, checks the answers, and
+times kernels, plain versions and explains.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -74,7 +75,27 @@ Phases (each raises on failure, so the script exits non-zero):
    against its plain version on the same inputs (2e-5·max(1, max|phi|)),
    bit-identical; times: interaction explain wall at B=256 and B=2560, and
    for each of the two kernels at the dense inputs the kernel and plain
-   version by CUDA events and the kernel's bound.
+   version by CUDA events and the kernel's bound;
+10. packed transfer: the headline engine brings phi, E[f] and f(x) back in
+   one device-to-host copy, bit-identical to the explain function's
+   outputs copied one by one; with ``transfer_dtype='float16'`` phi stays
+   within atol 1e-3 / rtol 2e-3 of the float32 result and E[f], f(x) stay
+   bit-identical;
+11. l1: the default explain of the 48 one-hot columns ungrouped (M = 48,
+   S = 2144, B = 256) runs the 'auto' -> AIC selection, launch counts set
+   to 0 just before and read just after (its first pass and its l1 device
+   pass launch ``fused_linear_ey``); additive (< 1e-3), and against the
+   port on the CPU on the first 32 rows at least 99% of the targets select
+   the same set, phi within 1e-3 on them; the wall split into the first
+   pass, the l1 device pass with its copy, and the host selection;
+12. plan constants with ``use_kernel=False`` at B = 1, 16, 256: the cached
+   arm bit-identical to the recomputing arm, both within 1e-5 of the
+   classic function (``plan_constant_cache='off'``) and within 1e-3 of
+   the kernel route; off for the default engine; walls at B = 1 and 16 of
+   the cached, uncached and kernel routes;
+13. importance: ``rank_features`` on the headline rows, counted, reduces
+   mean |phi| on the device through ``fused_linear_ey``, within
+   1e-5·max(1, max|phi|) of the explain's.
 
 The second-to-last line of stdout is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -121,6 +142,15 @@ EXACT_ADDITIVITY = 1e-4
 # matrices, tests/test_treeshap.py:518-519
 RAW_TOL = 3e-5
 CONVENTION_ATOL = 1e-5
+# the sampled engine's phases: phi through a float16 transfer against the
+# float32 result (tests/test_pipeline.py:316-339); the plan-constant path
+# against the classic function; l1 selection on the ungrouped rows (the AIC
+# knot array grows as (8p+16)·p·B·K float64, ~0.75 GB at B = 2560, hence
+# B = 256), checked on the CPU on the first rows, where at least this share
+# of the targets must select the same set
+F16_ATOL, F16_RTOL = 1e-3, 2e-3
+OFF_ATOL = 1e-5
+B_L1, N_L1_CPU, L1_SHARE = 256, 32, 0.99
 
 
 def adult_groups():
@@ -395,6 +425,9 @@ def compare_kernel(seed, device):
         ("binary M=17", 256, 1024, 100, 17, 2, "softmax", None),
         ("sigmoid K=2 M=48", 256, 1024, 100, 48, 2, "sigmoid", None),
         ("sigmoid K=1 M=17", 256, 1024, 100, 17, 1, "sigmoid", None),
+        # the l1 phase's device pass: ungrouped Adult, its default plan's mask
+        ("l1 pass, ungrouped binary M=48", B_L1, len(l1_plan_mask()), N_BACKGROUND,
+         sum(ADULT_WIDTHS), 2, "softmax", l1_plan_mask()),
         # sigmoid classes on the grid's z axis
         ("sigmoid K=7", 512, 1024, 100, 12, 7, "sigmoid", None),
         ("sigmoid K=32", 128, 512, 100, 12, 32, "sigmoid", None),
@@ -474,6 +507,15 @@ def coalition_plan_mask():
     return coalition_plan(len(ADULT_WIDTHS), None, seed=0).mask
 
 
+def l1_plan_mask():
+    """The default coalition plan of the ungrouped Adult-shaped rows (M = 48),
+    the one the l1 phase's explain samples."""
+
+    from distributedkernelshap_tpu_torch.ops.coalitions import coalition_plan
+
+    return coalition_plan(sum(ADULT_WIDTHS), None, seed=0).mask
+
+
 def adult_task(seed):
     rng = np.random.default_rng(seed)
     X = adult_shaped_rows(rng, B_HEADLINE)
@@ -481,13 +523,17 @@ def adult_task(seed):
     return X, bg, AdultShapedLogisticRegression(rng)
 
 
-def explain_headline(X, bg, est, device, use_kernel=None):
+def explain_headline(X, bg, est, device, use_kernel=None, transfer_dtype=None,
+                     plan_constant_cache=None):
     from distributedkernelshap_tpu_torch import EngineConfig, KernelShap
     from distributedkernelshap_tpu_torch.ops.explain import ShapConfig
 
     explainer = KernelShap(est.predict_proba, link="logit",
                            feature_names=ADULT_GROUP_NAMES, seed=0, device=device,
-                           engine_config=EngineConfig(shap=ShapConfig(use_kernel=use_kernel)))
+                           engine_config=EngineConfig(
+                               shap=ShapConfig(use_kernel=use_kernel,
+                                               transfer_dtype=transfer_dtype),
+                               plan_constant_cache=plan_constant_cache))
     explainer.fit(bg, group_names=ADULT_GROUP_NAMES, groups=adult_groups())
     return explainer, explainer.explain(X, silent=True)
 
@@ -1313,6 +1359,243 @@ def inter_phase(tables, X_all, bg, device, sm_count, sm_clock_hz, card, seed):
             "library_ms": None}, phi_err
 
 
+# ---------------------------------------------------------------------- #
+# the sampled engine: packed copy, l1 selection, plan constants, importance
+
+
+def median_wall_ms(fn, reps: int):
+    """``fn()`` once to warm up, then the median of ``reps`` host-clock
+    walls ending in a device synchronise, in ms, with the runs."""
+
+    import torch
+
+    fn()
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(runs), [round(r, 3) for r in runs]
+
+
+def packed_transfer_phase(explainer, expl, X, bg, est, device):
+    """Phase 10: the engine brings phi, E[f] and f(x) back in one copy,
+    bit-identical to the explain function's outputs copied one by one; with
+    ``transfer_dtype='float16'`` only phi is rounded."""
+
+    import torch
+
+    engine = explainer._explainer
+    plan = engine._plan(None)
+    copies = []
+    cpu = torch.Tensor.cpu
+    torch.Tensor.cpu = lambda t, *a, **k: copies.append(tuple(t.shape)) or cpu(t, *a, **k)
+    try:
+        got = engine._dispatch_array(X, plan)()
+    finally:
+        torch.Tensor.cpu = cpu
+    Xp, B = engine._pad_to_bucket(X)
+    out = engine._fn()(torch.as_tensor(Xp, device=device), *engine._device_args(plan))
+    three = {"shap_values": out["shap_values"][:B].cpu().numpy(),
+             "expected_value": out["expected_value"].cpu().numpy(),
+             "raw_prediction": out["raw_prediction"][:B].cpu().numpy()}
+    same = {k: bool(np.array_equal(got[k], three[k])) for k in three}
+    print(f"packed transfer: {len(copies)} device-to-host copy per explain at B={B} "
+          f"(shape {copies}); bit-identical to three copies: {same}", flush=True)
+    if len(copies) != 1 or not all(same.values()):
+        raise AssertionError("the packed result differs from the explain function's outputs")
+    _, expl16 = explain_headline(X, bg, est, device, transfer_dtype="float16")
+    phi, phi16 = np.stack(expl.shap_values, 1), np.stack(expl16.shap_values, 1)
+    d16 = float(np.abs(phi16 - phi).max())
+    within = bool(np.allclose(phi16, phi, atol=F16_ATOL, rtol=F16_RTOL))
+    e_same = bool(np.array_equal(expl16.expected_value, expl.expected_value))
+    fx_same = bool(np.array_equal(expl16.data["raw"]["raw_prediction"],
+                                  expl.data["raw"]["raw_prediction"]))
+    print(f"packed transfer float16: max|phi16 - phi32|={d16:.3e} (atol {F16_ATOL:g}, rtol "
+          f"{F16_RTOL:g}: {within}); E[f] bit-identical {e_same}, f(x) bit-identical "
+          f"{fx_same}; additivity {additivity(expl16):.3e}", flush=True)
+    if not (within and e_same and fx_same):
+        raise AssertionError("the float16 transfer changed more than phi's rounding")
+
+
+def _selected(phi):
+    """Each (instance, class) target's selected groups: the nonzero entries
+    before the last, which takes the additivity remainder."""
+
+    return [tuple(np.flatnonzero(r[:-1])) for r in phi.reshape(-1, phi.shape[-1])]
+
+
+def l1_phase(X_all, bg, est, device, card):
+    """Phase 11: the default explain of the 48 one-hot columns, ungrouped,
+    runs the 'auto' → AIC selection; its device pass launches
+    ``fused_linear_ey``, which is held against its plain version on the
+    inputs that pass gave it.  Checked for additivity and against the port
+    on the CPU on the first rows; the wall split into the first explain
+    pass, the l1 device pass with its ``ey_adj`` copy, and the host
+    selection and re-solve.  Returns the kernel's largest difference from
+    its plain version."""
+
+    import logging
+
+    import torch
+    from distributedkernelshap_tpu_torch import KernelShap
+    from distributedkernelshap_tpu_torch import kernel_shap as ks_mod
+    from distributedkernelshap_tpu_torch.ops import explain as explain_mod
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+        fused_linear_ey,
+        fused_linear_ey_plain,
+    )
+
+    X = X_all[:B_L1]
+    explainer = KernelShap(est.predict_proba, link="logit", seed=0, device=device).fit(bg)
+    engine = explainer._explainer
+    warnings = []
+
+    class Recorder(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    stamps = {}
+    l1_solve, select = engine._l1_solve, ks_mod._l1_select_batch
+
+    def timed_l1_solve(*a, **k):
+        stamps["l1"] = time.perf_counter()
+        return l1_solve(*a, **k)
+
+    def timed_select(*a, **k):
+        stamps["select"] = time.perf_counter()
+        return select(*a, **k)
+
+    ey_calls = []
+
+    def recorded_ey(*a, **k):
+        ey_calls.append((a, k))
+        return fused_linear_ey(*a, **k)
+
+    handler = Recorder(level=logging.WARNING)
+    ks_mod.logger.addHandler(handler)
+    engine._l1_solve, ks_mod._l1_select_batch = timed_l1_solve, timed_select
+    explain_mod.fused_linear_ey = recorded_ey
+    fused_linear_ey.launches = 0
+    try:
+        t0 = time.perf_counter()
+        expl = explainer.explain(X, silent=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        ks_mod.logger.removeHandler(handler)
+        del engine._l1_solve
+        ks_mod._l1_select_batch = select
+        explain_mod.fused_linear_ey = fused_linear_ey
+    launches, path = fused_linear_ey.launches, explainer.kernel_path
+    S = engine._plan(None).n_rows
+    # the kernel against its plain version on the l1 device pass's own
+    # inputs (the last call: the with_ey pass), this plan's mask included
+    (a, k), = ey_calls[-1:]
+    if not np.array_equal(a[4].cpu().numpy(), l1_plan_mask()):
+        raise AssertionError("the l1 device pass did not sample the default plan")
+    got, ref = fused_linear_ey(*a, **k), fused_linear_ey_plain(*a, **k)
+    ey_err = float((got - ref).abs().max())
+    print(f"kernel vs plain [l1 device pass, its own inputs] XWg {tuple(a[0].shape)} mask "
+          f"{tuple(a[4].shape)}: max_abs_diff={ey_err:.3e} (tol {EY_ATOL:g}); "
+          f"{len(ey_calls)} kernel calls in the explain", flush=True)
+    if not (bool(got.isfinite().all()) and ey_err <= EY_ATOL):
+        raise AssertionError(f"fused_linear_ey disagrees with its plain version on the "
+                             f"l1 device pass: {ey_err}")
+    auto = [w for w in warnings if "l1_reg='auto'" in w]
+    print(f"l1: ungrouped Adult-shaped rows B={B_L1} M={engine.M} K=2 S={S}, default "
+          f"l1_reg: launches fused_linear_ey={launches}, kernel_path={path}; 'auto' -> AIC "
+          f"warning: {bool(auto)}; degenerate fallbacks logged: "
+          f"{sum('degenerate' in w for w in warnings)}", flush=True)
+    if launches < 2 or path.get("ey") != "cuda" or not auto:
+        raise AssertionError("the l1 explain did not run the AIC selection through "
+                             "fused_linear_ey")
+    phi = np.stack(expl.shap_values, 1)
+    if phi.shape != (B_L1, 2, engine.M) or not np.isfinite(phi).all():
+        raise AssertionError(f"bad l1 shap values: shape {phi.shape}")
+    add_err = additivity(expl)
+    expl_cpu = KernelShap(est.predict_proba, link="logit", seed=0, device="cpu").fit(
+        bg).explain(X[:N_L1_CPU], silent=True)
+    phi_cpu = np.stack(expl_cpu.shap_values, 1)
+    same = np.array([a == b for a, b in zip(_selected(phi[:N_L1_CPU]), _selected(phi_cpu))])
+    d_phi = float(np.abs(phi[:N_L1_CPU] - phi_cpu).reshape(-1, engine.M)[same].max())
+    print(f"l1: additivity={add_err:.3e} (< {ADDITIVITY:g}); card vs cpu (first {N_L1_CPU} "
+          f"rows): {same.mean():.4f} of {same.size} targets select the same set (>= "
+          f"{L1_SHARE}), max|dphi| on them {d_phi:.3e} (tol {PHI_ATOL:g}); mean selected "
+          f"groups {np.mean([len(t) for t in _selected(phi)]):.2f} of {engine.M - 1}",
+          flush=True)
+    if not (add_err < ADDITIVITY and same.mean() >= L1_SHARE and d_phi <= PHI_ATOL):
+        raise AssertionError("the l1 explain disagrees with its references")
+    first, device_pass, host = (1e3 * (stamps["l1"] - t0),
+                                1e3 * (stamps["select"] - stamps["l1"]),
+                                1e3 * (t1 - stamps["select"]))
+    print(f"times on {card}: l1 explain B={B_L1} wall {1e3 * (t1 - t0):.3f} ms = first "
+          f"explain pass {first:.3f} + l1 device pass, ey_adj copy and response set-up "
+          f"{device_pass:.3f} + host selection and re-solve {host:.3f} ms", flush=True)
+    return ey_err
+
+
+def plan_constant_phase(explainer, X, bg, est, device, card):
+    """Phase 12: the plan-constant path on the card (``use_kernel=False``):
+    the cached arm equals the recomputing arm bit for bit, both stay within
+    1e-5 of the classic function and within ``PHI_ATOL`` of the kernel
+    route; it stays off for the default engine, which uses the kernel."""
+
+    if explainer._explainer._plan_consts_enabled():
+        raise AssertionError("the plan-constant path engaged beside fused_linear_ey")
+    arms = {c: explain_headline(X[:1], bg, est, device, use_kernel=False,
+                                plan_constant_cache=c)[0] for c in (None, False, "off")}
+    for B in (1, 16, 256):
+        phi = {c: np.stack(ks.explain(X[:B], silent=True).shap_values, 1)
+               for c, ks in arms.items()}
+        kern = np.stack(explainer.explain(X[:B], silent=True).shap_values, 1)
+        bit = bool(np.array_equal(phi[None], phi[False]))
+        d_off = max(float(np.abs(phi[c] - phi["off"]).max()) for c in (None, False))
+        d_kern = float(np.abs(phi[None] - kern).max())
+        print(f"plan constants B={B}: cached == recomputed bit for bit: {bit}; |phi - "
+              f"phi 'off'|={d_off:.3e} (tol {OFF_ATOL:g}); |phi - phi kernel route|="
+              f"{d_kern:.3e} (tol {PHI_ATOL:g}); kernel_path {arms[None].kernel_path}",
+              flush=True)
+        if not (bit and d_off <= OFF_ATOL and d_kern <= PHI_ATOL) \
+                or arms[None].kernel_path != {"ey": "einsum_cached"}:
+            raise AssertionError("the plan-constant path disagrees with its references")
+    walls = {}
+    for B in (1, 16):
+        for name, ks in (("cached", arms[None]), ("uncached", arms[False]),
+                         ("kernel", explainer)):
+            walls[(name, B)] = median_wall_ms(lambda: ks.explain(X[:B], silent=True), 10)[0]
+    print(f"times on {card}: explain wall median of 10 (ms), cached / uncached / kernel "
+          f"route: " + "; ".join(
+              f"B={B}: {walls[('cached', B)]:.3f} / {walls[('uncached', B)]:.3f} / "
+              f"{walls[('kernel', B)]:.3f}" for B in (1, 16)), flush=True)
+
+
+def importance_phase(explainer, expl, X):
+    """Phase 13: ``rank_features`` on the headline rows reduces mean |phi|
+    on the device through ``fused_linear_ey``; the mean matches the
+    explain's."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import fused_linear_ey
+
+    fused_linear_ey.launches = 0
+    ranked = explainer.rank_features(X)
+    torch.cuda.synchronize()
+    launches, path = fused_linear_ey.launches, explainer.kernel_path
+    imp = explainer._explainer.get_importance(X)
+    phi = np.stack(expl.shap_values, 1)
+    want = np.abs(phi).mean(0)
+    tol = 1e-5 * max(1.0, float(np.abs(phi).max()))
+    err = float(np.abs(imp - want).max())
+    print(f"importance: rank_features B={len(X)}: launches fused_linear_ey={launches}, "
+          f"kernel_path={path}; |mean|phi| device - explain|={err:.3e} (tol {tol:.2e}); "
+          f"top groups {ranked['aggregated']['names'][:3]}", flush=True)
+    if launches < 1 or path.get("ey") != "cuda" or not err <= tol:
+        raise AssertionError("rank_features did not reduce through fused_linear_ey "
+                             "or disagrees with the explain")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1371,14 +1654,7 @@ def main() -> int:
         raise AssertionError("the headline explain disagrees with its references")
 
     # 5. times
-    walls = []
-    explainer.explain(X, silent=True)
-    for _ in range(3):
-        t0 = time.perf_counter()
-        explainer.explain(X, silent=True)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    wall_ms = 1e3 * statistics.median(walls)
+    wall_ms, walls = median_wall_ms(lambda: explainer.explain(X, silent=True), 3)
     S = explainer._explainer._plan(None).n_rows
     M, N, K = len(ADULT_WIDTHS), N_BACKGROUND, 2
     ey_args = group_space_inputs(np.random.default_rng(args.seed), B_HEADLINE, S, N, M, K,
@@ -1391,7 +1667,7 @@ def main() -> int:
               for d in ("paired", "factored", "unfactored")}
     bound_ms, bound_by = floors["paired"]
     print(f"times on {card}: explain B={B_HEADLINE} wall median of 3 = {wall_ms:.3f} ms "
-          f"(runs {[round(1e3 * w, 3) for w in walls]}); fused_linear_ey at B={B_HEADLINE} "
+          f"(runs {walls}); fused_linear_ey at B={B_HEADLINE} "
           f"S={S} N={N} M={M} K={K}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}: half a reciprocal per activation, "
           f"paired), {100 * bound_ms / kernel_ms:.1f}% of bound; the design's floor "
@@ -1412,6 +1688,13 @@ def main() -> int:
                                               props.multi_processor_count,
                                               clock, card, args.seed)
     exact_record["max_abs_err"] = max(exact_record["max_abs_err"], phi_dense_err)
+
+    # 10-13. the sampled engine: packed copy, l1 selection, plan constants,
+    # device-side importance
+    packed_transfer_phase(explainer, expl, X, bg, est, device)
+    max_err = max(max_err, l1_phase(X, bg, est, device, card))
+    plan_constant_phase(explainer, X, bg, est, device, card)
+    importance_phase(explainer, expl, X)
 
     print(f"card: {card}")
     print(json.dumps({"kernels": [{

@@ -1,7 +1,7 @@
 """The KernelSHAP pipeline in PyTorch: masked evaluation + constrained WLS.
 
-Port of ``distributedkernelshap_tpu/ops/explain.py`` (``:146-181``,
-``:231-245``, ``:305-416``, ``:589-733``) for logits-linear predictors:
+Port of ``distributedkernelshap_tpu/ops/explain.py`` (``:146-245``,
+``:305-586``, ``:589-733``) for logits-linear predictors:
 
 1. group masks stay in group space: the model's matmul is pushed through the
    mask, so the ``B×S×N×D`` synthetic-data tensor never exists;
@@ -10,7 +10,13 @@ Port of ``distributedkernelshap_tpu/ops/explain.py`` (``:146-181``,
    or in its plain, chunked PyTorch version;
 3. the Shapley-kernel weighted least squares with the additivity constraint
    eliminated by substitution, with one Cholesky factor shared by all
-   ``B·K`` right-hand sides.
+   ``B·K`` right-hand sides;
+4. the plan-constant pair (``build_linear_plan_consts_fn`` /
+   ``build_linear_cached_fn``): what depends only on (model, background,
+   plan) computed once, so a request pays only its ``B×S×K`` work and a
+   triangular solve;
+5. ``pack_transfer`` / ``unpack_transfer``: phi, E[f] and f(x) in one
+   device buffer, so the result comes back in one copy.
 
 Matrix products run in full float32 as long as PyTorch's float32 matmul
 precision is left at its default ("highest": no TF32), which is the
@@ -19,13 +25,14 @@ loop of chunks (JAX's ``lax.map``); PyTorch runs eagerly, so there is no jit.
 """
 
 import contextvars
+import math
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from distributedkernelshap_tpu_torch.models.predictors import BasePredictor
+from distributedkernelshap_tpu_torch.models.predictors import ACTIVATIONS, BasePredictor
 from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
     fused_linear_ey,
     fused_linear_ey_plain,
@@ -37,8 +44,9 @@ from distributedkernelshap_tpu_torch.ops.links import convert_to_link
 # Tags: 'ey' (sampled masked eval), 'exact_phi' (exact TreeSHAP).  Paths:
 # 'cuda' (the kernel launched), 'plain' (the kernel's plain version: CPU
 # tensors, or use_kernel=False), 'einsum' ('ey' with the identity
-# activation: the background axis collapses analytically).  Recorded where
-# the route is taken, on every call.
+# activation: the background axis collapses analytically), 'einsum_cached'
+# (the plan-constant path, build_linear_cached_fn).  Recorded where the
+# route is taken, on every call.
 
 _KERNEL_PATHS: contextvars.ContextVar = contextvars.ContextVar(
     "dks_torch_kernel_paths", default=None)
@@ -83,6 +91,71 @@ class ShapConfig:
     # modelled gain clears treeshap_pack.PACK_AUTO_GAIN), True/False force
     # the packed/dense layout
     pack_paths: Optional[bool] = None
+    # dtype of phi in the packed result copied to the host (pack_transfer):
+    # None keeps float32; 'float16' or 'bfloat16' halve phi's bytes at the
+    # cost of its rounding (E[f] and f(x) stay float32 either way)
+    transfer_dtype: Optional[str] = None
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown transfer_dtype {name!r}")
+    return dtype
+
+
+def pack_transfer(wide, narrow, transfer_dtype):
+    """Pack a device result into ONE tensor for a single device-to-host
+    copy, casting only the dominant segment to ``transfer_dtype``
+    (reference ``ops/explain.py:183-208``).
+
+    ``wide`` is the segment that dominates the copy (phi); ``narrow`` the
+    small remainder (E[f(x)] and f(x): K and B·K floats), kept float32 so
+    its rounding does not inflate the reported additivity error.  For a
+    16-bit ``transfer_dtype`` both segments are reinterpreted as 16-bit
+    words (the wide one in that dtype, the narrow one as float32 bit
+    patterns), so the copy stays one tensor with the reference's byte
+    layout.  :func:`fetch_transfer` copies it to the host and
+    :func:`unpack_transfer` is the host-side inverse."""
+
+    wide = wide.reshape(-1)
+    narrow = narrow.reshape(-1).to(torch.float32)
+    if not transfer_dtype:
+        return torch.cat([wide.to(torch.float32), narrow])
+    td = _torch_dtype(transfer_dtype)
+    if torch.empty(0, dtype=td).element_size() != 2:
+        return torch.cat([wide.to(td), narrow.to(td)])
+    return torch.cat([wide.to(td).view(torch.int16), narrow.view(torch.int16)])
+
+
+def fetch_transfer(packed: torch.Tensor) -> np.ndarray:
+    """The one device-to-host copy of a :func:`pack_transfer` result (it
+    waits for the device); 16-bit words come back as ``np.uint16``, the
+    reference's host dtype."""
+
+    host = packed.cpu().numpy()
+    return host.view(np.uint16) if host.dtype == np.int16 else host
+
+
+def unpack_transfer(flat: np.ndarray, n_wide: int, transfer_dtype) -> tuple:
+    """Host-side inverse of :func:`pack_transfer` (reference
+    ``ops/explain.py:211-228``): ``(wide_f32, narrow_f32)`` 1-D arrays from
+    the fetched copy ``flat``, whose wide segment has ``n_wide`` elements.
+    bfloat16 is widened exactly by moving its bits into the top half of a
+    float32 (numpy has no bfloat16)."""
+
+    flat = np.asarray(flat)
+    if flat.dtype != np.uint16:
+        flat = flat.astype(np.float32, copy=False)
+        return flat[:n_wide], flat[n_wide:]
+    if str(transfer_dtype) == "bfloat16":
+        wide = (flat[:n_wide].astype(np.uint32) << 16).view(np.float32)
+    else:
+        wide = flat[:n_wide].view(np.dtype(transfer_dtype)).astype(np.float32)
+    # .copy(): the tail's byte offset (2*n_wide) need not be 4-aligned, and
+    # numpy refuses misaligned views; the tail is K + B*K floats
+    narrow = flat[n_wide:].copy().view(np.float32)
+    return wide, narrow
 
 
 def groups_to_matrix(groups: Optional[Sequence[Sequence[int]]], n_columns: int) -> np.ndarray:
@@ -108,6 +181,20 @@ def resolve_use_kernel(use_kernel: Optional[bool], device: torch.device) -> bool
 
 def _auto_chunk(S: int, per_row_elems: int, target: int) -> int:
     return max(1, min(S, target // max(per_row_elems, 1)))
+
+
+def _chunked(zc: torch.Tensor, chunk: int):
+    """Pad the coalition axis to a multiple of ``chunk`` and reshape to
+    ``(n_chunks, chunk, M)``; returns it with the unpadded ``S``.  Padded
+    rows are all-zero masks (the pure background: harmless, and sliced
+    off)."""
+
+    S, D = zc.shape
+    n_chunks = math.ceil(S / chunk)
+    pad = n_chunks * chunk - S
+    if pad:
+        zc = torch.cat([zc, zc.new_zeros((pad, D))], 0)
+    return zc.reshape(n_chunks, chunk, D), S
 
 
 def _ey_linear(W, b, activation: str, X, bg, bgw_n, mask, G, chunk: int,
@@ -240,6 +327,140 @@ def build_explainer_fn(predictor: BasePredictor, config: ShapConfig = ShapConfig
         if with_ey:
             out["ey_adj"] = ey_adj
         return out
+
+    return explain
+
+
+def plan_constants_variant(activation: str, K: int) -> str:
+    """Which plan-constant variant a linear predictor maps to: the same
+    dispatch as :func:`_ey_linear` and ``fused_linear_ey_plain``
+    (``'identity'``, ``'binary'`` softmax at K = 2, else ``'general'``)."""
+
+    if activation == "identity":
+        return "identity"
+    if activation == "softmax" and K == 2:
+        return "binary"
+    return "general"
+
+
+def build_linear_plan_consts_fn(predictor: BasePredictor, config: ShapConfig,
+                                chunk: int):
+    """The precompute half of the plan-constant path (reference
+    ``ops/explain.py:432-498``): everything of the linear path that depends
+    only on (model, background, plan), computed once and kept on the
+    device — the masked-background logits (``t2w``, or ``dt2c`` / ``t2c``
+    stored pre-chunked in the layout :func:`build_linear_cached_fn` walks),
+    the background logits, E[f] and the factorised WLS Gram matrix.
+
+    Returns ``precompute(bg, bgw, mask, weights, G) -> dict``.  ``chunk`` is
+    the coalition chunk of the per-request function, baked in here because
+    the cached tensors are stored in its chunks."""
+
+    link_fn = convert_to_link(config.link)
+    W, b, activation = predictor.linear_decomposition
+    variant = plan_constants_variant(activation, int(W.shape[1]))
+
+    @torch.no_grad()
+    def precompute(bg, bgw, mask, weights, G):
+        bg = bg.to(torch.float32)
+        bgw_n = bgw / bgw.sum()
+        GW = G[:, :, None] * W[None, :, :]                # (M, D, K)
+        bgWg = torch.einsum("nd,mdk->nmk", bg, GW)        # (N, M, K)
+        bgW = bg @ W + b                                  # (N, K)
+        e_out = torch.einsum("nk,n->k", predictor(bg), bgw_n)
+        consts = {"mask": mask, "bgw_n": bgw_n, "GW": GW,
+                  "expected_value": link_fn(e_out)}
+        S, M = mask.shape
+        if M > 1:
+            # the Gram matrix factorised here (normal_equations' formula):
+            # a request pays only the triangular solve
+            zl = mask[:, -1]
+            Zt = mask[:, :-1] - zl[:, None]
+            Aw = Zt * weights[:, None]
+            A = Aw.T @ Zt + config.ridge * torch.eye(M - 1, dtype=mask.dtype,
+                                                      device=mask.device)
+            consts.update(zl=zl, Aw=Aw, chol=torch.linalg.cholesky(A))
+        if variant == "identity":
+            consts["e_bgW"] = torch.einsum("nk,n->k", bgW, bgw_n)
+            consts["t2w"] = torch.einsum("sm,nmk,n->sk", mask, bgWg, bgw_n)
+        elif variant == "binary":
+            dbgWg = bgWg[:, :, 1] - bgWg[:, :, 0]         # (N, M)
+            dbgW = bgW[:, 1] - bgW[:, 0]                  # (N,)
+            mask_chunks, _ = _chunked(mask, min(S, 2 * chunk))
+            consts["dt2c"] = torch.stack([mc @ dbgWg.T - dbgW[None, :]
+                                          for mc in mask_chunks])   # (n_chunks, c, N)
+        else:
+            mask_chunks, _ = _chunked(mask, chunk)
+            consts["t2c"] = torch.stack([torch.einsum("sm,nmk->snk", mc, bgWg)
+                                         for mc in mask_chunks])    # (n_chunks, c, N, K)
+            consts["bgW"] = bgW
+        return consts
+
+    return precompute
+
+
+def build_linear_cached_fn(predictor: BasePredictor, config: ShapConfig, chunk: int):
+    """The per-request half of the plan-constant path (reference
+    ``ops/explain.py:501-586``): ``explain(X, consts) -> dict`` over
+    :func:`build_linear_plan_consts_fn`'s constants, with the same formulas,
+    chunks and order as :func:`_ey_linear`'s plain route and
+    :func:`_wls_solve`.
+
+    Phi is bit-identical between constants served from the engine's cache
+    and constants recomputed for the call (the same function on the same
+    values); against the classic function (``plan_constant_cache='off'``)
+    the products are batched differently, so the last bits may differ.
+    ``fused_linear_ey`` has no cached variant (it takes the raw background
+    tensors): the engine does not use this path while the kernel is on."""
+
+    link_fn = convert_to_link(config.link)
+    W, b, activation = predictor.linear_decomposition
+    K = int(W.shape[1])
+    variant = plan_constants_variant(activation, K)
+    act = ACTIVATIONS[activation]
+
+    @torch.no_grad()
+    def explain(X, consts):
+        record_kernel_path("ey", "einsum_cached")
+        X = X.to(torch.float32)
+        mask = consts["mask"]
+        S, M = mask.shape
+        bgw_n = consts["bgw_n"]
+        XWg = torch.einsum("bd,mdk->bmk", X, consts["GW"])  # (B, M, K)
+        if variant == "identity":
+            p1 = torch.einsum("sm,bmk->bsk", mask, XWg)
+            ey = p1 + consts["e_bgW"][None, None, :] - consts["t2w"][None, :, :]
+        elif variant == "binary":
+            dXWg = XWg[:, :, 1] - XWg[:, :, 0]              # (B, M)
+            mask_chunks, _ = _chunked(mask, min(S, 2 * chunk))
+            ey1 = torch.cat([
+                torch.sigmoid((mc @ dXWg.T).T[:, :, None] - dt2[None]) @ bgw_n
+                for mc, dt2 in zip(mask_chunks, consts["dt2c"])], 1)[:, :S]
+            ey = torch.stack([1.0 - ey1, ey1], dim=-1)
+        else:
+            bgW = consts["bgW"]
+            mask_chunks, _ = _chunked(mask, chunk)
+            ey = torch.cat([
+                torch.einsum("bcnk,n->bck",
+                             act(torch.einsum("sm,bmk->bsk", mc, XWg)[:, :, None, :]
+                                 + bgW[None, None] - t2[None]), bgw_n)
+                for mc, t2 in zip(mask_chunks, consts["t2c"])], 1)[:, :S]
+        expected_value = consts["expected_value"]
+        fx = link_fn(predictor(X))
+        ey_adj = link_fn(ey) - expected_value[None, None, :]
+        fx_minus_e = fx - expected_value[None, :]
+        if M == 1:
+            phi = fx_minus_e[:, :, None]
+        else:
+            zl = consts["zl"]
+            rhs = torch.einsum("sm,bsk->bkm", consts["Aw"],
+                               ey_adj - zl[None, :, None] * fx_minus_e[:, None, :])
+            phi = solve_from_factor(consts["chol"], rhs, fx_minus_e)
+        return {
+            "shap_values": phi,                # (B, K, M)
+            "expected_value": expected_value,  # (K,)
+            "raw_prediction": fx,              # (B, K) in link space
+        }
 
     return explain
 

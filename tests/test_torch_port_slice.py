@@ -10,6 +10,8 @@ reference in phi; the bounds below leave a decade of room and stay far
 below the scale of the values (phi of O(1)).
 """
 
+import sys
+
 import numpy as np
 import pytest
 
@@ -54,9 +56,11 @@ def adult():
     }
 
 
-@pytest.mark.parametrize("use_kernel,path", [(None, "plain"), (True, "plain")])
+@pytest.mark.parametrize("use_kernel,path", [(None, "einsum_cached"), (True, "plain")])
 def test_adult_headline_matches_jax(adult, use_kernel, path):
-    """The paper's task (bench.py:141-169) on 64 Adult test rows."""
+    """The paper's task (bench.py:141-169) on 64 Adult test rows: by
+    default on the CPU through the plan-constant path, with the kernel
+    asked for through the kernel's plain version."""
 
     gn, groups = adult["group_names"], adult["groups"]
     ref = JaxKernelShap(adult["clf"].predict_proba, link="logit",
@@ -86,8 +90,9 @@ def _synthetic(K, activation, seed, n_bg=30, B=24, D=10):
 
 @pytest.mark.parametrize("K,activation,grouped,use_kernel", [
     (7, "softmax", False, None), (7, "softmax", True, None),
-    (7, "softmax", True, True), (3, "sigmoid", False, True),
-    (3, "sigmoid", True, None), (2, "identity", True, None),
+    (7, "softmax", False, True), (7, "softmax", True, True),
+    (3, "sigmoid", False, True), (3, "sigmoid", True, None),
+    (3, "sigmoid", True, True), (2, "identity", True, None),
 ])
 def test_synthetic_linear_matches_jax(K, activation, grouped, use_kernel):
     W, b, bg, X, weights = _synthetic(K, activation, seed=K)
@@ -103,7 +108,9 @@ def test_synthetic_linear_matches_jax(K, activation, grouped, use_kernel):
                                     shap=ShapConfig(use_kernel=use_kernel)),
                                 device="cpu")
     got = ks.explain(X, l1_reg=False)
-    expect = "einsum" if activation == "identity" else "plain"
+    # the plan-constant path takes every activation unless the kernel is
+    # asked for, and the identity even then
+    expect = "einsum_cached" if use_kernel is None or activation == "identity" else "plain"
     assert ks.kernel_path == {"ey": expect}
     _compare(ref, got)
     assert _additivity(got) < ADDITIVITY
@@ -120,11 +127,18 @@ def test_sampled_plan_matches_jax():
     _compare(ref, got)
 
 
-def test_l1_and_exact_paths_raise():
+def test_l1_and_exact_paths_raise(monkeypatch):
+    """l1 selection runs where the reference runs it; only its
+    scikit-learn route raises where scikit-learn is missing, naming the
+    route.  The exact path refuses a linear model as the JAX package does."""
+
     W, b, bg, X, _ = _synthetic(2, "softmax", seed=2, D=14, B=4)
     ks = kernel_shap_from_numpy(W, b, "softmax", bg, link="logit", seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="l1_reg"):
-        ks.explain(X, nsamples=100)          # 'auto' l1 is active at 100/16382
+    assert ks.explain(X, nsamples=100).shap_values[0].shape == (4, 14)  # 'auto': AIC
+    monkeypatch.setitem(sys.modules, "sklearn", None)     # import sklearn fails
+    with pytest.raises(ImportError, match=r"l1_reg=0\.01 \(Lasso\) needs scikit-learn"):
+        ks.explain(X, nsamples=100, l1_reg=0.01)
+    assert ks.explain(X, nsamples=100, l1_reg="bic").shap_values[0].shape == (4, 14)
     # the exact path takes lifted tree ensembles; a linear model is refused
     # as the JAX package refuses it
     with pytest.raises(ValueError, match="exact"):

@@ -2,10 +2,12 @@
 """Smoke run of the PyTorch port (``distributedkernelshap_tpu_torch``) on one
 CUDA card: builds every kernel from ``csrc/``, holds each against its plain
 PyTorch version on the card, drives the Adult headline explain, the exact
-TreeSHAP and exact interaction explains of an Adult-shaped GBT, and the
+TreeSHAP and exact interaction explains of an Adult-shaped GBT, the
 sampled engine's packed copy, l1 selection, plan-constant path and
-device-side importance through the public API, checks the answers, and
-times kernels, plain versions and explains.
+device-side importance, and the non-linear sampled paths (the GBT's and an
+MLP's ``masked_ey``, torch modules, a numpy black box on the host-eval and
+generic routes) through the public API, checks the answers, and times
+kernels, plain versions and explains.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -95,7 +97,35 @@ Phases (each raises on failure, so the script exits non-zero):
    the cached, uncached and kernel routes;
 13. importance: ``rank_features`` on the headline rows, counted, reduces
    mean |phi| on the device through ``fused_linear_ey``, within
-   1e-5·max(1, max|phi|) of the explain's.
+   1e-5·max(1, max|phi|) of the explain's;
+14. sampled tree (``adult_trees``): phase 6's GBT with the ``binary_sigmoid``
+   head ``HistGradientBoostingClassifier.predict_proba`` lifts to, explained
+   by sampling at B=256 (``link='logit'``, default nsamples): launch counts
+   set to 0 just before and read just after, and all three must be 0 (the
+   path runs no hand kernel: its masked evaluation is the tree's
+   ``masked_ey`` in plain PyTorch);
+   ``kernel_path['ey'] == 'masked_ey'``, additive (< 1e-3), within 1e-3 of
+   the CPU on the first 4 rows; ``masked_ey`` against the row evaluation
+   (``_ey_generic``) at B=16 within 1e-5 on ``ey``; the raw-margin tree with
+   nsamples=4094 (every coalition of M=12) against ``nsamples='exact'``
+   within 1e-4·max(1, max|phi|); times: the wall (one warm-up, median of 3),
+   device busy and idle share under ``torch.profiler``, and a CUDA-event
+   split of ``masked_ey`` into its tree steps and the rest;
+15. MLP (``model_zoo``'s ``sklearn_mlp``): a seeded 48 -> 32 ReLU -> 1 logit
+   MLP laid out as the scikit-learn lift lays it out (``mlp_stages`` with
+   the ``binary_sigmoid`` head, a ``TorchMLPPredictor``) at B=256 through
+   ``masked_ey``, additive, within 1e-3 of the CPU on the first 16 rows; the
+   same weights as an ``nn.Sequential`` (lifted, ``masked_ey``) and as a
+   module with a skip term (unliftable: a ``TorchPredictor`` on the
+   ``'generic'`` route), each within 1e-3 of the first; walls of the three
+   at B=256 and 16;
+16. black box (``adult_blackbox``): the same MLP as a numpy function in a
+   ``CallbackPredictor`` at B=16 with ``EngineConfig(host_eval=True)``
+   (``kernel_path`` ``{'ey': 'host', 'host_fill': 'native'}``) and without
+   (``'generic'``), both within 1e-3 of phase 15's answer; the host-eval
+   ``l1_reg='auto'`` leg on the 48 ungrouped columns, additive; walls with
+   ``hosteval_workers`` and ``os.cpu_count()``;
+17. each of phases 14–16's seconds and the script's so far.
 
 The second-to-last line of stdout is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -151,6 +181,12 @@ CONVENTION_ATOL = 1e-5
 F16_ATOL, F16_RTOL = 1e-3, 2e-3
 OFF_ATOL = 1e-5
 B_L1, N_L1_CPU, L1_SHARE = 256, 32, 0.99
+# the non-linear sampled phases (adult_trees, model_zoo's MLP, adult_blackbox):
+# B = 256 as configured; the row-evaluating routes and the black box at 16;
+# the CPU checks on the first rows; an exhaustive plan's phi against the
+# exact values (the 1e-6 ridge moves phi by ~6e-6 relative at M = 12)
+B_TREES, B_SMALL, N_TREE_CPU, N_MLP_CPU = 256, 16, 4, 16
+EXACT_SAMPLED_REL = 1e-4
 
 
 def adult_groups():
@@ -602,13 +638,17 @@ def adult_shaped_gbt(seed):
                 value=value, depth=depth)
 
 
-def tree_predictor(tables, device):
+def tree_predictor(tables, device, head="identity"):
+    """The ensemble's raw margin (``head='identity'``, K = 1), or the
+    probability pair ``HistGradientBoostingClassifier.predict_proba`` lifts
+    to (``head='binary_sigmoid'``, K = 2)."""
+
     from distributedkernelshap_tpu_torch import TreeEnsemblePredictor
 
     return TreeEnsemblePredictor(
         tables["feature"], tables["threshold"], tables["left"], tables["right"],
         tables["value"], depth=tables["depth"], aggregation="sum", base=[0.24],
-        out_transform="identity", vector_out=False, device=device)
+        out_transform=head, vector_out=head != "identity", device=device)
 
 
 def explain_exact(tables, X, bg, device, pack_paths=None, use_kernel=None,
@@ -1596,10 +1636,361 @@ def importance_phase(explainer, expl, X):
                              "or disagrees with the explain")
 
 
+# ---------------------------------------------------------------------- #
+# the non-linear sampled paths: tree masked_ey, MLPs, torch modules, black box
+
+
+def kernel_launches():
+    from distributedkernelshap_tpu_torch.ops import cuda_kernels
+
+    return {name: getattr(cuda_kernels, name).launches
+            for name in ("fused_linear_ey", "exact_tree_phi", "exact_tree_inter")}
+
+
+def reset_launches():
+    from distributedkernelshap_tpu_torch.ops import cuda_kernels
+
+    for name in ("fused_linear_ey", "exact_tree_phi", "exact_tree_inter"):
+        getattr(cuda_kernels, name).launches = 0
+
+
+def explain_sampled(model, X, bg, device, link="logit", groups=True, **kw):
+    """``KernelShap(model, link).fit(bg, ...).explain(X)`` with the Adult
+    grouping (or ungrouped), the public API of every phase from 14 on."""
+
+    from distributedkernelshap_tpu_torch import EngineConfig, KernelShap
+
+    explainer = KernelShap(model, link=link, seed=0, device=device,
+                           engine_config=kw.pop("engine_config", EngineConfig()))
+    if groups:
+        explainer.fit(bg, group_names=ADULT_GROUP_NAMES, groups=adult_groups())
+    else:
+        explainer.fit(bg)
+    return explainer, explainer.explain(X, silent=True, **kw)
+
+
+def sampled_phi(expl, B, K=2, M=None):
+    phi = np.stack(expl.shap_values, 1)
+    M = M or len(ADULT_WIDTHS)
+    if phi.shape != (B, K, M) or not np.isfinite(phi).all():
+        raise AssertionError(f"bad shap values: shape {phi.shape}, "
+                             f"finite={np.isfinite(phi).all()}")
+    err = additivity(expl)
+    if not err < ADDITIVITY:
+        raise AssertionError(f"additivity violated: {err}")
+    return phi, err
+
+
+def device_busy(fn):
+    """``fn()`` once under ``torch.profiler``: ``(wall ms, device busy ms,
+    idle share, device events, the four device kernels with the most time
+    as (name, ms, count))``, busy being the union of the device events'
+    intervals."""
+
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end = 0.0, -np.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in events:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]
+    return (wall_us / 1e3, busy / 1e3, 1.0 - busy / wall_us, len(events),
+            [(name[:60], round(ms, 3), n) for name, (ms, n) in top])
+
+
+def tree_step_split(explainer, X):
+    """One explain with CUDA events around every ``masked_ey`` and every
+    coalition chunk's tree loop (``TreeEnsemblePredictor._tree_steps``):
+    ``(wall ms, masked_ey ms, tree steps ms, chunks)``; the chunk einsums
+    (Q, R, C, hx, hb, the head and the background mean) are the masked_ey
+    span less the tree steps."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.models.trees import TreeEnsemblePredictor as T
+
+    spans = {"steps": [], "masked": []}
+
+    def timed(key, fn):
+        def wrapper(*a, **k):
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*a, **k)
+            stop.record()
+            spans[key].append((start, stop))
+            return out
+        return wrapper
+
+    steps, masked = T.__dict__["_tree_steps"], T.__dict__["masked_ey"]
+    T._tree_steps = staticmethod(timed("steps", steps.__func__))
+    T.masked_ey = timed("masked", masked)
+    try:
+        t0 = time.perf_counter()
+        explainer.explain(X, silent=True)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    finally:
+        T._tree_steps, T.masked_ey = steps, masked
+    total = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    return wall, total["masked"], total["steps"], len(spans["steps"])
+
+
+def sampled_tree_phase(tables, X_all, bg, device, card):
+    """Phase 14: the sampled explain of the Adult-shaped GBT with the
+    ``predict_proba`` head (``adult_trees``): ``masked_ey`` on the card,
+    checked for additivity and against the CPU; ``masked_ey`` against the
+    row evaluation; the exhaustive plan of the raw-margin tree against
+    ``nsamples='exact'``; walls, device busy share and the tree-step split."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.ops.explain import _auto_chunk, _ey_generic
+
+    X = X_all[:B_TREES]
+    reset_launches()
+    explainer, expl = explain_sampled(tree_predictor(tables, device, "binary_sigmoid"),
+                                      X, bg, device)
+    torch.cuda.synchronize()
+    path, launches = explainer.kernel_path, kernel_launches()
+    engine = explainer._explainer
+    plan = engine._plan(None)
+    phi, add_err = sampled_phi(expl, B_TREES)
+    _, expl_cpu = explain_sampled(tree_predictor(tables, "cpu", "binary_sigmoid"),
+                                  X[:N_TREE_CPU], bg, "cpu")
+    d_cpu = float(np.abs(phi[:N_TREE_CPU] - sampled_phi(expl_cpu, N_TREE_CPU)[0]).max())
+    logits = expl.data["raw"]["raw_prediction"][:, 1]      # link space: the logit
+    print(f"sampled tree: GBT T={N_TREES} depth {tables['depth']} head binary_sigmoid, "
+          f"B={B_TREES} N={N_BACKGROUND} M={engine.M} S={plan.n_rows}: kernel_path={path}, "
+          f"kernel launches {launches}; additivity={add_err:.3e} (< {ADDITIVITY:g}); "
+          f"|phi card - phi cpu| (first {N_TREE_CPU} rows)={d_cpu:.3e} (tol {PHI_ATOL:g}); "
+          f"max|phi|={np.abs(phi).max():.3f}; logit range [{logits.min():.2f}, "
+          f"{logits.max():.2f}]", flush=True)
+    if path != {"ey": "masked_ey"} or not d_cpu <= PHI_ATOL:
+        raise AssertionError("the sampled tree explain disagrees with its references")
+    if any(launches.values()):
+        raise AssertionError(f"the sampled tree explain launched a hand kernel: {launches}")
+
+    # masked_ey against the row evaluation of the same predictor, B = 16
+    bg_t, bgw, mask, _, G = engine._device_args(plan)
+    Xs = torch.as_tensor(X[:B_SMALL], device=device)
+    bgw_n = bgw / bgw.sum()
+    with torch.no_grad():
+        ey = engine.predictor.masked_ey(Xs, bg_t, bgw_n, mask, G)
+        rows = _ey_generic(engine.predictor, Xs, bg_t, bgw_n, mask @ G, _auto_chunk(
+            plan.n_rows, B_SMALL * N_BACKGROUND * X.shape[1], 1 << 25))
+    d_ey = float((ey - rows).abs().max())
+    print(f"sampled tree: masked_ey vs row evaluation (_ey_generic) at B={B_SMALL}: "
+          f"max|dey|={d_ey:.3e} (tol {EY_ATOL:g})", flush=True)
+    if not (bool(ey.isfinite().all()) and d_ey <= EY_ATOL):
+        raise AssertionError("masked_ey disagrees with the row evaluation")
+
+    # every coalition of M = 12 enumerated: the sampled phi is the exact one
+    margin = tree_predictor(tables, device)
+    full, expl_full = explain_sampled(margin, X[:B_SMALL], bg, device, link="identity",
+                                      nsamples=2 ** len(ADULT_WIDTHS) - 2)
+    exhaustive = full._explainer._plan(2 ** len(ADULT_WIDTHS) - 2).exact
+    phi_full = np.asarray(expl_full.shap_values[0])
+    _, expl_exact = explain_exact(tables, X[:B_SMALL], bg, device)
+    phi_exact = np.asarray(expl_exact.shap_values[0])
+    d_exact = float(np.abs(phi_full - phi_exact).max())
+    tol = EXACT_SAMPLED_REL * max(1.0, float(np.abs(phi_exact).max()))
+    print(f"sampled tree: raw margin, nsamples={2 ** len(ADULT_WIDTHS) - 2} (plan "
+          f"exhaustive: {exhaustive}) kernel_path={full.kernel_path} vs nsamples='exact' "
+          f"at B={B_SMALL}: max|dphi|={d_exact:.3e} (tol {tol:.2e}), max|phi|="
+          f"{np.abs(phi_exact).max():.3f}", flush=True)
+    if not (exhaustive and full.kernel_path.get("ey") == "masked_ey" and d_exact <= tol):
+        raise AssertionError("the exhaustive sampled tree explain disagrees with the exact one")
+
+    wall, walls = median_wall_ms(lambda: explainer.explain(X, silent=True), 3)
+    p_wall, busy, idle, events, top = device_busy(lambda: explainer.explain(X, silent=True))
+    s_wall, masked_ms, steps_ms, chunks = tree_step_split(explainer, X)
+    print(f"times on {card}: sampled tree explain B={B_TREES} wall median of 3 = "
+          f"{wall:.3f} ms (runs {walls}); under torch.profiler: wall {p_wall:.3f} ms, "
+          f"device busy {busy:.3f} ms, idle share {idle:.4f}, {events} device events, "
+          f"most device time (name, ms, count): {top}; "
+          f"CUDA-event split (wall {s_wall:.3f} ms): masked_ey {masked_ms:.3f} ms = tree "
+          f"steps {steps_ms:.3f} ms ({chunks} coalition chunks x {N_TREES} trees) + chunk "
+          f"einsums, head and background mean {masked_ms - steps_ms:.3f} ms; outside "
+          f"masked_ey {s_wall - masked_ms:.3f} ms", flush=True)
+
+
+def mlp_layers(seed):
+    """``model_zoo``'s ``sklearn_mlp`` at the Adult width: 48 -> 32 ReLU -> 1
+    logit, weights from ``seed`` scaled so the logits stay O(1)."""
+
+    rng = np.random.default_rng([seed, 15])
+    D = sum(ADULT_WIDTHS)
+    return [(rng.normal(scale=0.4, size=(D, 32)).astype(np.float32),
+             rng.normal(scale=0.1, size=32).astype(np.float32)),
+            (rng.normal(scale=0.3, size=(32, 1)).astype(np.float32),
+             np.array([-0.5], np.float32))]
+
+
+def numpy_mlp(layers):
+    """The same network as a numpy host callable (float32, ``[1-p, p]``)."""
+
+    (W1, b1), (W2, b2) = layers
+
+    def predict_proba(x):
+        z = np.maximum(np.asarray(x, np.float32) @ W1 + b1, 0.0) @ W2 + b2
+        p = 1.0 / (1.0 + np.exp(-z[:, 0]))
+        return np.stack([1.0 - p, p], axis=1)
+
+    return predict_proba
+
+
+def torch_mlps(layers, device):
+    """The same network as an ``nn.Sequential`` (the last layer widened to
+    ``[0, z]`` under a softmax, which is ``[1-σ(z), σ(z)]``), which lifts, and
+    as a module with a skip term, which does not."""
+
+    import torch
+    from torch import nn
+
+    (W1, b1), (W2, b2) = layers
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    seq = nn.Sequential(nn.Linear(*W1.shape), nn.ReLU(), nn.Linear(W2.shape[0], 2),
+                        nn.Softmax(dim=-1)).to(device)
+
+    class SkipMLP(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.hidden = nn.Linear(*W1.shape)
+            self.out = nn.Linear(*W2.shape)
+            self.skip = nn.Linear(W1.shape[0], 1, bias=False)   # a zero skip term
+
+        def forward(self, x):
+            z = self.out(torch.relu(self.hidden(x))) + self.skip(x)
+            p = torch.sigmoid(z[:, 0])
+            return torch.stack([1.0 - p, p], dim=1)
+
+    skip = SkipMLP().to(device)
+    with torch.no_grad():
+        seq[0].weight.copy_(t(W1.T))
+        seq[0].bias.copy_(t(b1))
+        seq[2].weight.copy_(t(np.concatenate([np.zeros_like(W2), W2], 1).T))
+        seq[2].bias.copy_(t(np.concatenate([np.zeros_like(b2), b2])))
+        skip.hidden.weight.copy_(t(W1.T))
+        skip.hidden.bias.copy_(t(b1))
+        skip.out.weight.copy_(t(W2.T))
+        skip.out.bias.copy_(t(b2))
+        skip.skip.weight.zero_()
+    return seq.eval(), skip.eval()
+
+
+def mlp_phase(X_all, bg, device, card, seed):
+    """Phase 15: ``model_zoo``'s ``sklearn_mlp`` as the scikit-learn lift
+    lays it out (a ``TorchMLPPredictor`` over ``mlp_stages``, ``masked_ey``),
+    the same weights as an ``nn.Sequential`` (lifted, ``masked_ey``) and as
+    an unliftable module (``'generic'``).  Returns the first's phi at
+    B = 256."""
+
+    import torch
+    from distributedkernelshap_tpu_torch import TorchMLPPredictor, TorchPredictor
+    from distributedkernelshap_tpu_torch.models.torch_lift import mlp_stages
+
+    X = X_all[:B_TREES]
+    stages = mlp_stages(mlp_layers(seed), "relu", "binary_sigmoid")
+    mlp = TorchMLPPredictor(stages, n_outputs=2, device=device)
+    explainer, expl = explain_sampled(mlp, X, bg, device)
+    phi, add_err = sampled_phi(expl, B_TREES)
+    _, expl_cpu = explain_sampled(TorchMLPPredictor(stages, n_outputs=2, device="cpu"),
+                                  X[:N_MLP_CPU], bg, "cpu")
+    d_cpu = float(np.abs(phi[:N_MLP_CPU] - sampled_phi(expl_cpu, N_MLP_CPU)[0]).max())
+    logits = expl.data["raw"]["raw_prediction"][:, 1]
+    print(f"mlp: scikit-learn layout 48->32 relu->1 binary_sigmoid B={B_TREES}: kernel_path="
+          f"{explainer.kernel_path}; additivity={add_err:.3e}; |phi card - phi cpu| (first "
+          f"{N_MLP_CPU} rows)={d_cpu:.3e} (tol {PHI_ATOL:g}); logit range "
+          f"[{logits.min():.2f}, {logits.max():.2f}]", flush=True)
+    if explainer.kernel_path != {"ey": "masked_ey"} or not d_cpu <= PHI_ATOL:
+        raise AssertionError("the MLP explain disagrees with its references")
+
+    seq, skip = torch_mlps(mlp_layers(seed), device)
+    routes = {"mlp": explainer}
+    for name, model, cls, want in (("sequential", seq, TorchMLPPredictor, "masked_ey"),
+                                   ("unliftable", skip, TorchPredictor, "generic")):
+        ks, ex = explain_sampled(model, X, bg, device)
+        got = sampled_phi(ex, B_TREES)[0]
+        d = float(np.abs(got - phi).max())
+        print(f"mlp: the same weights as {name} module -> {type(ks._explainer.predictor).__name__}"
+              f", kernel_path={ks.kernel_path}; |phi - phi scikit-learn layout| at B={B_TREES}="
+              f"{d:.3e} (tol {PHI_ATOL:g})", flush=True)
+        if not (isinstance(ks._explainer.predictor, cls) and ks.kernel_path == {"ey": want}
+                and d <= PHI_ATOL):
+            raise AssertionError(f"the {name} module took the wrong route or disagrees")
+        routes[name] = ks
+    walls = {name: median_wall_ms(lambda: ks.explain(X, silent=True), 3)[0]
+             for name, ks in routes.items()}
+    walls_small = {name: median_wall_ms(lambda: ks.explain(X[:B_SMALL], silent=True), 3)[0]
+                   for name, ks in routes.items()}
+    torch.cuda.synchronize()
+    print(f"times on {card}: MLP explain wall median of 3 (ms), scikit-learn layout masked_ey / "
+          f"nn.Sequential lifted masked_ey / unliftable module generic: B={B_TREES}: "
+          f"{walls['mlp']:.3f} / {walls['sequential']:.3f} / {walls['unliftable']:.3f}; "
+          f"B={B_SMALL}: {walls_small['mlp']:.3f} / {walls_small['sequential']:.3f} / "
+          f"{walls_small['unliftable']:.3f}", flush=True)
+    return phi
+
+
+def blackbox_phase(X_all, bg, device, card, seed, phi_mlp):
+    """Phase 16: the numpy MLP as a ``CallbackPredictor`` (``adult_blackbox``):
+    host evaluation (native fill) and the generic device route, both against
+    phase 15's ``masked_ey`` answer; host-eval l1 on the ungrouped rows."""
+
+    import os
+
+    from distributedkernelshap_tpu_torch import CallbackPredictor, EngineConfig
+
+    X = X_all[:B_SMALL]
+    fn = numpy_mlp(mlp_layers(seed))
+    runs = {}
+    for name, host_eval, want in (("host-eval", True, {"ey": "host", "host_fill": "native"}),
+                                  ("generic", False, {"ey": "generic"})):
+        ks, expl = explain_sampled(CallbackPredictor(fn, example_dim=X.shape[1]), X, bg,
+                                   device, engine_config=EngineConfig(host_eval=host_eval))
+        phi = sampled_phi(expl, B_SMALL)[0]
+        d = float(np.abs(phi - phi_mlp[:B_SMALL]).max())
+        print(f"black box {name}: kernel_path={ks.kernel_path}; |phi - phi masked_ey| at "
+              f"B={B_SMALL}={d:.3e} (tol {PHI_ATOL:g})", flush=True)
+        if ks.kernel_path != want or not d <= PHI_ATOL:
+            raise AssertionError(f"the black-box {name} explain took the wrong route or "
+                                 f"disagrees")
+        runs[name] = ks
+    ks_l1, expl_l1 = explain_sampled(CallbackPredictor(fn, example_dim=X.shape[1]), X, bg,
+                                     device, groups=False,
+                                     engine_config=EngineConfig(host_eval=True))
+    M = sum(ADULT_WIDTHS)
+    _, add_l1 = sampled_phi(expl_l1, B_SMALL, M=M)
+    sel = np.mean([len(t) for t in _selected(np.stack(expl_l1.shap_values, 1))])
+    print(f"black box host-eval l1: ungrouped M={M} B={B_SMALL} l1_reg='auto': kernel_path="
+          f"{ks_l1.kernel_path}; additivity={add_l1:.3e}; mean selected groups {sel:.2f} of "
+          f"{M - 1}", flush=True)
+    if ks_l1.kernel_path.get("ey") != "host":
+        raise AssertionError("the host-eval l1 explain did not evaluate on the host")
+    walls = {name: median_wall_ms(lambda: ks.explain(X, silent=True), 3)[0]
+             for name, ks in runs.items()}
+    l1_wall = median_wall_ms(lambda: ks_l1.explain(X, silent=True), 1)[0]
+    print(f"times on {card}: black-box explain B={B_SMALL} wall median of 3 (ms): host-eval "
+          f"{walls['host-eval']:.3f} (hosteval_workers={runs['host-eval'].hosteval_workers}, "
+          f"os.cpu_count()={os.cpu_count()}), generic {walls['generic']:.3f}; host-eval l1 "
+          f"M={M} {l1_wall:.3f}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1695,6 +2086,20 @@ def main() -> int:
     max_err = max(max_err, l1_phase(X, bg, est, device, card))
     plan_constant_phase(explainer, X, bg, est, device, card)
     importance_phase(explainer, expl, X)
+
+    # 14-17. the non-linear sampled paths, each phase's seconds
+    seconds = {}
+    t = time.perf_counter()
+    sampled_tree_phase(tables, X, bg, device, card)
+    seconds["14 sampled tree"] = time.perf_counter() - t
+    t = time.perf_counter()
+    phi_mlp = mlp_phase(X, bg, device, card, args.seed)
+    seconds["15 mlp"] = time.perf_counter() - t
+    t = time.perf_counter()
+    blackbox_phase(X, bg, device, card, args.seed, phi_mlp)
+    seconds["16 black box"] = time.perf_counter() - t
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; script so far {time.perf_counter() - t_start:.1f}", flush=True)
 
     print(f"card: {card}")
     print(json.dumps({"kernels": [{

@@ -13,6 +13,7 @@ import torch
 
 from distributedkernelshap_tpu_torch.kernel_shap import EngineConfig, KernelShap
 from distributedkernelshap_tpu_torch.models.predictors import LinearPredictor
+from distributedkernelshap_tpu_torch.models.torch_lift import TorchMLPPredictor
 from distributedkernelshap_tpu_torch.models.trees import TreeEnsemblePredictor
 
 
@@ -26,6 +27,23 @@ def linear_predictor_from_numpy(W: np.ndarray, b: np.ndarray, activation: str,
     return LinearPredictor(np.asarray(W, dtype=np.float32),
                            np.asarray(b, dtype=np.float32), activation,
                            vector_out=vector_out, device=device)
+
+
+def torch_mlp_from_numpy(stages: Sequence[tuple], n_outputs: int, vector_out: bool = True,
+                         device: Optional[Union[str, torch.device]] = None
+                         ) -> TorchMLPPredictor:
+    """The port's :class:`TorchMLPPredictor` over the same stages as a JAX
+    ``TorchMLPPredictor`` (pass its ``stages`` with every array entry as a
+    numpy array, e.g. ``[tuple(np.asarray(a) if hasattr(a, 'shape') else a
+    for a in s) for s in jax_pred.stages]``, and its ``n_outputs`` and
+    ``vector_out``), or over the layers of a JAX ``MLPPredictor`` (pass
+    ``models.torch_lift.mlp_stages([(np.asarray(W), np.asarray(b)) for W, b
+    in jax_pred.layers], jax_pred.hidden_activation,
+    jax_pred.out_activation)``)."""
+
+    return TorchMLPPredictor([tuple(np.asarray(a, np.float32) if isinstance(a, np.ndarray)
+                                    else a for a in stage) for stage in stages],
+                             n_outputs=n_outputs, vector_out=vector_out, device=device)
 
 
 def tree_ensemble_from_numpy(feature: np.ndarray, threshold: np.ndarray,

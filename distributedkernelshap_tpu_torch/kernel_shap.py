@@ -5,9 +5,14 @@ Port of ``distributedkernelshap_tpu/kernel_shap.py``: the same public surface
 seed).fit(background, ...).explain(X, ...) -> Explanation``, plus
 ``rank_by_importance`` / ``rank_interaction_pairs`` / ``sum_categories``
 and the warn-and-degrade input validation), with the computation in
-``ops/explain.py`` (sampled) and ``ops/treeshap.py`` (``nsamples='exact'``
-on lifted tree ensembles, with ``interactions=True`` the exact Shapley
-interaction matrices) on a torch device.
+``ops/explain.py`` (sampled: the linear route, a predictor's
+``masked_ey``, or row materialisation) and ``ops/treeshap.py``
+(``nsamples='exact'`` on lifted tree ensembles, with ``interactions=True``
+the exact Shapley interaction matrices) on a torch device.  With
+``EngineConfig(host_eval=True)`` a black-box predictor is evaluated on the
+host (``_hosteval_stats``: the native OpenMP fill of ``runtime/`` and a
+thread fan-out over coalition chunks) and only the WLS solve runs on the
+device.
 
 The sampled engine has the reference's host-side l1 feature selection
 (``_lars_knots_batched``, ``_l1_select_batch``, ``_apply_l1_reg``,
@@ -17,7 +22,7 @@ The sampled engine has the reference's host-side l1 feature selection
 reduction (``get_importance`` / ``KernelShap.rank_features``).
 
 Not ported yet (ROADMAP.md, queue A): the exact tensor-network and DeepSHAP
-flavors, the anytime and host-eval paths, ``instance_chunk`` pipelining,
+flavors, the anytime path, ``instance_chunk`` pipelining,
 staging, the memory ledger, profiler phases, ``save``/``load`` and
 multi-device execution.
 
@@ -30,8 +35,10 @@ import copy
 import hashlib
 import logging
 import math
+import os
 import threading
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -52,6 +59,7 @@ from distributedkernelshap_tpu_torch.ops.coalitions import coalition_plan, plan_
 from distributedkernelshap_tpu_torch.ops.explain import (
     ShapConfig,
     _auto_chunk,
+    _wls_solve,
     build_explainer_fn,
     build_linear_cached_fn,
     build_linear_plan_consts_fn,
@@ -64,7 +72,7 @@ from distributedkernelshap_tpu_torch.ops.explain import (
     split_shap_values,
     unpack_transfer,
 )
-from distributedkernelshap_tpu_torch.ops.links import convert_to_link
+from distributedkernelshap_tpu_torch.ops.links import convert_to_link, convert_to_link_np
 from distributedkernelshap_tpu_torch.ops.summarise import kmeans_summary, subsample
 from distributedkernelshap_tpu_torch.ops.treeshap import (
     background_reach,
@@ -545,6 +553,19 @@ class EngineConfig:
     # with the constants recomputed every call (the control arm, phi
     # bit-identical to the cached arm); 'off': the classic explain function
     plan_constant_cache: Optional[Union[bool, str]] = None
+    # evaluate the predictor on the host instead of on the device (reference
+    # kernel_shap.py:577-580): the WLS solve stays on the device either way.
+    # None resolves to False, as the reference resolves it on a backend that
+    # supports host callbacks (a CUDA device: CallbackPredictor copies its
+    # rows to the host per coalition chunk); only True takes the host path
+    host_eval: Optional[bool] = None
+    # host-eval chunk fan-out across host cores (None = the host's core
+    # count; reference kernel_shap.py:600-613).  The callable IS invoked
+    # from this many threads at once, so set 1 for predictors that are not
+    # reentrant; each chunk writes a disjoint slice of the output.  An
+    # explicit shap.coalition_chunk bypasses the memory budget, so peak host
+    # memory is then workers × chunk × B × N × D floats
+    host_eval_workers: Optional[int] = None
 
 
 class KernelExplainerEngine:
@@ -592,16 +613,32 @@ class KernelExplainerEngine:
         #: a list of K ``(B, M, M)`` arrays; None after any other explain
         self.last_interaction_values: Optional[List[np.ndarray]] = None
         #: which evaluation route each explain took ({'ey': 'cuda'|'plain'|
-        #: 'einsum', 'exact_phi'/'exact_inter': 'cuda'|'plain'}), persisted
-        #: across explains
+        #: 'einsum'|'einsum_cached'|'masked_ey'|'generic'|'host',
+        #: 'host_fill': 'native'|'numpy', 'exact_phi'/'exact_inter':
+        #: 'cuda'|'plain'}), persisted across explains
         self._kernel_paths: Dict[str, str] = {}
 
+        # host_eval=None resolves to False: a CUDA device (and the CPU)
+        # serve CallbackPredictor's host round trips, as the reference's
+        # gpu backend serves its callbacks
+        if self.config.host_eval is None:
+            self.config = replace(self.config, host_eval=False)
+        if self.config.host_eval:
+            logger.info("Using host-side predictor evaluation (the device keeps "
+                        "the WLS solve); device=%s", self.device)
+
         # expected value: link-space weighted mean background prediction
-        bgw = torch.as_tensor(self.bg_weights / self.bg_weights.sum(), device=self.device)
-        with torch.no_grad():
-            out_bg = self.predictor(torch.as_tensor(self.background, device=self.device))
-            e_out = convert_to_link(self.config.link)(torch.einsum('nk,n->k', out_bg, bgw))
-        e_out = e_out.cpu().numpy()
+        if self.config.host_eval:
+            bgw = self.bg_weights / self.bg_weights.sum()
+            out_bg = self.predictor.host_fn(self.background)
+            e_out = convert_to_link_np(self.config.link)(
+                np.einsum('nk,n->k', out_bg, bgw)).astype(np.float32)
+        else:
+            bgw = torch.as_tensor(self.bg_weights / self.bg_weights.sum(), device=self.device)
+            with torch.no_grad():
+                out_bg = self.predictor(torch.as_tensor(self.background, device=self.device))
+                e_out = convert_to_link(self.config.link)(torch.einsum('nk,n->k', out_bg, bgw))
+            e_out = e_out.cpu().numpy()
         self.expected_value = e_out if self.vector_out else float(e_out[0])
 
     @staticmethod
@@ -659,9 +696,11 @@ class KernelExplainerEngine:
         """Which evaluation route the explains took: ``{'ey': 'cuda'}`` when
         the fused kernel launched, ``'plain'`` for its plain version,
         ``'einsum'`` for the identity collapse, ``'einsum_cached'`` for the
-        plan-constant path; ``'exact_phi'`` and
-        ``'exact_inter'`` likewise for the exact TreeSHAP and interaction
-        kernels.  Empty until the first explain."""
+        plan-constant path, ``'masked_ey'`` for a predictor's structure-aware
+        evaluation, ``'generic'`` for row materialisation and ``'host'`` for
+        host evaluation (with ``'host_fill'``: ``'native'`` or ``'numpy'``);
+        ``'exact_phi'`` and ``'exact_inter'`` likewise for the exact
+        TreeSHAP and interaction kernels.  Empty until the first explain."""
 
         return dict(self._kernel_paths)
 
@@ -733,7 +772,7 @@ class KernelExplainerEngine:
         there is nothing to hoist).  ``False`` keeps the path on with the
         constants recomputed every call."""
 
-        if self.config.plan_constant_cache == 'off':
+        if self.config.plan_constant_cache == 'off' or self.config.host_eval:
             return False
         linear = self.predictor.linear_decomposition
         if linear is None:
@@ -844,8 +883,124 @@ class KernelExplainerEngine:
 
         return finalize
 
-    def _explain_array(self, X: np.ndarray, nsamples) -> Dict[str, np.ndarray]:
+    def _explain_array(self, X: np.ndarray, nsamples,
+                       silent: bool = True) -> Dict[str, np.ndarray]:
+        if self.config.host_eval:
+            return self._explain_array_hosteval(X, nsamples, silent=silent)
         return self._dispatch_array(X, self._plan(nsamples))()
+
+    # ------------------------------------------------------------------ #
+    # host evaluation of black-box predictors
+
+    def _solve_fn(self):
+        """The constrained WLS alone, on the device (reference
+        ``kernel_shap.py:784-801``): the host-eval path's device work."""
+
+        if 'solve' not in self._fn_cache:
+            ridge = self.config.shap.ridge
+
+            @torch.no_grad()
+            def solve(mask, w, ey_adj, fx_minus_e):
+                return _wls_solve(mask, w, ey_adj, fx_minus_e, ridge)
+
+            self._fn_cache['solve'] = solve
+        return self._fn_cache['solve']
+
+    def _hosteval_stats(self, X: np.ndarray, plan, silent: bool = True):
+        """Host-side ``(ey_adj, fx, e_val)`` for black-box predictors
+        (reference ``kernel_shap.py:803-895``): the masked rows are made by
+        the native OpenMP fill (``runtime/masked_eval.cc``, or its numpy
+        route) and fed to ``predictor.host_fn`` in coalition chunks, fanned
+        out over ``host_eval_workers`` threads; each chunk writes a disjoint
+        slice of ``ey``.  ``silent=False`` logs chunk progress."""
+
+        from distributedkernelshap_tpu_torch.runtime import native
+
+        link_np = convert_to_link_np(self.config.link)
+        B, D = X.shape
+        N = self.background.shape[0]
+        S = plan.n_rows
+        K = self.predictor.n_outputs
+        zc = (plan.mask @ self.G).astype(np.float32)
+        bgw = (self.bg_weights / self.bg_weights.sum()).astype(np.float32)
+        self._kernel_paths['host_fill'] = native.fill_route()
+
+        # parallel in-flight chunks share the memory budget: give each worker
+        # at least one coalition row's worth (B*N*D elements), dropping
+        # workers rather than degenerating to 1-row chunks.  Only None
+        # resolves to the core count; an explicit 0 means sequential, like 1
+        shap = self.config.shap
+        n_workers = ((os.cpu_count() or 1) if self.config.host_eval_workers is None
+                     else max(1, int(self.config.host_eval_workers)))
+        per_row = B * N * D
+        if shap.coalition_chunk and self.config.host_eval_workers is None:
+            # an explicit chunk bypasses the memory budget, so the auto
+            # fan-out must not multiply it by the core count
+            cap = shap.target_chunk_elems // max(1, shap.coalition_chunk * per_row)
+            n_workers = max(1, min(n_workers, cap))
+        n_workers = max(1, min(n_workers, shap.target_chunk_elems // max(per_row, 1)))
+        chunk = shap.coalition_chunk or _auto_chunk(
+            S, per_row, shap.target_chunk_elems // n_workers)
+        ey = np.empty((B, S, K), dtype=np.float32)
+        starts = range(0, S, chunk)
+        n_workers = min(n_workers, len(starts))
+        if getattr(self, 'last_hosteval_workers', None) != n_workers \
+                and n_workers > 1 and self.config.host_eval_workers is None:
+            logger.info(
+                "host-eval fanning predictor calls across %d workers "
+                "(host_eval_workers=None resolves to the core count; set "
+                "host_eval_workers=1 for non-reentrant callables)", n_workers)
+        #: resolved fan-out of the last host-eval pass
+        self.last_hosteval_workers = n_workers
+        progress = {'done': 0}
+        progress_lock = threading.Lock()
+        log_every = max(1, len(starts) // 10)
+
+        def eval_chunk(s0: int) -> None:
+            zc_c = zc[s0:s0 + chunk]
+            rows = native.masked_fill(X, self.background, zc_c)
+            pred = self.predictor.host_fn(rows)
+            ey[:, s0:s0 + chunk] = native.weighted_mean(
+                pred, bgw, B * zc_c.shape[0]).reshape(B, zc_c.shape[0], K)
+            if not silent:
+                with progress_lock:
+                    progress['done'] += 1
+                    n_done = progress['done']
+                if n_done % log_every == 0 or n_done == len(starts):
+                    logger.info("host-eval: %d/%d coalition chunks", n_done, len(starts))
+
+        if n_workers > 1:
+            with ThreadPoolExecutor(max_workers=n_workers) as pool:
+                list(pool.map(eval_chunk, starts))
+        else:
+            for s0 in starts:
+                eval_chunk(s0)
+
+        e_val = np.atleast_1d(np.asarray(self.expected_value, dtype=np.float32))
+        fx = link_np(self.predictor.host_fn(X)).astype(np.float32)
+        ey_adj = link_np(ey) - e_val[None, None, :]
+        return ey_adj, fx, e_val
+
+    def _explain_array_hosteval(self, X: np.ndarray, nsamples,
+                                silent: bool = True) -> Dict[str, np.ndarray]:
+        """Black-box path: the predictor runs on the host, the WLS solve on
+        the device (reference ``kernel_shap.py:897-920``)."""
+
+        plan = self._plan(nsamples)
+        self._kernel_paths['ey'] = 'host'
+        Xp, B = self._pad_to_bucket(X)
+        ey_adj, fx, e_val = self._hosteval_stats(Xp, plan, silent=silent)
+        fx_minus_e = fx - e_val[None, :]
+        dev = self.device
+        phi = self._solve_fn()(
+            torch.as_tensor(plan.mask, device=dev), torch.as_tensor(plan.weights, device=dev),
+            torch.as_tensor(ey_adj, device=dev),
+            torch.as_tensor(fx_minus_e, device=dev)).cpu().numpy()
+        return {
+            'shap_values': phi[:B],
+            'expected_value': e_val,
+            'raw_prediction': fx[:B],
+        }
 
     # ------------------------------------------------------------------ #
     # exact TreeSHAP (ops/treeshap.py)
@@ -1021,13 +1176,19 @@ class KernelExplainerEngine:
         every ``X^T y`` are computed once, and the restricted re-solves are
         batched by identical selection sets."""
 
-        with capture_kernel_paths() as kp:
-            out = self._fn(with_ey=True)(torch.as_tensor(X, device=self.device),
-                                         *self._device_args(plan))
-        self._kernel_paths.update(kp)
-        ey_adj = out['ey_adj'].cpu().numpy().astype(np.float64)       # (B, S, K)
-        fx = out['raw_prediction'].cpu().numpy().astype(np.float64)   # link space
-        e_val = np.atleast_1d(out['expected_value'].cpu().numpy().astype(np.float64))
+        if self.config.host_eval:
+            ey_adj, fx, e_val = self._hosteval_stats(X, plan)
+            ey_adj = ey_adj.astype(np.float64)
+            fx = fx.astype(np.float64)
+            e_val = e_val.astype(np.float64)
+        else:
+            with capture_kernel_paths() as kp:
+                out = self._fn(with_ey=True)(torch.as_tensor(X, device=self.device),
+                                             *self._device_args(plan))
+            self._kernel_paths.update(kp)
+            ey_adj = out['ey_adj'].cpu().numpy().astype(np.float64)       # (B, S, K)
+            fx = out['raw_prediction'].cpu().numpy().astype(np.float64)   # link space
+            e_val = np.atleast_1d(out['expected_value'].cpu().numpy().astype(np.float64))
 
         mask = plan.mask.astype(np.float64)
         w = plan.weights.astype(np.float64)
@@ -1072,12 +1233,12 @@ class KernelExplainerEngine:
         """``(K, M)`` mean |phi| over ``X``, reduced on the device: only
         ``K·M`` floats come back, not the ``B·K·M`` result (reference
         ``kernel_shap.py:1609-1648``).  No l1 selection (it is per-instance
-        host work; ranking is about aggregate magnitude); the exact path
-        takes the full explain.  ``X`` goes to the device as one chunk:
+        host work; ranking is about aggregate magnitude); the host-eval and
+        exact paths take the full explain.  ``X`` goes to the device as one chunk:
         ``instance_chunk`` is not ported yet (ROADMAP.md queue A item 5)."""
 
         X = np.atleast_2d(np.asarray(X, dtype=np.float32))
-        if nsamples == 'exact':
+        if self.config.host_eval or nsamples == 'exact':
             values = self.get_explanation(X, nsamples=nsamples, l1_reg=False, silent=True)
             vals = values if isinstance(values, list) else [values]
             return np.stack([np.abs(v).mean(0) for v in vals])
@@ -1112,7 +1273,7 @@ class KernelExplainerEngine:
         sums.  A sampled explain runs host-side l1 feature selection after
         the device pass when ``l1_reg`` asks for it (:meth:`_apply_l1_reg`)."""
 
-        del kwargs, silent
+        del kwargs
         if interactions and nsamples != 'exact':
             raise ValueError(
                 "interactions=True requires nsamples='exact' (closed-form "
@@ -1128,10 +1289,10 @@ class KernelExplainerEngine:
             if flavor == 'tn':
                 raise NotImplementedError(
                     "the exact tensor-network path is ROADMAP.md queue A "
-                    "item 7 and not ported yet")
+                    "item 8 and not ported yet")
             if flavor == 'deepshap':
                 raise NotImplementedError(
-                    "the DeepSHAP exact path is ROADMAP.md queue A item 8 and "
+                    "the DeepSHAP exact path is ROADMAP.md queue A item 9 and "
                     "not ported yet")
         batch_idx = None
         if isinstance(X, tuple):
@@ -1144,7 +1305,7 @@ class KernelExplainerEngine:
         X = np.atleast_2d(np.asarray(X, dtype=np.float32))
 
         r = (self._exact_tree_explanation(X, l1_reg, interactions) if exact
-             else self._explain_array(X, nsamples))
+             else self._explain_array(X, nsamples, silent=silent))
         # stash the link-space predictions so build_explanation doesn't need
         # a second predictor pass for the same instances
         self.last_raw_prediction = r['raw_prediction']
@@ -1158,8 +1319,12 @@ class KernelExplainerEngine:
         return values
 
     def predict(self, X: np.ndarray, link: bool = False) -> np.ndarray:
-        """Model outputs for ``X`` (optionally in link space), on the device."""
+        """Model outputs for ``X`` (optionally in link space), on the device
+        (on the host on the host-eval path)."""
 
+        if self.config.host_eval:
+            out = self.predictor.host_fn(np.asarray(X, dtype=np.float32))
+            return convert_to_link_np(self.config.link)(out) if link else out
         link_fn = convert_to_link(self.config.link) if link else (lambda x: x)
         with torch.no_grad():
             out = link_fn(self.predictor(torch.as_tensor(
@@ -1593,6 +1758,16 @@ class KernelShap(Explainer, FitMixin):
         if not self._fitted:
             return {}
         return self._explainer.kernel_path
+
+    @property
+    def hosteval_workers(self) -> Optional[int]:
+        """Resolved host-eval fan-out of the last black-box explain (a
+        ``None`` config resolves to the host's core count), or ``None``
+        before any host-eval pass (reference ``kernel_shap.py:2955-2964``)."""
+
+        if not self._fitted:
+            return None
+        return getattr(self._explainer, 'last_hosteval_workers', None)
 
     def build_explanation(self,
                           X: Any,

@@ -1,23 +1,35 @@
 """Predictor protocol — how models under explanation run on the device.
 
-Port of ``distributedkernelshap_tpu/models/predictors.py`` (``:97-192``,
-``:469-555``, ``:614-676``) for the linear and tree lifts only.  A predictor
-is an ``nn.Module`` of signature ``(n, D) -> (n, K)``; ``LinearPredictor``
-exposes its ``(W, b, activation)`` decomposition, which the explain pipeline
-uses to collapse the ``B×S×N×D`` synthetic-data tensor into group-space
-products and the fused ``fused_linear_ey`` kernel.
+Port of ``distributedkernelshap_tpu/models/predictors.py``.  A predictor is
+an ``nn.Module`` of signature ``(n, D) -> (n, K)``:
+
+* ``LinearPredictor`` — (generalised) linear models; exposes its
+  ``(W, b, activation)`` decomposition, which the explain pipeline uses to
+  collapse the ``B×S×N×D`` synthetic-data tensor into group-space products
+  and the fused ``fused_linear_ey`` kernel;
+* ``TorchPredictor`` — any torch callable or ``nn.Module`` that runs on the
+  device (the reference's ``JaxPredictor``);
+* ``CallbackPredictor`` — an arbitrary host callable (numpy in, numpy out):
+  on the device path each call copies the rows to the host and the result
+  back (the reference's ``jax.pure_callback``); with
+  ``EngineConfig(host_eval=True)`` the engine calls it on the host directly.
 
 ``as_predictor`` lifts linear scikit-learn estimators by duck typing (a bound
 ``predict_proba``/``decision_function``/``predict`` whose owner carries
-``coef_`` and ``intercept_``), then tree ensembles (``models/trees.py``),
-each checked numerically against the original callable; scikit-learn is
-never imported.  Black-box callables need the host-eval, generic and
-masked-eval paths, which the port does not have yet (ROADMAP.md, queue A
-item 2): they raise.
+``coef_`` and ``intercept_``), then the non-linear families (tree ensembles,
+scikit-learn MLPs and torch ``nn.Sequential`` stacks, both as
+``models.torch_lift.TorchMLPPredictor``), each checked numerically against
+the original callable; scikit-learn is never imported.  What none
+lifts becomes a ``TorchPredictor`` when it is torch-native (an ``nn.Module``,
+or a function that returns a tensor on a ``meta`` probe) and a
+``CallbackPredictor`` otherwise.  An unlifted ``nn.Module`` therefore runs
+on the device, where the reference sends it to the host (JAX cannot trace
+torch); the answers are the same.
 """
 
+import copy
 import logging
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -33,11 +45,13 @@ ACTIVATIONS = {
     "sigmoid": torch.sigmoid,
 }
 
-_UNLIFTABLE = (
-    "the PyTorch port evaluates only logits-linear predictors and lifted "
-    "tree ensembles so far; "
-    "host-eval, generic and masked-eval predictors are ROADMAP.md queue A "
-    "item 2 (models/predictors.py) and not ported yet")
+
+def _f32(a, device) -> torch.Tensor:
+    """A float32 copy of ``a`` (array or tensor) on ``device``."""
+
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device=device, dtype=torch.float32).clone()
+    return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
 
 
 class BasePredictor(nn.Module):
@@ -50,13 +64,48 @@ class BasePredictor(nn.Module):
     vector_out
         False when the underlying user callable returned a scalar per row
         (reference reads ``vector_out`` at ``kernel_shap.py:790``).
+    supports_masked_ey
+        Whether the predictor implements the structure-aware ``masked_ey``
+        protocol — expected outputs over the KernelSHAP synthetic tensor
+        without materialising it (``ops/explain.py`` dispatches on this,
+        gated by :meth:`masked_ey_fits`).
     """
 
     n_outputs: int = 1
     vector_out: bool = True
+    supports_masked_ey: bool = False
+
+    def masked_ey_fits(self, **kwargs) -> bool:
+        """Whether ``masked_ey``'s persistent tensors fit the chunk budget at
+        the given ``B/N/S/M`` shapes; only consulted when
+        ``supports_masked_ey`` is True."""
+
+        return True
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def _device(self) -> torch.device:
+        """Where the predictor computes: its first buffer's or parameter's
+        device, else ``self.device`` when set, else the CPU."""
+
+        for t in self.buffers():
+            return t.device
+        for t in self.parameters():
+            return t.device
+        return getattr(self, "device", None) or torch.device("cpu")
+
+    def host_fn(self, X: np.ndarray) -> np.ndarray:
+        """Evaluate on the host, returning a numpy ``(n, K)`` array.
+
+        The default runs the device computation; ``CallbackPredictor``
+        overrides it with the raw host callable (no device involvement)."""
+
+        with torch.no_grad():
+            out = self(torch.as_tensor(np.asarray(X, dtype=np.float32),
+                                       device=self._device()))
+        out = out.cpu().numpy()
+        return out[:, None] if out.ndim == 1 else out
 
     @property
     def linear_decomposition(self):
@@ -91,6 +140,106 @@ class LinearPredictor(BasePredictor):
     @property
     def linear_decomposition(self):
         return self.W, self.b, self.activation
+
+
+class TorchPredictor(BasePredictor):
+    """Wraps a user's torch callable or ``nn.Module`` ``(n, D) -> (n, K)``
+    that runs on the device (the reference's ``JaxPredictor``).
+
+    A module is registered as a submodule (``.to(device)`` moves it)."""
+
+    def __init__(self, fn: Callable, n_outputs: int, vector_out: bool = True,
+                 device: Optional[Union[str, torch.device]] = None):
+        super().__init__()
+        self.fn = fn
+        self.n_outputs = int(n_outputs)
+        self.vector_out = vector_out
+        self.device = None if device is None else torch.device(device)
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        out = self.fn(X)
+        if out.ndim == 1:
+            out = out[:, None]
+        return out.to(torch.float32)
+
+def _lift_sklearn_mlp(method, device=None):
+    """Lift ``MLPClassifier.predict_proba`` / ``MLPRegressor.predict`` into a
+    ``TorchMLPPredictor`` (scikit-learn stores per-layer ``coefs_`` /
+    ``intercepts_`` and names its output activation in ``out_activation_``)."""
+
+    from distributedkernelshap_tpu_torch.models.torch_lift import (
+        TorchMLPPredictor,
+        mlp_stages,
+    )
+
+    owner = getattr(method, "__self__", None)
+    name = getattr(method, "__name__", "")
+    if owner is None or type(owner).__name__ not in ("MLPClassifier", "MLPRegressor"):
+        return None
+    coefs = getattr(owner, "coefs_", None)
+    intercepts = getattr(owner, "intercepts_", None)
+    hidden = getattr(owner, "activation", None)
+    out_act = getattr(owner, "out_activation_", None)
+    if coefs is None or intercepts is None \
+            or hidden not in ("identity", "relu", "tanh", "logistic"):
+        return None
+    k_raw = int(np.asarray(coefs[-1]).shape[1])
+    is_classifier = hasattr(owner, "classes_")
+    if is_classifier and name == "predict_proba":
+        if out_act == "logistic":
+            # one logit = binary ([1-p, p]); several = multilabel per-label
+            # sigmoids (scikit-learn returns the elementwise probabilities)
+            head = "binary_sigmoid" if k_raw == 1 else "sigmoid"
+        elif out_act == "softmax":
+            head = "softmax"
+        else:
+            return None
+        return TorchMLPPredictor(mlp_stages(zip(coefs, intercepts), hidden, head),
+                                 n_outputs=2 if head == "binary_sigmoid" else k_raw,
+                                 device=device)
+    if not is_classifier and name == "predict":
+        return TorchMLPPredictor(mlp_stages(zip(coefs, intercepts), hidden, "identity"),
+                                 n_outputs=k_raw, vector_out=k_raw > 1, device=device)
+    return None  # class-label predict is a discontinuous argmax; host path
+
+
+class CallbackPredictor(BasePredictor):
+    """Host-side black-box predictor.
+
+    The callable receives a numpy ``(n, D)`` float32 array and must return
+    ``(n, K)`` (scalar-per-row outputs are reshaped).  :meth:`forward` on a
+    device tensor copies it to the host, calls the function and copies the
+    result back (the reference's ``jax.pure_callback``); inside the explain
+    pipeline that happens once per coalition chunk.  :meth:`host_fn` is the
+    raw host call, which the host-eval path uses."""
+
+    def __init__(self, fn: Callable, n_outputs: Optional[int] = None,
+                 example_dim: Optional[int] = None, vector_out: Optional[bool] = None):
+        super().__init__()
+        self.raw_fn = fn
+        if n_outputs is None:
+            if example_dim is None:
+                raise ValueError("CallbackPredictor needs n_outputs or example_dim "
+                                 "to probe the model")
+            probe = np.asarray(fn(np.zeros((2, example_dim), dtype=np.float32)))
+            vector_out = probe.ndim > 1
+            n_outputs = probe.shape[1] if probe.ndim > 1 else 1
+        self.n_outputs = int(n_outputs)
+        self.vector_out = bool(vector_out) if vector_out is not None else True
+
+    def host_fn(self, X: np.ndarray) -> np.ndarray:
+        out = np.asarray(self.raw_fn(np.asarray(X)), dtype=np.float32)
+        if out.ndim == 1:
+            out = out[:, None]
+        return out
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        out = self.host_fn(X.detach().to(torch.float32).cpu().numpy())
+        if out.shape != (X.shape[0], self.n_outputs):
+            raise ValueError(
+                f"host callable returned shape {out.shape} for {X.shape[0]} rows; "
+                f"expected ({X.shape[0]}, {self.n_outputs})")
+        return torch.as_tensor(out, device=X.device)
 
 
 def _lift_sklearn(method, device=None) -> Optional[LinearPredictor]:
@@ -145,13 +294,25 @@ def _lift_is_faithful(lifted: BasePredictor, method, example_dim: int,
     try:
         expected = np.asarray(method(probe), dtype=np.float32)
     except Exception:
-        return False
+        # torch modules want tensors, not numpy — retry through the converter
+        # (only the module itself / its bound forward, never a custom method)
+        from distributedkernelshap_tpu_torch.models.torch_lift import (
+            module_of,
+            torch_callback,
+        )
+
+        target = module_of(method)
+        if target is None:
+            return False
+        try:
+            expected = np.asarray(torch_callback(target)(probe), dtype=np.float32)
+        except Exception:
+            return False
     try:
         with torch.no_grad():
-            device = next(lifted.buffers()).device
-            got = lifted(torch.as_tensor(probe, device=device)).cpu().numpy()
-    except RuntimeError:
-        # structurally mismatched lift (shape errors): reject
+            got = lifted(torch.as_tensor(probe, device=lifted._device())).cpu().numpy()
+    except Exception:
+        # structurally mismatched lift (shape errors etc.): reject
         return False
     if expected.ndim == 1:
         expected = expected[:, None]
@@ -163,40 +324,116 @@ def _lift_is_faithful(lifted: BasePredictor, method, example_dim: int,
     return bool(np.abs(expected - got).max() < tol * scale)
 
 
+def _nonlinear_lifters():
+    """``(family name, lifter)`` pairs for every structural lift beyond the
+    plain linear one; each lifter takes ``(method, device)``.  The port has
+    the tree-ensemble, scikit-learn MLP and torch feed-forward lifts; the
+    reference's other families (quadratic, XGBoost, LightGBM, SVM and the
+    compositions, ``predictors.py:557-595``) are ROADMAP.md queue A items 6
+    and 9."""
+
+    from distributedkernelshap_tpu_torch.models.torch_lift import lift_torch
+    from distributedkernelshap_tpu_torch.models.trees import lift_tree_ensemble
+
+    return (("tree ensemble", lift_tree_ensemble),
+            ("MLP", _lift_sklearn_mlp),
+            ("torch feed-forward", lift_torch))
+
+
+def _on_device(module: nn.Module, dev: torch.device) -> nn.Module:
+    """``module`` itself when its tensors are on ``dev``, else a copy moved
+    there (the caller's module is never moved in place)."""
+
+    tensors = list(module.parameters()) + list(module.buffers())
+    if all(t.device == dev for t in tensors):
+        return module
+    return copy.deepcopy(module).to(dev)
+
+
+def _meta_probe(fn, example_dim: int) -> Optional[torch.Tensor]:
+    """``fn`` on a ``(2, example_dim)`` tensor on the ``meta`` device: a
+    torch-native function returns a meta tensor (shapes only, no compute);
+    a host (numpy) function raises, and then this returns None."""
+
+    try:
+        out = fn(torch.empty((2, example_dim), device="meta"))
+    except Exception:
+        return None
+    if isinstance(out, torch.Tensor) and out.device.type == "meta" and out.ndim in (1, 2):
+        return out
+    return None
+
+
 def as_predictor(predictor, example_dim: Optional[int] = None,
+                 n_outputs: Optional[int] = None,
                  probe_data: Optional[np.ndarray] = None,
                  device: Optional[Union[str, torch.device]] = None) -> BasePredictor:
     """Normalise what the user passed into a :class:`BasePredictor` on
-    ``device``: port predictors pass through (moved to ``device``), linear
-    estimators and then tree ensembles are lifted and probe-checked (the
-    tree lift only when ``example_dim`` lets the probe run); anything else
-    raises ``NotImplementedError``."""
+    ``device`` (reference ``predictors.py:614-677``).
+
+    Port predictors pass through (moved to ``device``).  Linear estimators,
+    then the non-linear families of :func:`_nonlinear_lifters` are lifted
+    and probe-checked against the original callable (the non-linear lifts
+    only when ``example_dim`` lets the probe run).  Otherwise an
+    ``nn.Module`` (or its bound ``forward``/``__call__``) becomes a
+    :class:`TorchPredictor` on ``device``; a callable that returns a tensor
+    on a ``meta`` probe becomes a :class:`TorchPredictor` too, and any other
+    callable a :class:`CallbackPredictor` (numpy in, numpy out)."""
 
     dev = resolve_device(device)
     if isinstance(predictor, BasePredictor):
         return predictor.to(dev)
 
     lifted = _lift_sklearn(predictor, device=dev)
-    if lifted is not None and (example_dim is None or _lift_is_faithful(
-            lifted, predictor, example_dim, probe_data=probe_data)):
-        logger.info("Lifted linear model into a LinearPredictor "
-                    "(K=%d, activation=%s)", lifted.n_outputs, lifted.activation)
-        return lifted
     if lifted is not None:
-        raise NotImplementedError(
-            "estimator exposes linear coefficients but its outputs do not "
-            "match the lifted linear model; " + _UNLIFTABLE)
-    if example_dim is not None:
-        from distributedkernelshap_tpu_torch.models.trees import lift_tree_ensemble
+        if example_dim is None or _lift_is_faithful(lifted, predictor, example_dim,
+                                                    probe_data=probe_data):
+            logger.info("Lifted linear model into a LinearPredictor "
+                        "(K=%d, activation=%s)", lifted.n_outputs, lifted.activation)
+            return lifted
+        logger.warning(
+            "Estimator exposes linear coefficients but its outputs do not match "
+            "the lifted linear model; falling back to the unlifted callable.")
 
-        tree = lift_tree_ensemble(predictor, device=dev)
-        if tree is not None and _lift_is_faithful(tree, predictor, example_dim,
-                                                  probe_data=probe_data):
-            logger.info("Lifted tree ensemble into a TreeEnsemblePredictor "
-                        "(T=%d, K=%d)", tree.n_trees, tree.n_outputs)
-            return tree
-        if tree is not None:
-            raise NotImplementedError(
-                "the tree lift did not reproduce the original callable; "
-                + _UNLIFTABLE)
-    raise NotImplementedError(f"cannot lift {predictor!r}: " + _UNLIFTABLE)
+    # non-linear lifts are only trusted when the numerical probe can run:
+    # structural extraction cannot see e.g. a data-dependent GradientBoosting
+    # init estimator, whose lifted constant base would be silently wrong
+    if example_dim is not None:
+        for family, lifter in _nonlinear_lifters():
+            candidate = lifter(predictor, device=dev)
+            if candidate is None:
+                continue
+            if _lift_is_faithful(candidate, predictor, example_dim,
+                                 probe_data=probe_data):
+                logger.info("Lifted %s onto the device (%s)",
+                            family, type(candidate).__name__)
+                return candidate
+            logger.warning("%s lift did not reproduce the original callable; "
+                           "falling back to the unlifted callable.", family)
+
+    # an unlifted torch module runs on the device as it is — only the module
+    # itself or its bound forward; a custom bound method (e.g. model.predict)
+    # is the user's chosen callable and stays as-is
+    from distributedkernelshap_tpu_torch.models.torch_lift import module_of
+
+    module = module_of(predictor)
+    if module is not None and example_dim is not None:
+        module = _on_device(module, dev)
+        with torch.no_grad():
+            out = module(torch.zeros((2, example_dim), device=dev))
+        return TorchPredictor(module, n_outputs=out.shape[1] if out.ndim > 1 else 1,
+                              vector_out=out.ndim > 1, device=dev)
+    if module is not None and n_outputs is not None:
+        return TorchPredictor(_on_device(module, dev), n_outputs=n_outputs, device=dev)
+
+    if example_dim is not None:
+        out = _meta_probe(predictor, example_dim)
+        if out is not None:
+            return TorchPredictor(predictor, n_outputs=out.shape[1] if out.ndim > 1 else 1,
+                                  vector_out=out.ndim > 1, device=dev)
+        return CallbackPredictor(predictor, n_outputs=n_outputs, example_dim=example_dim)
+
+    if n_outputs is None:
+        raise ValueError("Cannot infer predictor output dim; pass example_dim or n_outputs")
+    return CallbackPredictor(predictor, n_outputs=n_outputs)
+

@@ -13,9 +13,13 @@ XLA:TPU miscompile of the fused gather; the comparison semantics are the
 gather's in both: NaN and +inf compare False (go right), -inf compares True
 (goes left), and ``missing_left`` reroutes NaN.
 
+Inside the sampled KernelSHAP pipeline the ``B×S×N`` synthetic tensor is
+never materialised: split-condition sums separate into instance and
+background halves (:meth:`TreeEnsemblePredictor.masked_ey`).
+
 The lifts read estimator attributes only, so scikit-learn is never
-imported.  Not ported yet (ROADMAP.md queue A item 5): ``masked_ey`` (the
-sampled path for trees) and the IsolationForest lift.
+imported.  Not ported yet (ROADMAP.md queue A item 6): the IsolationForest
+lift.
 """
 
 import logging
@@ -24,15 +28,17 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from distributedkernelshap_tpu_torch.models._chunking import (
+    DEFAULT_CHUNK_ELEMS,
+    padded_chunk_map,
+)
 from distributedkernelshap_tpu_torch.models.predictors import BasePredictor
-from distributedkernelshap_tpu_torch.utils import resolve_device
+from distributedkernelshap_tpu_torch.utils import full_f32_matmul, resolve_device
 
 logger = logging.getLogger(__name__)
 
 OUT_TRANSFORMS = ("identity", "binary_sigmoid", "sigmoid", "softmax",
                   "neg_exp2")
-#: row-chunk budget (elements of the per-chunk intermediates) of ``forward``
-DEFAULT_CHUNK_ELEMS = 1 << 25
 
 
 def f32_le_threshold(t) -> np.ndarray:
@@ -259,6 +265,121 @@ class TreeEnsemblePredictor(BasePredictor):
                          for i in range(0, X.shape[0], chunk)]) \
             if X.shape[0] > chunk else self._eval_paths(X)
         return self._finish(raw)
+
+    # ------------------------------------------------------------------
+    # structure-aware masked evaluation for the KernelSHAP pipeline
+    # ------------------------------------------------------------------
+
+    @property
+    def supports_masked_ey(self) -> bool:
+        # depth ≤ 256, the reference's gate: its separable-hits einsums carry
+        # the per-path integer counts through bf16, exact only up to 256.
+        # Here they are float32 (exact up to 2^24); the gate is kept so both
+        # packages route the same ensembles
+        return self.path_sign is not None and self.depth <= 256
+
+    def masked_ey_fits(self, B: int, N: int, S: int, M: int,
+                       budget: int) -> bool:
+        """Whether the persistent separable-hits tensors (R: ``N·T·L·M``,
+        per-instance-chunk Q: ``T·L·M``) stay within a few chunk budgets —
+        otherwise the row-evaluating generic path is the better choice."""
+
+        T, L = self.path_len.shape
+        return N * T * L * M <= 4 * budget and T * L * M <= budget
+
+    @full_f32_matmul()
+    def masked_ey(self, X, bg, bgw_n, mask, G, target_chunk_elems=None,
+                  coalition_chunk=None):
+        """Expected outputs over the KernelSHAP synthetic tensor without
+        materialising it (reference ``models/trees.py:425-518``).
+
+        Every synthetic row mixes ONE instance and ONE background row
+        columnwise (``m = x_b·z_s + bg_n·(1-z_s)``), so each node's split
+        condition is the instance's or the background row's depending only
+        on whether the node's feature group is masked.  The leaf-path hit
+        count therefore separates::
+
+            hits[b,s,n,t,l] = hx[b,s,t,l] + hb[s,n,t,l]
+            hx = Σ_m mask[s,m] · Q[b,t,l,m]
+            hb = C[n,t,l] − Σ_m mask[s,m] · R[n,t,l,m]
+
+        with ``Q/R/C`` small per-instance / per-background contractions of
+        the path-sign tensor.  ``Q``, ``R``, ``C``, ``hx`` and ``hb`` are
+        small integers formed in float32, and the whole evaluation runs
+        with TF32 off (``full_f32_matmul``, whatever the caller set), so they
+        are exact and the ``==`` against the path length sees exact
+        integers; only the leaf-value and background sums round, in f32.
+
+        Returns raw (pre-link) expected outputs ``(B, S, K)``, the contract
+        of ``ops.explain._ey_generic``.
+        """
+
+        f32 = torch.float32
+        X = X.to(f32)
+        bg = bg.to(f32)
+        mask = mask.to(f32)
+        B, N, S = X.shape[0], bg.shape[0], mask.shape[0]
+        M = mask.shape[1]
+        T, L = self.path_len.shape
+        Nn = self.feature.shape[1]
+        sign = self.path_sign                            # (T, L, Nn)
+        Gsel = G.to(f32)[:, self.feature]                # (M, T, Nn)
+        target = self.path_len - self.path_offset        # (T, L); padded: -1
+        leaf_v = self.leaf_value                         # (T, L, K)
+        budget = target_chunk_elems or self.target_chunk_elems
+
+        # background-side contractions, chunked over N so the (nc, M, T, Nn)
+        # intermediate respects the budget; R/C themselves are size-gated by
+        # masked_ey_fits
+        def bg_chunk(bg_c):
+            glb = self._split_conditions(bg_c).to(f32)   # (nc, T, Nn)
+            gb = torch.einsum("mtj,ntj->nmtj", Gsel, glb)
+            R_c = torch.einsum("tlj,nmtj->ntlm", sign, gb)
+            C_c = torch.einsum("tlj,ntj->ntl", sign, glb)
+            return torch.cat([R_c, C_c[..., None]], dim=-1)
+
+        RC = padded_chunk_map(bg_chunk, bg, budget // max(1, M * T * Nn))
+        R, C = RC[..., :M], RC[..., M]                   # (N,T,L,M), (N,T,L)
+
+        # instance chunk bounds the (bc, M, T, Nn) conditions intermediate;
+        # coalition chunk bounds hx (sc·bc·T·L), hb (sc·N·T·L) and the
+        # per-tree compare (sc·bc·N·L)
+        bc = max(1, min(B, budget // max(1, M * T * Nn, T * L * M)))
+        sc = coalition_chunk or max(
+            1, min(S, budget // max(1, bc * T * L, N * T * L, bc * N * L)))
+
+        def b_chunk(Xc):
+            glx = self._split_conditions(Xc).to(f32)     # (bc, T, Nn)
+            gx = torch.einsum("mtj,btj->bmtj", Gsel, glx)
+            # Q[b,t,l,m] = Σ_j sign[t,l,j]·Gsel[m,t,j]·glx[b,t,j] (ints ≤ depth)
+            Q = torch.einsum("tlj,bmtj->btlm", sign, gx)  # (bc,T,L,M)
+
+            def s_chunk(mask_c):
+                hx = torch.einsum("cm,btlm->cbtl", mask_c, Q)
+                hb = C[None] - torch.einsum("cm,ntlm->cntl", mask_c, R)
+                raw = self._tree_steps(hx, hb, target, leaf_v)
+                if self.aggregation == "mean":
+                    raw = raw / self.n_trees
+                out = self._finish(raw)                  # (sc,bc,N,K')
+                return torch.einsum("cbnk,n->cbk", out, bgw_n)
+
+            ey_c = padded_chunk_map(s_chunk, mask, sc)   # (S,bc,K')
+            return ey_c.movedim(0, 1)                    # (bc,S,K')
+
+        return padded_chunk_map(b_chunk, X, bc)          # (B,S,K')
+
+    @staticmethod
+    def _tree_steps(hx, hb, target, leaf_v):
+        """The per-tree leaf sum of one coalition chunk (the reference's
+        ``lax.scan`` over trees): ``raw[c,b,n] = Σ_t Σ_l [hx[c,b,t,l] +
+        hb[c,n,t,l] == target[t,l]] · leaf_v[t,l]``."""
+
+        c, b, T, _ = hx.shape
+        raw = hx.new_zeros((c, b, hb.shape[1], leaf_v.shape[-1]))
+        for t in range(T):
+            eq = hx[:, :, None, t, :] + hb[:, None, :, t, :] == target[t]   # (c,b,N,L)
+            raw = raw + torch.einsum("cbnl,lk->cbnk", eq.to(torch.float32), leaf_v[t])
+        return raw
 
 
 def _pack_tables(tables: Sequence[dict]) -> dict:

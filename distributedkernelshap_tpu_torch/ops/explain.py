@@ -1,13 +1,16 @@
 """The KernelSHAP pipeline in PyTorch: masked evaluation + constrained WLS.
 
-Port of ``distributedkernelshap_tpu/ops/explain.py`` (``:146-245``,
-``:305-586``, ``:589-733``) for logits-linear predictors:
+Port of ``distributedkernelshap_tpu/ops/explain.py``:
 
-1. group masks stay in group space: the model's matmul is pushed through the
-   mask, so the ``B×S×N×D`` synthetic-data tensor never exists;
-2. ``ey[b,s,k] = Σ_n bgw[n] · f(x_b ⊙ z_s + bg_n ⊙ (1-z_s))[k]`` runs in
-   the hand-written CUDA kernel ``fused_linear_ey`` (``ops/cuda_kernels.py``)
-   or in its plain, chunked PyTorch version;
+1. ``ey[b,s,k] = Σ_n bgw[n] · f(x_b ⊙ z_s + bg_n ⊙ (1-z_s))[k]`` by one of
+   three routes (``build_explainer_fn``): for logits-linear predictors the
+   group masks stay in group space (the model's matmul is pushed through
+   the mask, so the ``B×S×N×D`` synthetic-data tensor never exists) and the
+   reduction runs in the hand-written CUDA kernel ``fused_linear_ey``
+   (``ops/cuda_kernels.py``) or its plain, chunked PyTorch version; tree
+   ensembles and MLPs take their structure-aware ``masked_ey``; any other
+   predictor the row-materialising ``_ey_generic``;
+2. the link, and the expected value over the background;
 3. the Shapley-kernel weighted least squares with the additivity constraint
    eliminated by substitution, with one Cholesky factor shared by all
    ``B·K`` right-hand sides;
@@ -45,8 +48,11 @@ from distributedkernelshap_tpu_torch.ops.links import convert_to_link
 # 'cuda' (the kernel launched), 'plain' (the kernel's plain version: CPU
 # tensors, or use_kernel=False), 'einsum' ('ey' with the identity
 # activation: the background axis collapses analytically), 'einsum_cached'
-# (the plan-constant path, build_linear_cached_fn).  Recorded where the
-# route is taken, on every call.
+# (the plan-constant path, build_linear_cached_fn), 'masked_ey' (a
+# predictor's structure-aware masked evaluation), 'generic' (row
+# materialisation).  Recorded where the route is taken, on every call; the
+# engine adds 'host' for 'ey' and 'host_fill' ('native' | 'numpy') on its
+# host-eval path.
 
 _KERNEL_PATHS: contextvars.ContextVar = contextvars.ContextVar(
     "dks_torch_kernel_paths", default=None)
@@ -197,6 +203,36 @@ def _chunked(zc: torch.Tensor, chunk: int):
     return zc.reshape(n_chunks, chunk, D), S
 
 
+def _use_masked_ey(predictor, B: int, N: int, S: int, M: int,
+                   config: ShapConfig) -> bool:
+    """Dispatch to the structure-aware masked evaluation when the predictor
+    offers it AND its persistent tensors fit the budget at these shapes
+    (otherwise the row-materialising path is the better choice)."""
+
+    return getattr(predictor, "supports_masked_ey", False) and \
+        predictor.masked_ey_fits(B=B, N=N, S=S, M=M,
+                                 budget=config.target_chunk_elems)
+
+
+def _ey_generic(predictor: BasePredictor, X, bg, bgw_n, zc, chunk: int):
+    """Synthetic-data expected outputs for an arbitrary predictor on the
+    device: per coalition chunk, the ``(B, c, N, D)`` masked rows
+    (instance where present, background where absent) go through the
+    predictor as one ``(B·c·N, D)`` batch."""
+
+    B, D = X.shape
+    N = bg.shape[0]
+    zc_chunks, S = _chunked(zc, chunk)
+    parts = []
+    for zc_c in zc_chunks:
+        masked = (X[:, None, None, :] * zc_c[None, :, None, :]
+                  + bg[None, None, :, :] * (1.0 - zc_c[None, :, None, :]))
+        out = predictor(masked.reshape(-1, D))               # (B*c*N, K)
+        out = out.reshape(B, zc_c.shape[0], N, -1)
+        parts.append(torch.einsum("bcnk,n->bck", out, bgw_n))
+    return torch.cat(parts, 1)[:, :S]
+
+
 def _ey_linear(W, b, activation: str, X, bg, bgw_n, mask, G, chunk: int,
                use_kernel: bool = False):
     """Fast path for logits-linear predictors, in **group space**.
@@ -279,37 +315,48 @@ def _wls_solve(mask, w, ey_adj, fx_minus_e, ridge):
 
 def build_explainer_fn(predictor: BasePredictor, config: ShapConfig = ShapConfig(),
                        with_ey: bool = False):
-    """Build the explain function for a logits-linear ``predictor``.
+    """Build the explain function for ``predictor`` (reference
+    ``ops/explain.py:646-721``).
 
     Returns ``explain(X, bg, bgw, mask, weights, G) -> dict`` over tensors on
     one device, with ``shap_values (B, K, M)``, ``expected_value (K,)`` and
     ``raw_prediction (B, K)`` (both in link space), plus ``ey_adj
-    (B, S, K)`` when ``with_ey``."""
+    (B, S, K)`` when ``with_ey``.  The masked evaluation takes the linear
+    route for a logits-linear predictor, else the predictor's
+    ``masked_ey`` where it has one that fits, else ``_ey_generic``."""
 
-    linear = predictor.linear_decomposition
-    if linear is None:
-        raise NotImplementedError(
-            "the PyTorch port's sampled path explains logits-linear predictors "
-            "only; the masked-eval and generic paths are ROADMAP.md queue A "
-            "item 3 (for tree ensembles: masked_ey, queue A item 5). Tree "
-            "ensembles with raw-margin outputs take nsamples='exact'")
     link_fn = convert_to_link(config.link)
-    W, b, activation = linear
+    linear = predictor.linear_decomposition
 
     @torch.no_grad()
     def explain(X, bg, bgw, mask, weights, G):
         X = X.to(torch.float32)
         bg = bg.to(torch.float32)
-        B = X.shape[0]
-        S = mask.shape[0]
+        B, D = X.shape
+        S, M = mask.shape
         K = predictor.n_outputs
         N = bg.shape[0]
         bgw_n = bgw / bgw.sum()
 
-        chunk = config.coalition_chunk or _auto_chunk(S, B * N * K,
-                                                      config.target_chunk_elems)
-        ey = _ey_linear(W, b, activation, X, bg, bgw_n, mask, G, chunk,
-                        use_kernel=resolve_use_kernel(config.use_kernel, X.device))
+        if linear is not None:
+            W, b, activation = linear
+            chunk = config.coalition_chunk or _auto_chunk(S, B * N * K,
+                                                          config.target_chunk_elems)
+            ey = _ey_linear(W, b, activation, X, bg, bgw_n, mask, G, chunk,
+                            use_kernel=resolve_use_kernel(config.use_kernel, X.device))
+        elif _use_masked_ey(predictor, B, N, S, M, config):
+            # structure-aware path: split-condition / first-layer sums
+            # separate into instance and background halves
+            record_kernel_path("ey", "masked_ey")
+            ey = predictor.masked_ey(X, bg, bgw_n, mask, G,
+                                     config.target_chunk_elems,
+                                     coalition_chunk=config.coalition_chunk)
+        else:
+            record_kernel_path("ey", "generic")
+            zc = mask @ G                                         # (S, D)
+            chunk = config.coalition_chunk or _auto_chunk(S, B * N * D,
+                                                          config.target_chunk_elems)
+            ey = _ey_generic(predictor, X, bg, bgw_n, zc, chunk)
 
         fx = link_fn(predictor(X))                                # (B, K)
         e_out = torch.einsum("nk,n->k", predictor(bg), bgw_n)     # raw expected output

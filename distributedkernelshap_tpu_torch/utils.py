@@ -1,5 +1,5 @@
-"""Utilities: device resolution, ``Bunch``, ``methdispatch`` and the Adult
-data/model loaders.
+"""Utilities: device resolution, full-precision matmuls, ``Bunch``,
+``methdispatch`` and the Adult data/model loaders.
 
 ``Bunch``, ``methdispatch``, ``load_data``, ``load_model`` and
 ``data_provenance`` are copies of ``distributedkernelshap_tpu/utils.py``
@@ -8,6 +8,7 @@ loaders here only READ the cached pickles: they never generate the data,
 because the generator scripts import the JAX package and scikit-learn.
 """
 
+import contextlib
 import logging
 import os
 import pickle
@@ -39,6 +40,32 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "no CUDA device is available; pass device='cpu' to run the "
             "PyTorch port on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Float32 matmuls and einsums at full precision (TF32 off) inside the
+    block, whatever the caller set; the caller's setting is back on exit.
+
+    PyTorch has two APIs for the setting, and reading one after the other
+    was set raises, so this keeps to the one the caller's state answers."""
+
+    try:
+        prev = torch.get_float32_matmul_precision()
+    except RuntimeError:     # the caller set the per-backend API
+        matmul = torch.backends.cuda.matmul
+        prev = matmul.fp32_precision
+        matmul.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            matmul.fp32_precision = prev
+        return
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 class Bunch(dict):

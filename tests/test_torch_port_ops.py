@@ -111,8 +111,21 @@ def test_sklearn_lift_matches_predict_proba():
 
 
 def test_unliftable_predictor_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpred.as_predictor(lambda X: X.sum(1), example_dim=3, device="cpu")
+    """What no lift takes is wrapped, as in the reference: a torch function
+    (it returns a tensor on the meta probe) as a TorchPredictor, a numpy
+    function as a CallbackPredictor; only a host callable whose output
+    width cannot be probed still raises."""
+
+    torch_fn = tpred.as_predictor(lambda X: X.sum(1), example_dim=3, device="cpu")
+    assert isinstance(torch_fn, tpred.TorchPredictor)
+    assert (torch_fn.n_outputs, torch_fn.vector_out) == (1, False)
+    numpy_fn = tpred.as_predictor(lambda X: np.asarray(X).sum(1), example_dim=3, device="cpu")
+    assert isinstance(numpy_fn, tpred.CallbackPredictor)
+    X = np.arange(6, dtype=np.float32).reshape(2, 3)
+    for pred in (torch_fn, numpy_fn):
+        np.testing.assert_array_equal(pred(torch.as_tensor(X)).numpy(), X.sum(1)[:, None])
+    with pytest.raises(ValueError, match="output dim"):
+        tpred.as_predictor(lambda X: np.asarray(X).sum(1), device="cpu")
 
 
 def test_linear_predictor_from_numpy_matches_jax():

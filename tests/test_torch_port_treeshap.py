@@ -141,10 +141,17 @@ def test_tree_ensemble_from_numpy_matches_jax(hgbt):
 
 
 def test_sampled_tree_explain_and_interactions_raise(gbt):
+    """A sampled explain of a lifted tree runs (its masked_ey) and is
+    additive; interactions without nsamples='exact', and the exact path
+    under a non-identity link, raise as in the reference."""
+
     ks = KernelShap(gbt["model"].predict, device="cpu").fit(gbt["X"][:10])
     assert isinstance(ks._explainer.predictor, ttrees.TreeEnsemblePredictor)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ks.explain(gbt["X"][:3])
+    expl = ks.explain(gbt["X"][:3], silent=True)
+    assert ks.kernel_path == {"ey": "masked_ey"}
+    total = np.asarray(expl.shap_values[0]).sum(1) + expl.expected_value[0]
+    np.testing.assert_allclose(total, expl.data["raw"]["raw_prediction"].reshape(-1),
+                               atol=1e-4)
     # interactions exist only on the exact path, as in the reference
     with pytest.raises(ValueError, match="nsamples='exact'"):
         ks.explain(gbt["X"][:3], interactions=True)

@@ -4,10 +4,12 @@ CUDA card: builds every kernel from ``csrc/``, holds each against its plain
 PyTorch version on the card, drives the Adult headline explain, the exact
 TreeSHAP and exact interaction explains of an Adult-shaped GBT, the
 sampled engine's packed copy, l1 selection, plan-constant path and
-device-side importance, and the non-linear sampled paths (the GBT's and an
+device-side importance, the non-linear sampled paths (the GBT's and an
 MLP's ``masked_ey``, torch modules, a numpy black box on the host-eval and
-generic routes) through the public API, checks the answers, and times
-kernels, plain versions and explains.
+generic routes), and the engine's serving entry points (instance chunks,
+staged async explains, anytime rounds, profiler phases, save/load) through
+the public API, checks the answers, and times kernels, plain versions and
+explains.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -125,7 +127,39 @@ Phases (each raises on failure, so the script exits non-zero):
    (``'generic'``), both within 1e-3 of phase 15's answer; the host-eval
    ``l1_reg='auto'`` leg on the 48 ungrouped columns, additive; walls with
    ``hosteval_workers`` and ``os.cpu_count()``;
-17. each of phases 14–16's seconds and the script's so far.
+17. chunked (``EngineConfig(instance_chunk=256)``): the headline rows at
+   B=2560 in 10 chunks through ``run_pipeline``, launch counts set to 0 just
+   before and read just after: exactly 10 ``fused_linear_ey`` launches,
+   additive, phi within 1e-4 of phase 4's unchunked answer; the resolved
+   window and the device round-trip probe; phase 6's GBT at B=2560 with
+   ``nsamples='exact'``, with and without ``interactions=True``, chunked and
+   unchunked, each counted (the chunked counts are 10× the unchunked), within
+   2e-5·max(1, max|·|) of the unchunked answer; walls of each, chunked and
+   unchunked (one warm-up, median of 3);
+18. staging: 8 batches of B=16 headline rows, each staged by ``stage_rows``
+   (pinned host memory, the engine's side stream, an event) on a batcher
+   thread while the one before is dispatched by ``get_explanation_async``
+   here and finalized on a pool of 4 threads, counted (8 launches): every
+   result bit-identical to ``get_explanation`` on the same rows; one exact
+   batch at B=256 the same way; ``stage_rows`` returns None for host eval,
+   active l1, interactions and an over-chunk batch; the staged loop's wall
+   against 8 synchronous explains;
+19. anytime: ``anytime_begin(X).step()`` through the 4 rounds on the
+   headline task at B=16 and 256, counted (5 ``fused_linear_ey`` launches a
+   run: round 0's enumerated block, then each draw block); every round
+   additive (< 1e-3), the reported error monotone, the final round within
+   2e-4 of the single-shot WLS over the concatenated rows, within 1e-3 of the
+   ``use_kernel=False`` route and of the port on the CPU (first 16 rows);
+   a run exported after round 1 and restored on a fresh engine gives rounds
+   2–3 bit for bit; the kernel against its plain version (1e-5) on each
+   block's own inputs; walls per round, the kernel per block by CUDA events
+   beside its bound, and the whole run against the classic explain;
+20. profiler and checkpoint: with ``profiler()`` on, one headline explain
+   yields ``explain``, ``coalition_plan`` and ``device_explain``, and
+   ``trace()`` writes a Chrome trace; ``save`` then ``load`` of the headline
+   explainer and of the exact explainer with interactions, each explaining
+   bit-identically to its writer;
+21. each of phases 14–20's seconds and the script's so far.
 
 The second-to-last line of stdout is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -187,6 +221,16 @@ B_L1, N_L1_CPU, L1_SHARE = 256, 32, 0.99
 # exact values (the 1e-6 ridge moves phi by ~6e-6 relative at M = 12)
 B_TREES, B_SMALL, N_TREE_CPU, N_MLP_CPU = 256, 16, 4, 16
 EXACT_SAMPLED_REL = 1e-4
+# the serving entry points (phases 17-20): instance chunks of 256 rows
+# (10 at the headline), chunked phi against the unchunked; staged batches of
+# 16 headline rows, 8 in a row, and one exact batch of 256; anytime runs at
+# B = 16 and 256, whose final round is the single-shot WLS over the
+# concatenated rows within 2e-4 (tests/test_anytime.py:143) and whose four
+# rounds launch fused_linear_ey 5 times (round 0 twice: the enumerated
+# block, then the first draw block)
+INSTANCE_CHUNK, CHUNK_ATOL = 256, 1e-4
+N_STAGED, B_STAGED = 8, 16
+ANYTIME_BS, ANYTIME_SINGLE_SHOT, ANYTIME_LAUNCHES = (16, 256), 2e-4, 5
 
 
 def adult_groups():
@@ -559,8 +603,8 @@ def adult_task(seed):
     return X, bg, AdultShapedLogisticRegression(rng)
 
 
-def explain_headline(X, bg, est, device, use_kernel=None, transfer_dtype=None,
-                     plan_constant_cache=None):
+def headline_explainer(bg, est, device, use_kernel=None, transfer_dtype=None,
+                       plan_constant_cache=None, instance_chunk=None):
     from distributedkernelshap_tpu_torch import EngineConfig, KernelShap
     from distributedkernelshap_tpu_torch.ops.explain import ShapConfig
 
@@ -569,8 +613,13 @@ def explain_headline(X, bg, est, device, use_kernel=None, transfer_dtype=None,
                            engine_config=EngineConfig(
                                shap=ShapConfig(use_kernel=use_kernel,
                                                transfer_dtype=transfer_dtype),
-                               plan_constant_cache=plan_constant_cache))
-    explainer.fit(bg, group_names=ADULT_GROUP_NAMES, groups=adult_groups())
+                               plan_constant_cache=plan_constant_cache,
+                               instance_chunk=instance_chunk))
+    return explainer.fit(bg, group_names=ADULT_GROUP_NAMES, groups=adult_groups())
+
+
+def explain_headline(X, bg, est, device, **kw):
+    explainer = headline_explainer(bg, est, device, **kw)
     return explainer, explainer.explain(X, silent=True)
 
 
@@ -652,13 +701,14 @@ def tree_predictor(tables, device, head="identity"):
 
 
 def explain_exact(tables, X, bg, device, pack_paths=None, use_kernel=None,
-                  interactions=False):
+                  interactions=False, instance_chunk=None):
     from distributedkernelshap_tpu_torch import EngineConfig, KernelShap
     from distributedkernelshap_tpu_torch.ops.explain import ShapConfig
 
     explainer = KernelShap(tree_predictor(tables, device), task="regression", seed=0,
-                           device=device, engine_config=EngineConfig(shap=ShapConfig(
-                               pack_paths=pack_paths, use_kernel=use_kernel)))
+                           device=device, engine_config=EngineConfig(
+                               shap=ShapConfig(pack_paths=pack_paths, use_kernel=use_kernel),
+                               instance_chunk=instance_chunk))
     explainer.fit(bg, group_names=ADULT_GROUP_NAMES, groups=adult_groups())
     return explainer, explainer.explain(X, nsamples="exact", silent=True,
                                         interactions=interactions)
@@ -1986,6 +2036,374 @@ def blackbox_phase(X_all, bg, device, card, seed, phi_mlp):
           f"M={M} {l1_wall:.3f}", flush=True)
 
 
+# ---------------------------------------------------------------------- #
+# the engine's serving entry points (phases 17-20)
+
+
+def _exact_pair(expl, B, inter):
+    """``(phi, interaction matrices or None)`` of an exact explanation,
+    checked for shape, additivity and (with interactions) the convention."""
+
+    phi, _ = exact_phi(expl, B)
+    return phi, (interaction_values(expl, B)[0] if inter else None)
+
+
+def chunked_phase(tables, X, bg, est, device, card, phi_headline):
+    """Phase 17: ``EngineConfig(instance_chunk=256)`` on the headline rows
+    (B = 2560: 10 chunks through ``run_pipeline``, one ``fused_linear_ey``
+    launch each) and on the exact GBT with and without interactions, each
+    counted and held against the unchunked answer; the resolved window, the
+    round-trip probe, and the walls chunked and unchunked."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.parallel import pipeline
+
+    n_chunks = -(-B_HEADLINE // INSTANCE_CHUNK)
+    rtt = pipeline.device_round_trip_s(device=device, refresh=True)
+    reset_launches()
+    explainer, expl = explain_headline(X, bg, est, device, instance_chunk=INSTANCE_CHUNK)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    window = explainer._explainer.last_dispatch_window
+    phi, add_err = check_explanation(expl, B_HEADLINE)
+    d_phi = float(np.abs(phi - phi_headline).max())
+    print(f"chunked: B={B_HEADLINE} instance_chunk={INSTANCE_CHUNK} ({n_chunks} chunks), "
+          f"window {window} (resolve_window: device round trip {1e3 * rtt:.4f} ms), "
+          f"launches {launches}, kernel_path {explainer.kernel_path}; additivity "
+          f"{add_err:.3e}, |phi chunked - phi unchunked|={d_phi:.3e} (tol {CHUNK_ATOL:g})",
+          flush=True)
+    if launches != {"fused_linear_ey": n_chunks, "exact_tree_phi": 0,
+                    "exact_tree_inter": 0} or not d_phi <= CHUNK_ATOL:
+        raise AssertionError("the chunked headline explain did not launch once per chunk "
+                             "or disagrees with the unchunked one")
+    whole = headline_explainer(bg, est, device)
+    walls = {"sampled chunked": median_wall_ms(lambda: explainer.explain(X, silent=True), 3),
+             "sampled unchunked": median_wall_ms(lambda: whole.explain(X, silent=True), 3)}
+    for inter in (False, True):
+        label = "interactions" if inter else "exact"
+        reset_launches()
+        ex_whole, want = explain_exact(tables, X, bg, device, interactions=inter)
+        torch.cuda.synchronize()
+        once = kernel_launches()
+        reset_launches()
+        ex_chunk, got = explain_exact(tables, X, bg, device, interactions=inter,
+                                      instance_chunk=INSTANCE_CHUNK)
+        torch.cuda.synchronize()
+        chunked = kernel_launches()
+        phi_w, inter_w = _exact_pair(want, B_HEADLINE, inter)
+        phi_c, inter_c = _exact_pair(got, B_HEADLINE, inter)
+        d = float(np.abs(phi_c - phi_w).max())
+        tol = phi_tol(phi_w)
+        d_inter = float(np.abs(inter_c - inter_w).max()) if inter else 0.0
+        tol_inter = phi_tol(inter_w) if inter else 0.0
+        per_chunk = {k: v * n_chunks for k, v in once.items()}
+        print(f"chunked {label}: B={B_HEADLINE} in {n_chunks} chunks, window "
+              f"{ex_chunk._explainer.last_dispatch_window}: launches {chunked} (unchunked "
+              f"{once}), kernel_path {ex_chunk.kernel_path}; |phi chunked - unchunked|="
+              f"{d:.3e} (tol {tol:.3e})" + (f", |interactions chunked - unchunked|="
+                                           f"{d_inter:.3e} (tol {tol_inter:.3e})"
+                                           if inter else ""), flush=True)
+        if chunked != per_chunk or chunked["exact_tree_phi"] < n_chunks \
+                or (inter and chunked["exact_tree_inter"] != n_chunks) \
+                or not (d <= tol and d_inter <= tol_inter):
+            raise AssertionError(f"the chunked {label} explain disagrees with the "
+                                 "unchunked one or missed its kernels")
+        kw = {"nsamples": "exact", "interactions": inter, "silent": True}
+        walls[f"{label} chunked"] = median_wall_ms(lambda: ex_chunk.explain(X, **kw), 3)
+        walls[f"{label} unchunked"] = median_wall_ms(lambda: ex_whole.explain(X, **kw), 3)
+    print(f"times on {card}: B={B_HEADLINE} walls (one warm-up, median of 3, ms): "
+          + "; ".join(f"{k} {v[0]:.3f} (runs {v[1]})" for k, v in walls.items()),
+          flush=True)
+
+
+def staging_phase(explainer, tables, X, bg, device, card):
+    """Phase 18: ``stage_rows`` on a batcher thread, each batch staged while
+    the one before is dispatched, ``get_explanation_async`` on this thread
+    and ``finalize`` on a pool, as the serving pipeline runs them: every
+    result bit-identical to ``get_explanation`` on the same rows, and one
+    ``fused_linear_ey`` launch a batch; the same for one exact batch; the
+    routes ``stage_rows`` declines; the staged loop's wall against the
+    synchronous explains'."""
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from distributedkernelshap_tpu_torch import EngineConfig, KernelShap
+    from distributedkernelshap_tpu_torch.kernel_shap import StagedRows
+
+    engine = explainer._explainer
+    batches = [X[i * B_STAGED:(i + 1) * B_STAGED] for i in range(N_STAGED)]
+    want, fx_want = [], []
+    for b in batches:
+        want.append(engine.get_explanation(b, silent=True))
+        fx_want.append(engine.last_raw_prediction)
+
+    def staged_loop():
+        with ThreadPoolExecutor(1) as batcher, ThreadPoolExecutor(4) as finalizers:
+            nxt = batcher.submit(engine.stage_rows, batches[0])
+            futures = []
+            for i in range(N_STAGED):
+                staged = nxt.result()
+                if not isinstance(staged, StagedRows) or (
+                        staged.ready is None and torch.device(device).type == "cuda"):
+                    raise AssertionError("stage_rows did not stage on the side stream")
+                if i + 1 < N_STAGED:
+                    nxt = batcher.submit(engine.stage_rows, batches[i + 1])
+                futures.append(finalizers.submit(engine.get_explanation_async(staged)))
+            return [f.result() for f in futures]
+
+    reset_launches()
+    results = staged_loop()
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    same = all(all(np.array_equal(g, w) for g, w in zip(values, want[i]))
+               and np.array_equal(info["raw_prediction"], fx_want[i])
+               for i, (values, info) in enumerate(results))
+    print(f"staging: {N_STAGED} batches of B={B_STAGED} headline rows staged on a batcher "
+          f"thread (pinned host memory, side stream, event), dispatched here, finalized on "
+          f"4 threads: launches {launches}, bit-identical to get_explanation: {same}",
+          flush=True)
+    if launches != {"fused_linear_ey": N_STAGED, "exact_tree_phi": 0,
+                    "exact_tree_inter": 0} or not same:
+        raise AssertionError("the staged async explains disagree with the synchronous "
+                             "ones or missed the kernel")
+    ex_exact, _ = explain_exact(tables, X[:B_EXACT], bg, device)
+    eng_exact = ex_exact._explainer
+    want_exact = eng_exact.get_explanation(X[:B_EXACT], nsamples="exact")
+    staged = eng_exact.stage_rows(X[:B_EXACT], nsamples="exact")
+    reset_launches()
+    with ThreadPoolExecutor(1) as finalizer:
+        values, info = finalizer.submit(
+            eng_exact.get_explanation_async(staged, nsamples="exact")).result()
+    torch.cuda.synchronize()
+    exact_launches = kernel_launches()
+    same_exact = all(np.array_equal(g, w) for g, w in zip(values, want_exact))
+    print(f"staging exact: B={B_EXACT} staged, async: launches {exact_launches}, "
+          f"bit-identical to get_explanation: {same_exact}", flush=True)
+    if exact_launches["exact_tree_phi"] < 1 or not same_exact:
+        raise AssertionError("the staged exact explain disagrees or missed its kernel")
+    def engine_with(**cfg):
+        return KernelShap(explainer.predictor, link="logit", seed=0, device=device,
+                          engine_config=EngineConfig(**cfg)).fit(
+            bg, group_names=ADULT_GROUP_NAMES, groups=adult_groups())._explainer
+
+    declined = {
+        "host eval": engine_with(host_eval=True).stage_rows(batches[0]),
+        "active l1": engine.stage_rows(batches[0], l1_reg="num_features(4)"),
+        "interactions": eng_exact.stage_rows(X[:B_EXACT], nsamples="exact",
+                                             interactions=True),
+        "over-chunk batch": engine_with(instance_chunk=8).stage_rows(batches[0]),
+    }
+    print("staging: stage_rows declines (returns None) for " + ", ".join(
+        f"{k}: {v is None}" for k, v in declined.items()), flush=True)
+    if any(v is not None for v in declined.values()):
+        raise AssertionError("stage_rows staged a route the sync fallback serves")
+    staged_ms = median_wall_ms(staged_loop, 3)
+    sync_ms = median_wall_ms(lambda: [engine.get_explanation(b, silent=True)
+                                      for b in batches], 3)
+    print(f"times on {card}: {N_STAGED} batches of B={B_STAGED}: staged async loop "
+          f"{staged_ms[0]:.3f} ms (runs {staged_ms[1]}), {N_STAGED} synchronous explains "
+          f"{sync_ms[0]:.3f} ms (runs {sync_ms[1]})", flush=True)
+
+
+def anytime_phase(explainer, X, bg, est, device, card, sm_count, sm_clock_hz):
+    """Phase 19: ``anytime_begin(X).step()`` through all rounds on the
+    headline task at B = 16 and 256, counted (5 ``fused_linear_ey`` launches
+    a run), each round additive, the reported error monotone, the final
+    round against the single-shot WLS over the concatenated rows, the
+    ``use_kernel=False`` route and the port on the CPU; a run resumed on a
+    fresh engine after round 1 bit for bit; at each round's ``(B, S)`` the
+    kernel against its plain version on the inputs the round gave it;
+    times.  Returns the kernel's largest difference from its plain version."""
+
+    from dataclasses import replace
+
+    import torch
+    from distributedkernelshap_tpu_torch.anytime.engine import AnytimeRun
+    from distributedkernelshap_tpu_torch.anytime.rounds import round_draw_mask
+    from distributedkernelshap_tpu_torch.ops import explain as explain_mod
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+        fused_linear_ey,
+        fused_linear_ey_plain,
+    )
+
+    engine = explainer._explainer
+    plain_engine = headline_explainer(bg, est, device, use_kernel=False)._explainer
+    cpu_engine = headline_explainer(bg, est, "cpu")._explainer
+    M, N, K = len(ADULT_WIDTHS), N_BACKGROUND, 2
+    max_err = 0.0
+
+    def run_all(eng, rows):
+        run = eng.anytime_begin(rows)
+        out = []
+        while not run.done:
+            out.append(run.step())
+        return run, out
+
+    for B in ANYTIME_BS:
+        rows = X[:B]
+        ey_calls = []
+
+        def recorded_ey(*a, **k):
+            ey_calls.append((a, k))
+            return fused_linear_ey(*a, **k)
+
+        reset_launches()
+        explain_mod.fused_linear_ey = recorded_ey
+        try:
+            run = engine.anytime_begin(rows)
+            results, round_ms = [], []
+            while not run.done:
+                t0 = time.perf_counter()
+                results.append(run.step())
+                round_ms.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+        finally:
+            explain_mod.fused_linear_ey = fused_linear_ey
+        launches = kernel_launches()
+        s = run.schedule
+        shapes = [(tuple(a[0].shape), tuple(a[4].shape)) for a, _ in ey_calls]
+        print(f"anytime B={B}: schedule enumerated S={s.n_enumerated}, draws {s.draws}, "
+              f"weight_left {s.weight_left:.3f}; launches {launches}; kernel inputs "
+              f"(XWg, mask) {shapes}; kernel_path {explainer.kernel_path}", flush=True)
+        if launches != {"fused_linear_ey": ANYTIME_LAUNCHES, "exact_tree_phi": 0,
+                        "exact_tree_inter": 0} or explainer.kernel_path.get("ey") != "cuda":
+            raise AssertionError("the anytime run did not launch fused_linear_ey once per "
+                                 "block")
+        prev, adds = None, []
+        for res in results:
+            if res.phi.shape != (B, K, M) or not np.isfinite(res.phi).all():
+                raise AssertionError(f"bad anytime phi: {res.phi.shape}")
+            adds.append(float(np.abs(res.phi.sum(-1) - (res.raw_prediction
+                                                         - res.expected_value[None])).max()))
+            if prev is not None and not np.all(res.est_err <= prev):
+                raise AssertionError("the anytime reported error went up")
+            prev = res.est_err
+        final = results[-1]
+        # the single-shot WLS over the concatenated rows with count weights
+        draws = np.concatenate([round_draw_mask(s, r) for r in range(s.n_rounds)], 0)
+        mask = np.concatenate([s.enum_mask, draws], 0).astype(np.float32)
+        weights = np.concatenate([s.enum_weights, np.full(
+            draws.shape[0], s.weight_left / draws.shape[0], np.float32)]).astype(np.float32)
+        fn = explain_mod.build_explainer_fn(
+            engine.predictor, replace(engine.config.shap, link=engine.config.link))
+        single = fn(*(torch.as_tensor(np.asarray(a, np.float32), device=device)
+                      for a in (rows, engine.background, engine.bg_weights, mask,
+                                weights, engine.G)))["shap_values"].cpu().numpy()
+        d_single = float(np.abs(final.phi - single).max())
+        _, plain_results = run_all(plain_engine, rows)
+        d_plain = float(np.abs(final.phi - plain_results[-1].phi).max())
+        n_cpu = min(B, N_CPU_ROWS)
+        _, cpu_results = run_all(cpu_engine, rows[:n_cpu])
+        d_cpu = float(np.abs(final.phi[:n_cpu] - cpu_results[-1].phi).max())
+        # resume after round 1 on a fresh engine
+        part = engine.anytime_begin(rows)
+        part.step()
+        part.step()
+        fresh = headline_explainer(bg, est, device)._explainer
+        resumed = AnytimeRun.restore(fresh, fresh._anytime_schedule(None), part.export_state())
+        resumed_results = []
+        while not resumed.done:
+            resumed_results.append(resumed.step())
+        bit = all(np.array_equal(a.phi, b.phi) and np.array_equal(a.raw_gap, b.raw_gap)
+                  for a, b in zip(results[2:], resumed_results))
+        print(f"anytime B={B}: additivity per round {[f'{a:.2e}' for a in adds]} (< "
+              f"{ADDITIVITY:g}); est_err max per round "
+              f"{[round(r.max_err, 6) for r in results]} (monotone); final vs single-shot "
+              f"WLS {d_single:.3e} (tol {ANYTIME_SINGLE_SHOT:g}), vs use_kernel=False "
+              f"{d_plain:.3e} (tol {PHI_ATOL:g}), vs the CPU (first {n_cpu} rows) "
+              f"{d_cpu:.3e} (tol {PHI_ATOL:g}); resumed after round 1 on a fresh engine, "
+              f"rounds 2-3 bit-identical: {bit}", flush=True)
+        if not (max(adds) < ADDITIVITY and d_single <= ANYTIME_SINGLE_SHOT
+                and d_plain <= PHI_ATOL and d_cpu <= PHI_ATOL and bit):
+            raise AssertionError("the anytime run disagrees with its references")
+        # the kernel at each round's (B, S), on the round's own inputs, timed
+        parts = []
+        for (a, k) in ey_calls:
+            got, ref = fused_linear_ey(*a, **k), fused_linear_ey_plain(*a, **k)
+            err = float((got - ref).abs().max())
+            max_err = max(max_err, err)
+            if not (bool(got.isfinite().all()) and err <= EY_ATOL):
+                raise AssertionError(f"fused_linear_ey disagrees with its plain version at "
+                                     f"anytime shape {tuple(a[4].shape)}: {err}")
+            S = a[4].shape[0]
+            k_ms = cuda_time_ms(lambda: fused_linear_ey(*a, **k), 50)
+            # the wrapper's host time a call (checks, normalising bgw, the
+            # output's allocation, the ctypes launch), issued without a sync:
+            # where it reaches the CUDA-event time, the card waits on the host
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fused_linear_ey(*a, **k)
+            issue_ms = 1e3 * (time.perf_counter() - t0) / 50
+            torch.cuda.synchronize()
+            b_ms, b_by = ey_bound_ms(a[0].shape[0], S, N, M, K, "softmax", sm_count,
+                                     sm_clock_hz)
+            parts.append(f"S={S}: kernel {k_ms:.4f} ms (host issue {issue_ms:.4f} ms a "
+                         f"call), bound {b_ms:.4f} ms ({b_by}), |ey - plain| {err:.2e}")
+        run_ms = median_wall_ms(lambda: run_all(engine, rows), 3)
+        classic_ms = median_wall_ms(lambda: explainer.explain(rows, silent=True), 3)
+        print(f"times on {card}: anytime B={B}: walls per round (ms) "
+              f"{[round(r, 3) for r in round_ms]}; fused_linear_ey per block at B={B}: "
+              + "; ".join(parts) + f"; whole run {run_ms[0]:.3f} ms (runs {run_ms[1]}) "
+              f"against the classic explain {classic_ms[0]:.3f} ms (runs {classic_ms[1]})",
+              flush=True)
+    return max_err
+
+
+def profiler_checkpoint_phase(explainer, expl, tables, X, bg, device, card):
+    """Phase 20: with the profiler on, one headline explain yields its
+    phases and ``trace()`` writes a Chrome trace; ``save`` then ``load`` of
+    the headline explainer and of the exact explainer with interactions,
+    each explaining bit-identically to the writer."""
+
+    import os
+    import tempfile
+
+    import torch
+    from distributedkernelshap_tpu_torch import KernelShap
+    from distributedkernelshap_tpu_torch.profiling import profiler
+
+    prof = profiler()
+    prof.enable()
+    prof.reset()
+    try:
+        explainer.explain(X, silent=True)
+        summary = prof.summary()
+        with tempfile.TemporaryDirectory() as tmp:
+            with prof.trace(os.path.join(tmp, "trace")):
+                explainer.explain(X[:B_STAGED], silent=True)
+                torch.cuda.synchronize()
+            trace_bytes = os.path.getsize(prof.last_trace_path)
+    finally:
+        prof.disable()
+        prof.reset()
+    print(f"profiler: phases {sorted(summary)}; explain {1e3 * summary['explain']['total_s']:.3f}"
+          f" ms, device_explain {1e3 * summary['device_explain']['total_s']:.3f} ms; trace() "
+          f"wrote a Chrome trace of {trace_bytes} bytes", flush=True)
+    if not ({"explain", "coalition_plan", "device_explain"} <= set(summary)
+            and trace_bytes > 0):
+        raise AssertionError("the profiler missed the explain's phases or wrote no trace")
+    ex_inter, before_inter = explain_exact(tables, X[:B_EXACT], bg, device, interactions=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        explainer.save(os.path.join(tmp, "headline.pkl"))
+        ex_inter.save(os.path.join(tmp, "exact.pkl"))
+        loaded = KernelShap.load(os.path.join(tmp, "headline.pkl"))
+        loaded_inter = KernelShap.load(os.path.join(tmp, "exact.pkl"))
+    after = loaded.explain(X, silent=True)
+    same = all(np.array_equal(a, b) for a, b in zip(after.shap_values, expl.shap_values))
+    after_inter = loaded_inter.explain(X[:B_EXACT], nsamples="exact", silent=True,
+                                       interactions=True)
+    same_inter = (np.array_equal(after_inter.shap_values[0], before_inter.shap_values[0])
+                  and np.array_equal(after_inter.data["raw"]["interaction_values"][0],
+                                     before_inter.data["raw"]["interaction_values"][0]))
+    print(f"checkpoint: the headline explainer saved and loaded (device {loaded.device}, "
+          f"kernel_path {loaded.kernel_path}): bit-identical {same}; the exact explainer "
+          f"with interactions (kernel_path {loaded_inter.kernel_path}): bit-identical "
+          f"{same_inter}", flush=True)
+    if not (same and same_inter and loaded.kernel_path.get("ey") == "cuda"):
+        raise AssertionError("a loaded explainer disagrees with its writer")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2087,7 +2505,7 @@ def main() -> int:
     plan_constant_phase(explainer, X, bg, est, device, card)
     importance_phase(explainer, expl, X)
 
-    # 14-17. the non-linear sampled paths, each phase's seconds
+    # 14-16. the non-linear sampled paths, each phase's seconds
     seconds = {}
     t = time.perf_counter()
     sampled_tree_phase(tables, X, bg, device, card)
@@ -2098,6 +2516,21 @@ def main() -> int:
     t = time.perf_counter()
     blackbox_phase(X, bg, device, card, args.seed, phi_mlp)
     seconds["16 black box"] = time.perf_counter() - t
+
+    # 17-20. the engine's serving entry points
+    t = time.perf_counter()
+    chunked_phase(tables, X, bg, est, device, card, phi)
+    seconds["17 chunked"] = time.perf_counter() - t
+    t = time.perf_counter()
+    staging_phase(explainer, tables, X, bg, device, card)
+    seconds["18 staging"] = time.perf_counter() - t
+    t = time.perf_counter()
+    max_err = max(max_err, anytime_phase(explainer, X, bg, est, device, card,
+                                         props.multi_processor_count, clock))
+    seconds["19 anytime"] = time.perf_counter() - t
+    t = time.perf_counter()
+    profiler_checkpoint_phase(explainer, expl, tables, X, bg, device, card)
+    seconds["20 profiler, checkpoint"] = time.perf_counter() - t
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; script so far {time.perf_counter() - t_start:.1f}", flush=True)
 

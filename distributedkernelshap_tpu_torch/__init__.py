@@ -12,7 +12,11 @@ torch functions) row materialisation, and black-box host callables
 ``EngineConfig(host_eval=True)``, host evaluation.  Exact TreeSHAP
 (``nsamples='exact'`` on lifted tree ensembles) runs in
 ``csrc/exact_tree_phi.cu`` and its Shapley interactions (``interactions=True``) in
-``csrc/exact_tree_inter.cu`` (wrappers in ``ops/cuda_kernels.py``).
+``csrc/exact_tree_inter.cu`` (wrappers in ``ops/cuda_kernels.py``).  The
+engine's serving entry points (instance chunks through
+``parallel/pipeline.py``, staged async explains, anytime rounds in
+``anytime/``, ``profiling.py`` phases, ``KernelShap.save`` / ``load``) drive
+the same kernels.
 """
 
 from distributedkernelshap_tpu_torch.data import DenseData  # noqa: F401

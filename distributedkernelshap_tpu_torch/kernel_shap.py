@@ -21,22 +21,33 @@ The sampled engine has the reference's host-side l1 feature selection
 (``EngineConfig.plan_constant_cache``) and the device-side importance
 reduction (``get_importance`` / ``KernelShap.rank_features``).
 
+The serving entry points: ``EngineConfig.instance_chunk`` splits a large
+batch into chunks dispatched through ``parallel/pipeline.run_pipeline`` in
+a sliding window (``EngineConfig.dispatch_window``); ``stage_rows`` starts
+a request's upload from pinned host memory on the engine's side CUDA
+stream and ``get_explanation_async`` dispatches now and returns a
+``finalize`` that another thread may run; ``anytime_begin(X).step()``
+refines an explain round by round (``anytime/``); the engine's stages are
+timed by ``profiling.profiler()`` phases; ``KernelShap.save`` / ``load``
+checkpoint a fitted explainer.
+
 Not ported yet (ROADMAP.md, queue A): the exact tensor-network and DeepSHAP
-flavors, the anytime path, ``instance_chunk`` pipelining,
-staging, the memory ledger, profiler phases, ``save``/``load`` and
-multi-device execution.
+flavors, the memory ledger and multi-device execution.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 without a GPU and without a device they raise.  pandas is only touched when
 the caller hands over a pandas object.
 """
 
+import contextlib
 import copy
 import hashlib
 import logging
 import math
 import os
+import pickle
 import threading
+import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field, replace
@@ -46,6 +57,14 @@ import numpy as np
 import torch
 from scipy import sparse
 
+from distributedkernelshap_tpu_torch.anytime.convergence import calibrated_err, monotone_min
+from distributedkernelshap_tpu_torch.anytime.engine import (
+    AnytimeRun,
+    RoundResult,
+    build_anytime_consts_fn,
+    build_round_fn,
+)
+from distributedkernelshap_tpu_torch.anytime.rounds import build_schedule, round_draw_mask
 from distributedkernelshap_tpu_torch.data import Data, DenseData, DenseDataWithIndex
 from distributedkernelshap_tpu_torch.interface import (
     DEFAULT_DATA_KERNEL_SHAP,
@@ -85,6 +104,8 @@ from distributedkernelshap_tpu_torch.ops.treeshap import (
     supports_exact,
     validate_exact,
 )
+from distributedkernelshap_tpu_torch.parallel.pipeline import resolve_window, run_pipeline
+from distributedkernelshap_tpu_torch.profiling import profiler
 from distributedkernelshap_tpu_torch.utils import methdispatch, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -101,6 +122,32 @@ KERNEL_SHAP_PARAMS = [
 ]
 
 KERNEL_SHAP_BACKGROUND_THRESHOLD = 300
+
+
+def _async_sync_fallback(explainer, X, nsamples, l1_reg, interactions):
+    """The synchronous closure behind ``get_explanation_async``'s fallback
+    routes (reference ``kernel_shap.py:92-110``): compute now on the calling
+    thread, capture the per-call state eagerly (a later dispatch must not
+    overwrite what this finalize returns), and hand back the ``finalize()
+    -> (values, info)`` contract of the async path."""
+
+    values = explainer.get_explanation(X, nsamples=nsamples, l1_reg=l1_reg,
+                                       silent=True, interactions=interactions)
+    info = {
+        'raw_prediction': explainer.last_raw_prediction,
+        'expected_value': np.atleast_1d(
+            np.asarray(explainer.expected_value, dtype=np.float32)),
+    }
+    if interactions:
+        info['interaction_values'] = explainer.last_interaction_values
+    return lambda: (values, info)
+
+
+def _on_stream(stream: Optional["torch.cuda.Stream"]):
+    """Make ``stream`` the calling thread's current CUDA stream inside the
+    block (nothing for ``None``: CPU work has no stream)."""
+
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
 
 
 def _fingerprint(X: np.ndarray):
@@ -531,12 +578,46 @@ def sum_categories(values: np.ndarray, start_idx: Sequence[int], enc_feat_dim: S
 
 
 @dataclass
+class StagedRows:
+    """A request batch whose host-to-device upload is already in flight
+    (reference ``kernel_shap.py:543-563``).
+
+    Made by :meth:`KernelExplainerEngine.stage_rows`: ``host`` is the
+    original ``(B, D)`` float32 rows (a sync fallback reads them),
+    ``device`` the bucket-padded copy on the engine's device, ``B`` the
+    unpadded row count.  On CUDA the copy runs from the pinned host buffer
+    ``pinned`` on the engine's side stream and ``ready`` is the event
+    recorded after it: the consuming stream waits on it before reading
+    ``device`` (``_staged_input``).  On the CPU ``device`` is a plain tensor
+    and both are ``None``.  Single-use: a StagedRows feeds exactly one
+    explain."""
+
+    host: np.ndarray
+    device: Any
+    B: int
+    ready: Optional[Any] = None
+    pinned: Optional[torch.Tensor] = None
+
+    @property
+    def shape(self):
+        return self.host.shape
+
+
+@dataclass
 class EngineConfig:
     """Static configuration of a single-device explain engine."""
 
     link: str = 'identity'
     seed: Optional[int] = None
     shap: ShapConfig = field(default_factory=ShapConfig)
+    # split batches larger than this into chunks dispatched through
+    # parallel/pipeline.run_pipeline (None = no split): bounds the device
+    # memory an explain holds at once
+    instance_chunk: Optional[int] = None
+    # in-flight bound of the instance-chunk dispatch/fetch pipeline (None =
+    # parallel/pipeline.resolve_window: DKS_DISPATCH_WINDOW, else a live
+    # round-trip probe, 2 on a locally attached card)
+    dispatch_window: Optional[int] = None
     # pad batch sizes up to a bounded ladder of shapes (as the reference,
     # which bounds jit retraces; here it keeps the kernel's shapes stable)
     bucket_batches: bool = True
@@ -608,6 +689,13 @@ class KernelExplainerEngine:
         self._plan_consts_cache: "OrderedDict[Any, Dict[str, Any]]" = OrderedDict()
         self._content_fp: Optional[str] = None
         self._exact_cache: Dict[Any, Dict[str, Any]] = {}
+        # _exact_async_ready's memo (host state fixed once fitted)
+        self._ready_cache: Dict[bool, bool] = {}
+        # the side stream stage_rows uploads on (CUDA only, made on first use)
+        self._stage_stream: Optional[torch.cuda.Stream] = None
+        self._stage_lock = threading.Lock()
+        #: the window the last chunked explain resolved (``dispatch_window``)
+        self.last_dispatch_window: Optional[int] = None
         self.last_raw_prediction: Optional[np.ndarray] = None
         #: the last explain's exact interaction matrices (``interactions=True``):
         #: a list of K ``(B, M, M)`` arrays; None after any other explain
@@ -798,7 +886,8 @@ class KernelExplainerEngine:
         if fnkey not in self._fn_cache:
             self._fn_cache[fnkey] = build_linear_plan_consts_fn(
                 self.predictor, replace(self.config.shap, link=self.config.link), chunk)
-        consts = self._fn_cache[fnkey](*self._device_args(plan))
+        with profiler().phase('plan_consts'):
+            consts = self._fn_cache[fnkey](*self._device_args(plan))
         if reuse:
             self._plan_consts_cache[key] = consts
             while len(self._plan_consts_cache) > self._DEV_CACHE_MAX_ENTRIES:
@@ -851,16 +940,44 @@ class KernelExplainerEngine:
                                         out['raw_prediction'].reshape(-1)]),
                              transfer_dtype)
 
-    def _dispatch_array(self, X: np.ndarray, plan):
+    def _staged_input(self, staged: StagedRows) -> Tuple[torch.Tensor, int]:
+        """``(device rows, B)`` of a :class:`StagedRows`, ordered after its
+        upload: on CUDA the calling thread's current stream waits on the
+        upload's event, and the rows are recorded as used on that stream,
+        so the caching allocator does not hand their memory back to the
+        side stream while this stream's kernels still read it."""
+
+        rows = staged.device
+        if staged.ready is not None:
+            stream = torch.cuda.current_stream(rows.device)
+            stream.wait_event(staged.ready)
+            rows.record_stream(stream)
+        return rows, staged.B
+
+    def _current_stream(self) -> Optional["torch.cuda.Stream"]:
+        """The calling thread's current stream on the engine's CUDA device
+        (``None`` on the CPU): a dispatch's finalize copies on it, so the
+        copy orders after the dispatch's kernels whatever thread runs it."""
+
+        if self.device.type != 'cuda':
+            return None
+        return torch.cuda.current_stream(self.device)
+
+    def _dispatch_array(self, X, plan):
         """Launch the device computation for ``X`` and return a zero-argument
         ``finalize`` that makes the one device-to-host copy (it waits for
         the device) and unpacks it (reference ``kernel_shap.py:1165-1227``).
         The plan-constant path goes first; where it does not apply, the
         classic function and :meth:`_pack_fn`.  With
         ``ShapConfig.transfer_dtype`` set only phi takes the narrower
-        dtype."""
+        dtype.  ``X`` may be a :class:`StagedRows` from :meth:`stage_rows`,
+        whose uploaded rows feed the launch directly; ``finalize`` may run
+        on another thread."""
 
-        Xp, B = self._pad_to_bucket(X)
+        if isinstance(X, StagedRows):
+            Xp, B = self._staged_input(X)
+        else:
+            Xp, B = self._pad_to_bucket(X)
         td = self.config.shap.transfer_dtype
         packed = self._linear_fast_call(Xp, plan, packed_dtype=td)
         if packed is None:
@@ -870,10 +987,13 @@ class KernelExplainerEngine:
             self._kernel_paths.update(kp)
             packed = self._pack_fn(out, td)
         Bp = Xp.shape[0]
+        stream = self._current_stream()
 
         def finalize() -> Dict[str, np.ndarray]:
             K, M = self.predictor.n_outputs, self.M
-            phi, tail = unpack_transfer(fetch_transfer(packed), Bp * K * M, td)
+            with _on_stream(stream):
+                flat = fetch_transfer(packed)
+            phi, tail = unpack_transfer(flat, Bp * K * M, td)
             e_val, fx = np.split(tail, [K])
             return {
                 'shap_values': phi.reshape(Bp, K, M)[:B],
@@ -887,7 +1007,141 @@ class KernelExplainerEngine:
                        silent: bool = True) -> Dict[str, np.ndarray]:
         if self.config.host_eval:
             return self._explain_array_hosteval(X, nsamples, silent=silent)
-        return self._dispatch_array(X, self._plan(nsamples))()
+        with profiler().phase('coalition_plan'):
+            plan = self._plan(nsamples)
+        with profiler().phase('device_explain'):
+            return self._dispatch_array(X, plan)()
+
+    # ------------------------------------------------------------------ #
+    # anytime refinement (progressive rounds, accumulated WLS state)
+
+    def _anytime_schedule(self, nsamples=None):
+        """The anytime round schedule at this nsamples budget (memoised next
+        to the coalition plans: host numpy, survives device resets), or
+        ``None`` where refinement cannot apply (exact enumeration, ``M < 2``,
+        string budgets other than ``'auto'``; reference
+        ``kernel_shap.py:1229-1247``)."""
+
+        if isinstance(nsamples, str) and nsamples != 'auto':
+            return None  # 'exact' etc.: analytic paths have zero error
+        key = ('anytime', 'auto' if nsamples in (None, 'auto') else int(nsamples))
+        if key not in self._plan_cache:
+            n = None if key[1] == 'auto' else key[1]
+            self._plan_cache[key] = build_schedule(
+                self.M, nsamples=n, seed=self.config.seed or 0)
+        return self._plan_cache[key]
+
+    def anytime_supported(self, nsamples=None) -> bool:
+        """Whether this engine serves progressive-refinement rounds at the
+        given budget: the sampled estimator on the device (host eval keeps
+        the evaluation off the device) with a non-degenerate schedule."""
+
+        if self.config.host_eval:
+            return False
+        return self._anytime_schedule(nsamples) is not None
+
+    def _anytime_consts(self, schedule):
+        """The anytime round engine's device constants that do not depend on
+        X (the background, the link-space expected value, the enumerated
+        block's weighted Gram matrix), computed once and served from the
+        plan-constant cache keyed by ``content_fingerprint()``, ``'anytime'``
+        and the schedule's fingerprint, with the same LRU bound (reference
+        ``kernel_shap.py:1259-1294``).  Shared by every run: nothing writes
+        into it."""
+
+        key = (self.content_fingerprint(), 'anytime', schedule.fingerprint())
+        if key in self._plan_consts_cache:
+            self._plan_consts_cache.move_to_end(key)
+            return self._plan_consts_cache[key]
+        fnkey = ('anytime_consts',)
+        if fnkey not in self._fn_cache:
+            self._fn_cache[fnkey] = build_anytime_consts_fn(
+                self.predictor, replace(self.config.shap, link=self.config.link),
+                self.config.link)
+        dev = self.device
+        with profiler().phase('plan_consts'):
+            consts = self._fn_cache[fnkey](
+                torch.as_tensor(self.background, device=dev),
+                torch.as_tensor(self.bg_weights, device=dev),
+                torch.as_tensor(schedule.enum_mask, device=dev),
+                torch.as_tensor(schedule.enum_weights, device=dev),
+                torch.as_tensor(self.G, device=dev))
+        self._plan_consts_cache[key] = consts
+        while len(self._plan_consts_cache) > self._DEV_CACHE_MAX_ENTRIES:
+            self._plan_consts_cache.popitem(last=False)
+        return consts
+
+    def anytime_begin(self, X, nsamples=None) -> Optional[AnytimeRun]:
+        """Begin a progressive-refinement run for ``X``: an
+        :class:`~distributedkernelshap_tpu_torch.anytime.engine.AnytimeRun`
+        whose ``step()`` runs one accumulated round, or ``None`` where the
+        engine or budget is ineligible (host eval, string budgets other than
+        ``'auto'``, a degenerate schedule, a batch over ``instance_chunk``;
+        the caller then takes the classic single-shot path).  ``X`` may be
+        a :class:`StagedRows`; its host rows seed the run."""
+
+        if self.config.host_eval:
+            return None
+        schedule = self._anytime_schedule(nsamples)
+        if schedule is None:
+            return None
+        X = X.host if isinstance(X, StagedRows) else X
+        X = np.atleast_2d(np.asarray(X, dtype=np.float32))
+        if self.config.instance_chunk and X.shape[0] > self.config.instance_chunk:
+            return None
+        Xp, B = self._pad_to_bucket(X)
+        return AnytimeRun(owner=self, schedule=schedule, Xp=Xp, B=B)
+
+    def _dispatch_anytime_round(self, run: AnytimeRun) -> RoundResult:
+        """One anytime refinement round (reference ``kernel_shap.py:
+        1321-1393``): regenerate the round's draw block (deterministic from
+        ``(seed, round)``), feed it through the round function with the
+        run's state, rebind the state to the round's new tensors and return
+        the round's :class:`RoundResult`.  Round ``k+1`` reads round ``k``'s
+        accumulated state; nothing is recomputed.  The round function is
+        cached per ``(schedule, round, padded batch)``."""
+
+        schedule = run.schedule
+        r = run.round_idx
+        consts = self._anytime_consts(schedule)
+        draw_mask = round_draw_mask(schedule, r)
+        Bp = run.Xp.shape[0]
+        fnkey = ('anytime_round', schedule.fingerprint(), r, Bp)
+        if fnkey not in self._fn_cache:
+            self._fn_cache[fnkey] = build_round_fn(
+                self.predictor, replace(self.config.shap, link=self.config.link),
+                self.config.link, self.config.shap.ridge, schedule, r)
+        fn = self._fn_cache[fnkey]
+        dev = self.device
+        t0 = time.monotonic()
+        with profiler().phase('device_explain'):
+            with capture_kernel_paths() as kp:
+                first = (torch.as_tensor(run.Xp, device=dev) if r == 0
+                         else run.state)
+                phi_d, gap_d, state = fn(first, torch.as_tensor(draw_mask, device=dev),
+                                         consts)
+            self._kernel_paths.update(kp)
+            phi = phi_d[:run.B].cpu().numpy()
+            gap = gap_d[:run.B].cpu().numpy()
+        run.state = state
+        run.round_idx = r + 1
+        if run.expected_value is None:
+            run.expected_value = np.atleast_1d(
+                consts['expected_value'].cpu().numpy().astype(np.float32))
+        if run.raw_prediction is None:
+            run.raw_prediction = state['fx'][:run.B].cpu().numpy()
+        est = calibrated_err(gap, r, run.calibration)
+        run.reported_err = monotone_min(run.reported_err, est)
+        result = RoundResult(
+            round_index=r, phi=phi,
+            expected_value=run.expected_value,
+            raw_prediction=run.raw_prediction,
+            est_err=run.reported_err.copy(), raw_gap=gap,
+            cumulative_nsamples=schedule.cumulative_nsamples(r),
+            done=run.round_idx >= schedule.n_rounds)
+        run.last_result = result
+        run.last_round_s = time.monotonic() - t0
+        return result
 
     # ------------------------------------------------------------------ #
     # host evaluation of black-box predictors
@@ -989,13 +1243,16 @@ class KernelExplainerEngine:
         plan = self._plan(nsamples)
         self._kernel_paths['ey'] = 'host'
         Xp, B = self._pad_to_bucket(X)
-        ey_adj, fx, e_val = self._hosteval_stats(Xp, plan, silent=silent)
+        with profiler().phase('host_eval'):
+            ey_adj, fx, e_val = self._hosteval_stats(Xp, plan, silent=silent)
         fx_minus_e = fx - e_val[None, :]
         dev = self.device
-        phi = self._solve_fn()(
-            torch.as_tensor(plan.mask, device=dev), torch.as_tensor(plan.weights, device=dev),
-            torch.as_tensor(ey_adj, device=dev),
-            torch.as_tensor(fx_minus_e, device=dev)).cpu().numpy()
+        with profiler().phase('device_solve'):
+            phi = self._solve_fn()(
+                torch.as_tensor(plan.mask, device=dev),
+                torch.as_tensor(plan.weights, device=dev),
+                torch.as_tensor(ey_adj, device=dev),
+                torch.as_tensor(fx_minus_e, device=dev)).cpu().numpy()
         return {
             'shap_values': phi[:B],
             'expected_value': e_val,
@@ -1031,7 +1288,7 @@ class KernelExplainerEngine:
             return self._exact_cache[key]
         budget = self.config.shap.target_chunk_elems
         G = torch.as_tensor(self.G, device=self.device)
-        with torch.no_grad():
+        with torch.no_grad(), profiler().phase('background_reach'):
             reach = background_reach(
                 self.predictor, torch.as_tensor(self.background, device=self.device),
                 G, target_chunk_elems=budget)
@@ -1058,21 +1315,26 @@ class KernelExplainerEngine:
             return consts['reach']
         key = ('exact_reach_full',)
         if key not in self._exact_cache:
-            with torch.no_grad():
+            with torch.no_grad(), profiler().phase('background_reach'):
                 self._exact_cache[key] = background_reach(
                     self.predictor,
                     torch.as_tensor(self.background, device=self.device), consts['G'],
                     target_chunk_elems=self.config.shap.target_chunk_elems)
         return self._exact_cache[key]
 
-    def _dispatch_exact(self, X: np.ndarray):
-        """Launch the exact phi computation for ``X`` and return a
+    def _dispatch_exact(self, X):
+        """Launch the exact phi computation for one batch and return a
         ``finalize() -> {'shap_values', 'raw_prediction'}`` that copies the
         result to the host: the packed route when the plan engages, the
-        dense route otherwise."""
+        dense route otherwise.  ``X`` may be a :class:`StagedRows`, whose
+        uploaded rows feed the launch directly; ``finalize`` may run on
+        another thread."""
 
-        Xp, B = self._pad_to_bucket(X)
-        Xt = torch.as_tensor(Xp, device=self.device)
+        if isinstance(X, StagedRows):
+            Xt, B = self._staged_input(X)
+        else:
+            Xp, B = self._pad_to_bucket(X)
+            Xt = torch.as_tensor(Xp, device=self.device)
         consts = self._exact_consts()
         shap = self.config.shap
         with torch.no_grad(), capture_kernel_paths() as kp:
@@ -1089,40 +1351,61 @@ class KernelExplainerEngine:
                     use_kernel=shap.use_kernel)
             fx = self.predictor(Xt)
         self._kernel_paths.update(kp)
+        stream = self._current_stream()
 
         def finalize() -> Dict[str, np.ndarray]:
-            return {'shap_values': phi[:B].cpu().numpy(),
-                    'raw_prediction': fx[:B].cpu().numpy()}
+            with _on_stream(stream):
+                return {'shap_values': phi[:B].cpu().numpy(),
+                        'raw_prediction': fx[:B].cpu().numpy()}
 
         return finalize
 
-    def _exact_inter_explanation(self, X: np.ndarray) -> Dict[str, np.ndarray]:
-        """The interactions variant of the exact path: phi and the pairwise
-        matrices from one reach pass over the DENSE path layout (the packed
-        plan serves the phi-only path; the pairwise pass is dense), sets
+    def _exact_inter_explanation(self, chunks: List[np.ndarray]) -> Dict[str, np.ndarray]:
+        """The interactions variant of the exact path (reference
+        ``kernel_shap.py:2288-2371``): phi and the pairwise matrices from
+        one reach pass over the DENSE path layout (the packed plan serves
+        the phi-only path; the pairwise pass is dense), one launch per
+        instance chunk through :func:`run_pipeline`; sets
         ``last_interaction_values`` (K arrays ``(B, M, M)``)."""
 
-        Xp, B = self._pad_to_bucket(X)
-        Xt = torch.as_tensor(Xp, device=self.device)
         consts = self._exact_consts()
         reach = self._exact_full_reach()
         shap = self.config.shap
-        with torch.no_grad(), capture_kernel_paths() as kp:
-            phi, inter = exact_shap_and_interactions(
-                self.predictor, Xt, reach, consts['bgw'], consts['G'],
-                target_chunk_elems=shap.target_chunk_elems,
-                use_kernel=shap.use_kernel)
-            fx = self.predictor(Xt)
-        self._kernel_paths.update(kp)
-        inter = inter[:B].cpu().numpy()                      # (B, K, M, M)
-        self.last_interaction_values = [inter[:, k] for k in range(inter.shape[1])]
-        return {'shap_values': phi[:B].cpu().numpy(),
-                'raw_prediction': fx[:B].cpu().numpy()}
 
-    def _exact_tree_explanation(self, X: np.ndarray, l1_reg, interactions: bool):
+        def dispatch(c):
+            Xp, B = self._pad_to_bucket(c)
+            Xt = torch.as_tensor(Xp, device=self.device)
+            with torch.no_grad():
+                phi, inter = exact_shap_and_interactions(
+                    self.predictor, Xt, reach, consts['bgw'], consts['G'],
+                    target_chunk_elems=shap.target_chunk_elems,
+                    use_kernel=shap.use_kernel)
+                fx = self.predictor(Xt)
+            return phi, inter, fx, B, self._current_stream()
+
+        def fetch(handle):
+            phi, inter, fx, B, stream = handle
+            with _on_stream(stream):
+                return {'shap_values': phi[:B].cpu().numpy(),
+                        'raw_prediction': fx[:B].cpu().numpy(),
+                        'interaction_values': inter[:B].cpu().numpy()}
+
+        with profiler().phase('device_explain'), capture_kernel_paths() as kp:
+            results = run_pipeline(chunks, dispatch, fetch,
+                                   window=self._resolve_window(len(chunks)))
+        self._kernel_paths.update(kp)
+        inter = np.concatenate([r['interaction_values'] for r in results], 0)  # (B, K, M, M)
+        self.last_interaction_values = [inter[:, k] for k in range(inter.shape[1])]
+        return {'shap_values': np.concatenate([r['shap_values'] for r in results], 0),
+                'raw_prediction': np.concatenate([r['raw_prediction'] for r in results], 0)}
+
+    def _exact_tree_explanation(self, chunks: List[np.ndarray], l1_reg,
+                                interactions: bool) -> Dict[str, np.ndarray]:
         """``nsamples='exact'``: closed-form interventional Shapley values
         of a lifted tree ensemble's raw margin (no coalition plan, no WLS),
-        with ``interactions=True`` also the interaction matrices."""
+        with ``interactions=True`` also the interaction matrices; one
+        dispatch per instance chunk through :func:`run_pipeline`
+        (reference ``kernel_shap.py:2248-2286``)."""
 
         validate_exact(self.predictor, self.config.link)
         if l1_reg not in (None, False, 0, 'auto'):
@@ -1130,8 +1413,164 @@ class KernelExplainerEngine:
                 "l1_reg=%r is ignored with nsamples='exact': there is no "
                 "sampling noise to regularise away.", l1_reg)
         if interactions:
-            return self._exact_inter_explanation(X)
-        return self._dispatch_exact(X)()
+            return self._exact_inter_explanation(chunks)
+        with profiler().phase('device_explain'):
+            results = run_pipeline(chunks, self._dispatch_exact, lambda fin: fin(),
+                                   window=self._resolve_window(len(chunks)))
+        return {'shap_values': np.concatenate([r['shap_values'] for r in results], 0),
+                'raw_prediction': np.concatenate([r['raw_prediction'] for r in results], 0)}
+
+    def _resolve_window(self, n_items: int) -> int:
+        """The dispatch window of an ``n_items``-chunk loop on this engine's
+        device (:func:`resolve_window`), kept as ``last_dispatch_window``."""
+
+        self.last_dispatch_window = resolve_window(
+            self.config.dispatch_window, n_items=n_items, device=self.device)
+        return self.last_dispatch_window
+
+    def _chunks(self, X: np.ndarray) -> List[np.ndarray]:
+        """``X`` split into ``instance_chunk`` rows a chunk (one chunk when
+        unset or not exceeded)."""
+
+        c = self.config.instance_chunk
+        if c and X.shape[0] > c:
+            return [X[i:i + c] for i in range(0, X.shape[0], c)]
+        return [X]
+
+    # ------------------------------------------------------------------ #
+    # staging and async explains (the serving pipeline's entry points)
+
+    def _exact_async_ready(self, interactions: bool = False) -> bool:
+        """Whether ``nsamples='exact'`` rides the pipelined path (staging,
+        ``finalize`` on another thread): a lifted tree ensemble with the
+        identity link, off host eval, phi only (reference ``kernel_shap.py:
+        1420-1461``).  Interactions stay on the sync path.  Memoised: every
+        input is fixed once the engine is fitted."""
+
+        key = bool(interactions)
+        cached = self._ready_cache.get(key)
+        if cached is None:
+            cached = self._exact_async_ready_uncached(interactions)
+            self._ready_cache[key] = cached
+        return cached
+
+    def _exact_async_ready_uncached(self, interactions: bool) -> bool:
+        if interactions or self.config.host_eval:
+            return False
+        if self._exact_flavor() == 'tree':
+            return self.config.link == 'identity'
+        return False
+
+    def _staging_stream(self) -> "torch.cuda.Stream":
+        """The engine's side stream for uploads (made on first use)."""
+
+        with self._stage_lock:
+            if self._stage_stream is None:
+                self._stage_stream = torch.cuda.Stream(device=self.device)
+            return self._stage_stream
+
+    def stage_rows(self, X: np.ndarray,
+                   nsamples: Union[str, int, None] = None,
+                   l1_reg: Union[str, float, int, None] = 'auto',
+                   interactions: bool = False) -> Optional[StagedRows]:
+        """Start the host-to-device upload of a request batch now and return
+        a :class:`StagedRows`, or ``None`` where these explain options route
+        through a sync fallback that reads host rows (host eval, exact
+        interactions, active l1, a batch over ``instance_chunk``, exact when
+        not async-ready; reference ``kernel_shap.py:1463-1495``).
+
+        On CUDA the bucket-padded rows are copied into pinned host memory
+        and uploaded with ``non_blocking=True`` on the engine's side stream,
+        which records an event after the copy; the dispatch that consumes
+        the StagedRows waits on that event.  So the upload overlaps the
+        previous batch's compute, and this may run on another thread than
+        the dispatch.  On the CPU the rows become a plain tensor."""
+
+        X = np.atleast_2d(np.asarray(X, dtype=np.float32))
+        needs_chunking = (self.config.instance_chunk
+                          and X.shape[0] > self.config.instance_chunk)
+        if self.config.host_eval or needs_chunking or interactions:
+            return None
+        if nsamples == 'exact':
+            # l1 is ignored in exact mode, so it never forces the sync path
+            if not self._exact_async_ready(interactions):
+                return None
+        elif self._l1_active(l1_reg, nsamples):
+            return None
+        Xp, B = self._pad_to_bucket(X)
+        if self.device.type != 'cuda':
+            return StagedRows(host=X, device=torch.tensor(Xp, device=self.device), B=B)
+        pinned = torch.from_numpy(np.ascontiguousarray(Xp)).pin_memory()
+        stream = self._staging_stream()
+        with torch.cuda.stream(stream):
+            rows = pinned.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        return StagedRows(host=X, device=rows, B=B, ready=ready, pinned=pinned)
+
+    def get_explanation_async(self,
+                              X,
+                              nsamples: Union[str, int, None] = None,
+                              l1_reg: Union[str, float, int, None] = 'auto',
+                              interactions: bool = False):
+        """Asynchronous :meth:`get_explanation` for the serving pipeline
+        (reference ``kernel_shap.py:1497-1595``): launches the device work
+        for ``X`` now and returns ``finalize() -> (values, info)``, where
+        ``values`` is what ``get_explanation`` returns and ``info`` carries
+        the batch's ``expected_value`` and link-space ``raw_prediction``.
+
+        Dispatch stays on one thread (it fills the engine's caches);
+        ``finalize`` may run on another, and copies on the dispatch's
+        stream, after its kernels.  ``X`` may be a :class:`StagedRows` from
+        :meth:`stage_rows`.  Host eval, batches over ``instance_chunk``,
+        interactions, active l1 and exact when not async-ready compute
+        synchronously now (``_async_sync_fallback``)."""
+
+        staged = X if isinstance(X, StagedRows) else None
+        X = (staged.host if staged is not None
+             else np.atleast_2d(np.asarray(X, dtype=np.float32)))
+        needs_chunking = (self.config.instance_chunk
+                          and X.shape[0] > self.config.instance_chunk)
+        if (nsamples == 'exact' and not needs_chunking
+                and self._exact_async_ready(interactions)):
+            if l1_reg not in (None, False, 0, 'auto'):
+                logger.warning(
+                    "l1_reg=%r is ignored with nsamples='exact': there is "
+                    "no sampling noise to regularise away.", l1_reg)
+            validate_exact(self.predictor, self.config.link)
+            fin0 = self._dispatch_exact(staged if staged is not None else X)
+
+            def finalize_exact():
+                with profiler().phase('device_explain'):
+                    r = fin0()
+                info = {
+                    'raw_prediction': r['raw_prediction'],
+                    'expected_value': np.atleast_1d(np.asarray(
+                        self.expected_value, dtype=np.float32)),
+                }
+                return split_shap_values(r['shap_values'], self.vector_out), info
+
+            return finalize_exact
+        if (self.config.host_eval or needs_chunking or nsamples == 'exact'
+                or interactions or self._l1_active(l1_reg, nsamples)):
+            # these routes gain nothing from pipelining (host eval is
+            # host-bound, l1 runs a second device pass and host selection,
+            # an over-chunk batch must keep instance_chunk's memory bound)
+            # and touch shared engine state: compute now, on this thread
+            return _async_sync_fallback(self, X, nsamples, l1_reg, interactions)
+
+        with profiler().phase('coalition_plan'):
+            plan = self._plan(nsamples)
+        fin = self._dispatch_array(staged if staged is not None else X, plan)
+
+        def finalize():
+            # the device time materialises here, at the copy, so the phase
+            # lands on the thread that pays it
+            with profiler().phase('device_explain'):
+                r = fin()
+            return split_shap_values(r['shap_values'], self.vector_out), r
+
+        return finalize
 
     def _l1_active(self, l1_reg, nsamples) -> bool:
         """Whether :meth:`_apply_l1_reg` runs a host-side selection pass
@@ -1234,20 +1673,24 @@ class KernelExplainerEngine:
         ``K·M`` floats come back, not the ``B·K·M`` result (reference
         ``kernel_shap.py:1609-1648``).  No l1 selection (it is per-instance
         host work; ranking is about aggregate magnitude); the host-eval and
-        exact paths take the full explain.  ``X`` goes to the device as one chunk:
-        ``instance_chunk`` is not ported yet (ROADMAP.md queue A item 5)."""
+        exact paths take the full explain.  ``X`` goes to the device in
+        ``instance_chunk`` chunks, whose sums add up on the device."""
 
         X = np.atleast_2d(np.asarray(X, dtype=np.float32))
         if self.config.host_eval or nsamples == 'exact':
             values = self.get_explanation(X, nsamples=nsamples, l1_reg=False, silent=True)
             vals = values if isinstance(values, list) else [values]
             return np.stack([np.abs(v).mean(0) for v in vals])
-        plan = self._plan(nsamples)
-        Xp, B = self._pad_to_bucket(X)
-        with capture_kernel_paths() as kp:
-            out = self._fn()(torch.as_tensor(Xp, device=self.device),
-                             *self._device_args(plan))
-            acc = out['shap_values'][:B].abs().sum(0)          # (K, M)
+        with profiler().phase('coalition_plan'):
+            plan = self._plan(nsamples)
+        args = self._device_args(plan)
+        acc = None
+        with profiler().phase('device_importance'), capture_kernel_paths() as kp:
+            for c in self._chunks(X):
+                Xp, B = self._pad_to_bucket(c)
+                out = self._fn()(torch.as_tensor(Xp, device=self.device), *args)
+                part = out['shap_values'][:B].abs().sum(0)      # (K, M)
+                acc = part if acc is None else acc + part
         self._kernel_paths.update(kp)
         return acc.cpu().numpy() / X.shape[0]
 
@@ -1271,7 +1714,10 @@ class KernelExplainerEngine:
         ``last_interaction_values`` (list of ``K`` ``(B, M, M)`` arrays, shap
         TreeExplainer convention); the returned shap values are their row
         sums.  A sampled explain runs host-side l1 feature selection after
-        the device pass when ``l1_reg`` asks for it (:meth:`_apply_l1_reg`)."""
+        the device pass when ``l1_reg`` asks for it (:meth:`_apply_l1_reg`).
+        A batch over ``EngineConfig.instance_chunk`` rows goes to the device
+        in chunks of that many, at most the resolved dispatch window of them
+        at once (:func:`run_pipeline`)."""
 
         del kwargs
         if interactions and nsamples != 'exact':
@@ -1303,9 +1749,27 @@ class KernelExplainerEngine:
         elif sparse.issparse(X):
             X = X.toarray()
         X = np.atleast_2d(np.asarray(X, dtype=np.float32))
+        chunks = self._chunks(X)
 
-        r = (self._exact_tree_explanation(X, l1_reg, interactions) if exact
-             else self._explain_array(X, nsamples, silent=silent))
+        if exact:
+            r = self._exact_tree_explanation(chunks, l1_reg, interactions)
+        elif len(chunks) > 1 and not self.config.host_eval:
+            # dispatch ahead of the fetches in a sliding window (reference
+            # kernel_shap.py:1712-1741): dispatch stays on this thread (it
+            # fills the engine's caches), only the copies fan out, and at
+            # most `window` chunks are on the device at once
+            window = self._resolve_window(len(chunks))
+            with profiler().phase('coalition_plan'):
+                plan = self._plan(nsamples)
+            with profiler().phase('device_explain'):
+                results = run_pipeline(chunks, lambda c: self._dispatch_array(c, plan),
+                                       lambda fin: fin(), window=window)
+            r = {k: np.concatenate([res[k] for res in results], 0)
+                 for k in ('shap_values', 'raw_prediction')}
+        else:
+            results = [self._explain_array(c, nsamples, silent=silent) for c in chunks]
+            r = {k: np.concatenate([res[k] for res in results], 0)
+                 for k in ('shap_values', 'raw_prediction')}
         # stash the link-space predictions so build_explanation doesn't need
         # a second predictor pass for the same instances
         self.last_raw_prediction = r['raw_prediction']
@@ -1704,7 +2168,8 @@ class KernelShap(Explainer, FitMixin):
         if self.use_groups and sparse.issparse(X):
             X = X.toarray()
 
-        shap_values = self._explainer.get_explanation(X, **kwargs)
+        with profiler().phase('explain'):
+            shap_values = self._explainer.get_explanation(X, **kwargs)
         self.expected_value = self._explainer.expected_value
         expected_value = self.expected_value
         if isinstance(shap_values, np.ndarray):
@@ -1746,7 +2211,8 @@ class KernelShap(Explainer, FitMixin):
             X = np.atleast_2d(np.asarray(X.values))
         elif sparse.issparse(X):
             X = X.toarray()
-        imp = self._explainer.get_importance(X, nsamples=nsamples)
+        with profiler().phase('rank_features'):
+            imp = self._explainer.get_importance(X, nsamples=nsamples)
         return ranking_from_importance(
             imp, _resolve_feature_names(self.feature_names, imp.shape[1]))
 
@@ -1828,6 +2294,72 @@ class KernelShap(Explainer, FitMixin):
                     np.asarray(X_arr, dtype=np.float32)):
             return engine.last_raw_prediction
         return engine.predict(X_arr, link=True)
+
+    def save(self, path: str) -> None:
+        """Checkpoint the fitted explainer (reference ``kernel_shap.py:
+        3066-3099``): the constructor arguments, the background container,
+        the engine config and the metadata in one pickle; the engine is
+        rebuilt on :meth:`load`, not pickled.  A predictor whose tensors lie
+        on a CUDA device pickles as CUDA tensors, so loading such a
+        checkpoint needs CUDA."""
+
+        if not self._fitted:
+            raise ValueError("Cannot save an unfitted explainer")
+        state = {
+            'predictor': self.predictor,
+            'link': self.link,
+            'feature_names': self.feature_names,
+            'categorical_names': self.categorical_names,
+            'task': self.task,
+            'seed': self.seed,
+            'engine_config': self.engine_config,
+            'background_data': self.background_data,
+            'meta': self.meta,
+            'use_groups': self.use_groups,
+            'summarise_background': self.summarise_background,
+        }
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, 'wb') as f:
+            pickle.dump(state, f)
+
+    @classmethod
+    def load(cls, path: str,
+             device: Optional[Union[str, torch.device]] = None) -> "KernelShap":
+        """Rebuild a fitted explainer from :meth:`save` output (reference
+        ``kernel_shap.py:3101-3147``).  The device resolves as the
+        constructor resolves it: ``device`` when given, else the saved
+        ``engine_config.device``.  The file is a pickle, and unpickling can
+        run code: load only checkpoints this program wrote."""
+
+        with open(path, 'rb') as f:
+            state = pickle.load(f)
+        explainer = cls(
+            state['predictor'],
+            link=state['link'],
+            feature_names=state['feature_names'],
+            categorical_names=state['categorical_names'],
+            task=state['task'],
+            seed=state['seed'],
+            engine_config=state.get('engine_config'),
+            device=device,
+        )
+        explainer.use_groups = state['use_groups']
+        explainer.summarise_background = state['summarise_background']
+        bg = state['background_data']
+        if isinstance(bg, Data):
+            if state['use_groups']:
+                explainer.feature_names = bg.group_names
+            explainer._fitted = True
+            explainer.background_data = bg
+            explainer._explainer = KernelExplainerEngine(
+                explainer.predictor, bg, link=explainer.link,
+                seed=explainer.seed, config=explainer.engine_config)
+            explainer.expected_value = explainer._explainer.expected_value
+        else:
+            # ungrouped background: refit through the normal path
+            explainer.fit(bg)
+        explainer.meta = state['meta']
+        return explainer
 
     def _check_result_summarisation(self,
                                     summarise_result: bool,

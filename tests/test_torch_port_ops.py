@@ -305,7 +305,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, distributedkernelshap_tpu_torch, "
         "distributedkernelshap_tpu_torch.convert, "
-        "distributedkernelshap_tpu_torch.ops, distributedkernelshap_tpu_torch.utils\n"
+        "distributedkernelshap_tpu_torch.ops, distributedkernelshap_tpu_torch.utils, "
+        "distributedkernelshap_tpu_torch.profiling, "
+        "distributedkernelshap_tpu_torch.observability.tracing, "
+        "distributedkernelshap_tpu_torch.parallel.pipeline, "
+        "distributedkernelshap_tpu_torch.anytime, "
+        "distributedkernelshap_tpu_torch.anytime.engine\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'distributedkernelshap_tpu', 'pandas', 'sklearn')]\n"
         "assert not bad, bad\n")

@@ -6,10 +6,13 @@ TreeSHAP and exact interaction explains of an Adult-shaped GBT, the
 sampled engine's packed copy, l1 selection, plan-constant path and
 device-side importance, the non-linear sampled paths (the GBT's and an
 MLP's ``masked_ey``, torch modules, a numpy black box on the host-eval and
-generic routes), and the engine's serving entry points (instance chunks,
-staged async explains, anytime rounds, profiler phases, save/load) through
-the public API, checks the answers, and times kernels, plain versions and
-explains.
+generic routes), the engine's serving entry points (instance chunks,
+staged async explains, anytime rounds, profiler phases, save/load), the
+GBT lifted from xgboost and LightGBM dumps, an affine output head, an
+IsolationForest-shaped ensemble, exact tensor-train SHAP, the singular-Gram
+NaN path and the JAX package's own answers from a committed fixture
+through the public API, checks the answers, and times kernels, plain
+versions and explains.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -159,7 +162,43 @@ Phases (each raises on failure, so the script exits non-zero):
    ``trace()`` writes a Chrome trace; ``save`` then ``load`` of the headline
    explainer and of the exact explainer with interactions, each explaining
    bit-identically to its writer;
-21. each of phases 14–20's seconds and the script's so far.
+21. each phase's seconds from 14 on and the script's so far (printed after
+   phase 28);
+22. boosters: phase 6's GBT written out as an xgboost ``save_raw('json')``
+   model (``reg:squarederror``; ``binary:logistic``) and a LightGBM
+   ``dump_model()`` dict (``regression``; ``binary``), each behind a
+   stand-in estimator and lifted by ``KernelShap(owner.predict)`` (the
+   lift's probe included): predictions bit-identical to the seeded
+   ensemble's (within 1e-6 for the sigmoid heads); the regression lifts'
+   exact explains at B=256 and the xgboost lift's interaction explain,
+   counted, equal to the seeded GBT's within 2e-5·max(1, max|·|), each
+   kernel against its plain version on these paths' inputs, walls; the
+   binary lifts sampled at B=64 through ``masked_ey`` (no hand kernel);
+23. affine head: ``AffineOutputPredictor(gbt, 2.5, -1.0)`` exact at B=256,
+   counted: phi 2.5 × the bare tree's, E and f(x) through the head, the CPU
+   port on the first rows, wall;
+24. IsolationForest shape: 100 seeded isolation trees on 64 samples with
+   the ``neg_exp2`` head of the ``score_samples`` lift, sampled at B=64 with
+   ``link='identity'`` (no hand kernel), additive, the CPU port, the
+   ``decision_function`` form (an affine head) with the same phi, wall;
+25. tensor train: ``nsamples='exact'`` on ``TensorTrainPredictor`` — the
+   reference's mid-size TN (M=24, rank 4, N=32) at B=8 and 256 and an
+   Adult-width TN (M=48, rank 16, N=100) at B=256, additive (< 1e-3), the
+   CPU port within 1e-4·max(1, max|phi|), no hand kernel; walls, device
+   events and busy time under ``torch.profiler``, the DP's f32 FLOP bound
+   and its share; a staged explain bit-identical to the synchronous one;
+   a TN at M=12 against brute-force enumeration;
+26. singular Gram: NaN phi without raising from an indefinite Gram and
+   from an all-zero-weight plan; each linear-algebra call of the solve
+   timed behind ~2 ms of queued device work, with its reported syncs;
+27. the headline explain's WLS host time (``_wls_solve`` wrapped in a host
+   clock) over 5 explains, beside the wall;
+28. fixture: ``tests/fixtures/adult_parity.npz`` (the JAX package's answers
+   on the Adult-schema synthetic rows, made by
+   ``scripts/make_adult_parity_fixture.py``): the headline LR on all 2560
+   rows against the JAX phi (1e-3 plus 16 f32 ulps of p through the logit
+   link, ROADMAP C.9), E and f(x); the ``adult_trees_exact`` GBT's exact
+   phi and interactions (256 rows, counted) within 2e-5·max(1, max|·|).
 
 The second-to-last line of stdout is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -198,6 +237,7 @@ INT32_LANES_PER_SM = 64            # 32-bit integer results per SM per clock
 
 # exact TreeSHAP phase: the Adult GBT's widths (benchmarks/configs.py:240-282)
 N_TREES, MAX_LEAVES = 50, 31
+GBT_BASE = 0.24         # the seeded ensemble's bias (raw margin)
 B_EXACT, B_EXACT_BIG, N_CPU_ROWS = 256, 2560, 16
 PHI_REL = 2e-5          # x max(1, max|phi|): tests/test_treeshap.py:780
 EXACT_ADDITIVITY = 1e-4
@@ -231,6 +271,22 @@ EXACT_SAMPLED_REL = 1e-4
 INSTANCE_CHUNK, CHUNK_ATOL = 256, 1e-4
 N_STAGED, B_STAGED = 8, 16
 ANYTIME_BS, ANYTIME_SINGLE_SHOT, ANYTIME_LAUNCHES = (16, 256), 2e-4, 5
+# the seventh slice (phases 22-28): the GBT's binary booster lifts sampled at
+# B = 64; an affine head a*f + b; an IsolationForest-shaped ensemble
+# (max_samples=64, so its path tensors stay under the path budget) sampled at
+# B = 64; the reference's mid-size tensor train (benchmarks/estimator_accuracy
+# .py:104-128: M = 24, rank 4, N = 32) at B = 8 and 256 and an Adult-width one
+# (M = 48 ungrouped columns, rank 16, N = 100) at B = 256, held to the CPU
+# port within TN_REL x max(1, max|phi|), and a TN at M = 12 against
+# brute force; the JAX package's answers on the Adult-schema synthetic rows
+B_BOOSTER = 64
+AFFINE_A, AFFINE_B = 2.5, -1.0
+N_IFOREST_TREES, IFOREST_SAMPLES, B_IFOREST = 100, 64, 64
+TN_MID, TN_MID_BS, N_TN_CPU = (24, 4, 32), (8, 256), 8
+TN_ADULT, B_TN = (48, 16, 100), 256
+TN_BRUTE_M, TN_REL = 12, 1e-4
+FIXTURE = "tests/fixtures/adult_parity.npz"
+LOGIT_ULPS = 16         # f32 ulps of p a logit-space value may move (ROADMAP C.9)
 
 
 def adult_groups():
@@ -265,6 +321,15 @@ class AdultShapedLogisticRegression:
     def __init__(self, rng):
         self.coef_ = rng.normal(scale=0.75, size=(1, sum(ADULT_WIDTHS)))
         self.intercept_ = np.array([-1.25])
+
+    @classmethod
+    def fitted(cls, coef, intercept):
+        """The model with given ``coef_`` and ``intercept_``."""
+
+        est = cls.__new__(cls)
+        est.coef_ = np.asarray(coef, np.float64)
+        est.intercept_ = np.asarray(intercept, np.float64)
+        return est
 
     def predict_proba(self, X):
         z = np.asarray(X, dtype=np.float64) @ self.coef_.T + self.intercept_
@@ -687,7 +752,7 @@ def adult_shaped_gbt(seed):
                 value=value, depth=depth)
 
 
-def tree_predictor(tables, device, head="identity"):
+def tree_predictor(tables, device, head="identity", base=GBT_BASE):
     """The ensemble's raw margin (``head='identity'``, K = 1), or the
     probability pair ``HistGradientBoostingClassifier.predict_proba`` lifts
     to (``head='binary_sigmoid'``, K = 2)."""
@@ -696,7 +761,7 @@ def tree_predictor(tables, device, head="identity"):
 
     return TreeEnsemblePredictor(
         tables["feature"], tables["threshold"], tables["left"], tables["right"],
-        tables["value"], depth=tables["depth"], aggregation="sum", base=[0.24],
+        tables["value"], depth=tables["depth"], aggregation="sum", base=[base],
         out_transform=head, vector_out=head != "identity", device=device)
 
 
@@ -1353,7 +1418,7 @@ def inter_phase(tables, X_all, bg, device, sm_count, sm_clock_hz, card, seed):
     path = explainer.kernel_path
     eng = explainer._explainer
     packed = eng._exact_consts()["packed"] is not None
-    rebuilt = ("exact_reach_full",) in eng._exact_cache
+    rebuilt = ("exact_reach_full", eng.content_fingerprint()) in eng._plan_consts_cache
     print(f"interactions: launches exact_tree_inter={launches} (want 1), exact_tree_phi="
           f"{phi_launches} (want 1, dense), kernel_path={path}; phi constants packed="
           f"{packed}, dense reach rebuilt for the pairs={rebuilt}", flush=True)
@@ -2404,6 +2469,695 @@ def profiler_checkpoint_phase(explainer, expl, tables, X, bg, device, card):
         raise AssertionError("a loaded explainer disagrees with its writer")
 
 
+# ---------------------------------------------------------------------- #
+# the seventh slice (phases 22-28): booster dumps, an affine head, an
+# IsolationForest-shaped ensemble, tensor trains, the singular Gram, the
+# headline's WLS host time and the Adult parity fixture
+
+
+def xgboost_json(tables, objective="reg:squarederror", base_score=GBT_BASE):
+    """The seeded ensemble as an xgboost ``save_raw('json')`` model (the
+    documented schema ``models/xgb.py`` parses): one tree per seeded tree,
+    its used nodes in the seeded numbering (children allocated two at a
+    time, as xgboost's loss-guided grower numbers them), leaves with -1
+    children and their value in ``split_conditions``.  xgboost routes left
+    on ``x < t``, so a split condition is the next float32 above the seeded
+    threshold (``f32_lt_threshold`` maps it back); NaN goes right, as the
+    seeded tables send it."""
+
+    trees = []
+    for t in range(tables["feature"].shape[0]):
+        left, right = tables["left"][t], tables["right"][t]
+        n = 1 + max(int(left.max()), int(right.max()))
+        leaf = left[:n] == np.arange(n)
+        thr_up = np.nextafter(tables["threshold"][t, :n], np.float32(np.inf))
+        trees.append({
+            "split_indices": [0 if leaf[j] else int(tables["feature"][t, j]) for j in range(n)],
+            "split_conditions": [float(tables["value"][t, j, 0]) if leaf[j]
+                                 else float(thr_up[j]) for j in range(n)],
+            "left_children": [-1 if leaf[j] else int(left[j]) for j in range(n)],
+            "right_children": [-1 if leaf[j] else int(right[j]) for j in range(n)],
+            "default_left": [0] * n, "split_type": [0] * n, "categories": []})
+    return {"learner": {
+        "objective": {"name": objective},
+        "learner_model_param": {"base_score": repr(float(base_score)), "num_class": "0"},
+        "gradient_booster": {"model": {"trees": trees, "tree_info": [0] * len(trees)}}}}
+
+
+def lightgbm_dump(tables, objective="regression"):
+    """The seeded ensemble as a LightGBM ``dump_model()`` dict (nested
+    nodes, ``x <= t`` left, the float32 thresholds as doubles).  LightGBM
+    stores no separate bias, so this is the ensemble with base 0."""
+
+    def node(t, j):
+        if tables["left"][t, j] == j:
+            return {"leaf_value": float(tables["value"][t, j, 0])}
+        return {"split_feature": int(tables["feature"][t, j]),
+                "threshold": float(tables["threshold"][t, j]), "decision_type": "<=",
+                "default_left": False, "left_child": node(t, int(tables["left"][t, j])),
+                "right_child": node(t, int(tables["right"][t, j]))}
+
+    return {"objective": objective, "num_class": 1, "average_output": False,
+            "tree_info": [{"tree_structure": node(t, 0)}
+                          for t in range(tables["feature"].shape[0])]}
+
+
+def booster_owner(cls_name, dump, reference):
+    """A stand-in for a fitted xgboost or LightGBM scikit-learn estimator
+    (neither package is on the card's machine): an instance of a class named
+    ``cls_name`` whose ``get_booster().save_raw('json')`` (``XGB*``) or
+    ``booster_.dump_model()`` (``LGBM*``) returns ``dump``, and whose
+    ``predict`` / ``predict_proba`` is the numpy callable ``reference``, which
+    the lift's probe holds the lifted ensemble against."""
+
+    class Booster:
+        def save_raw(self, raw_format="json"):
+            return bytearray(json.dumps(dump).encode())
+
+        def dump_model(self):
+            return dump
+
+    def predict(self, X):
+        return reference(X)
+
+    def predict_proba(self, X):
+        return reference(X)
+
+    return type(cls_name, (), {"predict": predict, "predict_proba": predict_proba,
+                               "get_booster": lambda self: Booster(),
+                               "booster_": Booster()})()
+
+
+def numpy_fn(pred, device, scalar=False):
+    """``pred`` as a numpy callable (rows in, outputs out; one column as a
+    vector when ``scalar``)."""
+
+    import torch
+
+    def fn(X):
+        with torch.no_grad():
+            out = pred(torch.as_tensor(np.asarray(X, np.float32), device=device))
+        out = out.cpu().numpy()
+        return out[:, 0] if scalar else out
+
+    return fn
+
+
+def fit_exact(model, bg, device, instance_chunk=None):
+    """``KernelShap(model)`` fitted on ``bg`` with the Adult grouping, for
+    the exact path (identity link)."""
+
+    from distributedkernelshap_tpu_torch import EngineConfig, KernelShap
+
+    explainer = KernelShap(model, task="regression", seed=0, device=device,
+                           engine_config=EngineConfig(instance_chunk=instance_chunk))
+    return explainer.fit(bg, group_names=ADULT_GROUP_NAMES, groups=adult_groups())
+
+
+def rel_close(got, ref, rel=PHI_REL) -> float:
+    """``max|got - ref|`` after checking it is within ``rel · max(1,
+    max|ref|)``; raises otherwise."""
+
+    got, ref = np.asarray(got), np.asarray(ref)
+    err = float(np.abs(got - ref).max())
+    if got.shape != ref.shape or not np.isfinite(got).all() \
+            or not err <= rel * max(1.0, float(np.abs(ref).max())):
+        raise AssertionError(f"shape {got.shape} vs {ref.shape}, max abs diff {err:.3e} "
+                             f"above {rel:g} x max(1, max|ref|)")
+    return err
+
+
+def boosters_phase(tables, X_all, bg, device, card):
+    """Phase 22: the seeded GBT as xgboost and LightGBM dumps, lifted through
+    the public entry point (``KernelShap(owner.predict)`` → ``as_predictor``
+    → ``lift_xgboost`` / ``lift_lightgbm``, probe included): the lifted
+    predictions equal the seeded ensemble's bit for bit (regression) or
+    within 1e-6 (sigmoid heads); the regression lifts' exact explains and
+    the xgboost lift's interaction explain, counted, against the seeded
+    ensemble's within ``PHI_REL``; each kernel against its plain version
+    on these paths' inputs; the binary lifts' sampled explains at
+    ``B_BOOSTER`` through ``masked_ey`` (no hand kernel).  Returns the
+    worst kernel-vs-plain differences ``(phi, inter)``."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.models.trees import TreeEnsemblePredictor
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+        exact_tree_inter,
+        exact_tree_inter_plain,
+        exact_tree_phi,
+        exact_tree_phi_plain,
+    )
+    from distributedkernelshap_tpu_torch.ops.explain import groups_to_matrix
+    from distributedkernelshap_tpu_torch.ops.treeshap import (
+        build_packed_plan,
+        resolve_pack_paths,
+    )
+
+    X = X_all[:B_EXACT]
+    seeded_t, ref = fit_exact(tree_predictor(tables, device), bg, device), {}
+    ref["phi"] = np.asarray(seeded_t.explain(X, nsamples="exact", silent=True).shap_values[0])
+    ref["inter"] = seeded_t.explain(X, nsamples="exact", interactions=True, silent=True
+                                    ).data["raw"]["interaction_values"][0]
+    plan = build_packed_plan(tree_predictor(tables, "cpu"),
+                             groups_to_matrix(adult_groups(), X.shape[1]))
+    packs = resolve_pack_paths(None, plan)
+    n_buckets = len(plan.buckets) if packs else 1
+    worst_phi = worst_inter = 0.0
+    for name, cls, dump, base in (
+            ("xgboost reg:squarederror", "XGBRegressor", xgboost_json(tables), GBT_BASE),
+            ("LightGBM regression", "LGBMRegressor", lightgbm_dump(tables), 0.0)):
+        seeded = tree_predictor(tables, device, base=base)
+        owner = booster_owner(cls, dump, numpy_fn(seeded, device, scalar=True))
+        explainer = fit_exact(owner.predict, bg, device)
+        lifted = explainer._explainer.predictor
+        if not isinstance(lifted, TreeEnsemblePredictor):
+            raise AssertionError(f"the {name} dump did not lift: {type(lifted).__name__}")
+        with torch.no_grad():
+            Xt = torch.as_tensor(X_all, device=device)
+            same = bool(torch.equal(lifted(Xt), seeded(Xt)))
+        reset_launches()
+        expl = explainer.explain(X, nsamples="exact", silent=True)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        phi, add_err = exact_phi(expl, B_EXACT)
+        d_ref = rel_close(phi, ref["phi"])
+        wall, runs = median_wall_ms(lambda: explainer.explain(X, nsamples="exact",
+                                                              silent=True), 3)
+        print(f"booster {name}: lifted to {type(lifted).__name__} (T={lifted.n_trees}, "
+              f"nodes {lifted.feature.shape[1]}), predictions on {X_all.shape[0]} rows "
+              f"bit-identical to the seeded ensemble (base {base}): {same}; exact explain "
+              f"B={B_EXACT}: launches {launches} (want exact_tree_phi={n_buckets}), "
+              f"kernel_path {explainer.kernel_path}, additivity {add_err:.3e}, |phi - seeded "
+              f"phi|={d_ref:.3e}; wall median of 3 {wall:.3f} ms (runs {runs}) on {card}",
+              flush=True)
+        if not same or launches["exact_tree_phi"] != n_buckets \
+                or explainer.kernel_path != {"exact_phi": "cuda"}:
+            raise AssertionError(f"the {name} lift is not the seeded ensemble on the "
+                                 "exact kernel path")
+        for args, dmax in (bucket_inputs(explainer, X, device) if packs
+                           else [dense_inputs(explainer, X, device)]):
+            got, plain = exact_tree_phi(*args, dmax=dmax), exact_tree_phi_plain(*args, dmax=dmax)
+            worst_phi = max(worst_phi, rel_close(got.cpu().numpy(), plain.cpu().numpy()))
+        if cls == "XGBRegressor":
+            reset_launches()
+            expl_i = explainer.explain(X, nsamples="exact", interactions=True, silent=True)
+            torch.cuda.synchronize()
+            launches = kernel_launches()
+            inter = expl_i.data["raw"]["interaction_values"][0]
+            d_inter = rel_close(inter, ref["inter"])
+            args, dmax = dense_inputs(explainer, X, device)
+            got, plain = (exact_tree_inter(*args, dmax=dmax),
+                          exact_tree_inter_plain(*args, dmax=dmax))
+            err, ok = raw_close(got, plain)
+            if not ok:
+                raise AssertionError("exact_tree_inter disagrees with its plain version on "
+                                     "the lifted booster's inputs")
+            worst_inter = max(worst_inter, err)
+            print(f"booster {name}: interaction explain launches {launches} (want 1 + 1), "
+                  f"|inter - seeded inter|={d_inter:.3e}, exact_tree_inter vs plain on its "
+                  f"inputs {worst_inter:.3e}", flush=True)
+            if launches["exact_tree_inter"] != 1 or launches["exact_tree_phi"] != 1:
+                raise AssertionError("the lifted booster's interactions missed the kernels")
+    for name, cls, dump in (
+            ("xgboost binary:logistic", "XGBClassifier",
+             xgboost_json(tables, "binary:logistic", 1.0 / (1.0 + np.exp(-GBT_BASE)))),
+            ("LightGBM binary", "LGBMClassifier", lightgbm_dump(tables, "binary"))):
+        base = GBT_BASE if cls == "XGBClassifier" else 0.0
+        seeded = tree_predictor(tables, device, head="binary_sigmoid", base=base)
+        owner = booster_owner(cls, dump, numpy_fn(seeded, device))
+        reset_launches()
+        explainer, expl = explain_sampled(owner.predict_proba, X[:B_BOOSTER], bg, device)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        lifted = explainer._explainer.predictor
+        with torch.no_grad():
+            Xt = torch.as_tensor(X_all, device=device)
+            d_pred = float((lifted(Xt) - seeded(Xt)).abs().max())
+        phi, add_err = sampled_phi(expl, B_BOOSTER)
+        _, expl_seed = explain_sampled(seeded, X[:B_BOOSTER], bg, device)
+        d_seed = float(np.abs(phi - sampled_phi(expl_seed, B_BOOSTER)[0]).max())
+        wall, _ = median_wall_ms(lambda: explainer.explain(X[:B_BOOSTER], silent=True), 1)
+        print(f"booster {name}: lifted to {type(lifted).__name__}, |p lifted - p seeded|="
+              f"{d_pred:.3e} (tol 1e-6); sampled explain B={B_BOOSTER}: launches {launches} "
+              f"(want all 0), kernel_path {explainer.kernel_path}, additivity {add_err:.3e}, "
+              f"|phi - seeded phi|={d_seed:.3e} (tol {PHI_ATOL:g}); wall {wall:.3f} ms on "
+              f"{card}", flush=True)
+        if not (isinstance(lifted, TreeEnsemblePredictor) and d_pred <= 1e-6
+                and not any(launches.values()) and d_seed <= PHI_ATOL
+                and explainer.kernel_path.get("ey") == "masked_ey"):
+            raise AssertionError(f"the {name} lift's sampled explain is off")
+    print(f"boosters: kernel vs plain on the lifted paths' inputs: exact_tree_phi "
+          f"{worst_phi:.3e}, exact_tree_inter {worst_inter:.3e}", flush=True)
+    return worst_phi, worst_inter
+
+
+def affine_phase(tables, X_all, bg, device, card):
+    """Phase 23: ``AffineOutputPredictor(gbt, AFFINE_A, AFFINE_B)`` on the
+    exact path, counted: phi is ``AFFINE_A`` × the bare tree's, E and f(x)
+    carry the head, against the CPU port on the first rows."""
+
+    import torch
+    from distributedkernelshap_tpu_torch import AffineOutputPredictor
+
+    X = X_all[:B_EXACT]
+    bare = fit_exact(tree_predictor(tables, device), bg, device)
+    expl_bare = bare.explain(X, nsamples="exact", silent=True)
+    head = fit_exact(AffineOutputPredictor(tree_predictor(tables, device), AFFINE_A, AFFINE_B),
+                     bg, device)
+    reset_launches()
+    expl = head.explain(X, nsamples="exact", silent=True)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    phi, add_err = exact_phi(expl, B_EXACT)
+    d_phi = rel_close(phi, AFFINE_A * np.asarray(expl_bare.shap_values[0]))
+    e_bare = float(np.ravel(expl_bare.expected_value)[0])
+    d_e = abs(float(np.ravel(expl.expected_value)[0]) - (AFFINE_A * e_bare + AFFINE_B))
+    d_fx = float(np.abs(expl.data["raw"]["raw_prediction"]
+                        - (AFFINE_A * expl_bare.data["raw"]["raw_prediction"] + AFFINE_B)).max())
+    cpu = fit_exact(AffineOutputPredictor(tree_predictor(tables, "cpu"), AFFINE_A, AFFINE_B),
+                    bg, "cpu")
+    d_cpu = rel_close(phi[:N_CPU_ROWS], np.asarray(cpu.explain(
+        X[:N_CPU_ROWS], nsamples="exact", silent=True).shap_values[0]))
+    wall, _ = median_wall_ms(lambda: head.explain(X, nsamples="exact", silent=True), 3)
+    print(f"affine head a={AFFINE_A} b={AFFINE_B}: launches {launches}, kernel_path "
+          f"{head.kernel_path}, additivity {add_err:.3e}, |phi - a phi bare|={d_phi:.3e}, "
+          f"|E - (a E bare + b)|={d_e:.3e}, |f(x) - (a f bare + b)|={d_fx:.3e}, |phi card - "
+          f"phi cpu| (first {N_CPU_ROWS} rows)={d_cpu:.3e}; wall B={B_EXACT} {wall:.3f} ms "
+          f"on {card}", flush=True)
+    tol = 1e-5 * max(1.0, abs(AFFINE_A * e_bare))
+    if launches["exact_tree_phi"] < 1 or head.kernel_path != {"exact_phi": "cuda"} \
+            or not (d_e <= tol and d_fx <= 1e-5 * max(1.0, float(np.abs(
+                expl.data["raw"]["raw_prediction"]).max()))):
+        raise AssertionError("the affine head's exact explain is off")
+
+
+def iforest_tables(seed):
+    """Node tables of an IsolationForest-shaped ensemble made from ``seed``:
+    ``N_IFOREST_TREES`` isolation trees, each grown on ``IFOREST_SAMPLES``
+    Adult-shaped rows by a random column and a threshold uniform in the
+    node's range, to one row or depth ``ceil(log2(IFOREST_SAMPLES))``; a
+    leaf pays its depth plus c(rows at the leaf), as scikit-learn's
+    ``score_samples`` counts it (``models/trees._iforest_tree_table``)."""
+
+    from distributedkernelshap_tpu_torch.models.trees import _average_path_length
+
+    rng = np.random.default_rng([seed, 23])
+    n_nodes = 2 * IFOREST_SAMPLES - 1
+    limit = int(np.ceil(np.log2(IFOREST_SAMPLES)))
+    T = N_IFOREST_TREES
+    feature = np.zeros((T, n_nodes), np.int64)
+    threshold = np.full((T, n_nodes), np.inf, np.float32)
+    left = np.tile(np.arange(n_nodes), (T, 1))
+    right = left.copy()
+    value = np.zeros((T, n_nodes, 1), np.float32)
+    depth = 0
+    for t in range(T):
+        sample = adult_shaped_rows(rng, IFOREST_SAMPLES)
+        stack, n_used = [(0, np.arange(IFOREST_SAMPLES), 0)], 1
+        while stack:
+            j, rows, d = stack.pop()
+            sub = sample[rows]
+            cols = [c for c in range(sub.shape[1]) if np.ptp(sub[:, c]) > 0]
+            if d >= limit or rows.size <= 1 or not cols:
+                value[t, j, 0] = d + _average_path_length([rows.size])[0]
+                depth = max(depth, d)
+                continue
+            c = int(rng.choice(cols))
+            lo, hi = sub[:, c].min(), sub[:, c].max()
+            thr = np.float32(rng.uniform(lo, hi))
+            thr = min(max(thr, lo), np.nextafter(hi, np.float32(-np.inf)))
+            go_left = sub[:, c] <= thr
+            lc, rc = n_used, n_used + 1
+            n_used += 2
+            feature[t, j], threshold[t, j], left[t, j], right[t, j] = c, thr, lc, rc
+            stack += [(lc, rows[go_left], d + 1), (rc, rows[~go_left], d + 1)]
+    c_norm = float(_average_path_length([IFOREST_SAMPLES])[0])
+    return dict(feature=feature, threshold=threshold, left=left, right=right,
+                value=value, depth=depth, scale=-1.0 / c_norm)
+
+
+def iforest_phase(X_all, bg, device, card, seed):
+    """Phase 24: the IsolationForest-shaped ensemble (``neg_exp2`` head, the
+    ``score_samples`` lift's layout) explained by sampling at ``B_IFOREST``
+    with ``link='identity'``: ``masked_ey``, no hand kernel, additive,
+    against the CPU port; its ``decision_function`` form (an affine head of
+    offset -0.5) gives the same phi, E shifted."""
+
+    import torch
+    from distributedkernelshap_tpu_torch import AffineOutputPredictor, TreeEnsemblePredictor
+
+    t = iforest_tables(seed)
+
+    def forest(dev):
+        return TreeEnsemblePredictor(
+            t["feature"], t["threshold"], t["left"], t["right"], t["value"],
+            depth=t["depth"], aggregation="mean", scale=t["scale"],
+            out_transform="neg_exp2", vector_out=False, device=dev)
+
+    X = X_all[:B_IFOREST]
+    reset_launches()
+    explainer, expl = explain_sampled(forest(device), X, bg, device, link="identity")
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    phi, add_err = sampled_phi(expl, B_IFOREST, K=1)
+    _, expl_cpu = explain_sampled(forest("cpu"), X[:N_TREE_CPU], bg, "cpu", link="identity")
+    d_cpu = float(np.abs(phi[:N_TREE_CPU] - sampled_phi(expl_cpu, N_TREE_CPU, K=1)[0]).max())
+    _, expl_df = explain_sampled(AffineOutputPredictor(forest(device), 1.0, 0.5), X, bg,
+                                 device, link="identity")
+    d_df = float(np.abs(phi - sampled_phi(expl_df, B_IFOREST, K=1)[0]).max())
+    d_e = abs(float(np.ravel(expl_df.expected_value)[0])
+              - float(np.ravel(expl.expected_value)[0]) - 0.5)
+    wall, runs = median_wall_ms(lambda: explainer.explain(X, silent=True), 3)
+    pred = explainer._explainer.predictor
+    print(f"isolation forest: T={N_IFOREST_TREES} trees on {IFOREST_SAMPLES} samples, "
+          f"depth {t['depth']}, leaves {pred.n_leaves}; sampled B={B_IFOREST}: launches "
+          f"{launches} (want all 0), kernel_path {explainer.kernel_path}, additivity "
+          f"{add_err:.3e}, |phi card - phi cpu| (first {N_TREE_CPU} rows)={d_cpu:.3e}, "
+          f"decision_function form |phi - phi|={d_df:.3e} |E shift - 0.5|={d_e:.3e}; wall "
+          f"median of 3 {wall:.3f} ms (runs {runs}) on {card}", flush=True)
+    if any(launches.values()) or explainer.kernel_path.get("ey") != "masked_ey" \
+            or not (d_cpu <= 1e-4 and d_df <= 1e-5 and d_e <= 1e-5):
+        raise AssertionError("the IsolationForest-shaped explain is off")
+
+
+def tt_cores(M, rank, seed, K=1, b_scale=0.3):
+    """Random tensor-train cores with per-site scale ``rank^-1/2`` (the
+    chained products stay O(1) over M sites), as the reference's tests
+    make them."""
+
+    rng = np.random.default_rng([seed, M, rank])
+    dims = [1] + [rank] * (M - 1) + [K]
+    scale = 1.0 / np.sqrt(rank)
+    return [(rng.normal(scale=scale, size=(dims[i], dims[i + 1])).astype(np.float32),
+             rng.normal(scale=b_scale * scale, size=(dims[i], dims[i + 1])).astype(np.float32))
+            for i in range(M)]
+
+
+def tt_brute_force(cores, X, bg):
+    """float64 Shapley values ``(B, K, M)`` of the TT model by enumerating
+    all 2^M coalitions through the host cores (the reference's oracle)."""
+
+    from math import factorial
+
+    M = len(cores)
+    masks = ((np.arange(2 ** M)[:, None] >> np.arange(M)[None]) & 1).astype(bool)
+    size = masks.sum(1)
+    K = cores[-1][0].shape[1]
+    phi = np.zeros((X.shape[0], K, M))
+    for bi, x in enumerate(np.asarray(X, np.float64)):
+        rows = np.where(masks[:, None, :], x[None, None], np.asarray(bg, np.float64)[None])
+        v = np.ones(rows.shape[:2] + (1,))
+        for i, (A, Bc) in enumerate(cores):
+            v = np.einsum("cnr,cnrs->cns", v, A[None, None].astype(np.float64)
+                          + rows[:, :, i, None, None] * Bc[None, None].astype(np.float64))
+        value = v.mean(1)                                         # (2^M, K)
+        for j in range(M):
+            without = np.flatnonzero(~masks[:, j])
+            w = np.array([factorial(k) * factorial(M - 1 - k) / factorial(M)
+                          for k in size[without]])
+            phi[bi, :, j] = w @ (value[without | (1 << j)] - value[without])
+    return phi
+
+
+def tn_dp_flops(M, rank, K):
+    """f32 operations of the port's DP per (instance, background row): per
+    site the prefix products ``L·P``, ``L·Q`` (2·M·r² each), the size-weight
+    fold (2·M²·r), the suffix products ``P·T``, ``Q·T`` (2·M·r²·K each) and
+    the contraction (2·M·r·K)."""
+
+    return M * (4 * M * rank * rank + 2 * M * M * rank + 4 * M * rank * rank * K
+                + 2 * M * rank * K)
+
+
+def tn_phase(device, card, seed):
+    """Phase 25: exact tensor-train SHAP (``nsamples='exact'`` on a
+    ``TensorTrainPredictor``).  The reference's mid-size TN at B = 8 and
+    256 against the CPU port, a staged explain bit-identical to the
+    synchronous one; a TN at M = 12 against brute-force enumeration; the
+    Adult-width TN (M = 48, rank 16, N = 100, B = 256): wall, device events
+    and busy time, and the share of its FLOP bound.  The path runs no hand
+    kernel (its launch counts must stay 0)."""
+
+    import torch
+    from distributedkernelshap_tpu_torch import EngineConfig, KernelShap, TensorTrainPredictor
+    from distributedkernelshap_tpu_torch.kernel_shap import StagedRows
+
+    def fit(cores, bg, dev):
+        explainer = KernelShap(TensorTrainPredictor(cores, device=dev), seed=0, device=dev,
+                               task="regression", engine_config=EngineConfig())
+        return explainer.fit(bg)
+
+    def phi_of(expl, B, M):
+        phi = np.stack(expl.shap_values, 1)
+        if phi.shape != (B, 1, M) or not np.isfinite(phi).all():
+            raise AssertionError(f"bad TN shap values: shape {phi.shape}")
+        err = additivity(expl)
+        if not err < ADDITIVITY:
+            raise AssertionError(f"TN additivity violated: {err}")
+        return phi, err
+
+    rng = np.random.default_rng([seed, 25])
+    out = {}
+    for label, (M, rank, N), Bs in (("mid", TN_MID, TN_MID_BS), ("adult", TN_ADULT, (B_TN,))):
+        cores = tt_cores(M, rank, seed)
+        bg = rng.normal(size=(N, M)).astype(np.float32)
+        X = rng.normal(size=(max(Bs), M)).astype(np.float32)
+        explainer = fit(cores, bg, device)
+        cpu = fit(cores, bg, "cpu")
+        for B in Bs:
+            reset_launches()
+            expl = explainer.explain(X[:B], nsamples="exact", silent=True)
+            torch.cuda.synchronize()
+            launches = kernel_launches()
+            phi, add_err = phi_of(expl, B, M)
+            n_cpu = min(B, N_TN_CPU if label == "mid" else 2)
+            d_cpu = rel_close(phi[:n_cpu], phi_of(cpu.explain(X[:n_cpu], nsamples="exact",
+                                                              silent=True), n_cpu, M)[0],
+                              rel=TN_REL)
+            wall, runs = median_wall_ms(
+                lambda: explainer.explain(X[:B], nsamples="exact", silent=True), 3)
+            wall_p, busy, idle, n_events, top = device_busy(
+                lambda: explainer.explain(X[:B], nsamples="exact", silent=True))
+            flops = B * N * tn_dp_flops(M, rank, 1)
+            bound = 1e3 * flops / FP32_FLOPS_PER_S
+            print(f"tensor train {label} M={M} rank={rank} N={N} B={B}: launches {launches} "
+                  f"(want all 0), kernel_path {explainer.kernel_path}, additivity "
+                  f"{add_err:.3e}, |phi card - phi cpu| (first {n_cpu} rows)={d_cpu:.3e} "
+                  f"(tol {TN_REL:g} x max(1, max|phi|)); wall median of 3 {wall:.3f} ms "
+                  f"(runs {runs}); under torch.profiler wall {wall_p:.3f} ms, busy "
+                  f"{busy:.3f} ms, idle {idle:.4f}, {n_events} device events, top {top}; "
+                  f"DP {flops:.3e} f32 FLOP, bound {bound:.4f} ms at {FP32_FLOPS_PER_S:.3g} "
+                  f"FLOP/s, {100 * bound / wall:.2f}% of the wall, {100 * bound / busy:.2f}% "
+                  f"of the busy time; on {card}", flush=True)
+            if any(launches.values()) or explainer.kernel_path != {"exact_phi": "tn_dp"}:
+                raise AssertionError("the TN explain took another path")
+            out[(label, B)] = wall
+        if label == "mid":
+            engine = explainer._explainer
+            want = np.stack(engine.get_explanation(X, nsamples="exact"), 1)
+            staged = engine.stage_rows(X, nsamples="exact")
+            values, info = engine.get_explanation_async(staged, nsamples="exact")()
+            same = bool(np.array_equal(np.stack(values, 1), want))
+            on_card = torch.device(device).type == "cuda"
+            print(f"tensor train staged B={X.shape[0]}: StagedRows={isinstance(staged, StagedRows)}"
+                  f" with event={staged is not None and staged.ready is not None}, "
+                  f"bit-identical to sync {same}", flush=True)
+            if not (isinstance(staged, StagedRows) and same
+                    and (staged.ready is not None or not on_card)):
+                raise AssertionError("the staged TN explain disagrees with the sync one")
+    cores = tt_cores(TN_BRUTE_M, 4, seed)
+    bg = rng.normal(size=(8, TN_BRUTE_M)).astype(np.float32)
+    X = rng.normal(size=(2, TN_BRUTE_M)).astype(np.float32)
+    phi, _ = phi_of(fit(cores, bg, device).explain(X, nsamples="exact", silent=True),
+                    2, TN_BRUTE_M)
+    d_bf = rel_close(phi, tt_brute_force(cores, X, bg), rel=TN_REL)
+    print(f"tensor train M={TN_BRUTE_M}: |phi card - brute force| (2 rows, 8 background "
+          f"rows, {2 ** TN_BRUTE_M} coalitions)={d_bf:.3e}", flush=True)
+    return out
+
+
+def host_wait(fn, busy):
+    """``(host ms, syncs)`` of ``fn()`` issued behind ~2 ms of queued device
+    work (one ``busy @ busy``): an op that waits for the device, inside
+    PyTorch or inside a library, shows that work in its host time; the
+    syncs are those ``torch.cuda``'s sync debug mode reports."""
+
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    busy @ busy
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            fn()
+            ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return ms, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def singular_gram_phase(device):
+    """Phase 26: a Gram matrix that is not positive definite gives NaN phi on
+    the card without raising (the reference's ``cho_factor``), through
+    ``solve_from_normal`` and the WLS of a plan whose weights are all 0;
+    then which of the solve's linear-algebra calls wait for the device: each
+    one's host time behind ~2 ms of queued work and its reported syncs."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.ops.coalitions import coalition_plan
+    from distributedkernelshap_tpu_torch.ops.explain import (
+        _wls_solve,
+        cholesky_or_nan,
+        solve_from_factor,
+        solve_from_normal,
+    )
+
+    rng = np.random.default_rng(26)
+    Q, _ = np.linalg.qr(rng.normal(size=(11, 11)))
+    A = torch.as_tensor(((Q * np.linspace(-0.5, 2.0, 11)) @ Q.T).astype(np.float32),
+                        device=device)
+    rhs = torch.as_tensor(rng.normal(size=(4, 2, 11)).astype(np.float32), device=device)
+    fme = torch.as_tensor(rng.normal(size=(4, 2)).astype(np.float32), device=device)
+    phi = solve_from_normal(A, rhs, fme, 0.0)
+    plan = coalition_plan(len(ADULT_WIDTHS), nsamples=64, seed=0)
+    mask = torch.as_tensor(plan.mask, device=device)
+    phi_w = _wls_solve(mask, torch.zeros(plan.n_rows, device=device),
+                       torch.as_tensor(rng.normal(size=(4, plan.n_rows, 2)).astype(np.float32),
+                                       device=device), fme, 0.0)
+    nan_a, nan_w = bool(phi.isnan().all()), bool(phi_w.isnan().all())
+    print(f"singular Gram: solve_from_normal on an indefinite (M-1)={A.shape[0]} Gram -> all "
+          f"NaN {nan_a}; WLS of an all-zero-weight plan -> all NaN {nan_w}; nothing raised",
+          flush=True)
+    if not (nan_a and nan_w):
+        raise AssertionError("a singular Gram did not give NaN phi")
+
+    busy = torch.randn(4096, 4096, device=device)
+    P = torch.as_tensor(((Q * np.linspace(0.5, 2.0, 11)) @ Q.T).astype(np.float32),
+                        device=device)
+    L = cholesky_or_nan(P)
+    R = rhs.reshape(8, 11).T.contiguous()
+    calls = {
+        "cholesky_ex": lambda: torch.linalg.cholesky_ex(P),
+        "cholesky_or_nan": lambda: cholesky_or_nan(P),
+        "cholesky_solve": lambda: torch.cholesky_solve(R, L),
+        "solve_triangular x2": lambda: torch.linalg.solve_triangular(
+            L.T, torch.linalg.solve_triangular(L, R, upper=False), upper=True),
+        "solve_from_factor": lambda: solve_from_factor(L, rhs, fme),
+        "solve_from_normal": lambda: solve_from_normal(P, rhs, fme, 1e-6),
+    }
+    waits = {name: host_wait(fn, busy) for name, fn in calls.items()}
+    print("host time (ms) and syncs behind ~2 ms of queued device work: " + "; ".join(
+        f"{name} {ms:.3f} ms, {n} syncs" for name, (ms, n) in waits.items()), flush=True)
+    return waits
+
+
+def wls_host_phase(explainer, X, card):
+    """Phase 27: the headline explain's WLS host time with the NaN-safe
+    factor: ``ops.explain._wls_solve`` wrapped in a host clock (no sync of
+    its own) over 5 explains at B = 2560, beside the explain wall (phase 26
+    says which of its calls, if any, wait for the device)."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.ops import explain as ops_explain
+
+    real, spans = ops_explain._wls_solve, []
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        spans.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    ops_explain._wls_solve = timed
+    try:
+        wall, runs = median_wall_ms(lambda: explainer.explain(X, silent=True), 5)
+    finally:
+        ops_explain._wls_solve = real
+    torch.cuda.synchronize()
+    print(f"headline WLS host time with the NaN-safe factor: median "
+          f"{statistics.median(spans):.4f} ms over {len(spans)} explains (spans "
+          f"{[round(v, 4) for v in spans]}); explain wall median of 5 {wall:.3f} ms "
+          f"(runs {runs}) on {card}", flush=True)
+    return statistics.median(spans), wall
+
+
+def fixture_phase(device, card):
+    """Phase 28: the JAX package's own answers on the Adult-schema synthetic
+    rows (``tests/fixtures/adult_parity.npz``, read with numpy; made by
+    ``scripts/make_adult_parity_fixture.py``): the headline LR explain of all
+    2560 rows on the card against the JAX phi (``PHI_ATOL``), E and f(x)
+    (2e-5), and the ``adult_trees_exact`` GBT's exact phi and interaction
+    matrices (first 256 rows, counted) within ``PHI_REL``."""
+
+    import torch
+    from distributedkernelshap_tpu_torch import TreeEnsemblePredictor
+
+    import os
+
+    fx = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), FIXTURE),
+                 allow_pickle=False)
+    widths = [int(w) for w in fx["group_widths"]]
+    starts = np.concatenate([[0], np.cumsum(widths)[:-1]])
+    groups = [list(range(s, s + w)) for s, w in zip(starts, widths)]
+    names = [f"g{i}" for i in range(len(widths))]
+    est = AdultShapedLogisticRegression.fitted(fx["coef"], fx["intercept"])
+    from distributedkernelshap_tpu_torch import KernelShap
+
+    X, bg = fx["X"], fx["background"]
+    explainer = KernelShap(est.predict_proba, link="logit", seed=0, device=device)
+    explainer.fit(bg, group_names=names, groups=groups)
+    reset_launches()
+    expl = explainer.explain(X, silent=True)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    phi = np.stack(expl.shap_values, 1)
+    # the logit link turns one f32 ulp of p into 2^-24 / (p (1 - p)) of
+    # logit: a row's tolerance adds LOGIT_ULPS such ulps at its f(x)
+    ulp = 2.0 ** -24 * (2.0 + 2.0 * np.cosh(fx["raw_prediction"][:, 1]))
+    d_phi = np.abs(phi - fx["phi"]).max((1, 2))
+    d_fx = np.abs(expl.data["raw"]["raw_prediction"] - fx["raw_prediction"]).max(1)
+    d_e = float(np.abs(np.asarray(expl.expected_value) - fx["expected_value"]).max())
+    phi_ok = d_phi <= PHI_ATOL + LOGIT_ULPS * ulp
+    fx_ok = d_fx <= 2e-5 + LOGIT_ULPS * ulp
+    worst = int(np.argmax(d_phi))
+    print(f"fixture ({FIXTURE}, provenance {fx['provenance']}): headline B={X.shape[0]} "
+          f"launches {launches}, kernel_path {explainer.kernel_path}; |phi card - phi JAX| "
+          f"max {d_phi.max():.3e} (row {worst}, f(x)={fx['raw_prediction'][worst, 1]:.3f}, "
+          f"tol {PHI_ATOL:g} + {LOGIT_ULPS} p-ulps = "
+          f"{PHI_ATOL + LOGIT_ULPS * ulp[worst]:.3e}), rows within {PHI_ATOL:g} alone "
+          f"{int((d_phi <= PHI_ATOL).sum())}/{X.shape[0]}; |f(x) - f(x) JAX| max "
+          f"{d_fx.max():.3e} (2e-5 + {LOGIT_ULPS} p-ulps: {int(fx_ok.sum())} rows within); "
+          f"|E - E JAX|={d_e:.3e} (tol 2e-5)", flush=True)
+    if launches["fused_linear_ey"] < 1 or not (phi_ok.all() and fx_ok.all() and d_e <= 2e-5):
+        raise AssertionError("the headline disagrees with the JAX package's fixture")
+    tree = TreeEnsemblePredictor(
+        fx["tree_feature"], fx["tree_threshold"], fx["tree_left"], fx["tree_right"],
+        fx["tree_value"], depth=int(fx["tree_depth"]), aggregation="sum",
+        base=fx["tree_base"], scale=float(fx["tree_scale"]),
+        missing_left=fx["tree_missing_left"], vector_out=False, device=device)
+    explainer = KernelShap(tree, task="regression", seed=0, device=device)
+    explainer.fit(bg, group_names=names, groups=groups)
+    n = fx["tree_phi"].shape[0]
+    reset_launches()
+    expl = explainer.explain(X[:n], nsamples="exact", interactions=True, silent=True)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    d_phi = rel_close(np.asarray(expl.shap_values[0]), fx["tree_phi"])
+    d_inter = rel_close(expl.data["raw"]["interaction_values"][0], fx["tree_interactions"])
+    d_e = abs(float(np.ravel(expl.expected_value)[0]) - float(fx["tree_expected_value"][0]))
+    print(f"fixture adult_trees_exact GBT (T={tree.n_trees}) B={n}: launches {launches} "
+          f"(want 1 + 1), |phi card - phi JAX|={d_phi:.3e}, |inter card - inter JAX|="
+          f"{d_inter:.3e} (tol {PHI_REL:g} x max(1, max|.|)), |E - E JAX|={d_e:.3e} "
+          f"on {card}", flush=True)
+    if launches["exact_tree_inter"] != 1 or launches["exact_tree_phi"] != 1 or d_e > 1e-5:
+        raise AssertionError("the fixture GBT's exact explain is off")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2531,6 +3285,32 @@ def main() -> int:
     t = time.perf_counter()
     profiler_checkpoint_phase(explainer, expl, tables, X, bg, device, card)
     seconds["20 profiler, checkpoint"] = time.perf_counter() - t
+
+    # 22-28. booster dumps, the affine head, the IsolationForest shape, tensor
+    # trains, the singular Gram, the headline's WLS host time, the fixture
+    t = time.perf_counter()
+    booster_phi_err, booster_inter_err = boosters_phase(tables, X, bg, device, card)
+    exact_record["max_abs_err"] = max(exact_record["max_abs_err"], booster_phi_err)
+    inter_record["max_abs_err"] = max(inter_record["max_abs_err"], booster_inter_err)
+    seconds["22 boosters"] = time.perf_counter() - t
+    t = time.perf_counter()
+    affine_phase(tables, X, bg, device, card)
+    seconds["23 affine head"] = time.perf_counter() - t
+    t = time.perf_counter()
+    iforest_phase(X, bg, device, card, args.seed)
+    seconds["24 isolation forest"] = time.perf_counter() - t
+    t = time.perf_counter()
+    tn_phase(device, card, args.seed)
+    seconds["25 tensor train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    singular_gram_phase(device)
+    seconds["26 singular Gram"] = time.perf_counter() - t
+    t = time.perf_counter()
+    wls_host_phase(explainer, X, card)
+    seconds["27 WLS host time"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fixture_phase(device, card)
+    seconds["28 fixture"] = time.perf_counter() - t
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; script so far {time.perf_counter() - t_start:.1f}", flush=True)
 

@@ -16,12 +16,27 @@ torch functions) row materialisation, and black-box host callables
 engine's serving entry points (instance chunks through
 ``parallel/pipeline.py``, staged async explains, anytime rounds in
 ``anytime/``, ``profiling.py`` phases, ``KernelShap.save`` / ``load``) drive
-the same kernels.
+the same kernels.  XGBoost and LightGBM dumps (``models/xgb.py``,
+``models/lgbm.py``) and IsolationForest lift to tree ensembles, affine
+output heads (``models/compose.AffineOutputPredictor``) keep the exact path,
+and tensor-train predictors (``models/tensor_net.py``) take the exact
+size-indexed contraction of ``ops/tensor_shap.py`` under
+``nsamples='exact'``.
 """
 
-from distributedkernelshap_tpu_torch.data import DenseData  # noqa: F401
-from distributedkernelshap_tpu_torch.interface import Explanation  # noqa: F401
+from distributedkernelshap_tpu_torch.interface import (  # noqa: F401
+    DEFAULT_DATA_KERNEL_SHAP,
+    DEFAULT_META_KERNEL_SHAP,
+    Explainer,
+    Explanation,
+    FitMixin,
+    NumpyEncoder,
+)
+from distributedkernelshap_tpu_torch.utils import Bunch, methdispatch  # noqa: F401
+from distributedkernelshap_tpu_torch.data import Data, DenseData, DenseDataWithIndex  # noqa: F401
 from distributedkernelshap_tpu_torch.kernel_shap import (  # noqa: F401
+    KERNEL_SHAP_BACKGROUND_THRESHOLD,
+    KERNEL_SHAP_PARAMS,
     EngineConfig,
     KernelExplainerEngine,
     KernelShap,
@@ -35,5 +50,12 @@ from distributedkernelshap_tpu_torch.models.predictors import (  # noqa: F401
     TorchPredictor,
     as_predictor,
 )
+from distributedkernelshap_tpu_torch.models.compose import AffineOutputPredictor  # noqa: F401
+from distributedkernelshap_tpu_torch.models.tensor_net import (  # noqa: F401
+    TensorTrainPredictor,
+    fit_tt_surrogate,
+)
 from distributedkernelshap_tpu_torch.models.torch_lift import TorchMLPPredictor  # noqa: F401
 from distributedkernelshap_tpu_torch.models.trees import TreeEnsemblePredictor  # noqa: F401
+
+__version__ = "0.1.0"

@@ -6,9 +6,10 @@ seed).fit(background, ...).explain(X, ...) -> Explanation``, plus
 ``rank_by_importance`` / ``rank_interaction_pairs`` / ``sum_categories``
 and the warn-and-degrade input validation), with the computation in
 ``ops/explain.py`` (sampled: the linear route, a predictor's
-``masked_ey``, or row materialisation) and ``ops/treeshap.py``
+``masked_ey``, or row materialisation), ``ops/treeshap.py``
 (``nsamples='exact'`` on lifted tree ensembles, with ``interactions=True``
-the exact Shapley interaction matrices) on a torch device.  With
+the exact Shapley interaction matrices) and ``ops/tensor_shap.py``
+(``nsamples='exact'`` on tensor-train predictors) on a torch device.  With
 ``EngineConfig(host_eval=True)`` a black-box predictor is evaluated on the
 host (``_hosteval_stats``: the native OpenMP fill of ``runtime/`` and a
 thread fan-out over coalition chunks) and only the WLS solve runs on the
@@ -31,8 +32,8 @@ refines an explain round by round (``anytime/``); the engine's stages are
 timed by ``profiling.profiler()`` phases; ``KernelShap.save`` / ``load``
 checkpoint a fitted explainer.
 
-Not ported yet (ROADMAP.md, queue A): the exact tensor-network and DeepSHAP
-flavors, the memory ledger and multi-device execution.
+Not ported yet (ROADMAP.md, queue A): the DeepSHAP flavor, the memory
+ledger and multi-device execution.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 without a GPU and without a device they raise.  pandas is only touched when
@@ -93,6 +94,13 @@ from distributedkernelshap_tpu_torch.ops.explain import (
 )
 from distributedkernelshap_tpu_torch.ops.links import convert_to_link, convert_to_link_np
 from distributedkernelshap_tpu_torch.ops.summarise import kmeans_summary, subsample
+from distributedkernelshap_tpu_torch.ops.tensor_shap import (
+    supports_exact_tn,
+    tensor_shap_phi,
+    tn_exact_ready,
+    validate_exact_tn,
+    weight_toeplitz,
+)
 from distributedkernelshap_tpu_torch.ops.treeshap import (
     background_reach,
     build_packed_plan,
@@ -688,7 +696,6 @@ class KernelExplainerEngine:
         self._dev_cache: "OrderedDict[str, Tuple[torch.Tensor, ...]]" = OrderedDict()
         self._plan_consts_cache: "OrderedDict[Any, Dict[str, Any]]" = OrderedDict()
         self._content_fp: Optional[str] = None
-        self._exact_cache: Dict[Any, Dict[str, Any]] = {}
         # _exact_async_ready's memo (host state fixed once fitted)
         self._ready_cache: Dict[bool, bool] = {}
         # the side stream stage_rows uploads on (CUDA only, made on first use)
@@ -801,7 +808,6 @@ class KernelExplainerEngine:
         self._fn_cache.clear()
         self._dev_cache.clear()
         self._plan_consts_cache.clear()
-        self._exact_cache.clear()
 
     #: bound on the device-constant caches' entries (plans in play per
     #: engine: 'auto' and a few explicit nsamples values)
@@ -828,20 +834,28 @@ class KernelExplainerEngine:
     # plan-constant device cache (linear path)
 
     def content_fingerprint(self) -> str:
-        """sha256 over the linear decomposition (or the predictor's type),
+        """sha256 over the linear decomposition (else the predictor's
+        published content bytes, ``fingerprint_bytes()``, else its type),
         the background rows and weights, the group matrix, the link and the
-        ridge (reference ``kernel_shap.py:978-1015``).  With the plan's
-        fingerprint it keys the plan-constant cache; a refit builds a new
-        engine, and changing a predictor in place is not detected."""
+        ridge (reference ``kernel_shap.py:978-1015``).  It keys the
+        plan-constant cache, the exact paths' constants with it; a refit
+        builds a new engine, and changing a predictor in place is not
+        detected."""
 
         if self._content_fp is None:
             h = hashlib.sha256()
             linear = self.predictor.linear_decomposition
+            fp_bytes = getattr(self.predictor, 'fingerprint_bytes', None)
+            # equal content bytes ARE the same device constants; None means
+            # no content identity, and the type's repr stands in
+            content = fp_bytes() if callable(fp_bytes) else None
             if linear is not None:
                 W, b, activation = linear
                 h.update(W.detach().cpu().numpy().tobytes())
                 h.update(b.detach().cpu().numpy().tobytes())
                 h.update(activation.encode())
+            elif content is not None:
+                h.update(content)
             else:
                 h.update(repr(type(self.predictor)).encode())
             h.update(self.background.tobytes())
@@ -877,17 +891,29 @@ class KernelExplainerEngine:
         ``kernel_shap.py:1037-1068``); with ``plan_constant_cache=False``
         recomputed every call and never stored."""
 
-        reuse = self.config.plan_constant_cache is not False
-        key = (self.content_fingerprint(), plan_fingerprint(plan), chunk)
-        if reuse and key in self._plan_consts_cache:
-            self._plan_consts_cache.move_to_end(key)
-            return self._plan_consts_cache[key]
         fnkey = ('plan_consts', chunk)
         if fnkey not in self._fn_cache:
             self._fn_cache[fnkey] = build_linear_plan_consts_fn(
                 self.predictor, replace(self.config.shap, link=self.config.link), chunk)
-        with profiler().phase('plan_consts'):
-            consts = self._fn_cache[fnkey](*self._device_args(plan))
+
+        def build():
+            with profiler().phase('plan_consts'):
+                return self._fn_cache[fnkey](*self._device_args(plan))
+
+        return self._shared_consts(
+            (self.content_fingerprint(), plan_fingerprint(plan), chunk), build)
+
+    def _shared_consts(self, key, build: Callable[[], Any]):
+        """``build()``'s device constants under ``key`` in the plan-constant
+        LRU of ``_DEV_CACHE_MAX_ENTRIES`` shared by the linear, exact tree
+        and tensor-network paths; with ``plan_constant_cache=False`` built
+        anew every call and never stored (the control arm)."""
+
+        reuse = self.config.plan_constant_cache is not False
+        if reuse and key in self._plan_consts_cache:
+            self._plan_consts_cache.move_to_end(key)
+            return self._plan_consts_cache[key]
+        consts = build()
         if reuse:
             self._plan_consts_cache[key] = consts
             while len(self._plan_consts_cache) > self._DEV_CACHE_MAX_ENTRIES:
@@ -1264,72 +1290,81 @@ class KernelExplainerEngine:
 
     def _exact_flavor(self) -> Optional[str]:
         """Which sampling-free path the predictor admits under
-        ``nsamples='exact'``: ``'tree'`` (lifted ensemble), ``'tn'``
-        (tensor-train structure) or ``'deepshap'`` (lifted neural graph),
-        duck-typed as the reference does, or ``None``."""
+        ``nsamples='exact'`` (reference ``kernel_shap.py:1395-1418``):
+        ``'tree'`` (lifted ensemble, possibly behind an affine head),
+        ``'tn'`` (tensor-train structure with raw outputs) or
+        ``'deepshap'`` (lifted neural graph, duck-typed), or ``None``."""
 
         if supports_exact(self.predictor):
             return 'tree'
-        if hasattr(self.predictor, 'tt_structure'):
+        if supports_exact_tn(self.predictor):
             return 'tn'
         if hasattr(self.predictor, 'graph_spec'):
             return 'deepshap'
         return None
 
     def _exact_consts(self) -> Dict[str, Any]:
-        """X-independent exact-path device constants, computed once per
-        engine and ``pack_paths`` setting: the background reach tensors, the
-        host-side packed-path plan and (when packing engages) the packed
-        gathers, plus the background weights and group matrix."""
+        """X-independent exact-path device constants: the background reach
+        tensors, the host-side packed-path plan and (when packing engages)
+        the packed gathers, plus the background weights and group matrix.
+        Kept in the shared plan-constant LRU under ``('exact_consts',
+        content_fingerprint(), pack_paths)`` (reference ``kernel_shap.py:
+        1764-1817``): flipping ``pack_paths`` on a live engine rebuilds them,
+        and ``plan_constant_cache=False`` recomputes them every call."""
 
         pack_paths = self.config.shap.pack_paths
-        key = ('exact', pack_paths)
-        if key in self._exact_cache:
-            return self._exact_cache[key]
-        budget = self.config.shap.target_chunk_elems
-        G = torch.as_tensor(self.G, device=self.device)
-        with torch.no_grad(), profiler().phase('background_reach'):
-            reach = background_reach(
-                self.predictor, torch.as_tensor(self.background, device=self.device),
-                G, target_chunk_elems=budget)
-            plan = build_packed_plan(self.predictor, self.G)
-            packed = None
-            if resolve_pack_paths(pack_paths, plan):
-                packed = pack_reach(self.predictor, reach, plan)
-                # the packed route reads only onpath_g from the dense reach
-                reach = {'onpath_g': reach['onpath_g']}
-        consts = {'reach': reach, 'plan': plan, 'packed': packed,
-                  'bgw': torch.as_tensor(self.bg_weights, device=self.device),
-                  'G': G}
-        self._exact_cache[key] = consts
-        return consts
+
+        def build():
+            budget = self.config.shap.target_chunk_elems
+            G = torch.as_tensor(self.G, device=self.device)
+            with torch.no_grad(), profiler().phase('background_reach'):
+                reach = background_reach(
+                    self.predictor, torch.as_tensor(self.background, device=self.device),
+                    G, target_chunk_elems=budget)
+                plan = build_packed_plan(self.predictor, self.G)
+                packed = None
+                if resolve_pack_paths(pack_paths, plan):
+                    packed = pack_reach(self.predictor, reach, plan)
+                    # the packed route reads only onpath_g from the dense reach
+                    reach = {'onpath_g': reach['onpath_g']}
+            return {'reach': reach, 'plan': plan, 'packed': packed,
+                    'bgw': torch.as_tensor(self.bg_weights, device=self.device),
+                    'G': G}
+
+        return self._shared_consts(('exact_consts', self.content_fingerprint(), pack_paths),
+                                   build)
 
     def _exact_full_reach(self) -> Dict[str, torch.Tensor]:
         """The dense reach tensors for the interactions path.  When the
         packed plan engages, :meth:`_exact_consts` keeps only ``onpath_g``
         of them (the packed phi route needs nothing else), so the dense
-        tensors are rebuilt here once and cached under their own key."""
+        tensors are rebuilt here, in the shared LRU under
+        ``('exact_reach_full', content_fingerprint())``."""
 
         consts = self._exact_consts()
         if 'z_ok' in consts['reach']:
             return consts['reach']
-        key = ('exact_reach_full',)
-        if key not in self._exact_cache:
+
+        def build():
             with torch.no_grad(), profiler().phase('background_reach'):
-                self._exact_cache[key] = background_reach(
+                return background_reach(
                     self.predictor,
                     torch.as_tensor(self.background, device=self.device), consts['G'],
                     target_chunk_elems=self.config.shap.target_chunk_elems)
-        return self._exact_cache[key]
+
+        return self._shared_consts(('exact_reach_full', self.content_fingerprint()), build)
 
     def _dispatch_exact(self, X):
         """Launch the exact phi computation for one batch and return a
         ``finalize() -> {'shap_values', 'raw_prediction'}`` that copies the
         result to the host: the packed route when the plan engages, the
-        dense route otherwise.  ``X`` may be a :class:`StagedRows`, whose
-        uploaded rows feed the launch directly; ``finalize`` may run on
-        another thread."""
+        dense route otherwise, and :meth:`_dispatch_exact_tn` for a
+        tensor-train predictor (one dispatch contract for both flavors).
+        ``X`` may be a :class:`StagedRows`, whose uploaded rows feed the
+        launch directly; ``finalize`` may run on another thread."""
 
+        if self._exact_flavor() == 'tn':
+            return self._dispatch_exact_tn(X)
         if isinstance(X, StagedRows):
             Xt, B = self._staged_input(X)
         else:
@@ -1399,15 +1434,24 @@ class KernelExplainerEngine:
         return {'shap_values': np.concatenate([r['shap_values'] for r in results], 0),
                 'raw_prediction': np.concatenate([r['raw_prediction'] for r in results], 0)}
 
-    def _exact_tree_explanation(self, chunks: List[np.ndarray], l1_reg,
-                                interactions: bool) -> Dict[str, np.ndarray]:
+    def _exact_explanation(self, chunks: List[np.ndarray], l1_reg,
+                           interactions: bool) -> Dict[str, np.ndarray]:
         """``nsamples='exact'``: closed-form interventional Shapley values
-        of a lifted tree ensemble's raw margin (no coalition plan, no WLS),
-        with ``interactions=True`` also the interaction matrices; one
-        dispatch per instance chunk through :func:`run_pipeline`
-        (reference ``kernel_shap.py:2248-2286``)."""
+        (no coalition plan, no WLS) of a lifted tree ensemble's raw margin,
+        with ``interactions=True`` also the interaction matrices, or of a
+        tensor-train predictor by the size-indexed DP; one dispatch per
+        instance chunk through :func:`run_pipeline` (reference
+        ``kernel_shap.py:2248-2286``, :2076-2112)."""
 
-        validate_exact(self.predictor, self.config.link)
+        if self._exact_flavor() == 'tn':
+            validate_exact_tn(self.predictor, self.config.link, self.G)
+            if interactions:
+                raise ValueError(
+                    "interactions=True requires a lifted tree ensemble "
+                    "(closed-form interaction matrices); the tensor-network "
+                    "exact path computes phi only.")
+        else:
+            validate_exact(self.predictor, self.config.link)
         if l1_reg not in (None, False, 0, 'auto'):
             logger.warning(
                 "l1_reg=%r is ignored with nsamples='exact': there is no "
@@ -1419,6 +1463,62 @@ class KernelExplainerEngine:
                                    window=self._resolve_window(len(chunks)))
         return {'shap_values': np.concatenate([r['shap_values'] for r in results], 0),
                 'raw_prediction': np.concatenate([r['raw_prediction'] for r in results], 0)}
+
+    # ------------------------------------------------------------------ #
+    # exact tensor-network path (ops/tensor_shap.py)
+
+    def _exact_tn_consts(self) -> Dict[str, Any]:
+        """X-independent tensor-network constants: the padded TT cores and
+        head, the Shapley size-weight table, the background rows and their
+        normalised weights.  In the shared plan-constant LRU under
+        ``('exact_tn_consts', content_fingerprint())`` (reference
+        ``kernel_shap.py:1986-2015``); ``plan_constant_cache=False``
+        recomputes them every call."""
+
+        def build():
+            struct = self.predictor.tt_structure()
+            bgw = self.bg_weights.astype(np.float64)
+            return {
+                'A': struct['A'], 'B': struct['B'], 'head': struct['head'],
+                'Wt': torch.as_tensor(weight_toeplitz(self.M), device=self.device),
+                'bg': torch.as_tensor(self.background, device=self.device),
+                'bgw': torch.as_tensor((bgw / bgw.sum()).astype(np.float32),
+                                       device=self.device),
+            }
+
+        return self._shared_consts(('exact_tn_consts', self.content_fingerprint()), build)
+
+    def _dispatch_exact_tn(self, X):
+        """The tensor-network counterpart of :meth:`_dispatch_exact`
+        (reference ``kernel_shap.py:2042-2074``): the same
+        :class:`StagedRows` handling and ``finalize`` contract, phi and
+        f(x) brought back in one packed copy (:func:`pack_transfer`)."""
+
+        if isinstance(X, StagedRows):
+            Xt, B = self._staged_input(X)
+        else:
+            Xp, B = self._pad_to_bucket(X)
+            Xt = torch.as_tensor(Xp, device=self.device)
+        consts = self._exact_tn_consts()
+        td = self.config.shap.transfer_dtype
+        with torch.no_grad(), capture_kernel_paths() as kp:
+            phi = tensor_shap_phi(consts['A'], consts['B'], consts['head'], consts['Wt'],
+                                  Xt, consts['bg'], consts['bgw'],
+                                  target_chunk_elems=self.config.shap.target_chunk_elems)
+            packed = pack_transfer(phi, self.predictor(Xt), td)
+        self._kernel_paths.update(kp)
+        Bp = Xt.shape[0]
+        stream = self._current_stream()
+
+        def finalize() -> Dict[str, np.ndarray]:
+            K, M = self.predictor.n_outputs, self.M
+            with _on_stream(stream):
+                flat = fetch_transfer(packed)
+            phi_h, fx = unpack_transfer(flat, Bp * K * M, td)
+            return {'shap_values': phi_h.reshape(Bp, K, M)[:B],
+                    'raw_prediction': fx.reshape(Bp, K)[:B]}
+
+        return finalize
 
     def _resolve_window(self, n_items: int) -> int:
         """The dispatch window of an ``n_items``-chunk loop on this engine's
@@ -1443,9 +1543,10 @@ class KernelExplainerEngine:
     def _exact_async_ready(self, interactions: bool = False) -> bool:
         """Whether ``nsamples='exact'`` rides the pipelined path (staging,
         ``finalize`` on another thread): a lifted tree ensemble with the
-        identity link, off host eval, phi only (reference ``kernel_shap.py:
-        1420-1461``).  Interactions stay on the sync path.  Memoised: every
-        input is fixed once the engine is fitted."""
+        identity link, or a tensor-train predictor that passes
+        :func:`tn_exact_ready`, off host eval, phi only (reference
+        ``kernel_shap.py:1420-1461``).  Interactions stay on the sync path.
+        Memoised: every input is fixed once the engine is fitted."""
 
         key = bool(interactions)
         cached = self._ready_cache.get(key)
@@ -1457,8 +1558,12 @@ class KernelExplainerEngine:
     def _exact_async_ready_uncached(self, interactions: bool) -> bool:
         if interactions or self.config.host_eval:
             return False
-        if self._exact_flavor() == 'tree':
+        flavor = self._exact_flavor()
+        if flavor == 'tree':
             return self.config.link == 'identity'
+        if flavor == 'tn':
+            return tn_exact_ready(self.predictor, self.config.link, self.G,
+                                  self.config.shap.target_chunk_elems) is None
         return False
 
     def _staging_stream(self) -> "torch.cuda.Stream":
@@ -1537,7 +1642,6 @@ class KernelExplainerEngine:
                 logger.warning(
                     "l1_reg=%r is ignored with nsamples='exact': there is "
                     "no sampling noise to regularise away.", l1_reg)
-            validate_exact(self.predictor, self.config.link)
             fin0 = self._dispatch_exact(staged if staged is not None else X)
 
             def finalize_exact():
@@ -1584,12 +1688,13 @@ class KernelExplainerEngine:
             return plan.n_rows / space < 0.2
         return True
 
-    def _apply_l1_reg(self, phi, X, l1_reg, nsamples):
+    def _apply_l1_reg(self, phi, X, l1_reg, nsamples, silent: bool = True):
         """Optional host-side feature selection (reference
         ``kernel_shap.py:2373-2395``): ``'auto'`` turns into AIC selection
         when the sampled fraction of the coalition space is < 0.2, as in
         shap 0.35; the selection re-solves a restricted weighted regression
-        per (instance, output) on the host."""
+        per (instance, output) on the host.  ``silent=False`` logs the
+        host-eval pass's chunk progress."""
 
         plan = self._plan(nsamples)
         if not self._l1_active(l1_reg, nsamples):
@@ -1602,9 +1707,9 @@ class KernelExplainerEngine:
                 "< 0.2, so AIC feature selection runs per instance on the host "
                 "(shap 0.35 default behaviour). Pass l1_reg=False to keep the "
                 "fully on-device path.", plan.n_rows / space)
-        return self._l1_solve(X, plan, l1_reg)
+        return self._l1_solve(X, plan, l1_reg, silent=silent)
 
-    def _l1_solve(self, X, plan, l1_reg):
+    def _l1_solve(self, X, plan, l1_reg, silent: bool = True):
         """Restricted WLS re-solve after lasso/top-k feature selection
         (reference ``kernel_shap.py:2397-2461``), in float64 numpy.
 
@@ -1616,7 +1721,7 @@ class KernelExplainerEngine:
         batched by identical selection sets."""
 
         if self.config.host_eval:
-            ey_adj, fx, e_val = self._hosteval_stats(X, plan)
+            ey_adj, fx, e_val = self._hosteval_stats(X, plan, silent=silent)
             ey_adj = ey_adj.astype(np.float64)
             fx = fx.astype(np.float64)
             e_val = e_val.astype(np.float64)
@@ -1730,14 +1835,8 @@ class KernelExplainerEngine:
             # with this call's fingerprint/raw predictions
             self.last_interaction_values = None
         exact = nsamples == 'exact'
-        if exact:
-            flavor = self._exact_flavor()
-            if flavor == 'tn':
-                raise NotImplementedError(
-                    "the exact tensor-network path is ROADMAP.md queue A "
-                    "item 8 and not ported yet")
-            if flavor == 'deepshap':
-                raise NotImplementedError(
+        if exact and self._exact_flavor() == 'deepshap':
+            raise NotImplementedError(
                     "the DeepSHAP exact path is ROADMAP.md queue A item 9 and "
                     "not ported yet")
         batch_idx = None
@@ -1752,7 +1851,7 @@ class KernelExplainerEngine:
         chunks = self._chunks(X)
 
         if exact:
-            r = self._exact_tree_explanation(chunks, l1_reg, interactions)
+            r = self._exact_explanation(chunks, l1_reg, interactions)
         elif len(chunks) > 1 and not self.config.host_eval:
             # dispatch ahead of the fetches in a sliding window (reference
             # kernel_shap.py:1712-1741): dispatch stays on this thread (it
@@ -1776,7 +1875,7 @@ class KernelExplainerEngine:
         self.last_X_fingerprint = _fingerprint(X)
 
         phi = r['shap_values'] if exact else self._apply_l1_reg(
-            r['shap_values'], X, l1_reg, nsamples)
+            r['shap_values'], X, l1_reg, nsamples, silent=silent)
         values = split_shap_values(phi, self.vector_out)
         if batch_idx is not None:
             return batch_idx, values
@@ -2150,7 +2249,8 @@ class KernelShap(Explainer, FitMixin):
         """Explain the instances in ``X`` (reference kernel_shap.py:810-898).
 
         Keyword arguments mirror the reference: ``nsamples`` (coalition
-        budget, or ``'exact'`` for lifted tree ensembles), ``interactions``
+        budget, or ``'exact'`` for lifted tree ensembles and tensor-train
+        predictors), ``interactions``
         (with ``'exact'``: the interaction matrices go to
         ``explanation.data['raw']['interaction_values']``), ``l1_reg``
         (host-side feature selection of the sampled path: ``'auto'`` (AIC

@@ -5,6 +5,15 @@ from distributedkernelshap_tpu_torch.models.predictors import (  # noqa: F401
     TorchPredictor,
     as_predictor,
 )
+from distributedkernelshap_tpu_torch.models.compose import AffineOutputPredictor  # noqa: F401
+from distributedkernelshap_tpu_torch.models.lgbm import (  # noqa: F401
+    lift_lightgbm,
+    predictor_from_lightgbm_dump,
+)
+from distributedkernelshap_tpu_torch.models.tensor_net import (  # noqa: F401
+    TensorTrainPredictor,
+    fit_tt_surrogate,
+)
 from distributedkernelshap_tpu_torch.models.torch_lift import (  # noqa: F401
     TorchMLPPredictor,
     lift_torch,
@@ -13,4 +22,8 @@ from distributedkernelshap_tpu_torch.models.torch_lift import (  # noqa: F401
 from distributedkernelshap_tpu_torch.models.trees import (  # noqa: F401
     TreeEnsemblePredictor,
     lift_tree_ensemble,
+)
+from distributedkernelshap_tpu_torch.models.xgb import (  # noqa: F401
+    lift_xgboost,
+    predictor_from_xgboost_json,
 )

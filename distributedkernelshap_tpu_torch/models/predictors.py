@@ -17,7 +17,8 @@ an ``nn.Module`` of signature ``(n, D) -> (n, K)``:
 ``as_predictor`` lifts linear scikit-learn estimators by duck typing (a bound
 ``predict_proba``/``decision_function``/``predict`` whose owner carries
 ``coef_`` and ``intercept_``), then the non-linear families (tree ensembles,
-scikit-learn MLPs and torch ``nn.Sequential`` stacks, both as
+XGBoost and LightGBM boosters, scikit-learn MLPs and torch ``nn.Sequential``
+stacks, both as
 ``models.torch_lift.TorchMLPPredictor``), each checked numerically against
 the original callable; scikit-learn is never imported.  What none
 lifts becomes a ``TorchPredictor`` when it is torch-native (an ``nn.Module``,
@@ -326,16 +327,20 @@ def _lift_is_faithful(lifted: BasePredictor, method, example_dim: int,
 
 def _nonlinear_lifters():
     """``(family name, lifter)`` pairs for every structural lift beyond the
-    plain linear one; each lifter takes ``(method, device)``.  The port has
-    the tree-ensemble, scikit-learn MLP and torch feed-forward lifts; the
-    reference's other families (quadratic, XGBoost, LightGBM, SVM and the
-    compositions, ``predictors.py:557-595``) are ROADMAP.md queue A items 6
-    and 9."""
+    plain linear one, in the reference's order; each lifter takes
+    ``(method, device)``.  The port has the tree-ensemble (IsolationForest
+    included), XGBoost, LightGBM, scikit-learn MLP and torch feed-forward
+    lifts; the reference's other families (quadratic, SVM and the
+    compositions, ``predictors.py:557-595``) are ROADMAP.md queue A item 9."""
 
+    from distributedkernelshap_tpu_torch.models.lgbm import lift_lightgbm
     from distributedkernelshap_tpu_torch.models.torch_lift import lift_torch
     from distributedkernelshap_tpu_torch.models.trees import lift_tree_ensemble
+    from distributedkernelshap_tpu_torch.models.xgb import lift_xgboost
 
     return (("tree ensemble", lift_tree_ensemble),
+            ("XGBoost ensemble", lift_xgboost),
+            ("LightGBM ensemble", lift_lightgbm),
             ("MLP", _lift_sklearn_mlp),
             ("torch feed-forward", lift_torch))
 

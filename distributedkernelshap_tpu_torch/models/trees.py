@@ -1,7 +1,7 @@
 """Decision-tree ensembles evaluated on a torch device.
 
 Port of ``distributedkernelshap_tpu/models/trees.py`` (``:49-392`` and the
-lifts ``:520-793``).  Every tree becomes padded node arrays (feature,
+lifts ``:520-793``, IsolationForest's included).  Every tree becomes padded node arrays (feature,
 threshold, left, right, leaf value) held as buffers of an ``nn.Module``;
 prediction runs over static leaf-path tensors (``path_sign``,
 ``path_offset``, ``path_len``, ``leaf_value``), which the exact TreeSHAP
@@ -18,8 +18,10 @@ never materialised: split-condition sums separate into instance and
 background halves (:meth:`TreeEnsemblePredictor.masked_ey`).
 
 The lifts read estimator attributes only, so scikit-learn is never
-imported.  Not ported yet (ROADMAP.md queue A item 6): the IsolationForest
-lift.
+imported.  IsolationForest's ``score_samples`` lifts to per-tree isolation
+path lengths averaged under the ``neg_exp2`` head; its
+``decision_function`` rides an affine output head
+(``models/compose.AffineOutputPredictor``) for the offset.
 """
 
 import logging
@@ -450,6 +452,68 @@ def _sklearn_tree_table(tree, k_slot: Optional[int] = None, k_total: int = 1,
             "right": right, "value": value.astype(np.float32)}
 
 
+def _average_path_length(n) -> np.ndarray:
+    """scikit-learn's ``_average_path_length``: the expected external path
+    length of an unsuccessful BST search among ``n`` samples, the c(n)
+    normaliser of Isolation Forests (reimplemented: it is private there)."""
+
+    n = np.asarray(n, np.float64)
+    out = np.zeros_like(n)
+    out[n == 2] = 1.0
+    big = n > 2
+    nb = n[big]
+    out[big] = 2.0 * (np.log(nb - 1.0) + np.euler_gamma) - 2.0 * (nb - 1.0) / nb
+    return out
+
+
+def _iforest_tree_table(tree, features: Optional[np.ndarray]) -> Optional[dict]:
+    """Node table whose leaf payload is the isolation path length
+    ``h = depth(leaf) + c(n_node_samples(leaf))``.  ``features`` maps the
+    tree's subset-relative feature ids to absolute columns
+    (``estimators_features_``); the structure comes from
+    :func:`_sklearn_tree_table`."""
+
+    table = _sklearn_tree_table(tree)
+    if table is None:
+        return None
+    if features is not None:
+        table["feature"] = np.asarray(features, np.int64)[
+            table["feature"]].astype(np.int32)
+    left = table["left"]
+    depth = np.zeros(len(left), np.float64)
+    stack = [(0, 0.0)]
+    while stack:
+        j, d = stack.pop()
+        depth[j] = d
+        if left[j] != j:                 # self-loop == leaf
+            stack.append((int(left[j]), d + 1.0))
+            stack.append((int(table["right"][j]), d + 1.0))
+    value = depth + _average_path_length(tree.n_node_samples)
+    table["value"] = value[:, None].astype(np.float32)
+    return table
+
+
+def _lift_isolation_forest(owner, method_name: str, device=None):
+    """IsolationForest ``score_samples`` (``-2^(-E[h]/c(max_samples))``) or
+    ``decision_function`` (``score_samples - offset_``): the per-tree path
+    lengths averaged, ``-1/c`` folded into ``scale`` and the anomaly
+    transform into ``out_transform='neg_exp2'``; the decision offset rides
+    an affine output head."""
+
+    feats = getattr(owner, "estimators_features_", [None] * len(owner.estimators_))
+    tables = [_iforest_tree_table(e.tree_, f) for e, f in zip(owner.estimators_, feats)]
+    c_norm = float(_average_path_length([owner.max_samples_])[0])
+    inner = _finalise(tables, device=device, aggregation="mean",
+                      out_transform="neg_exp2", scale=-1.0 / c_norm, vector_out=False)
+    if inner is None:
+        return None
+    if method_name == "decision_function":
+        from distributedkernelshap_tpu_torch.models.compose import AffineOutputPredictor
+
+        return AffineOutputPredictor(inner, 1.0, -float(owner.offset_))
+    return inner
+
+
 def _hist_tree_table(predictor, k_slot: int, k_total: int) -> Optional[dict]:
     """Node table from a HistGradientBoosting ``TreePredictor``."""
 
@@ -499,18 +563,23 @@ def _finalise(tables: Sequence[Optional[dict]], device=None,
 
 def lift_tree_ensemble(method, device=None) -> Optional[BasePredictor]:
     """Lift a bound ``predict_proba`` / ``predict`` / ``decision_function``
-    of a scikit-learn tree model into a :class:`TreeEnsemblePredictor` on
-    ``device``, or None when the estimator does not match a supported
-    family (decision trees, random/extra forests, gradient boosting,
-    histogram gradient boosting).  The caller (``as_predictor``) checks the
-    lift numerically against the original callable before trusting it."""
+    / ``score_samples`` of a scikit-learn tree model into a
+    :class:`TreeEnsemblePredictor` on ``device`` (IsolationForest's
+    ``decision_function`` behind an affine output head), or None when the
+    estimator does not match a supported family (decision trees,
+    random/extra forests, gradient boosting, histogram gradient boosting,
+    isolation forests).  The caller (``as_predictor``) checks the lift
+    numerically against the original callable before trusting it."""
 
     owner = getattr(method, "__self__", None)
     name = getattr(method, "__name__", "")
-    if owner is None or name not in ("predict", "predict_proba", "decision_function"):
+    if owner is None or name not in ("predict", "predict_proba", "decision_function",
+                                     "score_samples"):
         return None
     cls = type(owner).__name__
     try:
+        if cls == "IsolationForest" and name in ("score_samples", "decision_function"):
+            return _lift_isolation_forest(owner, name, device)
         if cls in ("DecisionTreeClassifier", "DecisionTreeRegressor",
                    "ExtraTreeClassifier", "ExtraTreeRegressor"):
             return _lift_forest([owner], cls.endswith("Classifier"), name, device)

@@ -13,7 +13,8 @@ Port of ``distributedkernelshap_tpu/ops/explain.py``:
 2. the link, and the expected value over the background;
 3. the Shapley-kernel weighted least squares with the additivity constraint
    eliminated by substitution, with one Cholesky factor shared by all
-   ``B·K`` right-hand sides;
+   ``B·K`` right-hand sides (NaN where the Gram matrix is not positive
+   definite, as in the reference, and with no host sync);
 4. the plan-constant pair (``build_linear_plan_consts_fn`` /
    ``build_linear_cached_fn``): what depends only on (model, background,
    plan) computed once, so a request pays only its ``B×S×K`` work and a
@@ -293,13 +294,25 @@ def solve_from_factor(chol, rhs, fx_minus_e):
     return torch.cat([phi_rest, phi_last[..., None]], dim=-1)
 
 
+def cholesky_or_nan(A):
+    """Lower Cholesky factor of ``A``, all NaN where ``A`` is not positive
+    definite, as the reference's ``jax.scipy.linalg.cho_factor`` gives it
+    (``cholesky_ex`` alone leaves a partial factor).  The failure stays in a
+    device tensor and the fill is a device-side select: nothing raises and
+    nothing syncs with the host."""
+
+    chol, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info == 0)[..., None, None], chol, float("nan"))
+
+
 def solve_from_normal(A, rhs, fx_minus_e, ridge):
     """Cholesky-solve the eliminated system (ridge on the diagonal) and
-    restore the last coefficient from the additivity constraint."""
+    restore the last coefficient from the additivity constraint; a Gram
+    matrix that is not positive definite gives NaN phi."""
 
     M1 = A.shape[0]
     A = A + ridge * torch.eye(M1, dtype=A.dtype, device=A.device)
-    return solve_from_factor(torch.linalg.cholesky(A), rhs, fx_minus_e)
+    return solve_from_factor(cholesky_or_nan(A), rhs, fx_minus_e)
 
 
 def _wls_solve(mask, w, ey_adj, fx_minus_e, ridge):
@@ -426,7 +439,7 @@ def build_linear_plan_consts_fn(predictor: BasePredictor, config: ShapConfig,
             Aw = Zt * weights[:, None]
             A = Aw.T @ Zt + config.ridge * torch.eye(M - 1, dtype=mask.dtype,
                                                       device=mask.device)
-            consts.update(zl=zl, Aw=Aw, chol=torch.linalg.cholesky(A))
+            consts.update(zl=zl, Aw=Aw, chol=cholesky_or_nan(A))
         if variant == "identity":
             consts["e_bgW"] = torch.einsum("nk,n->k", bgW, bgw_n)
             consts["t2w"] = torch.einsum("sm,nmk,n->sk", mask, bgWg, bgw_n)

@@ -14,7 +14,9 @@ indicator is a conjunction game whose Shapley values are
 
 summed over leaves, trees and weighted background rows.  Scope: lifted
 ensembles with raw-margin outputs (``out_transform='identity'``) and path
-tensors, explained with ``link='identity'``.
+tensors, bare or behind an affine output head (``a*f + b``: phi scales by
+``a``, the offset moves into the expected value), explained with
+``link='identity'``.
 
 The pairwise Shapley interaction index of the same conjunction game pairs
 groups of U with weight ``(u-2)! v! / (u+v-1)!``, groups of V with
@@ -32,9 +34,6 @@ diagonal.  Every non-kernel branch is the kernel's plain version — there is
 no second plain route.  The TPU gates of the JAX package (VMEM footprint,
 the 256-row background slice, the dmax cap of 64) do not exist here: one
 launch takes any N and any dmax.
-
-Not ported yet (ROADMAP.md): affine output heads (``_unwrap`` keeps only
-the bare-tree case).
 """
 
 from typing import Optional
@@ -42,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from distributedkernelshap_tpu_torch.models.compose import AffineOutputPredictor
 from distributedkernelshap_tpu_torch.models.trees import TreeEnsemblePredictor
 from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
     exact_tree_inter,
@@ -62,15 +62,22 @@ from distributedkernelshap_tpu_torch.ops.treeshap_pack import (
 
 
 def _unwrap(pred):
-    """``(tree_predictor, scale)``; the port has no affine output heads yet,
-    so only the bare tree."""
+    """``(tree_predictor, scale)`` behind an affine output head (reference
+    ``ops/treeshap.py:112-124``).  A head ``a*f + b`` scales Shapley values
+    by ``a`` and moves ``b`` into the expected value (the engine's ``E`` and
+    ``raw_prediction`` come from the whole predictor), so e.g. a
+    target-scaled GBT still takes the exact path."""
 
+    if isinstance(pred, AffineOutputPredictor) \
+            and isinstance(pred.inner, TreeEnsemblePredictor):
+        return pred.inner, float(pred.a)
     return pred, 1.0
 
 
 def supports_exact(pred) -> bool:
     """Whether ``pred`` can take the exact path: a lifted tree ensemble with
-    raw-margin outputs and materialised path tensors."""
+    raw-margin outputs and materialised path tensors, possibly behind an
+    affine output head."""
 
     tree, _ = _unwrap(pred)
     return (isinstance(tree, TreeEnsemblePredictor)

@@ -415,7 +415,8 @@ def test_adult_gbt_interactions_match_jax(adult_gbr, pack_paths):
     # reach from the phi constants, so the interactions rebuild it once
     packed = eng._exact_consts()["packed"] is not None
     assert packed == bool(pack_paths)
-    assert (("exact_reach_full",) in eng._exact_cache) == packed
+    assert (("exact_reach_full", eng.content_fingerprint())
+            in eng._plan_consts_cache) == packed
     assert ks.kernel_path == {"exact_phi": "plain", "exact_inter": "plain"}
     inter = got.data["raw"]["interaction_values"][0]
     assert inter.shape == (8, 12, 12) and np.isfinite(inter).all()

@@ -310,7 +310,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "distributedkernelshap_tpu_torch.observability.tracing, "
         "distributedkernelshap_tpu_torch.parallel.pipeline, "
         "distributedkernelshap_tpu_torch.anytime, "
-        "distributedkernelshap_tpu_torch.anytime.engine\n"
+        "distributedkernelshap_tpu_torch.anytime.engine, "
+        "distributedkernelshap_tpu_torch.models.xgb, "
+        "distributedkernelshap_tpu_torch.models.lgbm, "
+        "distributedkernelshap_tpu_torch.models.compose, "
+        "distributedkernelshap_tpu_torch.models.tensor_net, "
+        "distributedkernelshap_tpu_torch.ops.tensor_shap\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'distributedkernelshap_tpu', 'pandas', 'sklearn')]\n"
         "assert not bad, bad\n")

@@ -10,8 +10,11 @@ generic routes), the engine's serving entry points (instance chunks,
 staged async explains, anytime rounds, profiler phases, save/load), the
 GBT lifted from xgboost and LightGBM dumps, an affine output head, an
 IsolationForest-shaped ensemble, exact tensor-train SHAP, the singular-Gram
-NaN path and the JAX package's own answers from a committed fixture
-through the public API, checks the answers, and times kernels, plain
+NaN path, the JAX package's own answers from a committed fixture, and
+scikit-learn compositions, SVMs and Gaussian classifiers behind stand-in
+estimators (a folded Pipeline on ``fused_linear_ey``, forwarding ensembles
+whose linear members launch it, a second fixture of real scikit-learn
+fits) through the public API, checks the answers, and times kernels, plain
 versions and explains.
 
     python3 chip_smoke.py [--seed 0]
@@ -163,7 +166,7 @@ Phases (each raises on failure, so the script exits non-zero):
    explainer and of the exact explainer with interactions, each explaining
    bit-identically to its writer;
 21. each phase's seconds from 14 on and the script's so far (printed after
-   phase 28);
+   phase 33);
 22. boosters: phase 6's GBT written out as an xgboost ``save_raw('json')``
    model (``reg:squarederror``; ``binary:logistic``) and a LightGBM
    ``dump_model()`` dict (``regression``; ``binary``), each behind a
@@ -198,7 +201,45 @@ Phases (each raises on failure, so the script exits non-zero):
    ``scripts/make_adult_parity_fixture.py``): the headline LR on all 2560
    rows against the JAX phi (1e-3 plus 16 f32 ulps of p through the logit
    link, ROADMAP C.9), E and f(x); the ``adult_trees_exact`` GBT's exact
-   phi and interactions (256 rows, counted) within 2e-5·max(1, max|·|).
+   phi and interactions (256 rows, counted) within 2e-5·max(1, max|·|);
+29. pipeline (``config_model_zoo``'s ``scaler_pipeline`` and
+   ``grid_search_lr``, at the headline shape B=2560): a
+   ``Pipeline(StandardScaler, LogisticRegression)`` stand-in lifts to one
+   ``LinearPredictor`` whose W and b equal the numpy float64 fold bit for
+   bit; its explain, counted, launches ``fused_linear_ey`` once on the
+   kernel path ``'cuda'``; phi against the bare LR explained on pre-scaled
+   rows (1e-3 plus 16 p-ulps); a ``GridSearchCV`` stand-in lifts to the same
+   W and b; the kernel against its plain version on the pipeline's inputs;
+   both walls;
+30. SVMs (``svc_rbf``): ``SVC`` stand-ins over 2000 seeded support vectors,
+   rbf, linear, poly (degree 3) and sigmoid, explained at B=256 through
+   ``masked_ey`` with ``link='identity'``: additive, 0 hand-kernel launches;
+   at B=8 ``masked_ey`` against the generic route within 1e-4·max(1,
+   max|phi|); the rbf wall, device busy time and the share of its FLOP
+   bound (2·S·B·N·V);
+31. forwarding ensembles at B=64, ``link='identity'``, counted: soft voting
+   (LR, phase 6's GBT as an xgboost stand-in) with weights (0.3, 0.7) takes
+   ``masked_ey``, launches ``fused_linear_ey`` once, phi = 0.3·phi_LR +
+   0.7·phi_GBT within 1e-4·max(1, max|phi|); ``Pipeline(SimpleImputer,
+   GBT)`` forwards the tree's ``masked_ey``, phi bit-identical to the bare
+   GBT's; multilabel one-vs-rest over 3 LRs launches the kernel 3 times;
+   bagging over 5 LRs on 24-column subsets forwards through select stages
+   (5 launches) and agrees with the generic route; each linear member's
+   kernel against its plain version;
+32. the other families at B=16, each explained once: calibrated sigmoid and
+   isotonic over ``LinearSVC`` (3 folds), stacking (LR + GBT → LR with
+   passthrough), AdaBoost SAMME over 50 stumps, a transformed-target
+   regressor, ``GaussianNB`` and QDA: the lifted class, predictions against
+   the stand-in's numpy within 1e-5·max(1, |f|), the route, additivity,
+   the walls;
+33. compose fixture: ``tests/fixtures/compose_parity.npz`` (made by
+   ``scripts/make_compose_parity_fixture.py`` with scikit-learn and the JAX
+   package on the Adult-schema rows): a Pipeline(StandardScaler, LR), an
+   rbf SVC fitted on 1000 rows, a calibrated isotonic LinearSVC and a
+   GaussianNB rebuilt from their fitted attributes; the stand-ins against
+   scikit-learn's outputs (1e-9), the lifts against them (1e-5 relative),
+   phi on 64 rows against the JAX package's (1e-3, plus 16 p-ulps through
+   the logit link).
 
 The second-to-last line of stdout is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -206,6 +247,7 @@ prints no result.
 """
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -287,6 +329,20 @@ TN_ADULT, B_TN = (48, 16, 100), 256
 TN_BRUTE_M, TN_REL = 12, 1e-4
 FIXTURE = "tests/fixtures/adult_parity.npz"
 LOGIT_ULPS = 16         # f32 ulps of p a logit-space value may move (ROADMAP C.9)
+# the eighth slice (phases 29-33): the model zoo of benchmarks/configs.py:293-402
+# (config_model_zoo: B = 256 on the Adult task; its svc_rbf fits 5000 rows,
+# here N_SV seeded support vectors); the pipeline at the headline shape; the
+# forwarding ensembles at B = 64 and the other families at B = 16, since their
+# members' trees and the generic route cost what phase 14 measured; the SVM's
+# generic-route check at B = 8 (~1e11 FLOP of Gram rows at V = 2000); the
+# lifts' predictions against the stand-ins' numpy within ZOO_PRED_REL x max(1,
+# |f|), the generic route and the weighted member sum within 1e-4 x max(1,
+# max|phi|)
+B_ZOO, B_ENSEMBLE, B_FAMILY, B_SVM_GENERIC = 256, 64, 16, 8
+N_SV, N_BAG, BAG_FEATURES, N_STUMPS = 2000, 5, 24, 50
+VOTING_WEIGHTS = (0.3, 0.7)
+ZOO_PRED_REL, SVM_GENERIC_REL, ENSEMBLE_REL = 1e-5, 1e-4, 1e-4
+COMPOSE_FIXTURE = "tests/fixtures/compose_parity.npz"
 
 
 def adult_groups():
@@ -3158,6 +3214,780 @@ def fixture_phase(device, card):
         raise AssertionError("the fixture GBT's exact explain is off")
 
 
+# ---------------------------------------------------------------------- #
+# the eighth slice (phases 29-33): scikit-learn stand-ins.  The card's
+# machine has no scikit-learn, so each stand-in is a class named as
+# scikit-learn names it (the lifters dispatch on ``type(owner).__name__``)
+# carrying the fitted attributes the lifters read, with numpy methods that
+# compute what scikit-learn's do; the lift's probe holds the lifted model
+# against those methods.
+
+
+def _expit(z):
+    return 1.0 / (1.0 + np.exp(-z))
+
+
+class StandardScaler:
+    def __init__(self, mean, scale):
+        self.mean_, self.scale_ = np.asarray(mean, np.float64), np.asarray(scale, np.float64)
+        self.n_features_in_ = self.mean_.shape[0]
+        self.with_mean = self.with_std = True
+
+    def transform(self, X):
+        return (np.asarray(X, np.float64) - self.mean_) / self.scale_
+
+
+class SimpleImputer:
+    missing_values = np.nan
+    add_indicator = False
+
+    def __init__(self, statistics):
+        self.statistics_ = np.asarray(statistics, np.float64)
+
+    def transform(self, X):
+        X = np.asarray(X, np.float64)
+        return np.where(np.isnan(X), self.statistics_[None, :], X)
+
+
+class LogisticRegression:
+    """Binary: ``coef_ (1, D)``, ``intercept_ (1,)``."""
+
+    classes_ = np.arange(2)
+
+    def __init__(self, coef, intercept):
+        self.coef_ = np.asarray(coef, np.float64).reshape(1, -1)
+        self.intercept_ = np.asarray(intercept, np.float64).reshape(1)
+
+    def decision_function(self, X):
+        return (np.asarray(X, np.float64) @ self.coef_.T + self.intercept_)[:, 0]
+
+    def predict_proba(self, X):
+        p = _expit(self.decision_function(X))[:, None]
+        return np.hstack([1.0 - p, p])
+
+
+class LinearSVC(LogisticRegression):
+    pass
+
+
+class Pipeline:
+    def __init__(self, steps):
+        self.steps = list(steps)
+
+    def _rows(self, X):
+        for _, tf in self.steps[:-1]:
+            X = tf.transform(X)
+        return X
+
+    def predict_proba(self, X):
+        return self.steps[-1][1].predict_proba(self._rows(X))
+
+    def decision_function(self, X):
+        return self.steps[-1][1].decision_function(self._rows(X))
+
+    def predict(self, X):
+        return self.steps[-1][1].predict(self._rows(X))
+
+
+class GridSearchCV:
+    def __init__(self, best):
+        self.best_estimator_ = best
+
+    def predict_proba(self, X):
+        return self.best_estimator_.predict_proba(X)
+
+
+class SVC:
+    """Binary ``SVC`` (``dual_coef_ (1, V)``); the kernel expansion in
+    float64."""
+
+    def __init__(self, sv, dual, intercept, gamma, kernel="rbf", coef0=0.0, degree=3):
+        self.support_vectors_ = np.asarray(sv, np.float64)
+        self.dual_coef_ = np.asarray(dual, np.float64).reshape(1, -1)
+        self.intercept_ = np.asarray(intercept, np.float64).reshape(1)
+        self._gamma, self.kernel, self.coef0, self.degree = float(gamma), kernel, coef0, degree
+
+    def decision_function(self, X):
+        X = np.asarray(X, np.float64)
+        sv = self.support_vectors_
+        G = X @ sv.T
+        if self.kernel == "rbf":
+            d2 = (X ** 2).sum(1)[:, None] + (sv ** 2).sum(1)[None, :] - 2.0 * G
+            k = np.exp(-self._gamma * np.maximum(d2, 0.0))
+        elif self.kernel == "poly":
+            k = (self._gamma * G + self.coef0) ** self.degree
+        elif self.kernel == "sigmoid":
+            k = np.tanh(self._gamma * G + self.coef0)
+        else:
+            k = G
+        return k @ self.dual_coef_[0] + self.intercept_[0]
+
+
+class _SigmoidCalibration:
+    def __init__(self, a, b):
+        self.a_, self.b_ = float(a), float(b)
+
+    def predict(self, f):
+        return 1.0 / (1.0 + np.exp(self.a_ * f + self.b_))
+
+
+class IsotonicRegression:
+    def __init__(self, xs, ys):
+        self.X_thresholds_ = np.asarray(xs, np.float64)
+        self.y_thresholds_ = np.asarray(ys, np.float64)
+
+    def predict(self, f):
+        xs = self.X_thresholds_
+        return np.interp(np.clip(f, xs[0], xs[-1]), xs, self.y_thresholds_)
+
+
+class _CalibratedClassifier:
+    def __init__(self, estimator, calibrator):
+        self.estimator, self.calibrators = estimator, [calibrator]
+
+
+class CalibratedClassifierCV:
+    """Binary, one ``(LinearSVC, calibrator)`` pair per fold; the mean of
+    the folds' calibrated probabilities."""
+
+    classes_ = np.arange(2)
+
+    def __init__(self, folds):
+        self.calibrated_classifiers_ = [_CalibratedClassifier(e, c) for e, c in folds]
+
+    def predict_proba(self, X):
+        p = np.mean([cc.calibrators[0].predict(cc.estimator.decision_function(X))
+                     for cc in self.calibrated_classifiers_], axis=0)[:, None]
+        return np.hstack([1.0 - p, p])
+
+
+class GaussianNB:
+    def __init__(self, theta, var, prior):
+        self.theta_, self.var_ = np.asarray(theta, np.float64), np.asarray(var, np.float64)
+        self.class_prior_ = np.asarray(prior, np.float64)
+
+    def predict_proba(self, X):
+        X = np.asarray(X, np.float64)
+        jll = (np.log(self.class_prior_)[None, :]
+               - 0.5 * np.sum(np.log(2.0 * np.pi * self.var_), axis=1)[None, :]
+               - 0.5 * (((X[:, None, :] - self.theta_[None]) ** 2) / self.var_[None]).sum(-1))
+        return _softmax(jll)
+
+
+class QuadraticDiscriminantAnalysis:
+    def __init__(self, means, rotations, scalings, priors):
+        self.means_ = np.asarray(means, np.float64)
+        self.rotations_ = [np.asarray(r, np.float64) for r in rotations]
+        self.scalings_ = [np.asarray(s, np.float64) for s in scalings]
+        self.priors_ = np.asarray(priors, np.float64)
+
+    def predict_proba(self, X):
+        X = np.asarray(X, np.float64)
+        cols = []
+        for k in range(self.means_.shape[0]):
+            X2 = (X - self.means_[k]) @ (self.rotations_[k] * self.scalings_[k] ** -0.5)
+            cols.append(-0.5 * ((X2 ** 2).sum(1) + np.log(self.scalings_[k]).sum())
+                        + np.log(self.priors_[k]))
+        return _softmax(np.stack(cols, 1))
+
+
+def _softmax(z):
+    e = np.exp(z - z.max(1, keepdims=True))
+    return e / e.sum(1, keepdims=True)
+
+
+class VotingClassifier:
+    voting = "soft"
+
+    def __init__(self, estimators, weights):
+        self.estimators_, self._weights_not_none = list(estimators), list(weights)
+
+    def predict_proba(self, X):
+        return np.average([e.predict_proba(X) for e in self.estimators_], axis=0,
+                          weights=self._weights_not_none)
+
+
+class OneVsRestClassifier:
+    def __init__(self, estimators, multilabel):
+        self.estimators_, self.multilabel_ = list(estimators), multilabel
+
+    def predict_proba(self, X):
+        P = np.stack([e.predict_proba(X)[:, 1] for e in self.estimators_], 1)
+        return P if self.multilabel_ else P / P.sum(1, keepdims=True)
+
+
+class BaggingClassifier:
+    def __init__(self, estimators, features, n_features):
+        self.estimators_, self.estimators_features_ = list(estimators), list(features)
+        self.n_features_in_ = n_features
+
+    def predict_proba(self, X):
+        X = np.asarray(X, np.float64)
+        return np.mean([e.predict_proba(X[:, f]) for e, f in
+                        zip(self.estimators_, self.estimators_features_)], axis=0)
+
+
+class StackingClassifier:
+    """Binary: each member's positive probability (scikit-learn drops the
+    first column), then the raw rows when ``passthrough``."""
+
+    classes_ = np.arange(2)
+
+    def __init__(self, estimators, final, passthrough):
+        self.estimators_, self.final_estimator_ = list(estimators), final
+        self.stack_method_ = ["predict_proba"] * len(self.estimators_)
+        self.passthrough = passthrough
+
+    def predict_proba(self, X):
+        X = np.asarray(X, np.float64)
+        cols = [e.predict_proba(X)[:, 1:2] for e in self.estimators_]
+        return self.final_estimator_.predict_proba(np.hstack(cols + ([X] if self.passthrough
+                                                                    else [])))
+
+
+class _Tree:
+    """The ``tree_`` of a depth-1 ``DecisionTreeClassifier``."""
+
+    n_outputs, node_count = 1, 3
+
+    def __init__(self, feature, threshold, left, right):
+        self.feature = np.array([feature, -2, -2])
+        self.threshold = np.array([threshold, -2.0, -2.0])
+        self.children_left = np.array([1, -1, -1])
+        self.children_right = np.array([2, -1, -1])
+        self.value = np.array([[[0.5, 0.5]], [left], [right]], np.float64)
+
+
+class DecisionTreeClassifier:
+    classes_ = np.arange(2)
+
+    def __init__(self, feature, threshold, left, right):
+        self.tree_ = _Tree(feature, threshold, left, right)
+
+    def predict_proba(self, X):
+        t = self.tree_
+        go_left = np.asarray(X, np.float64)[:, t.feature[0]] <= t.threshold[0]
+        return np.where(go_left[:, None], t.value[1, 0][None], t.value[2, 0][None])
+
+
+class AdaBoostClassifier:
+    """Binary SAMME, scikit-learn's ``decision_function`` and
+    ``_compute_proba_from_decision``."""
+
+    algorithm = "SAMME"
+    classes_ = np.arange(2)
+
+    def __init__(self, estimators, weights):
+        self.estimators_ = list(estimators)
+        self.estimator_weights_ = np.asarray(weights, np.float64)
+
+    def decision_function(self, X):
+        pred = sum(np.where((np.argmax(e.predict_proba(X), 1)[None, :]
+                             == self.classes_[:, None]).T, w, -w)
+                   for e, w in zip(self.estimators_, self.estimator_weights_))
+        pred = pred / self.estimator_weights_.sum()
+        return pred[:, 1] - pred[:, 0]
+
+    def predict_proba(self, X):
+        d = self.decision_function(X)
+        return _softmax(np.stack([-d, d], 1) / 2.0)
+
+
+class TransformedTargetRegressor:
+    def __init__(self, regressor, transformer):
+        self.regressor_, self.transformer_ = regressor, transformer
+
+    def predict(self, X):
+        t = self.transformer_
+        return self.regressor_.predict(X) * t.scale_[0] + t.mean_[0]
+
+
+@contextlib.contextmanager
+def recorded_ey_calls():
+    """Inside the block, every ``fused_linear_ey`` call of the explain path
+    (``ops.explain`` imports the wrapper by name) appends its arguments to
+    the yielded list; the kernel still launches and counts."""
+
+    from distributedkernelshap_tpu_torch.ops import explain as explain_mod
+
+    kernel, calls = explain_mod.fused_linear_ey, []
+
+    def recorded(*a, **k):
+        calls.append((a, k))
+        return kernel(*a, **k)
+
+    explain_mod.fused_linear_ey = recorded
+    try:
+        yield calls
+    finally:
+        explain_mod.fused_linear_ey = kernel
+
+
+def kernel_vs_plain_on(calls) -> float:
+    """``fused_linear_ey`` against its plain version on each recorded call's
+    own arguments (these launches come after a path's counts were read);
+    the worst difference, which must be within ``EY_ATOL``."""
+
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+        fused_linear_ey,
+        fused_linear_ey_plain,
+    )
+
+    worst = 0.0
+    for a, k in calls:
+        worst = max(worst, float((fused_linear_ey(*a, **k)
+                                  - fused_linear_ey_plain(*a, **k)).abs().max()))
+    if not worst <= EY_ATOL:
+        raise AssertionError(f"fused_linear_ey vs plain {worst:.3e} on a new path's inputs")
+    return worst
+
+
+def logit_tol(raw):
+    """Phase 28's tolerance of logit-space phi per row: ``PHI_ATOL`` plus
+    ``LOGIT_ULPS`` f32 ulps of p at the row's f(x) (ROADMAP C.9)."""
+
+    return PHI_ATOL + LOGIT_ULPS * 2.0 ** -24 * (2.0 + 2.0 * np.cosh(raw))
+
+
+def pipeline_phase(X, bg, device, card, seed):
+    """Phase 29: ``Pipeline(StandardScaler, LogisticRegression)`` at the
+    headline shape (B = 2560): it lifts to ONE ``LinearPredictor`` whose
+    ``W`` and ``b`` equal the fold computed here in numpy float64 (the
+    formula of ``models/compose._compose_linear``); its explain launches
+    ``fused_linear_ey`` once on the kernel path ``'cuda'`` and agrees with
+    the bare LR explained on the pre-scaled rows and background; a
+    ``GridSearchCV`` over the pipeline lifts to the same ``W`` and ``b``;
+    the kernel against its plain version on the pipeline's arguments.
+    Returns that difference."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.models import LinearPredictor, as_predictor
+
+    rng = np.random.default_rng([seed, 29])
+    D = X.shape[1]
+    sample = adult_shaped_rows(rng, 1000).astype(np.float64)
+    scaler = StandardScaler(sample.mean(0), sample.std(0) + 0.05)
+    lr = LogisticRegression(rng.normal(scale=0.3, size=(1, D)), [-0.5])
+    pipe = Pipeline([("sc", scaler), ("lr", lr)])
+    f32, f64 = np.float32, np.float64
+    a = np.asarray(1.0 / scaler.scale_, f32).astype(f64)
+    c = np.asarray(-scaler.mean_ / scaler.scale_, f32).astype(f64)
+    coef = np.asarray(lr.coef_, f32)
+    W_in = np.concatenate([np.zeros_like(coef), coef], 0).T.astype(f64)
+    b_in = np.asarray([0.0, np.float32(lr.intercept_[0])], f64)
+    Mx = np.eye(D, dtype=f64) * a[None, :]
+    v = np.zeros(D, dtype=f64) * a + c
+    W_fold, b_fold = (Mx @ W_in).astype(f32), (v @ W_in + b_in).astype(f32)
+
+    reset_launches()
+    with recorded_ey_calls() as calls:
+        explainer, expl = explain_sampled(pipe.predict_proba, X, bg, device)
+        torch.cuda.synchronize()
+    launches, path = kernel_launches(), explainer.kernel_path
+    lifted = explainer._explainer.predictor
+    folded = isinstance(lifted, LinearPredictor) and np.array_equal(
+        lifted.W.cpu().numpy(), W_fold) and np.array_equal(lifted.b.cpu().numpy(), b_fold)
+    phi, add_err = sampled_phi(expl, X.shape[0])
+    Xs, bgs = scaler.transform(X).astype(f32), scaler.transform(bg).astype(f32)
+    bare, expl_bare = explain_sampled(lr.predict_proba, Xs, bgs, device)
+    raw = expl_bare.data["raw"]["raw_prediction"][:, 1]
+    d_bare = np.abs(phi - sampled_phi(expl_bare, X.shape[0])[0]).max((1, 2))
+    bare_ok = bool((d_bare <= logit_tol(raw)).all())
+    gs = GridSearchCV(pipe)
+    searched = as_predictor(gs.predict_proba, example_dim=D, probe_data=bg, device=device)
+    same_search = isinstance(searched, LinearPredictor) and torch.equal(
+        searched.W, lifted.W) and torch.equal(searched.b, lifted.b)
+    err = kernel_vs_plain_on(calls)
+    wall, runs = median_wall_ms(lambda: explainer.explain(X, silent=True), 3)
+    wall_bare, runs_bare = median_wall_ms(lambda: bare.explain(Xs, silent=True), 3)
+    print(f"pipeline: Pipeline(StandardScaler, LogisticRegression) B={X.shape[0]} lifted to "
+          f"{type(lifted).__name__}, W and b equal to the numpy float64 fold: {folded}; "
+          f"launches {launches} (want fused_linear_ey=1), kernel_path {path}, additivity "
+          f"{add_err:.3e}; |phi - phi of the bare LR on pre-scaled rows| max "
+          f"{d_bare.max():.3e} (tol {PHI_ATOL:g} + {LOGIT_ULPS} p-ulps; logits in "
+          f"[{raw.min():.2f}, {raw.max():.2f}]); GridSearchCV lifts to the same W, b: "
+          f"{same_search}; fused_linear_ey vs plain on its inputs {err:.3e}; wall median of 3 "
+          f"{wall:.3f} ms (runs {runs}), bare LR {wall_bare:.3f} ms (runs {runs_bare}) on "
+          f"{card}", flush=True)
+    if not (folded and launches["fused_linear_ey"] == 1 and path == {"ey": "cuda"}
+            and bare_ok and same_search):
+        raise AssertionError("the folded pipeline is off")
+    return err
+
+
+def svm_phase(X_all, bg, device, card, seed):
+    """Phase 30: ``SVC`` stand-ins over ``N_SV`` seeded Adult-shaped support
+    vectors (rbf, linear, poly of degree 3, sigmoid; gamma 'scale') lifted
+    through ``KernelShap(svc.decision_function)`` and explained at
+    ``B_ZOO`` through ``masked_ey`` with ``link='identity'``: additive, no
+    hand kernel; at ``B_SVM_GENERIC`` the same explain through the generic
+    route (the lifted SVM wrapped as a ``TorchPredictor``) within
+    ``SVM_GENERIC_REL · max(1, max|phi|)``; the rbf wall, its device busy
+    time and the share of its FLOP bound (2·S·B·N·V for the factorised
+    contraction)."""
+
+    import torch
+    from distributedkernelshap_tpu_torch import EngineConfig, TorchPredictor
+    from distributedkernelshap_tpu_torch.models import SVMPredictor
+    from distributedkernelshap_tpu_torch.ops.explain import ShapConfig
+
+    rng = np.random.default_rng([seed, 30])
+    sv = adult_shaped_rows(rng, N_SV).astype(np.float64)
+    dual = rng.uniform(-1.0, 1.0, size=N_SV) * 0.05
+    gamma = 1.0 / (sv.shape[1] * sv.var())
+    X = X_all[:B_ZOO]
+    for kernel in ("rbf", "linear", "poly", "sigmoid"):
+        svc = SVC(sv, dual, [0.1], gamma, kernel=kernel)
+        t0 = time.perf_counter()
+        reset_launches()
+        explainer, expl = explain_sampled(svc.decision_function, X, bg, device,
+                                          link="identity")
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        launches, path = kernel_launches(), explainer.kernel_path
+        lifted = explainer._explainer.predictor
+        phi, add_err = sampled_phi(expl, B_ZOO, K=1)
+        with torch.no_grad():
+            got = lifted(torch.as_tensor(X, device=device)).cpu().numpy()[:, 0]
+        want = svc.decision_function(X)
+        d_pred = float(np.abs(got - want).max())
+        small = X[:B_SVM_GENERIC]
+        phi_m = sampled_phi(explainer.explain(small, silent=True), B_SVM_GENERIC, K=1)[0]
+        gen, expl_g = explain_sampled(
+            TorchPredictor(lifted, n_outputs=1, vector_out=False, device=device), small, bg,
+            device, link="identity", engine_config=EngineConfig(
+                shap=ShapConfig(target_chunk_elems=1 << 22)))
+        phi_g = sampled_phi(expl_g, B_SVM_GENERIC, K=1)[0]
+        d_gen = float(np.abs(phi_m - phi_g).max())
+        tol = SVM_GENERIC_REL * max(1.0, float(np.abs(phi_g).max()))
+        print(f"svm {kernel}: V={N_SV} gamma={gamma:.4f} lifted to {type(lifted).__name__}, "
+              f"|f lifted - f numpy| {d_pred:.3e}; B={B_ZOO} launches {launches} (want all "
+              f"0), kernel_path {path}, additivity {add_err:.3e}, max|phi| "
+              f"{np.abs(phi).max():.3f}; B={B_SVM_GENERIC} masked_ey vs the generic route "
+              f"({gen.kernel_path}) {d_gen:.3e} (tol {tol:.2e}); first explain "
+              f"{1e3 * first:.1f} ms", flush=True)
+        if not (isinstance(lifted, SVMPredictor) and path == {"ey": "masked_ey"}
+                and not any(launches.values()) and gen.kernel_path == {"ey": "generic"}
+                and d_gen <= tol and d_pred <= ZOO_PRED_REL * max(1.0, np.abs(want).max())):
+            raise AssertionError(f"the {kernel} SVM explain is off")
+        if kernel == "rbf":
+            wall, runs = median_wall_ms(lambda: explainer.explain(X, silent=True), 3)
+            p_wall, busy, idle, events, top = device_busy(
+                lambda: explainer.explain(X, silent=True))
+            S = explainer._explainer._plan(None).n_rows
+            bound = 1e3 * 2.0 * S * B_ZOO * N_BACKGROUND * N_SV / FP32_FLOPS_PER_S
+            print(f"times on {card}: rbf SVM explain B={B_ZOO} V={N_SV} wall median of 3 "
+                  f"{wall:.3f} ms (runs {runs}); under torch.profiler wall {p_wall:.3f} ms, "
+                  f"device busy {busy:.3f} ms, idle share {idle:.4f}, {events} device events, "
+                  f"most device time {top}; FLOP bound of the factorised contraction "
+                  f"(2·S·B·N·V = {2.0 * S * B_ZOO * N_BACKGROUND * N_SV:.3e} f32 FLOP) "
+                  f"{bound:.3f} ms = {100 * bound / wall:.1f}% of the wall, "
+                  f"{100 * bound / busy:.1f}% of the busy time", flush=True)
+
+
+def ensemble_members(tables, X_all, device, seed):
+    """Phase 31's and 32's members: a binary LR stand-in and phase 6's GBT
+    behind an ``XGBClassifier`` stand-in (its binary:logistic dump, the
+    lift of phase 22)."""
+
+    rng = np.random.default_rng([seed, 31])
+    lr = LogisticRegression(rng.normal(scale=0.3, size=(1, X_all.shape[1])), [-0.4])
+    seeded = tree_predictor(tables, device, head="binary_sigmoid")
+    gbt = booster_owner("XGBClassifier",
+                        xgboost_json(tables, "binary:logistic", _expit(GBT_BASE)),
+                        numpy_fn(seeded, device))
+    return lr, gbt, rng
+
+
+def ensemble_phase(tables, X_all, bg, device, card, seed):
+    """Phase 31: the forwarding compositions at ``B_ENSEMBLE`` with
+    ``link='identity'``: soft voting (LR, GBT) with weights
+    ``VOTING_WEIGHTS`` takes ``masked_ey``, launches ``fused_linear_ey``
+    once and its phi is the weighted sum of the members' phi;
+    ``Pipeline(SimpleImputer, GBT)`` on NaN-free rows forwards the tree's
+    ``masked_ey`` with phi bit-identical to the bare GBT's; multilabel
+    one-vs-rest over 3 LRs launches the kernel 3 times; bagging over
+    ``N_BAG`` LRs on feature subsets forwards through select stages (one
+    launch each) and agrees with the generic route.  Each linear member's
+    kernel against its plain version.  Returns the worst difference."""
+
+    import torch
+    from distributedkernelshap_tpu_torch import TorchPredictor
+    from distributedkernelshap_tpu_torch.models import (
+        MeanEnsemblePredictor,
+        OneVsRestPredictor,
+        PipelinePredictor,
+    )
+
+    X = X_all[:B_ENSEMBLE]
+    lr, gbt, rng = ensemble_members(tables, X_all, device, seed)
+    worst = 0.0
+
+    def counted(model):
+        reset_launches()
+        t0 = time.perf_counter()
+        with recorded_ey_calls() as calls:
+            explainer, expl = explain_sampled(model, X, bg, device, link="identity")
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return explainer, expl, kernel_launches(), secs, calls
+
+    voting = VotingClassifier([lr, gbt], VOTING_WEIGHTS)
+    ex_v, expl_v, launches, secs, calls = counted(voting.predict_proba)
+    phi_v, add_err = sampled_phi(expl_v, B_ENSEMBLE)
+    _, expl_lr, _, _, _ = counted(lr.predict_proba)
+    _, expl_gb, _, _, _ = counted(gbt.predict_proba)
+    phi_lr, phi_gb = sampled_phi(expl_lr, B_ENSEMBLE)[0], sampled_phi(expl_gb, B_ENSEMBLE)[0]
+    mix = VOTING_WEIGHTS[0] * phi_lr + VOTING_WEIGHTS[1] * phi_gb
+    d_mix = float(np.abs(phi_v - mix).max())
+    tol = ENSEMBLE_REL * max(1.0, float(np.abs(mix).max()))
+    lifted = ex_v._explainer.predictor
+    err = kernel_vs_plain_on(calls)
+    worst = max(worst, err)
+    print(f"ensembles: soft voting (LR, GBT) weights {VOTING_WEIGHTS} B={B_ENSEMBLE} lifted to "
+          f"{type(lifted).__name__}; launches {launches} (want fused_linear_ey=1), kernel_path "
+          f"{ex_v.kernel_path}, additivity {add_err:.3e}, |phi - (w0 phi LR + w1 phi GBT)| "
+          f"{d_mix:.3e} (tol {tol:.2e}); member kernel vs plain {err:.3e}; first explain "
+          f"{1e3 * secs:.1f} ms", flush=True)
+    if not (isinstance(lifted, MeanEnsemblePredictor) and launches["fused_linear_ey"] == 1
+            and ex_v.kernel_path == {"ey": "masked_ey"} and d_mix <= tol):
+        raise AssertionError("the soft-voting explain is off")
+
+    imputer = SimpleImputer(rng.normal(size=X.shape[1]))
+    pipe = Pipeline([("imp", imputer), ("gb", gbt)])
+    ex_p, expl_p, launches, secs, _ = counted(pipe.predict_proba)
+    same = np.array_equal(sampled_phi(expl_p, B_ENSEMBLE)[0], phi_gb)
+    lifted = ex_p._explainer.predictor
+    print(f"ensembles: Pipeline(SimpleImputer, GBT) lifted to {type(lifted).__name__}, "
+          f"launches {launches} (want all 0), kernel_path {ex_p.kernel_path}, phi "
+          f"bit-identical to the bare GBT's: {same}; first explain {1e3 * secs:.1f} ms",
+          flush=True)
+    if not (isinstance(lifted, PipelinePredictor) and same and not any(launches.values())
+            and ex_p.kernel_path == {"ey": "masked_ey"}):
+        raise AssertionError("the imputer pipeline did not forward the tree's masked_ey")
+
+    lrs = [LogisticRegression(rng.normal(scale=0.3, size=(1, X.shape[1])), [c])
+           for c in (-0.5, 0.0, 0.5)]
+    ovr = OneVsRestClassifier(lrs, multilabel=True)
+    ex_o, expl_o, launches, secs, calls = counted(ovr.predict_proba)
+    _, add_err = sampled_phi(expl_o, B_ENSEMBLE, K=3)
+    lifted = ex_o._explainer.predictor
+    worst = max(worst, kernel_vs_plain_on(calls))
+    print(f"ensembles: multilabel one-vs-rest over 3 LRs lifted to {type(lifted).__name__} "
+          f"(normalise {lifted.normalise}), launches {launches} (want fused_linear_ey=3), "
+          f"kernel_path {ex_o.kernel_path}, additivity {add_err:.3e}; members' kernel vs "
+          f"plain {worst:.3e}; first explain {1e3 * secs:.1f} ms", flush=True)
+    if not (isinstance(lifted, OneVsRestPredictor) and launches["fused_linear_ey"] == 3
+            and ex_o.kernel_path == {"ey": "masked_ey"}):
+        raise AssertionError("the multilabel one-vs-rest explain is off")
+
+    feats = [np.sort(rng.choice(X.shape[1], BAG_FEATURES, replace=False))
+             for _ in range(N_BAG)]
+    members = [LogisticRegression(rng.normal(scale=0.4, size=(1, BAG_FEATURES)), [0.1])
+               for _ in range(N_BAG)]
+    bag = BaggingClassifier(members, feats, X.shape[1])
+    ex_b, expl_b, launches, secs, calls = counted(bag.predict_proba)
+    phi_b, add_err = sampled_phi(expl_b, B_ENSEMBLE)
+    lifted = ex_b._explainer.predictor
+    worst = max(worst, kernel_vs_plain_on(calls))
+    _, expl_g = explain_sampled(TorchPredictor(lifted, n_outputs=2, device=device), X, bg,
+                                device, link="identity")
+    d_gen = float(np.abs(phi_b - sampled_phi(expl_g, B_ENSEMBLE)[0]).max())
+    tol = ENSEMBLE_REL * max(1.0, float(np.abs(phi_b).max()))
+    selects = sum(isinstance(m, PipelinePredictor) for m in lifted.members)
+    print(f"ensembles: bagging {N_BAG} LRs on {BAG_FEATURES}-column subsets lifted to "
+          f"{type(lifted).__name__} ({selects} select stages), launches {launches} (want "
+          f"fused_linear_ey={N_BAG}), kernel_path {ex_b.kernel_path}, additivity "
+          f"{add_err:.3e}, |phi - generic route phi| {d_gen:.3e} (tol {tol:.2e}); members' "
+          f"kernel vs plain {worst:.3e}; first explain {1e3 * secs:.1f} ms on {card}",
+          flush=True)
+    if not (isinstance(lifted, MeanEnsemblePredictor) and selects == N_BAG
+            and launches["fused_linear_ey"] == N_BAG and ex_b.kernel_path == {"ey": "masked_ey"}
+            and d_gen <= tol):
+        raise AssertionError("the bagging explain is off")
+    return worst
+
+
+def family_models(tables, X_all, device, seed):
+    """Phase 32's stand-ins: ``(name, method, lifted class, link)``."""
+
+    lr, gbt, _ = ensemble_members(tables, X_all, device, seed)
+    rng = np.random.default_rng([seed, 32])
+    D = X_all.shape[1]
+
+    def svcs():
+        return [LinearSVC(rng.normal(scale=0.3, size=(1, D)), [rng.normal(scale=0.2)])
+                for _ in range(3)]
+
+    sig = CalibratedClassifierCV([(m, _SigmoidCalibration(-1.6 + 0.2 * i, 0.1 * i))
+                                  for i, m in enumerate(svcs())])
+    iso = CalibratedClassifierCV([(m, IsotonicRegression(
+        np.sort(rng.uniform(-4.0, 4.0, 40)), np.sort(rng.uniform(0.02, 0.98, 40))))
+        for m in svcs()])
+    final = LogisticRegression(rng.normal(scale=0.3, size=(1, 2 + D)), [-0.2])
+    stack = StackingClassifier([lr, gbt], final, passthrough=True)
+    stumps = []
+    for _ in range(N_STUMPS):
+        f = int(rng.integers(0, D))
+        thr = float(np.float32(rng.normal(scale=0.5) if f < 4 else 0.5))
+        p, q = rng.uniform(0.05, 0.45), rng.uniform(0.55, 0.95)
+        left, right = ([p, 1 - p], [q, 1 - q]) if rng.random() < 0.5 else ([q, 1 - q],
+                                                                           [p, 1 - p])
+        stumps.append(DecisionTreeClassifier(f, thr, left, right))
+    ada = AdaBoostClassifier(stumps, rng.uniform(0.2, 1.5, N_STUMPS))
+    seeded = tree_predictor(tables, device)
+    reg = booster_owner("XGBRegressor", xgboost_json(tables), numpy_fn(seeded, device,
+                                                                        scalar=True))
+    ttr = TransformedTargetRegressor(reg, StandardScaler([3.0], [2.5]))
+    nb = GaussianNB(rng.normal(scale=0.3, size=(2, D)), rng.uniform(1.0, 3.0, (2, D)),
+                    [0.6, 0.4])
+    rot = [np.linalg.qr(rng.normal(size=(D, D)))[0] for _ in range(2)]
+    qda = QuadraticDiscriminantAnalysis(rng.normal(scale=0.2, size=(2, D)), rot,
+                                        [rng.uniform(2.0, 6.0, D) for _ in range(2)], [0.5, 0.5])
+    return [("calibrated sigmoid", sig.predict_proba, "MeanEnsemblePredictor", "logit"),
+            ("calibrated isotonic", iso.predict_proba, "MeanEnsemblePredictor", "logit"),
+            ("stacking", stack.predict_proba, "StackingPredictor", "logit"),
+            ("AdaBoost SAMME", ada.predict_proba, "AdaBoostPredictor", "logit"),
+            ("transformed target", ttr.predict, "AffineOutputPredictor", "identity"),
+            ("GaussianNB", nb.predict_proba, "QuadraticDiscriminantPredictor", "logit"),
+            ("QDA", qda.predict_proba, "QuadraticDiscriminantPredictor", "logit")]
+
+
+def family_phase(tables, X_all, bg, device, card, seed):
+    """Phase 32: the other families at ``B_FAMILY``, each explained once
+    through the public entry point: the lifted class, predictions on 256
+    rows against the stand-in's numpy within ``ZOO_PRED_REL · max(1,
+    |f|)``, the route taken, additivity and the wall."""
+
+    import torch
+
+    X = X_all[:B_FAMILY]
+    for name, method, want, link in family_models(tables, X_all, device, seed):
+        from distributedkernelshap_tpu_torch import KernelShap
+
+        task = "regression" if link == "identity" else "classification"
+        t0 = time.perf_counter()
+        explainer = KernelShap(method, link=link, task=task, seed=0, device=device)
+        explainer.fit(bg, group_names=ADULT_GROUP_NAMES, groups=adult_groups())
+        reset_launches()
+        t1 = time.perf_counter()
+        expl = explainer.explain(X, silent=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = kernel_launches()
+        lifted = explainer._explainer.predictor
+        K = lifted.n_outputs
+        _, add_err = sampled_phi(expl, B_FAMILY, K=K)
+        rows = X_all[:B_ZOO]
+        with torch.no_grad():
+            got = lifted(torch.as_tensor(rows, device=device)).cpu().numpy()
+        ref = np.asarray(method(rows.astype(np.float64)))
+        ref = ref[:, None] if ref.ndim == 1 else ref
+        d_pred = float(np.abs(got - ref).max())
+        tol = ZOO_PRED_REL * max(1.0, float(np.abs(ref).max()))
+        print(f"family {name}: lifted to {type(lifted).__name__} (want {want}), |f lifted - f "
+              f"numpy| on {B_ZOO} rows {d_pred:.3e} (tol {tol:.1e}); B={B_FAMILY} link {link} "
+              f"route {explainer.kernel_path}, launches {launches}, additivity {add_err:.3e}; "
+              f"explain wall {1e3 * (t2 - t1):.1f} ms (fit with lift and probe "
+              f"{1e3 * (t1 - t0):.1f} ms) on {card}", flush=True)
+        if type(lifted).__name__ != want or not d_pred <= tol or any(launches.values()):
+            raise AssertionError(f"the {name} lift or explain is off")
+
+
+def load_compose_fixture():
+    import os
+
+    return np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), COMPOSE_FIXTURE),
+                   allow_pickle=False)
+
+
+def compose_fixture_models(fx):
+    """The fixture's models rebuilt as stand-ins from their fitted
+    attributes: ``{name: (method, link, lifted class)}``."""
+
+    pipe = Pipeline([("sc", StandardScaler(fx["pipe_mean"], fx["pipe_scale"])),
+                     ("lr", LogisticRegression(fx["pipe_coef"], fx["pipe_intercept"]))])
+    svc = SVC(fx["svc_sv"], fx["svc_dual"], fx["svc_intercept"], float(fx["svc_gamma"]))
+    ends = np.cumsum(fx["cal_len"])
+    folds = [(LinearSVC(fx["cal_coef"][i], fx["cal_intercept"][i]),
+              IsotonicRegression(fx["cal_x"][e - n:e], fx["cal_y"][e - n:e]))
+             for i, (e, n) in enumerate(zip(ends, fx["cal_len"]))]
+    cal = CalibratedClassifierCV(folds)
+    nb = GaussianNB(fx["nb_theta"], fx["nb_var"], fx["nb_prior"])
+    return {"pipe": (pipe.predict_proba, "logit"), "svc": (svc.decision_function, "identity"),
+            "cal": (cal.predict_proba, "identity"), "nb": (nb.predict_proba, "identity")}
+
+
+def compose_fixture_checks(fx, device, n_rows=None):
+    """Each fixture model rebuilt, lifted through ``KernelShap`` on
+    ``device`` and explained on the fixture's first ``n_rows`` rows (all by
+    default): the stand-in's numpy against scikit-learn's outputs, the lifted
+    predictions against them within ``ZOO_PRED_REL · max(1, |f|)``, phi
+    against the JAX package's within ``PHI_ATOL`` (plus ``LOGIT_ULPS`` f32
+    ulps of p through the logit link).  Returns a report per model."""
+
+    import torch
+    from distributedkernelshap_tpu_torch import KernelShap
+
+    widths = [int(w) for w in fx["group_widths"]]
+    starts = np.concatenate([[0], np.cumsum(widths)[:-1]])
+    groups = [list(range(s, s + w)) for s, w in zip(starts, widths)]
+    names = [f"g{i}" for i in range(len(widths))]
+    X, bg = fx["X"], fx["background"]
+    n = n_rows or X.shape[0]
+    reports = {}
+    for name, (method, link) in compose_fixture_models(fx).items():
+        sk = np.asarray(fx[f"{name}_out"], np.float64)
+        numpy_err = float(np.abs(np.asarray(method(X.astype(np.float64))) - sk).max())
+        t0 = time.perf_counter()
+        explainer = KernelShap(method, link=link, seed=0, device=device)
+        explainer.fit(bg, group_names=names, groups=groups)
+        expl = explainer.explain(X[:n], silent=True)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        lifted = explainer._explainer.predictor
+        with torch.no_grad():
+            got = lifted(torch.as_tensor(X, device=device)).cpu().numpy()
+        got = got[:, 0] if sk.ndim == 1 else got
+        pred_err = float(np.abs(got - sk).max())
+        sv = expl.shap_values
+        phi = np.stack(sv if isinstance(sv, list) else [sv], 1)
+        d_phi = np.abs(phi - fx[f"{name}_phi"][:n]).max((1, 2))
+        raw = fx[f"{name}_raw"][:n]
+        tol = logit_tol(raw.reshape(n, -1)[:, -1]) if link == "logit" else PHI_ATOL
+        reports[name] = {
+            "lifted": type(lifted).__name__, "want_class": str(fx[f"{name}_lifted"]),
+            "numpy_err": numpy_err, "pred_err": pred_err,
+            "pred_ok": pred_err <= ZOO_PRED_REL * max(1.0, float(np.abs(sk).max())),
+            "phi_err": float(d_phi.max()), "phi_ok": bool((d_phi <= tol).all()),
+            "route": explainer.kernel_path, "seconds": secs, "link": link}
+    return reports
+
+
+def compose_fixture_phase(device, card):
+    """Phase 33: ``tests/fixtures/compose_parity.npz`` (made by
+    ``scripts/make_compose_parity_fixture.py`` with scikit-learn and the JAX
+    package): a Pipeline(StandardScaler, LR), an rbf SVC fitted on 1000
+    Adult-schema rows, a calibrated isotonic LinearSVC and a GaussianNB,
+    rebuilt from their fitted attributes and explained on the card; their
+    predictions against scikit-learn's outputs and their phi against the
+    JAX package's."""
+
+    fx = load_compose_fixture()
+    reports = compose_fixture_checks(fx, device)
+    for name, r in reports.items():
+        print(f"compose fixture {name} ({COMPOSE_FIXTURE}, provenance {fx['provenance']}): "
+              f"lifted to {r['lifted']} (JAX: {r['want_class']}); stand-in numpy vs "
+              f"scikit-learn {r['numpy_err']:.3e}; lifted vs scikit-learn {r['pred_err']:.3e} "
+              f"(ok {r['pred_ok']}); link {r['link']} route {r['route']}; |phi card - phi JAX| "
+              f"{r['phi_err']:.3e} (ok {r['phi_ok']}); fit + explain B={fx['X'].shape[0]} "
+              f"{1e3 * r['seconds']:.1f} ms on {card}", flush=True)
+        if not (r["lifted"] == r["want_class"] and r["pred_ok"] and r["phi_ok"]
+                and r["numpy_err"] <= 1e-9 * max(1.0, np.abs(fx[f"{name}_out"]).max())):
+            raise AssertionError(f"the compose fixture's {name} disagrees")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3311,6 +4141,23 @@ def main() -> int:
     t = time.perf_counter()
     fixture_phase(device, card)
     seconds["28 fixture"] = time.perf_counter() - t
+
+    # 29-33. scikit-learn compositions, SVMs and Gaussian classifiers
+    t = time.perf_counter()
+    max_err = max(max_err, pipeline_phase(X, bg, device, card, args.seed))
+    seconds["29 pipeline"] = time.perf_counter() - t
+    t = time.perf_counter()
+    svm_phase(X, bg, device, card, args.seed)
+    seconds["30 svm"] = time.perf_counter() - t
+    t = time.perf_counter()
+    max_err = max(max_err, ensemble_phase(tables, X, bg, device, card, args.seed))
+    seconds["31 ensembles"] = time.perf_counter() - t
+    t = time.perf_counter()
+    family_phase(tables, X, bg, device, card, args.seed)
+    seconds["32 families"] = time.perf_counter() - t
+    t = time.perf_counter()
+    compose_fixture_phase(device, card)
+    seconds["33 compose fixture"] = time.perf_counter() - t
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; script so far {time.perf_counter() - t_start:.1f}", flush=True)
 

@@ -21,7 +21,13 @@ the same kernels.  XGBoost and LightGBM dumps (``models/xgb.py``,
 output heads (``models/compose.AffineOutputPredictor``) keep the exact path,
 and tensor-train predictors (``models/tensor_net.py``) take the exact
 size-indexed contraction of ``ops/tensor_shap.py`` under
-``nsamples='exact'``.
+``nsamples='exact'``.  SVMs (``models/svm.py``), Gaussian quadratic
+classifiers (``models/quadratic.py``) and scikit-learn compositions
+(``models/compose.py``: pipelines, voting, bagging, stacking, one-vs-rest,
+calibrated, search-CV, AdaBoost, transformed-target) lift too; a
+``Pipeline(scaler, LogisticRegression)`` folds into one
+``LinearPredictor`` and takes ``fused_linear_ey``, and the linear members
+of forwarding ensembles launch it through ``LinearPredictor.masked_ey``.
 """
 
 from distributedkernelshap_tpu_torch.interface import (  # noqa: F401
@@ -50,7 +56,19 @@ from distributedkernelshap_tpu_torch.models.predictors import (  # noqa: F401
     TorchPredictor,
     as_predictor,
 )
-from distributedkernelshap_tpu_torch.models.compose import AffineOutputPredictor  # noqa: F401
+from distributedkernelshap_tpu_torch.models.compose import (  # noqa: F401
+    AffineOutputPredictor,
+    CalibratedBinaryPredictor,
+    MeanEnsemblePredictor,
+    OneVsRestPredictor,
+    PipelinePredictor,
+    StackingPredictor,
+)
+from distributedkernelshap_tpu_torch.models.quadratic import (  # noqa: F401
+    QuadraticDiscriminantPredictor,
+    lift_gaussian_quadratic,
+)
+from distributedkernelshap_tpu_torch.models.svm import SVMPredictor, lift_svm  # noqa: F401
 from distributedkernelshap_tpu_torch.models.tensor_net import (  # noqa: F401
     TensorTrainPredictor,
     fit_tt_surrogate,

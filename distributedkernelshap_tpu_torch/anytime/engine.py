@@ -76,10 +76,13 @@ def build_ey_fn(predictor, config) -> Callable:
                               use_kernel=resolve_use_kernel(config.use_kernel,
                                                             X.device))
         if _use_masked_ey(predictor, B, N, S, M, config):
+            ey = predictor.masked_ey(X, bg, bgw_n, mask, G,
+                                     config.target_chunk_elems,
+                                     coalition_chunk=config.coalition_chunk)
+            # recorded after the call: a linear member's _ey_linear records
+            # its own route inside it
             record_kernel_path('ey', 'masked_ey')
-            return predictor.masked_ey(X, bg, bgw_n, mask, G,
-                                       config.target_chunk_elems,
-                                       coalition_chunk=config.coalition_chunk)
+            return ey
         record_kernel_path('ey', 'generic')
         zc = mask @ G
         chunk = config.coalition_chunk or _auto_chunk(

@@ -13,6 +13,8 @@ import torch
 
 from distributedkernelshap_tpu_torch.kernel_shap import EngineConfig, KernelShap
 from distributedkernelshap_tpu_torch.models.predictors import LinearPredictor
+from distributedkernelshap_tpu_torch.models.quadratic import QuadraticDiscriminantPredictor
+from distributedkernelshap_tpu_torch.models.svm import SVMPredictor
 from distributedkernelshap_tpu_torch.models.torch_lift import TorchMLPPredictor
 from distributedkernelshap_tpu_torch.models.trees import TreeEnsemblePredictor
 
@@ -68,6 +70,35 @@ def tree_ensemble_from_numpy(feature: np.ndarray, threshold: np.ndarray,
         scale=float(scale), out_transform=out_transform,
         missing_left=None if missing_left is None else np.asarray(missing_left),
         vector_out=vector_out, device=device)
+
+
+def svm_from_numpy(support_vectors: np.ndarray, dual_coef: np.ndarray, intercept: float,
+                   kernel: str = "rbf", gamma: float = 1.0, coef0: float = 0.0,
+                   degree: int = 3, vector_out: bool = False,
+                   device: Optional[Union[str, torch.device]] = None) -> SVMPredictor:
+    """The port's :class:`SVMPredictor` over the same support vectors and
+    kernel as a JAX ``SVMPredictor`` (pass ``np.asarray`` of its ``sv`` and
+    ``dual_coef``, and its ``intercept``, ``kernel``, ``gamma``, ``coef0``,
+    ``degree`` and ``vector_out``)."""
+
+    return SVMPredictor(np.asarray(support_vectors, np.float32),
+                        np.asarray(dual_coef, np.float32), float(intercept),
+                        kernel=kernel, gamma=float(gamma), coef0=float(coef0),
+                        degree=int(degree), vector_out=vector_out, device=device)
+
+
+def quadratic_from_numpy(W: np.ndarray, mu: np.ndarray, u: np.ndarray,
+                         device: Optional[Union[str, torch.device]] = None
+                         ) -> QuadraticDiscriminantPredictor:
+    """The port's :class:`QuadraticDiscriminantPredictor` with the same
+    whitening ``W`` (``(K, D)`` diagonal or ``(K, D, R)`` full), means and
+    offsets as a JAX one (pass ``np.asarray`` of its ``W``, ``mu``, ``u``).
+    Composites (``models/compose.py``) are built from converted members by
+    their own constructors, which take numpy stages and weights."""
+
+    return QuadraticDiscriminantPredictor(np.asarray(W, np.float32),
+                                          np.asarray(mu, np.float32),
+                                          np.asarray(u, np.float32), device=device)
 
 
 def kernel_shap_from_numpy(W: np.ndarray, b: np.ndarray, activation: str,

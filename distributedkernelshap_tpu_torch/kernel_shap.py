@@ -32,8 +32,14 @@ refines an explain round by round (``anytime/``); the engine's stages are
 timed by ``profiling.profiler()`` phases; ``KernelShap.save`` / ``load``
 checkpoint a fitted explainer.
 
-Not ported yet (ROADMAP.md, queue A): the DeepSHAP flavor, the memory
-ledger and multi-device execution.
+Predictors come through ``models.as_predictor``: linear models, tree
+ensembles and boosters, MLPs and torch stacks, SVMs, Gaussian quadratic
+classifiers and scikit-learn compositions (pipelines, ensembles,
+calibration, searches), each lifted onto the device and probed.
+
+Not ported yet (ROADMAP.md, queue A): the DeepSHAP flavor with its graph
+and CNN lifts and ``ops/image``, the memory ledger and multi-device
+execution.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 without a GPU and without a device they raise.  pandas is only touched when

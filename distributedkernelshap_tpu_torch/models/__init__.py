@@ -5,7 +5,22 @@ from distributedkernelshap_tpu_torch.models.predictors import (  # noqa: F401
     TorchPredictor,
     as_predictor,
 )
-from distributedkernelshap_tpu_torch.models.compose import AffineOutputPredictor  # noqa: F401
+from distributedkernelshap_tpu_torch.models.quadratic import (  # noqa: F401
+    QuadraticDiscriminantPredictor,
+    lift_gaussian_quadratic,
+)
+from distributedkernelshap_tpu_torch.models.svm import (  # noqa: F401
+    SVMPredictor,
+    lift_svm,
+)
+from distributedkernelshap_tpu_torch.models.compose import (  # noqa: F401
+    AffineOutputPredictor,
+    CalibratedBinaryPredictor,
+    MeanEnsemblePredictor,
+    OneVsRestPredictor,
+    PipelinePredictor,
+    StackingPredictor,
+)
 from distributedkernelshap_tpu_torch.models.lgbm import (  # noqa: F401
     lift_lightgbm,
     predictor_from_lightgbm_dump,

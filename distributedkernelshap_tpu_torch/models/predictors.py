@@ -17,10 +17,12 @@ an ``nn.Module`` of signature ``(n, D) -> (n, K)``:
 ``as_predictor`` lifts linear scikit-learn estimators by duck typing (a bound
 ``predict_proba``/``decision_function``/``predict`` whose owner carries
 ``coef_`` and ``intercept_``), then the non-linear families (tree ensembles,
-XGBoost and LightGBM boosters, scikit-learn MLPs and torch ``nn.Sequential``
-stacks, both as
-``models.torch_lift.TorchMLPPredictor``), each checked numerically against
-the original callable; scikit-learn is never imported.  What none
+Gaussian quadratic classifiers, XGBoost and LightGBM boosters, SVMs,
+scikit-learn MLPs and torch ``nn.Sequential`` stacks, both as
+``models.torch_lift.TorchMLPPredictor``, and the scikit-learn compositions
+of ``models/compose.py``, whose members lift through
+:func:`structural_lift`), each checked numerically against the original
+callable; scikit-learn is never imported.  What none
 lifts becomes a ``TorchPredictor`` when it is torch-native (an ``nn.Module``,
 or a function that returns a tensor on a ``meta`` probe) and a
 ``CallbackPredictor`` otherwise.  An unlifted ``nn.Module`` therefore runs
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from distributedkernelshap_tpu_torch.models._chunking import DEFAULT_CHUNK_ELEMS
 from distributedkernelshap_tpu_torch.utils import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -141,6 +144,39 @@ class LinearPredictor(BasePredictor):
     @property
     def linear_decomposition(self):
         return self.W, self.b, self.activation
+
+    # the explain builder takes the decomposition branch directly; this
+    # uniform masked_ey exists so composite predictors (soft-voting means,
+    # bagging, multilabel one-vs-rest) can forward their members through
+    # one protocol
+    supports_masked_ey = True
+    target_chunk_elems: int = DEFAULT_CHUNK_ELEMS
+
+    def masked_ey(self, X, bg, bgw_n, mask, G, target_chunk_elems=None,
+                  coalition_chunk=None):
+        """Raw expected outputs ``(B, S, K)`` over the KernelSHAP synthetic
+        tensor through ``ops.explain._ey_linear``, chunked as the reference
+        chunks it (reference ``models/predictors.py:168-190``).  The
+        reference keeps its Pallas kernel off here, because a
+        ``pallas_call`` has no partitioning rule under a sharded jit; one
+        card has no such rule to keep, so CUDA tensors launch
+        ``fused_linear_ey`` (or raise) and CPU tensors run its plain
+        version.  The identity activation keeps its einsum route."""
+
+        from distributedkernelshap_tpu_torch.ops.explain import (
+            _auto_chunk,
+            _ey_linear,
+            resolve_use_kernel,
+        )
+
+        f32 = torch.float32
+        budget = target_chunk_elems or self.target_chunk_elems
+        S = mask.shape[0]
+        chunk = coalition_chunk or _auto_chunk(
+            S, X.shape[0] * bg.shape[0] * self.n_outputs, budget)
+        return _ey_linear(self.W, self.b, self.activation, X.to(f32), bg.to(f32),
+                          bgw_n, mask.to(f32), G.to(f32), chunk,
+                          use_kernel=resolve_use_kernel(None, X.device))
 
 
 class TorchPredictor(BasePredictor):
@@ -327,22 +363,62 @@ def _lift_is_faithful(lifted: BasePredictor, method, example_dim: int,
 
 def _nonlinear_lifters():
     """``(family name, lifter)`` pairs for every structural lift beyond the
-    plain linear one, in the reference's order; each lifter takes
-    ``(method, device)``.  The port has the tree-ensemble (IsolationForest
-    included), XGBoost, LightGBM, scikit-learn MLP and torch feed-forward
-    lifts; the reference's other families (quadratic, SVM and the
-    compositions, ``predictors.py:557-595``) are ROADMAP.md queue A item 9."""
+    plain linear one, in the reference's order (``predictors.py:557-595``):
+    single estimators first, then compositions, which recurse through
+    :func:`structural_lift` for their members.  Each lifter takes
+    ``(method, device)``."""
 
+    from distributedkernelshap_tpu_torch.models.compose import (
+        lift_adaboost,
+        lift_bagging,
+        lift_calibrated,
+        lift_ovr,
+        lift_pipeline,
+        lift_search_cv,
+        lift_stacking,
+        lift_transformed_target,
+        lift_voting,
+    )
     from distributedkernelshap_tpu_torch.models.lgbm import lift_lightgbm
+    from distributedkernelshap_tpu_torch.models.quadratic import lift_gaussian_quadratic
+    from distributedkernelshap_tpu_torch.models.svm import lift_svm
     from distributedkernelshap_tpu_torch.models.torch_lift import lift_torch
     from distributedkernelshap_tpu_torch.models.trees import lift_tree_ensemble
     from distributedkernelshap_tpu_torch.models.xgb import lift_xgboost
 
     return (("tree ensemble", lift_tree_ensemble),
+            ("Gaussian quadratic classifier", lift_gaussian_quadratic),
             ("XGBoost ensemble", lift_xgboost),
             ("LightGBM ensemble", lift_lightgbm),
+            ("SVM", lift_svm),
             ("MLP", _lift_sklearn_mlp),
-            ("torch feed-forward", lift_torch))
+            ("torch feed-forward", lift_torch),
+            ("pipeline", lift_pipeline),
+            ("voting ensemble", lift_voting),
+            ("bagging ensemble", lift_bagging),
+            ("stacking ensemble", lift_stacking),
+            ("one-vs-rest classifier", lift_ovr),
+            ("calibrated classifier", lift_calibrated),
+            ("hyper-parameter search", lift_search_cv),
+            ("AdaBoost ensemble", lift_adaboost),
+            ("transformed-target regressor", lift_transformed_target))
+
+
+def structural_lift(method, device=None) -> Optional[BasePredictor]:
+    """Structure-only lift of a bound estimator method across every family
+    onto ``device``, with NO numerical check (reference
+    ``predictors.py:598-611``): the composite lifts (``models/compose.py``)
+    lift their members through it, and ``as_predictor`` probes the
+    composite as a whole."""
+
+    lifted = _lift_sklearn(method, device=device)
+    if lifted is not None:
+        return lifted
+    for _, lifter in _nonlinear_lifters():
+        candidate = lifter(method, device=device)
+        if candidate is not None:
+            return candidate
+    return None
 
 
 def _on_device(module: nn.Module, dev: torch.device) -> nn.Module:

@@ -8,7 +8,9 @@ Port of ``distributedkernelshap_tpu/ops/explain.py``:
    the mask, so the ``B×S×N×D`` synthetic-data tensor never exists) and the
    reduction runs in the hand-written CUDA kernel ``fused_linear_ey``
    (``ops/cuda_kernels.py``) or its plain, chunked PyTorch version; tree
-   ensembles and MLPs take their structure-aware ``masked_ey``; any other
+   ensembles, MLPs, SVMs and forwarding compositions take their
+   structure-aware ``masked_ey`` (a linear member's runs ``_ey_linear``,
+   so it launches the kernel too); any other
    predictor the row-materialising ``_ey_generic``;
 2. the link, and the expected value over the background;
 3. the Shapley-kernel weighted least squares with the additivity constraint
@@ -360,10 +362,12 @@ def build_explainer_fn(predictor: BasePredictor, config: ShapConfig = ShapConfig
         elif _use_masked_ey(predictor, B, N, S, M, config):
             # structure-aware path: split-condition / first-layer sums
             # separate into instance and background halves
-            record_kernel_path("ey", "masked_ey")
             ey = predictor.masked_ey(X, bg, bgw_n, mask, G,
                                      config.target_chunk_elems,
                                      coalition_chunk=config.coalition_chunk)
+            # recorded after the call: a linear member's _ey_linear records
+            # its own route inside it
+            record_kernel_path("ey", "masked_ey")
         else:
             record_kernel_path("ey", "generic")
             zc = mask @ G                                         # (S, D)

@@ -314,6 +314,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "distributedkernelshap_tpu_torch.models.xgb, "
         "distributedkernelshap_tpu_torch.models.lgbm, "
         "distributedkernelshap_tpu_torch.models.compose, "
+        "distributedkernelshap_tpu_torch.models.svm, "
+        "distributedkernelshap_tpu_torch.models.quadratic, "
         "distributedkernelshap_tpu_torch.models.tensor_net, "
         "distributedkernelshap_tpu_torch.ops.tensor_shap\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -14,8 +14,11 @@ NaN path, the JAX package's own answers from a committed fixture, and
 scikit-learn compositions, SVMs and Gaussian classifiers behind stand-in
 estimators (a folded Pipeline on ``fused_linear_ey``, forwarding ensembles
 whose linear members launch it, a second fixture of real scikit-learn
-fits) through the public API, checks the answers, and times kernels, plain
-versions and explains.
+fits), the ONNX graph lift (its ops, a logistic-regression export on
+``fused_linear_ey``), DeepSHAP over lifted graphs and the MNIST CNN with
+superpixel image explanations (a third fixture of the JAX package's
+answers) through the public API, checks the answers, and times kernels,
+plain versions and explains.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -166,7 +169,7 @@ Phases (each raises on failure, so the script exits non-zero):
    explainer and of the exact explainer with interactions, each explaining
    bit-identically to its writer;
 21. each phase's seconds from 14 on and the script's so far (printed after
-   phase 33);
+   phase 38);
 22. boosters: phase 6's GBT written out as an xgboost ``save_raw('json')``
    model (``reg:squarederror``; ``binary:logistic``) and a LightGBM
    ``dump_model()`` dict (``regression``; ``binary``), each behind a
@@ -239,7 +242,36 @@ Phases (each raises on failure, so the script exits non-zero):
    GaussianNB rebuilt from their fitted attributes; the stand-ins against
    scikit-learn's outputs (1e-9), the lifts against them (1e-5 relative),
    phi on 64 rows against the JAX package's (1e-3, plus 16 p-ulps through
-   the logit link).
+   the logit link);
+34. graph ops: each of the 15 ops of ``registry/onnx_lift.py`` at the cases
+   of ``tests/test_onnx_lift.py`` evaluated in torch on the card against the
+   numpy reference and the port's CPU evaluation (1e-5 × max(1, |y|)); cuDNN
+   TF32 must be off at every convolution of the span and of a DeepSHAP
+   explain;
+35. ONNX linear lowering: the headline LR as a Gemm+Sigmoid ``GraphSpec``
+   lifts to a ``LinearPredictor``; its explain at B = 2560, counted, makes
+   exactly one ``fused_linear_ey`` launch on path ``'cuda'``, phi within
+   1e-4 of phase 4's;
+36. DeepSHAP exactness (``benchmarks/deepshap_bench.py`` phase 1): the
+   coalition-stable conv net (side 6, M = 9 superpixels) and the additive
+   MLP explained with ``nsamples='exact'`` against the port's brute-force
+   Shapley enumeration within 1e-4 relative; completeness of a mixed-sign
+   BN CNN and a MaxPool CNN;
+37. MNIST DeepSHAP (``config_mnist``'s CNN with the trained parameters of
+   ``tests/fixtures/deepshap_parity.npz``, logits head, M = 49): B = 2048
+   with the mean background (N = 1) and 16 sampled rows, B = 10000 in
+   instance chunks of 2048, on synthetic digits made from ``--seed``; each
+   counted (no hand kernel), complete (1e-4), cuDNN TF32 off at each
+   convolution, walls (median of 3 after one warm-up), device busy, idle
+   share, events and the share of the f32 FLOP bound; a staged explain
+   bit-identical to the synchronous one; the fixture's 32 images against the
+   JAX phi within 1e-4 × max(1, max|phi|);
+38. MNIST sampled (``config_mnist``'s own explain): the probs head,
+   ``link='logit'``, ``l1_reg=False`` at B = 2048 through the generic route,
+   float32 and float16 transfer (``instance_chunk=2048``), additive (1e-3),
+   float16 within the packed tolerance of float32, walls against the FLOP
+   bound of B·S·N forwards, device busy; the fixture's images against the
+   JAX phi within 1e-3 plus 16 p-ulps.
 
 The second-to-last line of stdout is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -343,6 +375,20 @@ N_SV, N_BAG, BAG_FEATURES, N_STUMPS = 2000, 5, 24, 50
 VOTING_WEIGHTS = (0.3, 0.7)
 ZOO_PRED_REL, SVM_GENERIC_REL, ENSEMBLE_REL = 1e-5, 1e-4, 1e-4
 COMPOSE_FIXTURE = "tests/fixtures/compose_parity.npz"
+# the ninth slice (phases 34-38): config_mnist (benchmarks/configs.py:404-452):
+# 28x28x1 images, the reference CNN with K = 10, M = 49 superpixels of 4x4,
+# the mean background of the training images (N = 1; 16 sampled rows for
+# the N = 16 run), B = 2048 and 10000 in instance chunks of 2048; the graph
+# ops against numpy within GRAPH_REL x max(1, |y|); DeepSHAP exactness and
+# completeness within benchmarks/deepshap_bench.py's EXACT_RTOL; the card
+# against the JAX package's DeepSHAP phi within DEEP_REL x max(1, max|phi|);
+# the ONNX export of the headline LR against the headline explain (its W is
+# recovered by probing, so it may differ from the lift's by an f32 rounding)
+MNIST_SIDE, MNIST_PATCH, MNIST_CLASSES = 28, 4, 10
+B_MNIST, B_MNIST_BIG, MNIST_CHUNK = 2048, 10000, 2048
+N_MNIST_TRAIN, N_MNIST_SAMPLE = 4000, 16
+GRAPH_REL, EXACT_RTOL, DEEP_REL, ONNX_PHI_ATOL = 1e-5, 1e-4, 1e-4, 1e-4
+DEEPSHAP_FIXTURE = "tests/fixtures/deepshap_parity.npz"
 
 
 def adult_groups():
@@ -3988,6 +4034,634 @@ def compose_fixture_phase(device, card):
             raise AssertionError(f"the compose fixture's {name} disagrees")
 
 
+# ---------------------------------------------------------------------- #
+# the ninth slice (phases 34-38): the graph lift, DeepSHAP, the MNIST CNN
+# and superpixel image explanations.  The images are MNIST-shaped synthetic
+# digits made from --seed by a copy of scripts/process_mnist_data.py's
+# generator (that script imports the JAX package); the CNN's parameters are
+# the JAX package's trained ones from tests/fixtures/deepshap_parity.npz.
+
+
+def mnist_templates(rng):
+    """Ten smooth 28×28 class templates (low-frequency blobs), as
+    ``scripts/process_mnist_data._class_templates`` makes them."""
+
+    H = W = MNIST_SIDE
+    yy, xx = np.mgrid[0:H, 0:W]
+    templates = np.zeros((MNIST_CLASSES, H, W), dtype=np.float32)
+    for c in range(MNIST_CLASSES):
+        for _ in range(4):
+            cy, cx = rng.uniform(6, 22, 2)
+            sy, sx = rng.uniform(2.0, 5.0, 2)
+            amp = rng.uniform(0.6, 1.0)
+            templates[c] += amp * np.exp(-(((yy - cy) / sy) ** 2 + ((xx - cx) / sx) ** 2))
+        templates[c] /= templates[c].max()
+    return templates
+
+
+def synthetic_digits(n, rng, templates):
+    """Shifted, scaled, noisy instances of their class template, in [0, 1]
+    (``scripts/process_mnist_data._synthetic_digits``); ``(n, 784)``."""
+
+    H = W = MNIST_SIDE
+    labels = rng.integers(0, MNIST_CLASSES, size=n)
+    images = np.empty((n, H, W), dtype=np.float32)
+    shifts = rng.integers(-2, 3, size=(n, 2))
+    scales = rng.uniform(0.8, 1.2, size=n)
+    noise = rng.normal(0, 0.08, size=(n, H, W)).astype(np.float32)
+    for i in range(n):
+        t = np.roll(templates[labels[i]], tuple(shifts[i]), axis=(0, 1))
+        images[i] = np.clip(t * scales[i] + noise[i], 0.0, 1.0)
+    return images.reshape(n, -1)
+
+
+def mnist_task(seed):
+    """``(X, train)``: ``B_MNIST_BIG`` images to explain and
+    ``N_MNIST_TRAIN`` training images (their mean is the background, their
+    first rows the sampled background), made from ``seed``."""
+
+    rng = np.random.default_rng([seed, 37])
+    templates = mnist_templates(rng)
+    return (synthetic_digits(B_MNIST_BIG, rng, templates),
+            synthetic_digits(N_MNIST_TRAIN, rng, templates))
+
+
+def graph_op_cases(rng):
+    """``[(label, GraphSpec, X)]``: each of the 15 graph ops at the cases of
+    ``tests/test_onnx_lift.py`` (Gemm alpha/beta/transB, conv strides, pads
+    and bias, grouped and dilated conv, both pools, BN, Transpose, Reshape
+    and Flatten), image ops behind a leading Reshape to NCHW."""
+
+    from distributedkernelshap_tpu_torch.registry.onnx_lift import GraphSpec, NodeSpec
+
+    f32 = np.float32
+
+    def graph(nodes, inits, d, out):
+        return GraphSpec(nodes, inits, "X", out, d)
+
+    def img(nodes, inits, side, out, channels=1):
+        inits = dict(inits)
+        inits["shape_img"] = np.asarray([0, channels, side, side], np.int64)
+        return GraphSpec([NodeSpec("Reshape", ("X", "shape_img"), ("img",), {})] + nodes,
+                         inits, "X", out, channels * side * side)
+
+    def flat(t):
+        return NodeSpec("Flatten", (t,), ("y",), {"axis": 1})
+
+    def rows(d, n=5):
+        return rng.normal(size=(n, d)).astype(f32)
+
+    unary = [(op, graph([NodeSpec(op, ("X",), ("y",), {"axis": -1} if op == "Softmax"
+                                  else {})], {}, 4, "y"), rows(4))
+             for op in ("Relu", "Sigmoid", "Tanh", "Softmax", "Identity")]
+    return unary + [
+        ("MatMul", graph([NodeSpec("MatMul", ("X", "W"), ("y",), {})],
+                         {"W": rng.normal(size=(4, 3)).astype(f32)}, 4, "y"), rows(4)),
+        ("Gemm alpha/beta/transB",
+         graph([NodeSpec("Gemm", ("X", "A", "c"), ("y",),
+                         {"alpha": 0.5, "beta": 2.0, "transB": 1})],
+               {"A": rng.normal(size=(3, 4)).astype(f32),
+                "c": rng.normal(size=(3,)).astype(f32)}, 4, "y"), rows(4)),
+        ("Add", graph([NodeSpec("Add", ("X", "c"), ("y",), {})],
+                      {"c": rng.normal(size=(4,)).astype(f32)}, 4, "y"), rows(4)),
+        ("Reshape+Flatten",
+         graph([NodeSpec("Reshape", ("X", "shape"), ("r",), {}), flat("r")],
+               {"shape": np.asarray([0, 2, 2], np.int64)}, 4, "y"), rows(4)),
+        ("Conv strides/pads/bias",
+         img([NodeSpec("Conv", ("img", "Wc", "bc"), ("c",),
+                       {"strides": [2, 2], "pads": [0, 0, 1, 1]}), flat("c")],
+             {"Wc": rng.normal(size=(2, 1, 3, 3)).astype(f32),
+              "bc": rng.normal(size=(2,)).astype(f32)}, 5, "y"), rows(25, 3)),
+        ("Conv grouped/dilated",
+         img([NodeSpec("Conv", ("img", "Wc"), ("c",),
+                       {"strides": [1, 1], "pads": [1, 0, 0, 1], "dilations": [2, 2],
+                        "group": 2}), flat("c")],
+             {"Wc": rng.normal(size=(4, 1, 2, 2)).astype(f32)}, 6, "y", 2), rows(72, 2)),
+        ("MaxPool", img([NodeSpec("MaxPool", ("img",), ("p",),
+                                  {"kernel_shape": [2, 2], "strides": [2, 2]}), flat("p")],
+                        {}, 5, "y"), rows(25, 3)),
+        ("AveragePool", img([NodeSpec("AveragePool", ("img",), ("p",),
+                                      {"kernel_shape": [2, 2], "strides": [2, 2]}),
+                             flat("p")], {}, 5, "y"), rows(25, 3)),
+        ("BatchNormalization",
+         img([NodeSpec("BatchNormalization", ("img", "scale", "bias", "mean", "var"),
+                       ("n",), {"epsilon": 1e-3}), flat("n")],
+             {"scale": rng.uniform(0.5, 1.5, 2).astype(f32),
+              "bias": rng.normal(size=(2,)).astype(f32),
+              "mean": rng.normal(size=(2,)).astype(f32),
+              "var": rng.uniform(0.5, 1.5, 2).astype(f32)}, 3, "y", 2), rows(18, 2)),
+        ("Transpose", img([NodeSpec("Transpose", ("img",), ("t",), {"perm": [0, 2, 3, 1]}),
+                           flat("t")], {}, 3, "y", 2), rows(18, 2)),
+    ]
+
+
+def graph_rel_err(got, ref) -> float:
+    """``max |got - ref| / max(1, |ref|)``, elementwise."""
+
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    if got.shape != ref.shape:
+        return np.inf
+    return float((np.abs(got - ref) / np.maximum(1.0, np.abs(ref))).max())
+
+
+@contextlib.contextmanager
+def conv_tf32_probe():
+    """Record, at every ``F.conv2d`` call inside the block, whether cuDNN
+    may round float32 to TF32 (``utils.cudnn_tf32_enabled``)."""
+
+    import torch.nn.functional as F
+    from distributedkernelshap_tpu_torch.utils import cudnn_tf32_enabled
+
+    seen, real = [], F.conv2d
+
+    def probed(*args, **kwargs):
+        seen.append(cudnn_tf32_enabled())
+        return real(*args, **kwargs)
+
+    F.conv2d = probed
+    try:
+        yield seen
+    finally:
+        F.conv2d = real
+
+
+def graph_ops_phase(device, card, seed):
+    """Phase 34: each of the 15 graph ops evaluated by the port's torch
+    evaluation on the card against the numpy reference and the port's CPU
+    evaluation (``GRAPH_REL`` × max(1, |y|)), with cuDNN TF32 asserted off at
+    every convolution inside the span, and at every convolution of a
+    DeepSHAP explain of a conv net."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.registry.onnx_lift import (
+        run_graph_reference,
+        run_graph_torch,
+    )
+    from distributedkernelshap_tpu_torch.utils import cudnn_tf32_enabled
+
+    cases = graph_op_cases(np.random.default_rng([seed, 34]))
+    ops, worst = set(), 0.0
+    with conv_tf32_probe() as seen:
+        for label, spec, X in cases:
+            ref = run_graph_reference(spec, X)
+            cpu = run_graph_torch(spec, torch.as_tensor(X)).numpy()
+            card_y = run_graph_torch(spec, torch.as_tensor(X, device=device)).cpu().numpy()
+            e_ref, e_cpu = graph_rel_err(card_y, ref), graph_rel_err(card_y, cpu)
+            worst = max(worst, e_ref, e_cpu)
+            ops.update(n.op for n in spec.nodes)
+            if not (e_ref <= GRAPH_REL and e_cpu <= GRAPH_REL):
+                raise AssertionError(f"graph op {label}: card vs numpy {e_ref:.3e}, "
+                                     f"vs CPU {e_cpu:.3e} (tol {GRAPH_REL:g})")
+        n_graph = len(seen)
+        rng = np.random.default_rng([seed, 34])
+        fit_graph(stable_cnn_spec(6, seed=1), rng.uniform(0, 1, (2, 36)).astype(np.float32),
+                  device).explain(rng.uniform(0, 1, (2, 36)).astype(np.float32),
+                                  nsamples="exact", silent=True)
+    n_conv = len(seen)
+    print(f"graph ops: {len(cases)} cases over {len(ops)} ops on the card, max |card - "
+          f"numpy| and |card - CPU| / max(1, |y|) = {worst:.3e} (tol {GRAPH_REL:g}); "
+          f"{n_conv} convolutions ({n_graph} graph evaluations, the rest a DeepSHAP "
+          f"explain), TF32 on at {sum(seen)} of them; cuDNN TF32 outside the "
+          f"span {cudnn_tf32_enabled()} on {card}", flush=True)
+    if len(ops) != 15 or n_graph < 4 or n_conv <= n_graph or any(seen):
+        raise AssertionError("the graph ops phase missed an op or ran a convolution in TF32")
+
+
+def logreg_graph(est):
+    """The headline logistic regression as an ONNX Gemm+Sigmoid export."""
+
+    from distributedkernelshap_tpu_torch.registry.onnx_lift import GraphSpec, NodeSpec
+
+    coef = np.asarray(est.coef_, np.float32)
+    return GraphSpec([NodeSpec("Gemm", ("X", "W", "b"), ("z",), {}, "gemm"),
+                      NodeSpec("Sigmoid", ("z",), ("y",), {}, "sigmoid")],
+                     {"W": np.ascontiguousarray(coef.T),
+                      "b": np.asarray(est.intercept_, np.float32)},
+                     "X", "y", coef.shape[1])
+
+
+def onnx_linear_phase(X, bg, est, device, card, phi_headline):
+    """Phase 35: the headline logistic regression as an ONNX Gemm+Sigmoid
+    export lowers to a ``LinearPredictor`` (a 2-column softmax); its
+    explain at B = 2560, counted, launches ``fused_linear_ey`` exactly once
+    on the kernel path ``'cuda'``, and its phi is within ``ONNX_PHI_ATOL``
+    of the headline explain of the same model (phase 4)."""
+
+    import torch
+    from distributedkernelshap_tpu_torch import KernelShap
+    from distributedkernelshap_tpu_torch.models import LinearPredictor
+    from distributedkernelshap_tpu_torch.registry import lift_graph
+
+    lifted = lift_graph(logreg_graph(est), device)
+    explainer = KernelShap(lifted, link="logit", seed=0, device=device)
+    explainer.fit(bg, group_names=ADULT_GROUP_NAMES, groups=adult_groups())
+    reset_launches()
+    expl = explainer.explain(X, silent=True)
+    torch.cuda.synchronize()
+    launches, path = kernel_launches(), explainer.kernel_path
+    phi, add_err = sampled_phi(expl, X.shape[0])
+    d_phi = float(np.abs(phi - phi_headline).max())
+    wall, runs = median_wall_ms(lambda: explainer.explain(X, silent=True), 3)
+    print(f"onnx lift: Gemm+Sigmoid export of the headline LR lowered to "
+          f"{type(lifted).__name__} ({getattr(lifted, 'activation', None)}, K="
+          f"{lifted.n_outputs}); explain B={X.shape[0]} launches {launches} (want "
+          f"fused_linear_ey=1), kernel_path {path}, additivity {add_err:.3e}; |phi - phi "
+          f"headline| {d_phi:.3e} (tol {ONNX_PHI_ATOL:g}); wall median of 3 {wall:.3f} ms "
+          f"(runs {runs}) on {card}", flush=True)
+    if not (isinstance(lifted, LinearPredictor) and lifted.activation == "softmax"
+            and launches == {"fused_linear_ey": 1, "exact_tree_phi": 0, "exact_tree_inter": 0}
+            and path == {"ey": "cuda"} and d_phi <= ONNX_PHI_ATOL):
+        raise AssertionError("the ONNX linear lowering missed fused_linear_ey or disagrees")
+    return launches["fused_linear_ey"]
+
+
+def stable_cnn_spec(side, seed=0, K=3, channels_out=(4,), nonneg=True,
+                    batchnorm=False, maxpool=False):
+    """Conv/Relu(+BN/MaxPool)/Dense graph over ``side×side`` pixels, as
+    ``benchmarks/deepshap_bench.build_stable_cnn_spec`` builds it:
+    ``nonneg=True`` keeps every pre-activation non-negative over
+    non-negative pixels (coalition-stable, so DeepSHAP is exact)."""
+
+    from distributedkernelshap_tpu_torch.registry.onnx_lift import GraphSpec, NodeSpec
+
+    rng = np.random.default_rng(seed)
+
+    def maybe(a):
+        return np.abs(a) if nonneg else a
+
+    inits = {"shape_img": np.asarray([0, side, side, 1], np.int64)}
+    nodes = [NodeSpec("Reshape", ("x", "shape_img"), ("img",), {}),
+             NodeSpec("Transpose", ("img",), ("t0",), {"perm": [0, 3, 1, 2]})]
+    tensor, c_in, feat = "t0", 1, side
+    for i, c_out in enumerate(channels_out):
+        inits[f"W{i}"] = maybe(rng.normal(scale=0.4, size=(c_out, c_in, 3, 3))).astype(np.float32)
+        inits[f"b{i}"] = maybe(rng.normal(scale=0.1, size=c_out)).astype(np.float32)
+        nodes.append(NodeSpec("Conv", (tensor, f"W{i}", f"b{i}"), (f"c{i}",),
+                              {"strides": [2, 2], "pads": [1, 1, 1, 1]}, f"conv{i}"))
+        tensor, c_in, feat = f"c{i}", c_out, -(-feat // 2)
+        if batchnorm:
+            inits.update({f"s{i}": rng.uniform(0.5, 1.5, c_out).astype(np.float32),
+                          f"o{i}": rng.normal(scale=0.1, size=c_out).astype(np.float32),
+                          f"m{i}": rng.normal(scale=0.1, size=c_out).astype(np.float32),
+                          f"v{i}": rng.uniform(0.5, 1.5, c_out).astype(np.float32)})
+            nodes.append(NodeSpec("BatchNormalization",
+                                  (tensor, f"s{i}", f"o{i}", f"m{i}", f"v{i}"),
+                                  (f"n{i}",), {"epsilon": 1e-5}))
+            tensor = f"n{i}"
+        nodes.append(NodeSpec("Relu", (tensor,), (f"r{i}",), {}))
+        tensor = f"r{i}"
+    if maxpool:
+        nodes.append(NodeSpec("MaxPool", (tensor,), ("mp",),
+                              {"kernel_shape": [2, 2], "strides": [2, 2]}))
+        tensor, feat = "mp", feat // 2
+    nodes.append(NodeSpec("Flatten", (tensor,), ("fl",), {"axis": 1}))
+    inits["Wd"] = rng.normal(scale=0.3, size=(c_in * feat * feat, K)).astype(np.float32)
+    inits["bd"] = rng.normal(scale=0.1, size=K).astype(np.float32)
+    nodes.append(NodeSpec("Gemm", ("fl", "Wd", "bd"), ("y",), {}))
+    return GraphSpec(nodes, inits, "x", "y", side * side)
+
+
+def additive_mlp_spec(seed=0, M=12, H=24, K=2):
+    """Feature-wise Relu MLP (each hidden unit reads one feature),
+    mixed-sign (``benchmarks/deepshap_bench.build_additive_mlp_spec``):
+    additive, so DeepSHAP is exact while the Relus clip."""
+
+    from distributedkernelshap_tpu_torch.registry.onnx_lift import GraphSpec, NodeSpec
+
+    rng = np.random.default_rng(seed)
+    W1 = np.zeros((M, H), np.float32)
+    for j in range(H):
+        W1[j % M, j] = rng.normal()
+    return GraphSpec(
+        [NodeSpec("Gemm", ("x", "W1", "b1"), ("h",), {}),
+         NodeSpec("Relu", ("h",), ("a",), {}),
+         NodeSpec("Gemm", ("a", "W2", "b2"), ("y",), {})],
+        {"W1": W1, "b1": rng.normal(size=H).astype(np.float32),
+         "W2": rng.normal(scale=0.5, size=(H, K)).astype(np.float32),
+         "b2": rng.normal(size=K).astype(np.float32)},
+        "x", "y", M)
+
+
+def fit_graph(spec, bg, device, groups=None):
+    """``KernelShap(lift_graph(spec)).fit(bg, groups)`` on ``device``."""
+
+    from distributedkernelshap_tpu_torch import KernelShap
+    from distributedkernelshap_tpu_torch.registry import lift_graph
+
+    explainer = KernelShap(lift_graph(spec, device), seed=0, device=device)
+    return explainer.fit(bg, groups=groups,
+                         group_names=None if groups is None else [f"g{i}" for i in
+                                                                  range(len(groups))])
+
+
+def deep_phi(expl, B, K, M):
+    phi = np.stack(expl.shap_values, 1)
+    if phi.shape != (B, K, M) or not np.isfinite(phi).all():
+        raise AssertionError(f"bad DeepSHAP values: shape {phi.shape}, "
+                             f"finite={np.isfinite(phi).all()}")
+    return phi
+
+
+def completeness(expl) -> float:
+    """``max |Σφ + E - f(x)| / max(1, max|f(x)|)`` of an identity-link
+    explanation."""
+
+    phi = np.stack(expl.shap_values, 1)
+    raw = np.asarray(expl.data["raw"]["raw_prediction"], np.float64)
+    err = np.abs(phi.sum(2) + np.asarray(expl.expected_value)[None, :] - raw).max()
+    return float(err / max(1.0, np.abs(raw).max()))
+
+
+def deepshap_exact_phase(device, card, seed):
+    """Phase 36: exactness on the card, as ``benchmarks/deepshap_bench.py``'s
+    phase 1 holds it: the coalition-stable conv net (side 6, M = 9
+    superpixels) and the additive MLP against the port's brute-force
+    Shapley enumeration within ``EXACT_RTOL`` relative; completeness of a
+    mixed-sign BN and a MaxPool CNN within ``EXACT_RTOL`` relative."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.attribution import brute_force_shapley
+    from distributedkernelshap_tpu_torch.ops.explain import groups_to_matrix
+    from distributedkernelshap_tpu_torch.ops.image import superpixel_groups
+    from distributedkernelshap_tpu_torch.registry.onnx_lift import run_graph_reference
+
+    rng = np.random.default_rng([seed, 36])
+    groups, _ = superpixel_groups(6, 6, patch=2)
+    cases = [("stable conv net", stable_cnn_spec(6, seed=1), groups,
+              rng.uniform(0, 1, (3, 36)), rng.uniform(0, 1, (2, 36))),
+             ("additive MLP", additive_mlp_spec(seed=2), None,
+              rng.normal(size=(4, 12)), rng.normal(size=(2, 12)))]
+    errs = {}
+    for label, spec, grp, bg, X in cases:
+        bg, X = bg.astype(np.float32), X.astype(np.float32)
+        explainer = fit_graph(spec, bg, device, grp)
+        reset_launches()
+        expl = explainer.explain(X, nsamples="exact", silent=True)
+        torch.cuda.synchronize()
+        G = None if grp is None else groups_to_matrix(grp, spec.input_dim)
+        phi = deep_phi(expl, X.shape[0], explainer._explainer.predictor.n_outputs,
+                       len(grp) if grp else spec.input_dim)
+        ref = np.stack([brute_force_shapley(lambda r: run_graph_reference(spec, r), x, bg, G=G)
+                        for x in X])
+        errs[label] = float(np.abs(phi - ref).max() / max(np.abs(ref).max(), 1e-9))
+        if any(kernel_launches().values()) or explainer.kernel_path != {"exact_phi": "deepshap"} \
+                or not errs[label] <= EXACT_RTOL:
+            raise AssertionError(f"{label}: DeepSHAP vs brute force {errs[label]:.3e} "
+                                 f"(tol {EXACT_RTOL:g}), kernel_path {explainer.kernel_path}")
+    comp = {}
+    for label, spec, d in (("BN CNN", stable_cnn_spec(6, seed=3, nonneg=False, batchnorm=True),
+                            36),
+                           ("MaxPool CNN", stable_cnn_spec(8, seed=4, nonneg=False,
+                                                           maxpool=True), 64)):
+        bg = rng.uniform(0, 1, (3, d)).astype(np.float32)
+        X = rng.uniform(0, 1, (3, d)).astype(np.float32)
+        comp[label] = completeness(fit_graph(spec, bg, device).explain(
+            X, nsamples="exact", silent=True))
+        if not comp[label] <= EXACT_RTOL:
+            raise AssertionError(f"{label}: completeness {comp[label]:.3e}")
+    print(f"deepshap exact: relative error against brute force {errs} (tol {EXACT_RTOL:g}, "
+          f"the stable net over {len(groups)} superpixels, {2 ** len(groups)} coalitions); "
+          f"completeness {comp}; no hand kernel launched, on {card}", flush=True)
+
+
+def mnist_cnn(fx, output, device):
+    """The ``config_mnist`` CNN on ``device`` with the fixture's trained
+    flax parameters (``convert.cnn_from_numpy``)."""
+
+    from distributedkernelshap_tpu_torch.convert import cnn_from_numpy
+
+    params = {}
+    for key in fx.files:
+        if key.startswith("param/"):
+            _, layer, leaf = key.split("/")
+            params.setdefault(layer, {})[leaf] = fx[key]
+    return cnn_from_numpy(params, (MNIST_SIDE, MNIST_SIDE, 1), MNIST_CLASSES, output, device)
+
+
+def load_deepshap_fixture():
+    import os
+
+    return np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                DEEPSHAP_FIXTURE), allow_pickle=False)
+
+
+def mnist_explainer(fx, bg, device, output="logits", link="identity", engine_config=None):
+    """``KernelShap(cnn, link).fit(bg, groups=superpixels)`` over the 49
+    superpixels of 4×4 (``configs.py:420``)."""
+
+    from distributedkernelshap_tpu_torch import EngineConfig, KernelShap
+    from distributedkernelshap_tpu_torch.ops.image import superpixel_groups
+
+    groups, names = superpixel_groups(MNIST_SIDE, MNIST_SIDE, MNIST_PATCH)
+    explainer = KernelShap(mnist_cnn(fx, output, device), link=link, feature_names=names,
+                           seed=0, device=device,
+                           engine_config=engine_config or EngineConfig())
+    return explainer.fit(bg, group_names=names, groups=groups)
+
+
+def mnist_fixture_checks(fx, device, n_rows=None, heads=("deep", "sampled")):
+    """The fixture's CNN rebuilt on ``device`` and its first ``n_rows``
+    images (all by default) explained against the mean background: the
+    logits head under ``nsamples='exact'`` (DeepSHAP, ``'deep'``) against
+    the JAX phi within ``DEEP_REL`` × max(1, max|φ|), E and f(x) within 1e-5
+    × max(1, max|φ|); the probs head sampled with ``link='logit'``,
+    ``l1_reg=False`` (``'sampled'``) against the JAX phi within
+    ``PHI_ATOL`` plus ``LOGIT_ULPS`` f32 ulps of p per (row, class).
+    Returns a report per head of ``heads``."""
+
+    import torch
+
+    X, bg = fx["X"], fx["bg"]
+    n = n_rows or X.shape[0]
+    reports = {}
+    if "deep" in heads:
+        reports["deep"] = _mnist_deep_report(fx, X[:n], bg, device)
+    if "sampled" in heads:
+        reports["sampled"] = _mnist_sampled_report(fx, X[:n], bg, device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return reports
+
+
+def _mnist_deep_report(fx, X, bg, device):
+    n = X.shape[0]
+    deep = mnist_explainer(fx, bg, device)
+    e_deep = deep.explain(X, nsamples="exact", silent=True)
+    phi = deep_phi(e_deep, n, MNIST_CLASSES, len(deep.feature_names))
+    ref = fx["deep_phi"][:n]
+    scale = max(1.0, float(np.abs(ref).max()))
+    raw = np.asarray(e_deep.data["raw"]["raw_prediction"])
+    e_val = np.asarray(e_deep.expected_value)
+    r = {"phi_err": float(np.abs(phi - ref).max()), "tol": DEEP_REL * scale,
+         "fx_err": float(np.abs(raw - fx["deep_raw"][:n]).max()),
+         "e_err": float(np.abs(e_val - fx["deep_expected"]).max()),
+         "completeness": completeness(e_deep), "route": deep.kernel_path}
+    r["ok"] = bool(r["phi_err"] <= r["tol"] and r["fx_err"] <= 1e-5 * scale
+                   and r["e_err"] <= 1e-5 * scale and r["completeness"] <= EXACT_RTOL
+                   and r["route"] == {"exact_phi": "deepshap"})
+    return r
+
+
+def _mnist_sampled_report(fx, X, bg, device):
+    n = X.shape[0]
+    sampled = mnist_explainer(fx, bg, device, output="probs", link="logit")
+    e_samp = sampled.explain(X, l1_reg=False, silent=True)
+    phi = deep_phi(e_samp, n, MNIST_CLASSES, len(sampled.feature_names))
+    d = np.abs(phi - fx["sampled_phi"][:n]).max(2)                   # (n, K)
+    tol = logit_tol(fx["sampled_raw"][:n])
+    add_err = additivity(e_samp)
+    return {"phi_err": float(d.max()), "tol_min": float(tol.min()),
+            "within_atol": int((d <= PHI_ATOL).sum()), "cells": int(d.size),
+            "additivity": add_err, "route": sampled.kernel_path,
+            "ok": bool((d <= tol).all() and add_err < ADDITIVITY
+                       and sampled.kernel_path == {"ey": "generic"})}
+
+
+def cnn_forward_flops(side=MNIST_SIDE, K=MNIST_CLASSES) -> int:
+    """FLOP of one forward of the ``config_mnist`` CNN (2 per MAC): 355,008
+    MACs an image at 28×28, K = 10."""
+
+    h1 = -(-side // 2)
+    h2 = -(-h1 // 2)
+    macs = h1 * h1 * 16 * 9 + h2 * h2 * 32 * 9 * 16 + h2 * h2 * 32 * 64 + 64 * K
+    return 2 * macs
+
+
+def mnist_deepshap_phase(fx, X, train, device, card):
+    """Phase 37: DeepSHAP at the full width of ``config_mnist`` (the CNN's
+    logits head, M = 49 superpixels of 4×4): B = 2048 against the mean
+    background (N = 1) and against 16 sampled rows (N = 16), B = 10000 with
+    ``instance_chunk=2048``; each counted (no hand kernel), complete within
+    ``EXACT_RTOL``, timed (median of 3 after one warm-up) with device busy,
+    idle share and events under ``torch.profiler`` and the share of its f32
+    FLOP bound (``(1 + K)`` forwards per instance and background row); a
+    staged explain bit-identical to the synchronous one; the fixture's 32
+    images against the JAX phi."""
+
+    import torch
+    from distributedkernelshap_tpu_torch import EngineConfig
+    from distributedkernelshap_tpu_torch.kernel_shap import StagedRows
+    from distributedkernelshap_tpu_torch.ops.image import image_background
+
+    M = (MNIST_SIDE // MNIST_PATCH) ** 2
+    runs_out = {}
+    for label, bg, B, cfg in (
+            ("N=1", image_background(train, mode="mean"), B_MNIST, None),
+            (f"N={N_MNIST_SAMPLE}", image_background(train, mode="sample",
+                                                     n_rows=N_MNIST_SAMPLE), B_MNIST, None),
+            ("N=1 chunked", image_background(train, mode="mean"), B_MNIST_BIG,
+             EngineConfig(instance_chunk=MNIST_CHUNK))):
+        explainer = mnist_explainer(fx, bg, device, engine_config=cfg)
+        reset_launches()
+        with conv_tf32_probe() as seen:
+            expl = explainer.explain(X[:B], nsamples="exact", silent=True)
+            torch.cuda.synchronize()
+        launches = kernel_launches()
+        deep_phi(expl, B, MNIST_CLASSES, M)
+        comp = completeness(expl)
+        wall, runs = median_wall_ms(
+            lambda: explainer.explain(X[:B], nsamples="exact", silent=True), 3)
+        wall_p, busy, idle, n_events, top = device_busy(
+            lambda: explainer.explain(X[:B], nsamples="exact", silent=True))
+        flops = B * bg.shape[0] * (1 + MNIST_CLASSES) * cnn_forward_flops()
+        bound = 1e3 * flops / FP32_FLOPS_PER_S
+        print(f"mnist deepshap {label} B={B}: launches {launches} (want all 0), kernel_path "
+              f"{explainer.kernel_path}, completeness {comp:.3e} (tol {EXACT_RTOL:g}); "
+              f"{len(seen)} convolutions, TF32 on at {sum(seen)}; wall "
+              f"median of 3 {wall:.3f} ms (runs {runs}); under torch.profiler wall "
+              f"{wall_p:.3f} ms, busy {busy:.3f} ms, idle {idle:.4f}, {n_events} device "
+              f"events, top {top}; {flops:.3e} f32 FLOP, bound {bound:.4f} ms, "
+              f"{100 * bound / wall:.2f}% of the wall on {card}", flush=True)
+        if any(launches.values()) or explainer.kernel_path != {"exact_phi": "deepshap"} \
+                or not comp <= EXACT_RTOL or not seen or any(seen):
+            raise AssertionError(f"the MNIST DeepSHAP explain ({label}) is off")
+        runs_out[label] = wall
+        if label == "N=1":
+            engine = explainer._explainer
+            want = np.stack(engine.get_explanation(X[:B], nsamples="exact"), 1)
+            staged = engine.stage_rows(X[:B], nsamples="exact")
+            values, _ = engine.get_explanation_async(staged, nsamples="exact")()
+            same = bool(np.array_equal(np.stack(values, 1), want))
+            on_card = torch.device(device).type == "cuda"
+            print(f"mnist deepshap staged B={B}: StagedRows={isinstance(staged, StagedRows)}"
+                  f" with event={staged is not None and staged.ready is not None}, "
+                  f"bit-identical to sync {same}", flush=True)
+            if not (isinstance(staged, StagedRows) and same
+                    and (staged.ready is not None or not on_card)):
+                raise AssertionError("the staged DeepSHAP explain disagrees with the sync one")
+    r = mnist_fixture_checks(fx, device, heads=("deep",))["deep"]
+    print(f"mnist deepshap fixture ({DEEPSHAP_FIXTURE}, provenance {fx['provenance']}: "
+          f"synthetic digits, not MNIST): {fx['X'].shape[0]} images, |phi card - phi JAX| "
+          f"{r['phi_err']:.3e} (tol {DEEP_REL:g} x max(1, max|phi|) = {r['tol']:.3e}), "
+          f"|f(x) - f(x) JAX| {r['fx_err']:.3e}, |E - E JAX| {r['e_err']:.3e}, completeness "
+          f"{r['completeness']:.3e}, route {r['route']}", flush=True)
+    if not r["ok"]:
+        raise AssertionError("the MNIST DeepSHAP explain disagrees with the JAX fixture")
+    return runs_out
+
+
+def mnist_sampled_phase(fx, X, train, device, card):
+    """Phase 38: ``config_mnist``'s own sampled image KernelSHAP at B =
+    2048: the probs head, ``link='logit'``, ``l1_reg=False``, default
+    nsamples (S = 2146), through the generic route (recorded), counted (no
+    hand kernel); float32 transfer additive (< 1e-3), the benchmark's
+    ``EngineConfig(instance_chunk=2048, transfer_dtype='float16')`` within
+    the packed tolerance of float32; walls (median of 3 after one warm-up),
+    device busy and idle share, against the f32 FLOP bound of B·S·N
+    forwards; the fixture's 32 images against the JAX phi."""
+
+    import torch
+    from distributedkernelshap_tpu_torch import EngineConfig
+    from distributedkernelshap_tpu_torch.ops.explain import ShapConfig
+    from distributedkernelshap_tpu_torch.ops.image import image_background
+
+    bg = image_background(train, mode="mean")
+    Xb = X[:B_MNIST]
+    out = {}
+    for label, cfg in (("f32", None),
+                       ("f16", EngineConfig(instance_chunk=MNIST_CHUNK,
+                                            shap=ShapConfig(transfer_dtype="float16")))):
+        explainer = mnist_explainer(fx, bg, device, output="probs", link="logit",
+                                    engine_config=cfg)
+        reset_launches()
+        expl = explainer.explain(Xb, l1_reg=False, silent=True)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        phi = deep_phi(expl, B_MNIST, MNIST_CLASSES, len(explainer.feature_names))
+        add_err = additivity(expl)
+        wall, runs = median_wall_ms(lambda: explainer.explain(Xb, l1_reg=False, silent=True), 3)
+        S = explainer._explainer._plan(None).n_rows
+        flops = B_MNIST * S * bg.shape[0] * cnn_forward_flops()
+        bound = 1e3 * flops / FP32_FLOPS_PER_S
+        out[label] = phi
+        extra = ""
+        if label == "f16":
+            d = np.abs(phi - out["f32"])
+            ok16 = bool((d <= F16_ATOL + F16_RTOL * np.abs(out["f32"])).all())
+            extra = f"; |phi f16 - phi f32| max {d.max():.3e} (within atol {F16_ATOL:g} + " \
+                    f"rtol {F16_RTOL:g}: {ok16})"
+        else:
+            wall_p, busy, idle, n_events, top = device_busy(
+                lambda: explainer.explain(Xb, l1_reg=False, silent=True))
+            extra = (f"; under torch.profiler wall {wall_p:.3f} ms, busy {busy:.3f} ms, idle "
+                     f"{idle:.4f}, {n_events} device events, top {top}")
+        print(f"mnist sampled {label} B={B_MNIST} S={S}: launches {launches} (want all 0), "
+              f"kernel_path {explainer.kernel_path}, additivity {add_err:.3e}; wall median of "
+              f"3 {wall:.3f} ms (runs {runs}); {flops:.3e} f32 FLOP, bound {bound:.4f} ms, "
+              f"{100 * bound / wall:.2f}% of the wall{extra} on {card}", flush=True)
+        if any(launches.values()) or explainer.kernel_path != {"ey": "generic"} \
+                or (label == "f32" and not add_err < ADDITIVITY) \
+                or (label == "f16" and not ok16):
+            raise AssertionError(f"the MNIST sampled explain ({label}) is off")
+    r = mnist_fixture_checks(fx, device, heads=("sampled",))["sampled"]
+    print(f"mnist sampled fixture ({DEEPSHAP_FIXTURE}): |phi card - phi JAX| {r['phi_err']:.3e}"
+          f" (tol {PHI_ATOL:g} + {LOGIT_ULPS} p-ulps, smallest {r['tol_min']:.3e}; "
+          f"{r['within_atol']}/{r['cells']} (row, class) cells within {PHI_ATOL:g} alone), "
+          f"additivity {r['additivity']:.3e}, route {r['route']}", flush=True)
+    if not r["ok"]:
+        raise AssertionError("the MNIST sampled explain disagrees with the JAX fixture")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4158,6 +4832,25 @@ def main() -> int:
     t = time.perf_counter()
     compose_fixture_phase(device, card)
     seconds["33 compose fixture"] = time.perf_counter() - t
+
+    # 34-38. the graph lift, DeepSHAP, the MNIST CNN and superpixel images
+    t = time.perf_counter()
+    graph_ops_phase(device, card, args.seed)
+    seconds["34 graph ops"] = time.perf_counter() - t
+    t = time.perf_counter()
+    onnx_linear_phase(X, bg, est, device, card, phi)
+    seconds["35 onnx linear"] = time.perf_counter() - t
+    t = time.perf_counter()
+    deepshap_exact_phase(device, card, args.seed)
+    seconds["36 deepshap exact"] = time.perf_counter() - t
+    fx_mnist = load_deepshap_fixture()
+    X_mnist, train_mnist = mnist_task(args.seed)
+    t = time.perf_counter()
+    mnist_deepshap_phase(fx_mnist, X_mnist, train_mnist, device, card)
+    seconds["37 mnist deepshap"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mnist_sampled_phase(fx_mnist, X_mnist, train_mnist, device, card)
+    seconds["38 mnist sampled"] = time.perf_counter() - t
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; script so far {time.perf_counter() - t_start:.1f}", flush=True)
 

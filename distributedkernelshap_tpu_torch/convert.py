@@ -6,12 +6,13 @@ and gets the port's objects on ``device`` (default: the current CUDA
 device; raises without one).
 """
 
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from distributedkernelshap_tpu_torch.kernel_shap import EngineConfig, KernelShap
+from distributedkernelshap_tpu_torch.models.cnn import CNNPredictor, _CNN
 from distributedkernelshap_tpu_torch.models.predictors import LinearPredictor
 from distributedkernelshap_tpu_torch.models.quadratic import QuadraticDiscriminantPredictor
 from distributedkernelshap_tpu_torch.models.svm import SVMPredictor
@@ -99,6 +100,31 @@ def quadratic_from_numpy(W: np.ndarray, mu: np.ndarray, u: np.ndarray,
     return QuadraticDiscriminantPredictor(np.asarray(W, np.float32),
                                           np.asarray(mu, np.float32),
                                           np.asarray(u, np.float32), device=device)
+
+
+def cnn_from_numpy(params, image_shape: Tuple[int, int, int], n_classes: int = 10,
+                   output: str = "probs",
+                   device: Optional[Union[str, torch.device]] = None) -> CNNPredictor:
+    """The port's :class:`CNNPredictor` over the parameters of a JAX
+    ``CNNPredictor`` (pass its flax parameter tree with every leaf as a
+    numpy array: ``Conv_i`` ``kernel`` HWIO and ``bias``, ``Dense_i``
+    ``kernel`` ``(in, out)`` and ``bias``, e.g. ``jax.tree_util.tree_map(
+    np.asarray, jax_pred.params)``), and its image shape, class count and
+    output head."""
+
+    net = _CNN(image_shape, n_classes)
+    with torch.no_grad():
+        for layer in ("Conv_0", "Conv_1", "Dense_0", "Dense_1"):
+            mod = getattr(net, layer)
+            kern = np.asarray(params[layer]["kernel"], np.float32)
+            # HWIO -> OIHW for the convolutions, (in, out) -> (out, in) for nn.Linear
+            kern = kern.transpose(3, 2, 0, 1) if kern.ndim == 4 else kern.T
+            if tuple(kern.shape) != tuple(mod.weight.shape):
+                raise ValueError(f"{layer} kernel has shape {kern.shape}; the CNN over "
+                                 f"{tuple(image_shape)} needs {tuple(mod.weight.shape)}")
+            mod.weight.copy_(torch.tensor(kern))
+            mod.bias.copy_(torch.tensor(np.asarray(params[layer]["bias"], np.float32)))
+    return CNNPredictor(net, n_classes=n_classes, output=output, device=device)
 
 
 def kernel_shap_from_numpy(W: np.ndarray, b: np.ndarray, activation: str,

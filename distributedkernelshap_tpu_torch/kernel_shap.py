@@ -8,8 +8,10 @@ and the warn-and-degrade input validation), with the computation in
 ``ops/explain.py`` (sampled: the linear route, a predictor's
 ``masked_ey``, or row materialisation), ``ops/treeshap.py``
 (``nsamples='exact'`` on lifted tree ensembles, with ``interactions=True``
-the exact Shapley interaction matrices) and ``ops/tensor_shap.py``
-(``nsamples='exact'`` on tensor-train predictors) on a torch device.  With
+the exact Shapley interaction matrices), ``ops/tensor_shap.py``
+(``nsamples='exact'`` on tensor-train predictors) and
+``attribution/deepshap.py`` (``nsamples='exact'`` on lifted neural graphs:
+DeepSHAP multiplier backprop) on a torch device.  With
 ``EngineConfig(host_eval=True)`` a black-box predictor is evaluated on the
 host (``_hosteval_stats``: the native OpenMP fill of ``runtime/`` and a
 thread fan-out over coalition chunks) and only the WLS solve runs on the
@@ -35,10 +37,12 @@ checkpoint a fitted explainer.
 Predictors come through ``models.as_predictor``: linear models, tree
 ensembles and boosters, MLPs and torch stacks, SVMs, Gaussian quadratic
 classifiers and scikit-learn compositions (pipelines, ensembles,
-calibration, searches), each lifted onto the device and probed.
+calibration, searches), each lifted onto the device and probed.  Lifted
+ONNX graphs (``registry/onnx_lift.py``) and the MNIST CNN
+(``models/cnn.py``) carry a ``graph_spec``, which the DeepSHAP flavour
+reads; image explanations group pixels into superpixels (``ops/image.py``).
 
-Not ported yet (ROADMAP.md, queue A): the DeepSHAP flavor with its graph
-and CNN lifts and ``ops/image``, the memory ledger and multi-device
+Not ported yet (ROADMAP.md, queue A): the memory ledger and multi-device
 execution.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
@@ -72,6 +76,12 @@ from distributedkernelshap_tpu_torch.anytime.engine import (
     build_round_fn,
 )
 from distributedkernelshap_tpu_torch.anytime.rounds import build_schedule, round_draw_mask
+from distributedkernelshap_tpu_torch.attribution.deepshap import (
+    build_deepshap_fn,
+    deepshap_ready,
+    supports_deepshap,
+    validate_deepshap,
+)
 from distributedkernelshap_tpu_torch.data import Data, DenseData, DenseDataWithIndex
 from distributedkernelshap_tpu_torch.interface import (
     DEFAULT_DATA_KERNEL_SHAP,
@@ -1299,13 +1309,15 @@ class KernelExplainerEngine:
         ``nsamples='exact'`` (reference ``kernel_shap.py:1395-1418``):
         ``'tree'`` (lifted ensemble, possibly behind an affine head),
         ``'tn'`` (tensor-train structure with raw outputs) or
-        ``'deepshap'`` (lifted neural graph, duck-typed), or ``None``."""
+        ``'deepshap'`` (a lifted neural graph whose every node has an
+        attribution rule, :func:`supports_deepshap`), or ``None``: then
+        ``validate_exact`` raises, as in the reference."""
 
         if supports_exact(self.predictor):
             return 'tree'
         if supports_exact_tn(self.predictor):
             return 'tn'
-        if hasattr(self.predictor, 'graph_spec'):
+        if supports_deepshap(self.predictor):
             return 'deepshap'
         return None
 
@@ -1364,13 +1376,17 @@ class KernelExplainerEngine:
         """Launch the exact phi computation for one batch and return a
         ``finalize() -> {'shap_values', 'raw_prediction'}`` that copies the
         result to the host: the packed route when the plan engages, the
-        dense route otherwise, and :meth:`_dispatch_exact_tn` for a
-        tensor-train predictor (one dispatch contract for both flavors).
-        ``X`` may be a :class:`StagedRows`, whose uploaded rows feed the
-        launch directly; ``finalize`` may run on another thread."""
+        dense route otherwise, :meth:`_dispatch_exact_tn` for a
+        tensor-train predictor and :meth:`_dispatch_deepshap` for a lifted
+        neural graph (one dispatch contract for every flavour).  ``X`` may
+        be a :class:`StagedRows`, whose uploaded rows feed the launch
+        directly; ``finalize`` may run on another thread."""
 
-        if self._exact_flavor() == 'tn':
+        flavor = self._exact_flavor()
+        if flavor == 'tn':
             return self._dispatch_exact_tn(X)
+        if flavor == 'deepshap':
+            return self._dispatch_deepshap(X)
         if isinstance(X, StagedRows):
             Xt, B = self._staged_input(X)
         else:
@@ -1444,18 +1460,22 @@ class KernelExplainerEngine:
                            interactions: bool) -> Dict[str, np.ndarray]:
         """``nsamples='exact'``: closed-form interventional Shapley values
         (no coalition plan, no WLS) of a lifted tree ensemble's raw margin,
-        with ``interactions=True`` also the interaction matrices, or of a
-        tensor-train predictor by the size-indexed DP; one dispatch per
-        instance chunk through :func:`run_pipeline` (reference
-        ``kernel_shap.py:2248-2286``, :2076-2112)."""
+        with ``interactions=True`` also the interaction matrices, of a
+        tensor-train predictor by the size-indexed DP, or of a lifted neural
+        graph by DeepSHAP backprop; one dispatch per instance chunk through
+        :func:`run_pipeline` (reference ``kernel_shap.py:2248-2286``,
+        :2076-2112, :2210-2244)."""
 
-        if self._exact_flavor() == 'tn':
-            validate_exact_tn(self.predictor, self.config.link, self.G)
+        flavor = self._exact_flavor()
+        if flavor in ('tn', 'deepshap'):
+            validate = validate_exact_tn if flavor == 'tn' else validate_deepshap
+            validate(self.predictor, self.config.link, self.G)
             if interactions:
+                path = {'tn': "tensor-network exact", 'deepshap': "DeepSHAP backprop"}[flavor]
                 raise ValueError(
                     "interactions=True requires a lifted tree ensemble "
-                    "(closed-form interaction matrices); the tensor-network "
-                    "exact path computes phi only.")
+                    f"(closed-form interaction matrices); the {path} path "
+                    "computes phi only.")
         else:
             validate_exact(self.predictor, self.config.link)
         if l1_reg not in (None, False, 0, 'auto'):
@@ -1526,6 +1546,72 @@ class KernelExplainerEngine:
 
         return finalize
 
+    # ------------------------------------------------------------------ #
+    # DeepSHAP backprop path (attribution/deepshap.py)
+
+    def _deepshap_consts(self) -> Dict[str, Any]:
+        """X-independent DeepSHAP constants: the lifted graph's float
+        initializers, the background rows, their normalised weights and the
+        group matrix on the device.  In the shared plan-constant LRU under
+        ``('deepshap_consts', content_fingerprint())`` (reference
+        ``kernel_shap.py:2117-2146``); ``plan_constant_cache=False``
+        recomputes them every call."""
+
+        def build():
+            spec = self.predictor.graph_spec()
+            bgw = self.bg_weights.astype(np.float64)
+            return {
+                'params': {name: torch.tensor(np.asarray(arr, np.float32), device=self.device)
+                           for name, arr in spec.initializers.items()
+                           if np.asarray(arr).dtype.kind == 'f'},
+                'bg': torch.as_tensor(self.background, device=self.device),
+                'bgw': torch.as_tensor((bgw / bgw.sum()).astype(np.float32),
+                                       device=self.device),
+                'G': torch.as_tensor(self.G, device=self.device),
+            }
+
+        return self._shared_consts(('deepshap_consts', self.content_fingerprint()), build)
+
+    def _deepshap_fn(self):
+        """The DeepSHAP batch function of this engine's graph (reference
+        ``kernel_shap.py:2148-2174``), built once per engine."""
+
+        if 'deepshap' not in self._fn_cache:
+            self._fn_cache['deepshap'] = build_deepshap_fn(self.predictor.graph_spec(),
+                                                           self.predictor.n_outputs)
+        return self._fn_cache['deepshap']
+
+    def _dispatch_deepshap(self, X):
+        """The DeepSHAP counterpart of :meth:`_dispatch_exact` (reference
+        ``kernel_shap.py:2176-2208``): the same :class:`StagedRows`
+        handling and ``finalize`` contract, phi and f(x) brought back in one
+        packed copy (:func:`pack_transfer`)."""
+
+        if isinstance(X, StagedRows):
+            Xt, B = self._staged_input(X)
+        else:
+            Xp, B = self._pad_to_bucket(X)
+            Xt = torch.as_tensor(Xp, device=self.device)
+        consts = self._deepshap_consts()
+        td = self.config.shap.transfer_dtype
+        with torch.no_grad(), capture_kernel_paths() as kp:
+            phi = self._deepshap_fn()(Xt, consts['params'], consts['bg'], consts['bgw'],
+                                      consts['G'])
+            packed = pack_transfer(phi, self.predictor(Xt), td)
+        self._kernel_paths.update(kp)
+        Bp = Xt.shape[0]
+        stream = self._current_stream()
+
+        def finalize() -> Dict[str, np.ndarray]:
+            K, M = self.predictor.n_outputs, self.M
+            with _on_stream(stream):
+                flat = fetch_transfer(packed)
+            phi_h, fx = unpack_transfer(flat, Bp * K * M, td)
+            return {'shap_values': phi_h.reshape(Bp, K, M)[:B],
+                    'raw_prediction': fx.reshape(Bp, K)[:B]}
+
+        return finalize
+
     def _resolve_window(self, n_items: int) -> int:
         """The dispatch window of an ``n_items``-chunk loop on this engine's
         device (:func:`resolve_window`), kept as ``last_dispatch_window``."""
@@ -1549,8 +1635,9 @@ class KernelExplainerEngine:
     def _exact_async_ready(self, interactions: bool = False) -> bool:
         """Whether ``nsamples='exact'`` rides the pipelined path (staging,
         ``finalize`` on another thread): a lifted tree ensemble with the
-        identity link, or a tensor-train predictor that passes
-        :func:`tn_exact_ready`, off host eval, phi only (reference
+        identity link, a tensor-train predictor that passes
+        :func:`tn_exact_ready` or a lifted neural graph that passes
+        :func:`deepshap_ready`, off host eval, phi only (reference
         ``kernel_shap.py:1420-1461``).  Interactions stay on the sync path.
         Memoised: every input is fixed once the engine is fitted."""
 
@@ -1569,6 +1656,9 @@ class KernelExplainerEngine:
             return self.config.link == 'identity'
         if flavor == 'tn':
             return tn_exact_ready(self.predictor, self.config.link, self.G,
+                                  self.config.shap.target_chunk_elems) is None
+        if flavor == 'deepshap':
+            return deepshap_ready(self.predictor, self.config.link, self.G,
                                   self.config.shap.target_chunk_elems) is None
         return False
 
@@ -1841,10 +1931,6 @@ class KernelExplainerEngine:
             # with this call's fingerprint/raw predictions
             self.last_interaction_values = None
         exact = nsamples == 'exact'
-        if exact and self._exact_flavor() == 'deepshap':
-            raise NotImplementedError(
-                    "the DeepSHAP exact path is ROADMAP.md queue A item 9 and "
-                    "not ported yet")
         batch_idx = None
         if isinstance(X, tuple):
             batch_idx, X = X

@@ -44,28 +44,66 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 @contextlib.contextmanager
 def full_f32_matmul():
-    """Float32 matmuls and einsums at full precision (TF32 off) inside the
-    block, whatever the caller set; the caller's setting is back on exit.
+    """Float32 matmuls, einsums and cuDNN convolutions at full precision
+    (TF32 off) inside the block, whatever the caller set; the caller's
+    settings are back on exit.
 
-    PyTorch has two APIs for the setting, and reading one after the other
+    PyTorch's default leaves ``torch.backends.cudnn.allow_tf32`` on, so
+    without this every ``F.conv2d`` on the card rounds its inputs to TF32.
+    PyTorch has two APIs for each setting, and reading one after the other
     was set raises, so this keeps to the one the caller's state answers."""
 
-    try:
-        prev = torch.get_float32_matmul_precision()
-    except RuntimeError:     # the caller set the per-backend API
-        matmul = torch.backends.cuda.matmul
-        prev = matmul.fp32_precision
-        matmul.fp32_precision = "ieee"
+    with _cudnn_f32():
+        try:
+            prev = torch.get_float32_matmul_precision()
+        except RuntimeError:     # the caller set the per-backend API
+            matmul = torch.backends.cuda.matmul
+            prev = matmul.fp32_precision
+            matmul.fp32_precision = "ieee"
+            try:
+                yield
+            finally:
+                matmul.fp32_precision = prev
+            return
+        torch.set_float32_matmul_precision("highest")
         try:
             yield
         finally:
-            matmul.fp32_precision = prev
+            torch.set_float32_matmul_precision(prev)
+
+
+@contextlib.contextmanager
+def _cudnn_f32():
+    """cuDNN convolutions in full float32 inside the block (the half of
+    :func:`full_f32_matmul` that covers ``F.conv2d`` and its gradients)."""
+
+    cudnn = torch.backends.cudnn
+    try:
+        prev = cudnn.allow_tf32
+    except RuntimeError:         # the caller set the per-operator API
+        prev = cudnn.conv.fp32_precision
+        cudnn.conv.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            cudnn.conv.fp32_precision = prev
         return
-    torch.set_float32_matmul_precision("highest")
+    cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(prev)
+        cudnn.allow_tf32 = prev
+
+
+def cudnn_tf32_enabled() -> bool:
+    """Whether cuDNN convolutions may round float32 inputs to TF32 now,
+    read through whichever API the current settings answer."""
+
+    cudnn = torch.backends.cudnn
+    try:
+        return bool(cudnn.allow_tf32)
+    except RuntimeError:
+        return cudnn.conv.fp32_precision == "tf32"
 
 
 class Bunch(dict):

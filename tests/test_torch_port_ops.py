@@ -317,7 +317,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "distributedkernelshap_tpu_torch.models.svm, "
         "distributedkernelshap_tpu_torch.models.quadratic, "
         "distributedkernelshap_tpu_torch.models.tensor_net, "
-        "distributedkernelshap_tpu_torch.ops.tensor_shap\n"
+        "distributedkernelshap_tpu_torch.ops.tensor_shap, "
+        "distributedkernelshap_tpu_torch.ops.image, "
+        "distributedkernelshap_tpu_torch.registry, "
+        "distributedkernelshap_tpu_torch.registry.onnx_lift, "
+        "distributedkernelshap_tpu_torch.models.cnn, "
+        "distributedkernelshap_tpu_torch.attribution, "
+        "distributedkernelshap_tpu_torch.attribution.deepshap\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'distributedkernelshap_tpu', 'pandas', 'sklearn')]\n"
         "assert not bad, bad\n")

@@ -271,7 +271,26 @@ Phases (each raises on failure, so the script exits non-zero):
    float32 and float16 transfer (``instance_chunk=2048``), additive (1e-3),
    float16 within the packed tolerance of float32, walls against the FLOP
    bound of B·S·N forwards, device busy; the fixture's images against the
-   JAX phi within 1e-3 plus 16 p-ulps.
+   JAX phi within 1e-3 plus 16 p-ulps;
+39. serving (``serving/``: the single-process ``ExplainerServer`` over
+   HTTP, the port's client): the fixture's LR wrapped by
+   ``BatchKernelShapModel.from_explainer``, served with
+   ``max_batch_size=64``, a self-calibrated pipeline depth and the warmup
+   ladder, staged and then unstaged; all 2560 rows as 256 binary requests
+   of 10 rows from 16 workers (16 more on the JSON wire, equal bit for
+   bit) against the fixture's JAX phi (1e-4 plus 16 p-ulps) and a direct
+   explain; ``fused_linear_ey`` launched exactly once per dispatched batch
+   over the request window; walls, rows/s, requests/s, p50/p99 request
+   latency, the batches formed, the warmup ladder's seconds; ``/metrics``
+   (``dks_compile_total`` with each kernel load, ``dks_serve_warming 0``)
+   and ``/statusz``'s memory reconcile against the CUDA allocator; a
+   repeated request answered from the result cache with no launch; a
+   failing ``fused_linear_ey`` failing its request with a 5xx; the
+   fixture's GBT served unpinned (auto-selected exact, ``exact_tree_phi``
+   launched per batch) and pinned to interactions (``exact_tree_inter``),
+   against ``tree_phi`` / ``tree_interactions``; ``python -m
+   distributedkernelshap_tpu_torch.serving.main --checkpoint`` of a
+   card-saved explainer answering one request and exiting 0 on SIGTERM.
 
 The second-to-last line of stdout is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -570,6 +589,407 @@ def ey_guard_stats(args, activation, chunk_rows):
         out["rows"] += int(rows.sum())
         out["rows_clamped"] += int(((dp - shift[None]).abs() > guard["clamp"])[rows].sum())
     return out
+
+
+# ---------------------------------------------------------------------- #
+# the tenth slice (phase 39): the single-process explanation server
+
+
+#: phase 39's LR traffic: the fixture's 2560 rows as requests of this many
+#: rows, sent by this many client workers; the server's batch cap in
+#: requests
+SERVE_ROWS_PER_REQUEST, SERVE_WORKERS, SERVE_MAX_BATCH = 10, 16, 64
+#: fixture rows the LR deployment serves (all of them)
+SERVE_N_ROWS = 2560
+#: phase 39's GBT traffic: exact rows served (the fixture's tree_phi has
+#: 256) and pinned-interactions rows, in requests of this many rows
+SERVE_TREE_ROWS, SERVE_INTER_ROWS, SERVE_TREE_REQUEST = 256, 64, 8
+
+
+def adult_fixture():
+    """The committed fixture as a dict, with its Adult grouping."""
+
+    import os
+
+    fx = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), FIXTURE),
+                 allow_pickle=False)
+    out = {k: fx[k] for k in fx.files}
+    widths = [int(w) for w in out["group_widths"]]
+    starts = np.concatenate([[0], np.cumsum(widths)[:-1]])
+    out["groups"] = [list(range(s, s + w)) for s, w in zip(starts, widths)]
+    out["names"] = [f"g{i}" for i in range(len(widths))]
+    return out
+
+
+def _http_get(url, timeout=30.0):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _wait_healthy(srv, budget_s=120.0):
+    """Poll ``/healthz`` until it answers 200; returns the seconds waited."""
+
+    t0 = time.perf_counter()
+    while True:
+        code, body = _http_get(f"http://127.0.0.1:{srv.port}/healthz")
+        if code == 200:
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > budget_s:
+            raise AssertionError(f"/healthz never answered 200 (last {code}: {body})")
+        time.sleep(0.02)
+
+
+def _metric_value(srv, name, **labels):
+    m = srv.metrics.get(name)
+    return float(m.value(**labels)) if m is not None else 0.0
+
+
+class _BatchLog:
+    """Wraps a serving model's ``explain_batch_async``: while ``on``, logs
+    each dispatched batch's request count, rows and whether its rows came
+    staged (an engine ``StagedRows``, not a host array)."""
+
+    def __init__(self, model):
+        self.on, self.batches = False, []
+        inner = model.explain_batch_async
+
+        def logged(instances, split_sizes=None, **kw):
+            if self.on:
+                sizes = list(split_sizes or [])
+                self.batches.append((len(sizes), int(sum(sizes)),
+                                     not isinstance(instances, np.ndarray)))
+            return inner(instances, split_sizes=split_sizes, **kw)
+
+        model.explain_batch_async = logged
+
+
+def _serve_lr_traffic(model, log, X, staging, card):
+    """One LR server (the reference's defaults: self-calibrated depth, the
+    warmup ladder) answering ``X`` as requests of
+    ``SERVE_ROWS_PER_REQUEST`` rows from ``SERVE_WORKERS`` workers on the
+    binary wire, counted over the request window only."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.serving import client as cl
+    from distributedkernelshap_tpu_torch.serving.server import ExplainerServer
+
+    t0 = time.perf_counter()
+    srv = ExplainerServer(model, host="127.0.0.1", port=0, max_batch_size=SERVE_MAX_BATCH,
+                          warmup=True, staging=staging).start()
+    try:
+        start_s = time.perf_counter() - t0
+        healthy_s = _wait_healthy(srv)
+        warm = srv.warmup_status()
+        url = f"http://127.0.0.1:{srv.port}/explain"
+        requests = np.split(X, X.shape[0] // SERVE_ROWS_PER_REQUEST)
+        latencies = []
+        inner = cl.explain_request
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            out = inner(*a, **kw)
+            latencies.append(time.perf_counter() - t)
+            return out
+
+        batches0 = _metric_value(srv, "dks_serve_batches_total")
+        log.batches.clear()
+        reset_launches()
+        log.on = True
+        cl.explain_request = timed
+        try:
+            t = time.perf_counter()
+            payloads = cl.distribute_requests(url, X, batch_mode="default",
+                                              minibatches=requests,
+                                              max_workers=SERVE_WORKERS,
+                                              wire_format="binary")
+            wall = time.perf_counter() - t
+        finally:
+            cl.explain_request = inner
+            log.on = False
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        batches = int(_metric_value(srv, "dks_serve_batches_total") - batches0)
+        staged_ok = sum(s for _, _, s in log.batches)
+        json_payloads = cl.distribute_requests(url, X[:16 * SERVE_ROWS_PER_REQUEST],
+                                               batch_mode="default",
+                                               minibatches=requests[:16],
+                                               max_workers=SERVE_WORKERS, wire_format="json")
+        code, metrics = _http_get(f"http://127.0.0.1:{srv.port}/metrics")
+        code_s, statusz = _http_get(f"http://127.0.0.1:{srv.port}/statusz?format=json")
+    finally:
+        srv.stop()
+    lat = np.sort(np.asarray(latencies)) * 1e3
+    req_per_batch = [n for n, _, _ in log.batches]
+    rows_per_batch = [r for _, r, _ in log.batches]
+    rec = {
+        "payloads": payloads, "json_payloads": json_payloads, "wall": wall,
+        "launches": launches, "batches": batches, "logged": len(log.batches),
+        "depth": srv.pipeline_depth, "metrics": metrics, "statusz": (code_s, statusz),
+        "warm": warm, "start_s": start_s, "healthy_s": healthy_s, "staged": staged_ok,
+    }
+    print(f"serving LR ({'staged' if staging else 'unstaged'}): start {start_s:.3f} s "
+          f"(calibrated pipeline_depth {srv.pipeline_depth}), warmup ladder buckets "
+          f"{warm['buckets']} state {warm['state']} in {warm['elapsed_s']:.3f} s, /healthz 200 "
+          f"after {healthy_s:.3f} s; {X.shape[0]} rows as {len(requests)} binary requests of "
+          f"{SERVE_ROWS_PER_REQUEST} from {SERVE_WORKERS} workers: wall {1e3 * wall:.3f} ms, "
+          f"{X.shape[0] / wall:.1f} rows/s, {len(requests) / wall:.1f} requests/s; request "
+          f"latency p50 {np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms, "
+          f"max {lat.max():.3f} ms; {batches} batches (requests per batch min/median/max "
+          f"{min(req_per_batch)}/{int(np.median(req_per_batch))}/{max(req_per_batch)}, rows "
+          f"{min(rows_per_batch)}/{int(np.median(rows_per_batch))}/{max(rows_per_batch)}); "
+          f"launches over the window {launches}"
+          + f"; staged batches {staged_ok}" + f" on {card}",
+          flush=True)
+    return rec
+
+
+def serving_phase(explain_device, card):
+    """Phase 39: the port's single-process ``ExplainerServer`` on the card,
+    at the fixture's Adult width, driven over HTTP through the port's
+    client; returns ``{kernel: launches}`` of the served traffic."""
+
+    import os
+    import signal
+    import socket
+    import tempfile
+
+    import torch
+    from distributedkernelshap_tpu_torch import KernelShap, TreeEnsemblePredictor
+    from distributedkernelshap_tpu_torch.ops import explain as texp
+    from distributedkernelshap_tpu_torch.runtime.compile_cache import compile_events
+    from distributedkernelshap_tpu_torch.serving import client as cl
+    from distributedkernelshap_tpu_torch.serving.server import ExplainerServer
+    from distributedkernelshap_tpu_torch.serving.wrappers import BatchKernelShapModel
+
+    device = explain_device
+    fx = adult_fixture()
+    X, bg = fx["X"][:SERVE_N_ROWS], fx["background"]
+    est = AdultShapedLogisticRegression.fitted(fx["coef"], fx["intercept"])
+    ks = KernelShap(est.predict_proba, link="logit", seed=0, device=device)
+    ks.fit(bg, group_names=fx["names"], groups=fx["groups"])
+    serving_launches = {}
+    ulp = 2.0 ** -24 * (2.0 + 2.0 * np.cosh(fx["raw_prediction"][:SERVE_N_ROWS, 1]))
+
+    # -- the LR deployment: staged, then unstaged ----------------------- #
+    direct = np.stack(ks.explain(X, silent=True).shap_values, 1)
+    walls = {}
+    for staging in (True, False):
+        model = BatchKernelShapModel.from_explainer(ks)
+        log = _BatchLog(model)
+        rec = _serve_lr_traffic(model, log, X, staging, card)
+        walls["staged" if staging else "unstaged"] = rec["wall"]
+        phi = np.concatenate([np.stack(p["shap_values"], 1) for p in rec["payloads"]])
+        d_fix = np.abs(phi - fx["phi"][:SERVE_N_ROWS]).max((1, 2))
+        fix_ok = d_fix <= 1e-4 + LOGIT_ULPS * ulp
+        d_direct = float(np.abs(phi - direct).max())
+        phi_json = np.concatenate([np.stack(p["data"]["shap_values"], 1) for p in
+                                   map(json.loads, rec["json_payloads"])])
+        n_json = phi_json.shape[0]
+        d_json = float(np.abs(phi_json - phi[:n_json]).max())
+        json_ok = (np.abs(phi_json - fx["phi"][:n_json]).max((1, 2))
+                   <= 1e-4 + LOGIT_ULPS * ulp[:n_json]).all()
+        print(f"serving LR ({'staged' if staging else 'unstaged'}) answers: |phi served - "
+              f"phi JAX fixture| max {d_fix.max():.3e} (tol 1e-4 + {LOGIT_ULPS} p-ulps; "
+              f"{int((d_fix <= 1e-4).sum())}/{X.shape[0]} rows within 1e-4 alone); |phi "
+              f"served - direct explain of the same rows on the card| {d_direct:.3e} "
+              f"({'bit-identical' if d_direct == 0.0 else 'not bit-identical'}); the JSON "
+              f"wire's {n_json} rows vs the binary wire's {d_json:.3e} (other batches; "
+              f"within the fixture's bar: {json_ok}); fused_linear_ey launches {rec['launches']['fused_linear_ey']}"
+              f" vs {rec['batches']} batches counted by the server ({rec['logged']} "
+              f"dispatches logged)", flush=True)
+        if not fix_ok.all() or not json_ok or d_direct > PHI_ATOL \
+                or rec["launches"]["fused_linear_ey"] != rec["batches"] \
+                or rec["logged"] != rec["batches"] or rec["batches"] < 1 \
+                or rec["launches"]["exact_tree_phi"] or rec["launches"]["exact_tree_inter"]:
+            raise AssertionError("the served LR deployment is off")
+        if bool(rec["staged"]) != staging:
+            raise AssertionError("the server's staging is not what was asked for")
+        if staging:
+            serving_launches["fused_linear_ey"] = rec["launches"]["fused_linear_ey"]
+            first = rec
+    print(f"serving LR walls: staged {1e3 * walls['staged']:.3f} ms, unstaged "
+          f"{1e3 * walls['unstaged']:.3f} ms on {card}", flush=True)
+
+    # -- server surfaces of the staged run ------------------------------ #
+    metrics = first["metrics"]
+    compile_lines = [ln for ln in metrics.splitlines() if ln.startswith("dks_compile_total{")]
+    artefacts = compile_events().artefacts()
+    code_s, statusz = first["statusz"]
+    memory = json.loads(statusz)["detail"]["memory"]
+    rec_mem = memory["reconcile"]
+    allocated = int(torch.cuda.memory_stats(device)["allocated_bytes.all.current"])
+    print(f"serving surfaces: dks_compile_total {compile_lines}; artefacts {artefacts}; "
+          f"'dks_serve_warming 0' on /metrics: {'dks_serve_warming 0' in metrics}; /statusz "
+          f"{code_s} memory reconcile {rec_mem} (allocator now {allocated} bytes), ledger "
+          f"owners {memory['owners']}", flush=True)
+    if not compile_lines or not {"fused_linear_ey", "exact_tree_phi",
+                                 "exact_tree_inter"} <= set(artefacts) \
+            or "dks_serve_warming 0" not in metrics or code_s != 200 \
+            or rec_mem.get("supported") is not True or not rec_mem.get("bytes_in_use"):
+        raise AssertionError("a server surface is off")
+
+    # -- the result cache: a repeat costs no launch --------------------- #
+    srv = ExplainerServer(BatchKernelShapModel.from_explainer(ks), host="127.0.0.1", port=0,
+                          max_batch_size=SERVE_MAX_BATCH, pipeline_depth=4, warmup=False,
+                          cache_bytes=1 << 22).start()
+    try:
+        url = f"http://127.0.0.1:{srv.port}/explain"
+        one = cl.explain_request(url, X[:SERVE_ROWS_PER_REQUEST])
+        torch.cuda.synchronize()
+        reset_launches()
+        again = cl.explain_request(url, X[:SERVE_ROWS_PER_REQUEST])
+        torch.cuda.synchronize()
+        cache_launches = kernel_launches()
+        hits = _metric_value(srv, "dks_serve_cache_hits_total")
+        weak = _metric_value(srv, "dks_result_cache_weak_fingerprint_total")
+    finally:
+        srv.stop()
+    print(f"serving result cache: repeat identical {again == one}, launches {cache_launches}, "
+          f"cache hits {hits:.0f}, weak (in-process identity) model fingerprints {weak:.0f} "
+          f"(the LR's CUDA buffers hashed by content)", flush=True)
+    if again != one or any(cache_launches.values()) or hits < 1 or weak:
+        raise AssertionError("the repeated request was not answered from the result cache")
+
+    # -- no fallback: a failing kernel fails the request ---------------- #
+    srv = ExplainerServer(BatchKernelShapModel.from_explainer(ks), host="127.0.0.1", port=0,
+                          max_batch_size=4, pipeline_depth=2, warmup=False).start()
+    real = texp.fused_linear_ey
+
+    def failing(*a, **kw):
+        raise RuntimeError("fused_linear_ey launch failed (injected)")
+
+    texp.fused_linear_ey = failing
+    try:
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/explain",
+            data=json.dumps({"array": X[:2].tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(req, timeout=60)
+            status = 200
+        except urllib.error.HTTPError as e:
+            status = e.code
+    finally:
+        texp.fused_linear_ey = real
+        srv.stop()
+    print(f"serving with a failing fused_linear_ey: HTTP {status} (want 5xx)", flush=True)
+    if status < 500:
+        raise AssertionError("a failing kernel did not fail the request")
+
+    # -- the GBT deployments --------------------------------------------- #
+    tree = TreeEnsemblePredictor(
+        fx["tree_feature"], fx["tree_threshold"], fx["tree_left"], fx["tree_right"],
+        fx["tree_value"], depth=int(fx["tree_depth"]), aggregation="sum",
+        base=fx["tree_base"], scale=float(fx["tree_scale"]),
+        missing_left=fx["tree_missing_left"], vector_out=False, device=device)
+    tks = KernelShap(tree, task="regression", seed=0, device=device)
+    tks.fit(bg, group_names=fx["names"], groups=fx["groups"])
+    reset_launches()
+    tks.explain(X[:SERVE_TREE_REQUEST], nsamples="exact", silent=True)
+    torch.cuda.synchronize()
+    per_explain = kernel_launches()["exact_tree_phi"]
+    for pinned in (False, True):
+        kw = {"nsamples": "exact", "interactions": True} if pinned else None
+        model = BatchKernelShapModel.from_explainer(tks, explain_kwargs=kw)
+        srv = ExplainerServer(model, host="127.0.0.1", port=0, max_batch_size=SERVE_MAX_BATCH,
+                              pipeline_depth=4, warmup=False).start()
+        try:
+            url = f"http://127.0.0.1:{srv.port}/explain"
+            rows = X[:SERVE_INTER_ROWS if pinned else SERVE_TREE_ROWS]
+            path0 = _metric_value(srv, "dks_serve_explain_path_total", path="exact")
+            batches0 = _metric_value(srv, "dks_serve_batches_total")
+            reset_launches()
+            t = time.perf_counter()
+            payloads = cl.distribute_requests(
+                url, rows, batch_mode="default",
+                minibatches=np.split(rows, rows.shape[0] // SERVE_TREE_REQUEST),
+                max_workers=SERVE_WORKERS, wire_format="binary")
+            wall = time.perf_counter() - t
+            torch.cuda.synchronize()
+            launches = kernel_launches()
+            batches = int(_metric_value(srv, "dks_serve_batches_total") - batches0)
+            path_n = _metric_value(srv, "dks_serve_explain_path_total", path="exact") - path0
+        finally:
+            srv.stop()
+        phi = np.concatenate([p["shap_values"][0] for p in payloads])
+        d_phi = rel_close(phi, fx["tree_phi"][:rows.shape[0]])
+        d_inter = None
+        if pinned:
+            inter = np.concatenate([p["interaction_values"][0] for p in payloads])
+            d_inter = rel_close(inter, fx["tree_interactions"][:rows.shape[0]])
+            want = {"exact_tree_inter": batches, "exact_tree_phi": batches}
+        else:
+            want = {"exact_tree_phi": per_explain * batches}
+        print(f"serving GBT ({'pinned interactions' if pinned else 'unpinned'}): path "
+              f"{model.explain_path} ({model.explain_path_reason}), "
+              f"dks_serve_explain_path_total{{path=\"exact\"}} +{path_n:.0f} (requests); "
+              f"{rows.shape[0]} "
+              f"rows in {len(payloads)} requests, wall {1e3 * wall:.3f} ms, {batches} batches, "
+              f"launches {launches} (want {want}); |phi - tree_phi JAX| {d_phi:.3e}"
+              + (f", |inter - tree_interactions JAX| {d_inter:.3e}" if pinned else "")
+              + f" (tol {PHI_REL:g} x max(1, max|.|)) on {card}", flush=True)
+        if model.explain_path != "exact" or path_n != len(payloads) or batches < 1 \
+                or any(launches[k] != v for k, v in want.items()) \
+                or launches["fused_linear_ey"] \
+                or (not pinned and (launches["exact_tree_inter"]
+                                    or model.explain_path_reason != "auto")):
+            raise AssertionError("a served GBT deployment is off")
+        for k in want:
+            serving_launches[k] = serving_launches.get(k, 0) + launches[k]
+
+    # -- the CLI entry point --------------------------------------------- #
+    lifted = ks._explainer.predictor
+    cks = KernelShap(lifted, link="logit", seed=0, device=device)
+    cks.fit(bg, group_names=fx["names"], groups=fx["groups"])
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "lr.pkl")
+        cks.save(ckpt)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "distributedkernelshap_tpu_torch.serving.main",
+             "--checkpoint", ckpt, "--host", "127.0.0.1", "--port", str(port),
+             "--pipeline_depth", "2", "--max_batch_size", "8"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT)
+        try:
+            while True:
+                try:
+                    code, _ = _http_get(f"http://127.0.0.1:{port}/healthz", timeout=5)
+                except OSError:
+                    code = None
+                if code == 200:
+                    break
+                if proc.poll() is not None or time.perf_counter() - t0 > 180:
+                    raise AssertionError("the CLI server never became healthy: "
+                                         + proc.stdout.read().decode()[-2000:])
+                time.sleep(0.1)
+            up_s = time.perf_counter() - t0
+            body = cl.explain_request(f"http://127.0.0.1:{port}/explain", X[:2],
+                                      wire_format="binary")
+            d_cli = float(np.abs(np.stack(body["shap_values"], 1) - direct[:2]).max())
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"serving CLI (serving.main --checkpoint, saved on {device}): healthy after "
+          f"{up_s:.3f} s, |phi - direct| {d_cli:.3e}, exit {rc} on SIGTERM", flush=True)
+    if rc != 0 or d_cli > PHI_ATOL:
+        raise AssertionError("the CLI server is off")
+    return serving_launches
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -4851,9 +5271,16 @@ def main() -> int:
     t = time.perf_counter()
     mnist_sampled_phase(fx_mnist, X_mnist, train_mnist, device, card)
     seconds["38 mnist sampled"] = time.perf_counter() - t
+
+    # 39. the single-process explanation server
+    t = time.perf_counter()
+    serving = serving_phase(device, card)
+    seconds["39 serving"] = time.perf_counter() - t
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; script so far {time.perf_counter() - t_start:.1f}", flush=True)
 
+    exact_record["serving_launches"] = serving["exact_tree_phi"]
+    inter_record["serving_launches"] = serving["exact_tree_inter"]
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "fused_linear_ey", "route": "cuda",
@@ -4861,7 +5288,8 @@ def main() -> int:
         "replaces": "distributedkernelshap_tpu/ops/pallas_kernels.py:497",
         "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}, exact_record, inter_record]}))
+        "library_ms": None, "serving_launches": serving["fused_linear_ey"]},
+        exact_record, inter_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -91,6 +91,7 @@ from distributedkernelshap_tpu_torch.interface import (
     FitMixin,
 )
 from distributedkernelshap_tpu_torch.models.predictors import BasePredictor, as_predictor
+from distributedkernelshap_tpu_torch.observability.memledger import memledger
 from distributedkernelshap_tpu_torch.ops.coalitions import coalition_plan, plan_fingerprint
 from distributedkernelshap_tpu_torch.ops.explain import (
     ShapConfig,
@@ -133,6 +134,26 @@ from distributedkernelshap_tpu_torch.profiling import profiler
 from distributedkernelshap_tpu_torch.utils import methdispatch, resolve_device
 
 logger = logging.getLogger(__name__)
+
+
+def _plan_consts_owner(key) -> str:
+    """Ledger owner for one ``_plan_consts_cache`` key (reference
+    ``kernel_shap.py:61-76``): the cache holds linear plan consts
+    (``(content_fp, plan_fp, chunk)`` tuples) next to the exact, tensor-
+    network, DeepSHAP and anytime constants, whose keys lead with a string
+    discriminator — route each to its own device-byte account so
+    ``dks_device_bytes`` tells them apart."""
+
+    if isinstance(key, tuple):
+        for el in key:
+            if el in ('exact_consts', 'exact_reach_full'):
+                return 'exact_consts'
+            if el in ('exact_tn_consts', 'deepshap_consts'):
+                return el
+            if el == 'anytime':
+                return 'anytime_consts'
+    return 'plan_consts'
+
 
 # parameters recorded in explanation metadata (reference kernel_shap.py:23-31)
 KERNEL_SHAP_PARAMS = [
@@ -709,8 +730,21 @@ class KernelExplainerEngine:
 
         self._plan_cache: Dict[Any, Any] = {}
         self._fn_cache: Dict[Any, Any] = {}
-        self._dev_cache: "OrderedDict[str, Tuple[torch.Tensor, ...]]" = OrderedDict()
-        self._plan_consts_cache: "OrderedDict[Any, Dict[str, Any]]" = OrderedDict()
+        # device-resident per-plan constants, keyed by content fingerprint;
+        # OrderedDict = LRU, entry-bounded.  Both caches are ledger-tracked
+        # (reference kernel_shap.py:664-679): every insert/evict charges or
+        # releases computed nbytes against the process memory ledger
+        # (dks_device_bytes{owner,model}); under memory pressure the ledger
+        # LRU-shrinks them — only ever forcing a re-upload.
+        _ledger = memledger()
+        _ledger.note_device(self.device)
+        self._dev_cache: "OrderedDict[str, Tuple[torch.Tensor, ...]]" = \
+            _ledger.tracked_cache("dev_cache")
+        # plan-constant cache: linear plan consts next to the exact tree,
+        # tensor-network, DeepSHAP and anytime constants under distinct key
+        # shapes, routed to per-owner ledger accounts
+        self._plan_consts_cache: "OrderedDict[Any, Dict[str, Any]]" = \
+            _ledger.tracked_cache("plan_consts", owner_for_key=_plan_consts_owner)
         self._content_fp: Optional[str] = None
         # _exact_async_ready's memo (host state fixed once fitted)
         self._ready_cache: Dict[bool, bool] = {}

@@ -199,6 +199,33 @@ class TorchPredictor(BasePredictor):
             out = out[:, None]
         return out.to(torch.float32)
 
+    def fingerprint_bytes(self) -> Optional[bytes]:
+        """Content bytes of a wrapped ``nn.Module`` (the counterpart of the
+        reference's ``JaxPredictor`` parameter bytes): the qualified class
+        name and scalar attributes of every submodule and the bytes of its
+        ``state_dict``, plus the output count — two modules of one class
+        that differ only in weights never share a cache key.  ``None`` for
+        a plain function, whose captured state no bytes describe (the
+        result cache then falls back to in-process identity)."""
+
+        if not isinstance(self.fn, nn.Module):
+            return None
+        parts = [b"torch_module", str(self.n_outputs).encode(),
+                 str(self.vector_out).encode()]
+        for name, sub in self.fn.named_modules():
+            cls = type(sub)
+            parts.append(f"{name}:{cls.__module__}.{cls.__qualname__}".encode())
+            for key in sorted(vars(sub)):
+                value = vars(sub)[key]
+                if not key.startswith("_") and isinstance(
+                        value, (str, int, float, bool, tuple, type(None))):
+                    parts.append(f"{key}={value!r}".encode())
+        for key, tensor in self.fn.state_dict().items():
+            parts.append(f"{key}:{tensor.dtype}:{tuple(tensor.shape)}".encode())
+            parts.append(tensor.detach().cpu().contiguous().reshape(-1)
+                         .view(torch.uint8).numpy().tobytes())
+        return b"\x00".join(parts)
+
 def _lift_sklearn_mlp(method, device=None):
     """Lift ``MLPClassifier.predict_proba`` / ``MLPRegressor.predict`` into a
     ``TorchMLPPredictor`` (scikit-learn stores per-layer ``coefs_`` /

@@ -210,6 +210,23 @@ class TorchMLPPredictor(BasePredictor):
             X = _apply_stage(stage, X)
         return X
 
+    def fingerprint_bytes(self) -> bytes:
+        """Content bytes for the engine's device-cache and the result
+        cache's fingerprints (the reference's ``MLPPredictor`` bytes): every
+        stage's kind, weight and bias bytes and scalar settings, and the
+        output count — two MLPs that differ only in weights never share a
+        key."""
+
+        parts = [b"mlp", str(self.n_outputs).encode(), str(self.vector_out).encode()]
+        for stage in self.stages:
+            for a in stage:
+                if isinstance(a, torch.Tensor):
+                    parts.append(repr(tuple(a.shape)).encode())
+                    parts.append(_np(a).tobytes())
+                else:
+                    parts.append(repr(a).encode())
+        return b"\x00".join(parts)
+
     # ------------------------------------------------------------------
     # structure-aware masked evaluation for the KernelSHAP pipeline
     # ------------------------------------------------------------------

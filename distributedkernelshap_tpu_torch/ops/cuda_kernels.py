@@ -35,12 +35,14 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
 import torch
 
 from distributedkernelshap_tpu_torch.models.predictors import ACTIVATIONS
+from distributedkernelshap_tpu_torch.runtime.compile_cache import compile_events
 from distributedkernelshap_tpu_torch.utils import REPO_ROOT
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -90,6 +92,16 @@ _LIMITS = {"fused_linear_ey": ("fused_linear_ey_max_k", MAX_K),
 _ACTIVATION_CODE = {"softmax": 0, "sigmoid": 1}
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: kernels whose library this process compiled (their load is no cache hit)
+_built_here = set()
+
+
+def set_build_dir(path) -> None:
+    """Build and load kernel libraries under ``path`` from now on
+    (``runtime/compile_cache.enable_persistent_cache``)."""
+
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
 
 
 def _nvcc() -> str:
@@ -124,6 +136,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    t0 = time.perf_counter()
     procs = {}
     for name, path in todo.items():
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
@@ -139,6 +152,8 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
         else:
             os.replace(tmp, path)
+            _built_here.add(name)
+            compile_events().record("fresh", time.perf_counter() - t0, name)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return out
@@ -150,6 +165,7 @@ def _library(name: str) -> ctypes.CDLL:
 
     with _lock:
         if name not in _libs:
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(build([name])[name]))
             for sym, (argtypes, restype) in _SYMBOLS[name].items():
                 fn = getattr(lib, sym)
@@ -159,6 +175,8 @@ def _library(name: str) -> ctypes.CDLL:
             if getattr(lib, limit_fn)() != limit:
                 raise RuntimeError(f"csrc/{name}.cu and the wrapper's limit disagree")
             _libs[name] = lib
+            if name not in _built_here:
+                compile_events().record("cache_hit", time.perf_counter() - t0, name)
         return _libs[name]
 
 

@@ -38,9 +38,8 @@ outside any Pallas kernel), under full f32 matmuls.
 
 Scope: identity link, identity grouping (each feature group one tensor
 site, in column order) and raw TT outputs; the gates and fallback reasons
-are the reference's.  The ``dks_tensor_shap_fallback_total`` metric
-(``attach_tensor_shap_metrics``) waits for the metrics registry (ROADMAP.md
-queue A item 12); the counts are kept here.
+are the reference's, and so is the ``dks_tensor_shap_fallback_total``
+metric over their counts (:func:`attach_tensor_shap_metrics`).
 """
 
 import logging
@@ -91,6 +90,22 @@ def tn_fallback_counts() -> Dict[Tuple[str, ...], float]:
 
     with _fallback_lock:
         return {(r,): n for r, n in _fallback_counts.items()}
+
+
+def attach_tensor_shap_metrics(registry) -> None:
+    """Register ``dks_tensor_shap_fallback_total{reason}`` on ``registry``
+    as a callback counter over the process-global fallback accounting."""
+
+    registry.counter(
+        "dks_tensor_shap_fallback_total",
+        "Exact tensor-network Shapley demotion EVENTS back to the sampled "
+        "estimator for predictors that carry TT cores, by reason "
+        "(grouping = non-identity feature grouping, link = non-identity "
+        "link would change the target quantity, rank = TT rank above "
+        "TN_MAX_RANK, footprint = DP intermediates exceed the chunk "
+        "budget).  Counted when the path decision is made (auto-select / "
+        "readiness probe), not per served request.",
+        labelnames=("reason",)).set_function(tn_fallback_counts)
 
 
 # ---------------------------------------------------------------------- #

@@ -33,10 +33,13 @@ route (``ops/treeshap_pack.py``); the interactions take one
 diagonal.  Every non-kernel branch is the kernel's plain version — there is
 no second plain route.  The TPU gates of the JAX package (VMEM footprint,
 the 256-row background slice, the dmax cap of 64) do not exist here: one
-launch takes any N and any dmax.
+launch takes any N and any dmax.  So the port never demotes an exact
+explain off its kernel: ``dks_treeshap_fallback_total``
+(:func:`attach_treeshap_metrics`) is registered as in the reference and
+always reads empty (ROADMAP.md C.10).
 """
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +62,27 @@ from distributedkernelshap_tpu_torch.ops.treeshap_pack import (
     leaf_group_counts,
     plan_packed_paths,
 )
+
+
+def exact_fallback_counts() -> Dict[Tuple[str, ...], float]:
+    """``{(reason,): count}`` — the registry-callback shape.  Always empty:
+    the port has no demotion off the exact kernels (a kernel that cannot
+    run raises)."""
+
+    return {}
+
+
+def attach_treeshap_metrics(registry) -> None:
+    """Register ``dks_treeshap_fallback_total{reason}`` on ``registry`` as
+    a callback counter over :func:`exact_fallback_counts`, with the
+    reference's family and label."""
+
+    registry.counter(
+        "dks_treeshap_fallback_total",
+        "Exact-TreeSHAP demotion EVENTS off the fused-kernel hot path, by "
+        "reason.  The PyTorch port never demotes (a kernel that cannot run "
+        "raises), so this family is always empty.",
+        labelnames=("reason",)).set_function(exact_fallback_counts)
 
 
 def _unwrap(pred):

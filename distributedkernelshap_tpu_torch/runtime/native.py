@@ -19,10 +19,12 @@ import logging
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
 
+from distributedkernelshap_tpu_torch.runtime.compile_cache import compile_events
 from distributedkernelshap_tpu_torch.utils import REPO_ROOT
 
 logger = logging.getLogger(__name__)
@@ -34,6 +36,14 @@ CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-fopenmp", "-march=native")
 _lock = threading.Lock()
 _lib = None
 _tried = False
+
+
+def set_build_dir(path) -> None:
+    """Build and load the library under ``path`` from now on
+    (``runtime/compile_cache.enable_persistent_cache``)."""
+
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
 
 
 def library_path() -> Path:
@@ -64,8 +74,10 @@ def get_lib():
         if _lib is not None or _tried:
             return _lib
         _tried = True
+        t0 = time.perf_counter()
         path = library_path()
-        if not path.exists() and not _build(path):
+        kind = "cache_hit" if path.exists() else "fresh"
+        if kind == "fresh" and not _build(path):
             return None
         try:
             lib = ctypes.CDLL(str(path))
@@ -78,6 +90,7 @@ def get_lib():
         lib.dks_weighted_mean.argtypes = [f32p, f32p, f32p] + [ctypes.c_int64] * 3
         lib.dks_weighted_mean.restype = None
         _lib = lib
+        compile_events().record(kind, time.perf_counter() - t0, "libdksruntime")
         logger.info("native runtime loaded: %s", path)
         return _lib
 

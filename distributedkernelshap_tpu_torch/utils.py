@@ -1,8 +1,10 @@
 """Utilities: device resolution, full-precision matmuls, ``Bunch``,
-``methdispatch`` and the Adult data/model loaders.
+``methdispatch``, the boolean env knobs, ``ensure_dir`` and the Adult
+data/model loaders.
 
-``Bunch``, ``methdispatch``, ``load_data``, ``load_model`` and
-``data_provenance`` are copies of ``distributedkernelshap_tpu/utils.py``
+``Bunch``, ``methdispatch``, ``parse_bool_token``, ``resolve_bool_env``,
+``ensure_dir``, ``load_data``, ``load_model`` and ``data_provenance`` are
+copies of ``distributedkernelshap_tpu/utils.py``
 (the JAX package's ``__init__`` imports JAX, so the port keeps its own).  The
 loaders here only READ the cached pickles: they never generate the data,
 because the generator scripts import the JAX package and scikit-learn.
@@ -125,6 +127,39 @@ class Bunch(dict):
             raise AttributeError(key)
 
 
+def parse_bool_token(raw: Optional[str]) -> Optional[bool]:
+    """The ONE truthy/falsy env-token parser shared by every boolean knob
+    (``DKS_WARMUP``/``DKS_STAGING``/``DKS_DONATE``): ``True``/``False``
+    for a recognised token, ``None`` for empty/unrecognised — each caller
+    applies its own default (and decides whether to warn), so the token
+    vocabulary can never drift between knobs."""
+
+    raw = (raw or "").strip().lower()
+    if raw in ("1", "true", "on", "yes"):
+        return True
+    if raw in ("0", "false", "off", "no"):
+        return False
+    return None
+
+
+def resolve_bool_env(name: str, default: bool) -> bool:
+    """Resolve one boolean env knob via :func:`parse_bool_token`.  An
+    unrecognised non-empty value falls back to ``default`` LOUDLY — the
+    shared contract of ``DKS_WARMUP``/``DKS_STAGING``/``DKS_DONATE``: a
+    typo must never silently flip (or silently keep) a behaviour the
+    operator thinks they set."""
+
+    raw = os.environ.get(name, "")
+    parsed = parse_bool_token(raw)
+    if parsed is not None:
+        return parsed
+    if raw.strip():
+        logging.getLogger(__name__).warning(
+            "unrecognised %s=%r; using the component default (%s)",
+            name, raw, default)
+    return default
+
+
 def methdispatch(func: Callable):
     """singledispatch on ``args[1]`` so it works for instance methods
     (reference utils.py:43-64)."""
@@ -162,6 +197,15 @@ def load_data():
         "background": _read_pickle(BACKGROUND_SET_LOCAL, "process_adult_data.py"),
         "all": _read_pickle(EXPLANATIONS_SET_LOCAL, "process_adult_data.py"),
     }
+
+
+def ensure_dir(path: str) -> None:
+    """Create the parent directory of the file ``path`` (which may have no
+    extension — the argument is always interpreted as a file path)."""
+
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
 
 
 def data_provenance(data: dict) -> str:

@@ -323,7 +323,37 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "distributedkernelshap_tpu_torch.registry.onnx_lift, "
         "distributedkernelshap_tpu_torch.models.cnn, "
         "distributedkernelshap_tpu_torch.attribution, "
-        "distributedkernelshap_tpu_torch.attribution.deepshap\n"
+        "distributedkernelshap_tpu_torch.attribution.deepshap, "
+        "distributedkernelshap_tpu_torch.analysis, "
+        "distributedkernelshap_tpu_torch.analysis.core, "
+        "distributedkernelshap_tpu_torch.analysis.concurrency, "
+        "distributedkernelshap_tpu_torch.analysis.lockwitness, "
+        "distributedkernelshap_tpu_torch.observability, "
+        "distributedkernelshap_tpu_torch.observability.flightrec, "
+        "distributedkernelshap_tpu_torch.observability.metrics, "
+        "distributedkernelshap_tpu_torch.observability.timeseries, "
+        "distributedkernelshap_tpu_torch.observability.alerts, "
+        "distributedkernelshap_tpu_torch.observability.slo, "
+        "distributedkernelshap_tpu_torch.observability.statusz, "
+        "distributedkernelshap_tpu_torch.observability.costmeter, "
+        "distributedkernelshap_tpu_torch.observability.contprof, "
+        "distributedkernelshap_tpu_torch.observability.quality, "
+        "distributedkernelshap_tpu_torch.observability.memledger, "
+        "distributedkernelshap_tpu_torch.scheduling, "
+        "distributedkernelshap_tpu_torch.scheduling.admission, "
+        "distributedkernelshap_tpu_torch.scheduling.scheduler, "
+        "distributedkernelshap_tpu_torch.scheduling.result_cache, "
+        "distributedkernelshap_tpu_torch.resilience, "
+        "distributedkernelshap_tpu_torch.resilience.faults, "
+        "distributedkernelshap_tpu_torch.runtime.compile_cache, "
+        "distributedkernelshap_tpu_torch.registry.classify, "
+        "distributedkernelshap_tpu_torch.serving, "
+        "distributedkernelshap_tpu_torch.serving.wire, "
+        "distributedkernelshap_tpu_torch.serving.client, "
+        "distributedkernelshap_tpu_torch.serving.wrappers, "
+        "distributedkernelshap_tpu_torch.serving.multihost, "
+        "distributedkernelshap_tpu_torch.serving.server, "
+        "distributedkernelshap_tpu_torch.serving.main\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'distributedkernelshap_tpu', 'pandas', 'sklearn')]\n"
         "assert not bad, bad\n")

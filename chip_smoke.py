@@ -290,7 +290,45 @@ Phases (each raises on failure, so the script exits non-zero):
    launched per batch) and pinned to interactions (``exact_tree_inter``),
    against ``tree_phi`` / ``tree_interactions``; ``python -m
    distributedkernelshap_tpu_torch.serving.main --checkpoint`` of a
-   card-saved explainer answering one request and exiting 0 on SIGTERM.
+   card-saved explainer answering one request and exiting 0 on SIGTERM;
+40. shard journal (``resilience/journal.py``): the fixture LR's explain of
+   2560 rows as 10 chunks of 256 through ``run_pipeline`` with a
+   ``ShardJournal``, counted: 10 ``fused_linear_ey`` launches, a rerun with
+   0 and bit-identical results, a torn last record recomputing that chunk
+   only (1 launch), another fingerprint restarting the journal (10), a
+   ``crash:site=pool.shard,after=6`` in the thread scope resumed with
+   exactly the chunks from 6 on (4); the journal fingerprint of the card's
+   engine equal to the CPU engine's; phi against the fixture;
+41. multi-tenant gateway (``registry/registry.py``): one
+   ``ExplainerServer(registry=ModelRegistry())`` with the fixture LR
+   (``lr``), its twin under a second id (``lr_twin``, an equal share key),
+   the fixture GBT auto-exact (``gbt``) and pinned to interactions
+   (``gbt_inter``, under a ``TenantQuota``): routing by header, JSON field
+   and binary wire field, an unknown id's 404 with the roster; a shared
+   batch of ``lr`` and ``lr_twin`` as one ``fused_linear_ey`` launch, each
+   slot bit-identical to a dedicated dispatch at the same bucket; a mixed
+   load from 16 threads (2560 LR rows, 256 exact rows, 64 interaction
+   rows) with the launches of each group's dispatches, per-tenant p50/p99
+   and rows/s, phi against the fixture; ``lr`` hot-swapped to an LR made
+   from ``--seed`` under load (no request lost, each answer from the
+   version that admitted it, v1's device caches and ledger bytes gone);
+   ``lr_twin`` unregistered (the ledger and ``torch.cuda.memory_allocated``
+   fall by its constants); ``gbt_inter`` over its quota answered 429
+   ``tenant_rate_limited`` while ``gbt`` is admitted;
+42. replica fleet (``serving/replicas.py``): ``ReplicaManager(2,
+   factory="chip_smoke:fleet_factory")`` behind its fan-in proxy, both
+   workers on card 0, ``DKS_FAULTS`` slowing replica 1's first answers:
+   each worker's ``dks_compile_total`` ``cache_hit`` only on the federated
+   ``/metrics``; the proxy hedging around the slowed worker; the 2560
+   fixture rows as 256 requests of 10 from 16 threads beside phase 39's
+   single process (wall, rows/s, requests/s, p50/p99; both replicas
+   answer; phi against the fixture); replica 0 SIGKILLed mid-load (only
+   its in-flight requests fail, 502 naming it; the supervisor restarts it;
+   the seconds until it is routable again); one autoscaler cycle (1 → 2
+   replicas on queue pressure, drained back to 1, no request lost); ``python
+   -m distributedkernelshap_tpu_torch.serving.main --replica_procs 2``
+   healthy, answering and exiting 0 on SIGTERM; after each stop no worker
+   process left (``nvidia-smi --query-compute-apps``).
 
 The second-to-last line of stdout is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -300,6 +338,7 @@ prints no result.
 import argparse
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -729,6 +768,7 @@ def _serve_lr_traffic(model, log, X, staging, card):
     rows_per_batch = [r for _, r, _ in log.batches]
     rec = {
         "payloads": payloads, "json_payloads": json_payloads, "wall": wall,
+        "p50": float(np.percentile(lat, 50)), "p99": float(np.percentile(lat, 99)),
         "launches": launches, "batches": batches, "logged": len(log.batches),
         "depth": srv.pipeline_depth, "metrics": metrics, "statusz": (code_s, statusz),
         "warm": warm, "start_s": start_s, "healthy_s": healthy_s, "staged": staged_ok,
@@ -812,6 +852,7 @@ def serving_phase(explain_device, card):
             raise AssertionError("the server's staging is not what was asked for")
         if staging:
             serving_launches["fused_linear_ey"] = rec["launches"]["fused_linear_ey"]
+            serving_launches["single"] = {k: rec[k] for k in ("wall", "p50", "p99")}
             first = rec
     print(f"serving LR walls: staged {1e3 * walls['staged']:.3f} ms, unstaged "
           f"{1e3 * walls['unstaged']:.3f} ms on {card}", flush=True)
@@ -990,6 +1031,937 @@ def serving_phase(explain_device, card):
     if rc != 0 or d_cli > PHI_ATOL:
         raise AssertionError("the CLI server is off")
     return serving_launches
+
+
+# ---------------------------------------------------------------------- #
+# the eleventh slice (phases 40-42): the shard journal, the multi-tenant
+# gateway and the replica fleet on one card
+
+
+#: phase 40: the fixture LR's chunked explain, this many chunks of this
+#: many rows, and the hit after which the injected pool.shard crash fires
+JOURNAL_CHUNKS, JOURNAL_ROWS, JOURNAL_CRASH_AFTER = 10, 256, 6
+#: phase 41's traffic: the LR rows split between the two LR tenants, the
+#: GBT rows (auto-exact) and the pinned-interactions rows, in requests of
+#: SERVE_ROWS_PER_REQUEST (LR) and SERVE_TREE_REQUEST (GBT) rows
+GATEWAY_LR_ROWS, GATEWAY_TREE_ROWS, GATEWAY_INTER_ROWS = 2560, 256, 64
+#: the hot swap starts after this many answers and the load ends this many
+#: requests after the swap returned
+SWAP_AFTER = 64
+#: phase 42: the fault that slows replica 1 (its first FLEET_SLOW_TIMES
+#: answers, FLEET_SLOW_S each), the hedge delay, the requests of the hedge
+#: step, and the autoscaler fleet's batch cap and client threads
+FLEET_SLOW_S, FLEET_SLOW_TIMES, FLEET_HEDGE_S, FLEET_HEDGE_REQUESTS = 1.0, 4, 0.25, 8
+SCALE_MAX_BATCH, SCALE_CLIENTS = 2, 32
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def fixture_lr_explainer(fx, device):
+    """The fixture's LR (the JAX package's ``coef`` / ``intercept``) lifted
+    and fitted on the fixture background with its Adult grouping."""
+
+    from distributedkernelshap_tpu_torch import KernelShap
+
+    est = AdultShapedLogisticRegression.fitted(fx["coef"], fx["intercept"])
+    ks = KernelShap(est.predict_proba, link="logit", seed=0, device=device)
+    ks.fit(fx["background"], group_names=fx["names"], groups=fx["groups"])
+    return ks
+
+
+def _fleet_deployment(device):
+    """The fixture LR as a ``LinearPredictor`` (the two-class softmax the
+    lift makes) with the fixture background and grouping, as a replica
+    worker's ``(predictor, background, ctor_kwargs, fit_kwargs)``."""
+
+    from distributedkernelshap_tpu_torch.models.predictors import LinearPredictor
+
+    fx = adult_fixture()
+    coef = np.asarray(fx["coef"], np.float32).reshape(-1)
+    W = np.stack([np.zeros_like(coef), coef], 1)
+    b = np.array([0.0, float(np.asarray(fx["intercept"]).reshape(-1)[0])], np.float32)
+    return (LinearPredictor(W, b, "softmax", device=device), fx["background"],
+            {"link": "logit", "seed": 0, "device": device},
+            {"group_names": fx["names"], "groups": fx["groups"]})
+
+
+def fleet_factory():
+    """Phase 42's replica deployment on the card (``chip_smoke:fleet_factory``)."""
+
+    return _fleet_deployment("cuda")
+
+
+def fleet_factory_cpu():
+    """The same deployment on the CPU (the CPU tests' workers)."""
+
+    return _fleet_deployment("cpu")
+
+
+def _fixture_ok(phi, fx, rows):
+    """Per-row ``max|phi - fixture phi|`` and whether each is within the
+    fixture's bar (1e-4 + LOGIT_ULPS f32 ulps of p through the logit)."""
+
+    ulp = 2.0 ** -24 * (2.0 + 2.0 * np.cosh(fx["raw_prediction"][rows, 1]))
+    d = np.abs(np.asarray(phi) - fx["phi"][rows]).max((1, 2))
+    return d, d <= 1e-4 + LOGIT_ULPS * ulp
+
+
+def _pct(lat_s, q):
+    return float(np.percentile(np.asarray(lat_s) * 1e3, q)) if len(lat_s) else float("nan")
+
+
+def _ledger_bytes(model_id, version=None):
+    """Live ledger bytes charged to ``model_id`` (one version, or all)."""
+
+    from distributedkernelshap_tpu_torch.observability.memledger import memledger
+
+    led = memledger()
+    with led._lock:
+        return sum(a._total for a in led._accounts.values()
+                   if a.model == model_id and (version is None or a.version == version))
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+class _InjectedCrash(RuntimeError):
+    pass
+
+
+class _ThreadScoped:
+    """A fault injector whose crash kills the calling loop, not the process
+    (``crash_scope="thread"``): an injected crash raises in the pipeline."""
+
+    def __init__(self, spec):
+        from distributedkernelshap_tpu_torch.resilience.faults import (
+            FaultInjector,
+            parse_faults,
+        )
+
+        self.inner = FaultInjector(parse_faults(spec))
+
+    def fire(self, site, crash_scope="process"):
+        kind = self.inner.fire(site, crash_scope="thread")
+        if kind == "crash":
+            raise _InjectedCrash(f"injected crash at {site}")
+        return kind
+
+
+def journal_phase(device, card):
+    """Phase 40: the fixture LR's chunked explain through ``run_pipeline``
+    with a ``ShardJournal``: a rerun replays every chunk from disk with no
+    launch, a torn last record recomputes that chunk only, another
+    fingerprint restarts the journal, and a run killed at ``pool.shard``
+    resumes from the chunk it lost."""
+
+    import tempfile
+
+    from distributedkernelshap_tpu_torch.parallel.pipeline import run_pipeline
+    from distributedkernelshap_tpu_torch.resilience import faults
+    from distributedkernelshap_tpu_torch.resilience.journal import (
+        ShardJournal,
+        journal_fingerprint,
+        run_journal_path,
+    )
+    from distributedkernelshap_tpu_torch.scheduling.result_cache import array_fingerprint
+
+    fx = adult_fixture()
+    n = JOURNAL_CHUNKS * JOURNAL_ROWS
+    X = fx["X"][:n]
+    ks = fixture_lr_explainer(fx, device)
+    eng = ks._explainer
+    fp = journal_fingerprint(eng)
+    fp_cpu = journal_fingerprint(fixture_lr_explainer(fx, "cpu")._explainer)
+    chunks = np.split(X, JOURNAL_CHUNKS)
+    meta = {"fingerprint": fp, "input": array_fingerprint(X), "chunks": JOURNAL_CHUNKS}
+
+    def fetch(fin):
+        values, info = fin()
+        return tuple(np.asarray(v) for v in values) + (np.asarray(info["raw_prediction"]),)
+
+    def run(path, run_meta):
+        reset_launches()
+        t = time.perf_counter()
+        with ShardJournal(path, run_meta) as j:
+            out = run_pipeline(chunks, eng.get_explanation_async, fetch, window=2,
+                               threaded=False, journal=j)
+            stats = {k: v for k, v in j.stats().items() if k != "path"}
+        _sync(device)
+        return out, stats, kernel_launches()["fused_linear_ey"], time.perf_counter() - t
+
+    def same(a, b):
+        return all(len(x) == len(y) and all(np.array_equal(u, v) for u, v in zip(x, y))
+                   for x, y in zip(a, b))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = run_journal_path(tmp, fp, meta["input"])
+        first, s1, l1, w1 = run(path, meta)
+        again, s2, l2, w2 = run(path, meta)
+        with open(path, "r", encoding="ascii") as f:
+            lines = f.read().splitlines()
+        with open(path, "w", encoding="ascii") as f:
+            f.write("\n".join(lines[:-1] + [lines[-1][:len(lines[-1]) // 2]]))
+        torn, s3, l3, _ = run(path, meta)
+        other = dict(meta, fingerprint=journal_fingerprint(eng, extra={"nsamples": 1024}))
+        restarted, s4, l4, _ = run(path, other)
+        with open(path, "r", encoding="ascii") as f:
+            header = json.loads(f.readline())
+        crash_path = os.path.join(tmp, "crash.journal")
+        real = faults.env_injector
+        faults.env_injector = lambda: _ThreadScoped(
+            f"crash:site=pool.shard,after={JOURNAL_CRASH_AFTER}")
+        try:
+            try:
+                run(crash_path, meta)
+                crashed = False
+            except _InjectedCrash:
+                crashed = True
+        finally:
+            faults.env_injector = real
+        resumed, s5, l5, _ = run(crash_path, meta)
+    phi = np.concatenate([np.stack(r[:-1], 1) for r in first])
+    d_fix, ok = _fixture_ok(phi, fx, slice(0, n))
+    print(f"journal: {JOURNAL_CHUNKS} chunks of {JOURNAL_ROWS} rows; fingerprint on {device} "
+          f"== CPU {fp == fp_cpu}; run 1 {s1} launches {l1} ({1e3 * w1:.3f} ms); rerun {s2} launches "
+          f"{l2} ({1e3 * w2:.3f} ms) bit-identical {same(first, again)}; torn last record "
+          f"{s3} launches {l3} bit-identical {same(first, torn)}; another fingerprint {s4} "
+          f"launches {l4}, header restarted {header.get('fingerprint') == other['fingerprint']}; "
+          f"crash at pool.shard after {JOURNAL_CRASH_AFTER}: raised {crashed}, resume {s5} "
+          f"launches {l5} bit-identical {same(first, resumed)}; |phi - fixture| max "
+          f"{d_fix.max():.3e} (1e-4 + {LOGIT_ULPS} p-ulps) on {card}", flush=True)
+    want_crash = JOURNAL_CHUNKS - JOURNAL_CRASH_AFTER
+    if fp != fp_cpu or l1 != JOURNAL_CHUNKS or s1["computed"] != JOURNAL_CHUNKS \
+            or l2 != 0 or s2["restored"] != JOURNAL_CHUNKS or not same(first, again) \
+            or l3 != 1 or s3["restored"] != JOURNAL_CHUNKS - 1 or not same(first, torn) \
+            or l4 != JOURNAL_CHUNKS or s4["restored"] != 0 or not same(first, restarted) \
+            or header.get("fingerprint") != other["fingerprint"] or not crashed \
+            or l5 != want_crash or s5["restored"] != JOURNAL_CRASH_AFTER \
+            or s5["computed"] != want_crash or not same(first, resumed) or not ok.all():
+        raise AssertionError("the shard journal is off")
+    return {"launches": l1 + l3 + l4 + l5}
+
+
+def _post_raw(port, body, headers, timeout=120.0):
+    """One POST /explain without client retries: ``(status, body bytes)``."""
+
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", "/explain", body=body, headers=headers)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _json_req(rows, model=None):
+    doc = {"array": np.asarray(rows).tolist()}
+    if model is not None:
+        doc["model"] = model
+    return json.dumps(doc).encode()
+
+
+def gateway_phase(device, card, seed):
+    """Phase 41: one ``ExplainerServer(registry=ModelRegistry())`` on the
+    card serving four tenants — the fixture LR, its twin under a second id,
+    the fixture GBT auto-exact and pinned to interactions — from 16 client
+    threads: routing, shared batches of the two LR tenants, the exact
+    kernels' launches, a hot swap under load, the freed device memory and
+    a tenant quota.  Returns ``{kernel: launches}`` of the mixed load."""
+
+    import gc
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from distributedkernelshap_tpu_torch import KernelShap, TreeEnsemblePredictor
+    from distributedkernelshap_tpu_torch.registry import ModelRegistry, TenantQuota
+    from distributedkernelshap_tpu_torch.serving import client as cl
+    from distributedkernelshap_tpu_torch.serving import wire
+    from distributedkernelshap_tpu_torch.serving.server import ExplainerServer
+    from distributedkernelshap_tpu_torch.serving.wrappers import BatchKernelShapModel
+
+    fx = adult_fixture()
+    X = fx["X"][:GATEWAY_LR_ROWS]
+    on_card = _on_card(device)
+
+    def lr_model():
+        return BatchKernelShapModel.from_explainer(fixture_lr_explainer(fx, device))
+
+    def gbt_model(kw):
+        tree = TreeEnsemblePredictor(
+            fx["tree_feature"], fx["tree_threshold"], fx["tree_left"], fx["tree_right"],
+            fx["tree_value"], depth=int(fx["tree_depth"]), aggregation="sum",
+            base=fx["tree_base"], scale=float(fx["tree_scale"]),
+            missing_left=fx["tree_missing_left"], vector_out=False, device=device)
+        tks = KernelShap(tree, task="regression", seed=0, device=device)
+        tks.fit(fx["background"], group_names=fx["names"], groups=fx["groups"])
+        return tks, BatchKernelShapModel.from_explainer(tks, explain_kwargs=kw)
+
+    tks, gbt = gbt_model(None)
+    _, gbt_inter = gbt_model({"nsamples": "exact", "interactions": True})
+    reset_launches()
+    tks.explain(X[:SERVE_TREE_REQUEST], nsamples="exact", silent=True)
+    _sync(device)
+    per_explain = kernel_launches()["exact_tree_phi"]
+    n_inter_requests = GATEWAY_INTER_ROWS // SERVE_TREE_REQUEST
+    reg = ModelRegistry()
+    lr_v1 = reg.register("lr", lr_model())
+    twin = reg.register("lr_twin", lr_model())
+    reg.register("gbt", gbt)
+    # the load's interaction requests, then one more, fit the bucket
+    inter_rm = reg.register("gbt_inter", gbt_inter, quota=TenantQuota(
+        rate_per_s=1e-3, burst=n_inter_requests + 1))
+    dedicated = lr_model()
+    keys = {rm.model_id: rm.share_key for rm in reg.active_models()}
+    srv = ExplainerServer(registry=reg, host="127.0.0.1", port=0,
+                          max_batch_size=SERVE_MAX_BATCH, pipeline_depth=4,
+                          warmup=False).start()
+    dispatches = []
+    inner_dispatch = srv._dispatch_batch
+
+    def logged_dispatch(live, leaders, index_map, t_claim, *a, **kw):
+        rm = kw.get("rm")
+        dispatches.append((rm.model_id if rm is not None else None, bool(kw.get("shared")),
+                           len(leaders)))
+        return inner_dispatch(live, leaders, index_map, t_claim, *a, **kw)
+
+    srv._dispatch_batch = logged_dispatch
+    url = f"http://127.0.0.1:{srv.port}/explain"
+    out = {}
+    try:
+        # -- routing ------------------------------------------------------ #
+        row = X[:1]
+        st_h, p_h = _post_raw(srv.port, _json_req(row), {"Content-Type": "application/json",
+                                                         "X-DKS-Model": "gbt"})
+        st_j, p_j = _post_raw(srv.port, _json_req(row, "lr"),
+                              {"Content-Type": "application/json"})
+        st_w, p_w = _post_raw(srv.port, wire.encode_request(row, model_id="lr_twin"),
+                              {"Content-Type": wire.CONTENT_TYPE})
+        st_u, p_u = _post_raw(srv.port, _json_req(row, "nope"),
+                              {"Content-Type": "application/json"})
+        roster = json.loads(p_u).get("models") if st_u == 404 else None
+        phi_h = np.asarray(json.loads(p_h)["data"]["shap_values"])
+        phi_j = np.asarray(json.loads(p_j)["data"]["shap_values"])
+        phi_w = np.asarray(json.loads(p_w)["data"]["shap_values"])
+        route_ok = (st_h, st_j, st_w, st_u) == (200, 200, 200, 404) \
+            and roster == ["lr", "lr_twin", "gbt", "gbt_inter"] \
+            and phi_h.shape[0] == 1 and phi_j.shape[0] == 2 and phi_w.shape[0] == 2 \
+            and rel_close(phi_h[0], fx["tree_phi"][:1]) >= 0 \
+            and _fixture_ok(np.stack(list(phi_j), 1), fx, slice(0, 1))[1].all() \
+            and _fixture_ok(np.stack(list(phi_w), 1), fx, slice(0, 1))[1].all()
+        print(f"gateway routing: header -> gbt {st_h}, JSON field -> lr {st_j}, binary wire "
+              f"field -> lr_twin {st_w}, unknown id {st_u} roster {roster}; share keys equal "
+              f"lr/lr_twin {keys['lr'] == keys['lr_twin'] and keys['lr'] is not None}, gbt "
+              f"distinct {keys['gbt'] not in (None, keys['lr'])}, gbt_inter "
+              f"{keys['gbt_inter']}", flush=True)
+        if not route_ok or keys["lr"] != keys["lr_twin"] or keys["lr"] is None \
+                or keys["gbt_inter"] is not None:
+            raise AssertionError("the gateway's routing is off")
+
+        # -- one shared batch of lr and lr_twin, bit for bit -------------- #
+        shared_ok = False
+        for attempt in range(5):
+            rows = X[2 + 2 * attempt:4 + 2 * attempt]
+            dispatches.clear()
+            reset_launches()
+            with ThreadPoolExecutor(2) as pool:
+                futs = [pool.submit(_post_raw, srv.port, _json_req(rows[i:i + 1]),
+                                    {"Content-Type": "application/json",
+                                     "X-DKS-Model": t})
+                        for i, t in enumerate(("lr", "lr_twin"))]
+                res = [f.result() for f in futs]
+            _sync(device)
+            launches = kernel_launches()["fused_linear_ey"]
+            if len(dispatches) != 1 or not dispatches[0][1]:
+                continue
+            ded = dedicated.explain_batch(rows, split_sizes=[1, 1])
+            bit = all(s == 200 and json.loads(p)["data"]["shap_values"]
+                      == json.loads(d)["data"]["shap_values"] for (s, p), d in zip(res, ded))
+            print(f"gateway shared batch (attempt {attempt + 1}): 1 dispatch of "
+                  f"{dispatches[0][2]} requests from lr and lr_twin, fused_linear_ey launches "
+                  f"{launches}; each slot's phi bit-identical to a dedicated dispatch at the "
+                  f"same padded bucket: {bit}", flush=True)
+            if (on_card and launches != 1) or not bit:
+                raise AssertionError("the shared batch is off")
+            shared_ok = True
+            break
+        if not shared_ok:
+            raise AssertionError("no attempt coalesced lr and lr_twin into one dispatch")
+
+        # -- the mixed load from 16 client threads ------------------------ #
+        jobs = []
+        for i, rows in enumerate(np.split(X, GATEWAY_LR_ROWS // SERVE_ROWS_PER_REQUEST)):
+            jobs.append(("lr" if i % 2 == 0 else "lr_twin", i * SERVE_ROWS_PER_REQUEST, rows))
+        for tenant, n_rows in (("gbt", GATEWAY_TREE_ROWS), ("gbt_inter", GATEWAY_INTER_ROWS)):
+            for j in range(0, n_rows, SERVE_TREE_REQUEST):
+                jobs.append((tenant, j, X[j:j + SERVE_TREE_REQUEST]))
+        order = np.random.default_rng(0).permutation(len(jobs))
+        jobs = [jobs[i] for i in order]
+        lat = {t: [] for t in ("lr", "lr_twin", "gbt", "gbt_inter")}
+
+        def one(job):
+            tenant, start, rows = job
+            t = time.perf_counter()
+            body = cl.explain_request(url, rows, wire_format="binary",
+                                      extra_headers={"X-DKS-Model": tenant})
+            lat[tenant].append(time.perf_counter() - t)
+            return body
+
+        dispatches.clear()
+        reset_launches()
+        t = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_WORKERS) as pool:
+            answers = list(pool.map(one, jobs))
+        wall = time.perf_counter() - t
+        _sync(device)
+        launches = kernel_launches()
+        by = {}
+        for model_id, shared, _ in dispatches:
+            group = "lr" if model_id in ("lr", "lr_twin") else model_id
+            by[group] = by.get(group, 0) + 1
+        n_shared = sum(1 for _, s, _ in dispatches if s)
+        lr_phi = np.zeros((GATEWAY_LR_ROWS, 2, len(fx["names"])))
+        tree_err = inter_err = 0.0
+        for (tenant, start, rows), ans in zip(jobs, answers):
+            if tenant in ("lr", "lr_twin"):
+                lr_phi[start:start + rows.shape[0]] = np.stack(ans["shap_values"], 1)
+            elif tenant == "gbt":
+                tree_err = max(tree_err, rel_close(ans["shap_values"][0],
+                                                   fx["tree_phi"][start:start + rows.shape[0]]))
+            else:
+                inter_err = max(inter_err, rel_close(ans["shap_values"][0],
+                                                     fx["tree_phi"][start:start + rows.shape[0]]),
+                                rel_close(ans["interaction_values"][0],
+                                          fx["tree_interactions"][start:start + rows.shape[0]]))
+        d_fix, ok = _fixture_ok(lr_phi, fx, slice(0, GATEWAY_LR_ROWS))
+        want = {"fused_linear_ey": by.get("lr", 0),
+                "exact_tree_phi": per_explain * by.get("gbt", 0) + by.get("gbt_inter", 0),
+                "exact_tree_inter": by.get("gbt_inter", 0)}
+        rows_of = {"lr": GATEWAY_LR_ROWS // 2, "lr_twin": GATEWAY_LR_ROWS // 2,
+                   "gbt": GATEWAY_TREE_ROWS, "gbt_inter": GATEWAY_INTER_ROWS}
+        per_tenant = "; ".join(
+            f"{t} {len(v)} requests p50 {_pct(v, 50):.3f} ms p99 {_pct(v, 99):.3f} ms "
+            f"{rows_of[t] / wall:.1f} rows/s" for t, v in lat.items())
+        print(f"gateway load: {len(jobs)} requests ({sum(rows_of.values())} rows) from "
+              f"{SERVE_WORKERS} threads in {1e3 * wall:.3f} ms "
+              f"({sum(rows_of.values()) / wall:.1f} rows/s); {per_tenant}; dispatches by group "
+              f"{by}, shared (lr + lr_twin in one call) {n_shared}; launches {launches} (want "
+              f"{want}, exact_tree_phi {per_explain} a gbt batch); |phi LR - fixture| max "
+              f"{d_fix.max():.3e} (1e-4 + {LOGIT_ULPS} p-ulps), gbt {tree_err:.3e}, gbt_inter "
+              f"{inter_err:.3e} (tol {PHI_REL:g} x max(1, max|.|)) on {card}", flush=True)
+        if not ok.all() or (on_card and launches != want) or n_shared < 1:
+            raise AssertionError("the gateway's mixed load is off")
+        out.update(launches)
+
+        # -- hot swap of lr under load ------------------------------------ #
+        est_v2 = AdultShapedLogisticRegression(np.random.default_rng(seed))
+        ks_v2 = KernelShap(est_v2.predict_proba, link="logit", seed=0, device=device)
+        ks_v2.fit(fx["background"], group_names=fx["names"], groups=fx["groups"])
+        ref_v2 = np.stack(ks_v2.explain(X, silent=True).shap_values, 1)
+        v1_engine = lr_v1.model.explainer._explainer
+        v1_bytes = _ledger_bytes("lr", 1)
+        requests = np.split(X, GATEWAY_LR_ROWS // SERVE_ROWS_PER_REQUEST)
+        swap_times, answers_seen, lost = {}, [], []
+        stop = threading.Event()
+        after_swap = []
+
+        def client(k):
+            # closed loop over the requests until the swap is done and
+            # SWAP_AFTER more requests were sent after it
+            i = k
+            while not stop.is_set() and i < 8 * len(requests):
+                j = i % len(requests)
+                t0 = time.perf_counter()
+                try:
+                    ans = cl.explain_request(url, requests[j], wire_format="binary",
+                                             extra_headers={"X-DKS-Model": "lr"})
+                except Exception as e:  # a lost request fails the check below
+                    lost.append(repr(e))
+                    return
+                answers_seen.append((j, t0, time.perf_counter(), ans))
+                if "end" in swap_times and t0 > swap_times["end"]:
+                    after_swap.append(j)
+                    if len(after_swap) >= SWAP_AFTER:
+                        stop.set()
+                i += SERVE_WORKERS
+
+        def swapper():
+            while len(answers_seen) < SWAP_AFTER and not stop.is_set():
+                time.sleep(0.001)
+            swap_times["start"] = time.perf_counter()
+            try:
+                reg.register("lr", BatchKernelShapModel.from_explainer(ks_v2))
+                swap_times["end"] = time.perf_counter()
+            except Exception as e:  # fails the check below; the load stops
+                lost.append(f"register: {e!r}")
+                stop.set()
+
+        th = threading.Thread(target=swapper, daemon=True)
+        clients = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(SERVE_WORKERS)]
+        th.start()
+        for c in clients:
+            c.start()
+        th.join(300)
+        for c in clients:
+            c.join(300)
+        stop.set()
+        gc.collect()
+        _sync(device)
+        which, bad = [], 0
+        for j, t0, t1, ans in answers_seen:
+            rows = slice(j * SERVE_ROWS_PER_REQUEST, (j + 1) * SERVE_ROWS_PER_REQUEST)
+            phi = np.stack(ans["shap_values"], 1)
+            is_v1 = bool(_fixture_ok(phi, fx, rows)[1].all())
+            is_v2 = float(np.abs(phi - ref_v2[rows]).max()) <= PHI_ATOL
+            which.append(1 if is_v1 and not is_v2 else 2 if is_v2 and not is_v1 else 0)
+            if which[-1] == 0 or (t1 < swap_times["start"] and which[-1] != 1) \
+                    or (t0 > swap_times["end"] and which[-1] != 2):
+                bad += 1
+        v1_left = len(v1_engine._dev_cache) + len(v1_engine._plan_consts_cache)
+        print(f"gateway hot swap of lr v1 -> v2 (an LR from seed {seed}) under "
+              f"{SERVE_WORKERS}-thread load: {len(answers_seen)} answered, {len(lost)} lost, "
+              f"{which.count(1)} by v1 and {which.count(2)} by v2, {bad} answers off their "
+              f"admitting version; register (warm, flip, drain) "
+              f"{swap_times['end'] - swap_times['start']:.3f} s; v1 state {lr_v1.state}, its "
+              f"device caches {v1_left} entries, ledger v1 {v1_bytes} -> "
+              f"{_ledger_bytes('lr', 1)} bytes", flush=True)
+        if bad or lost or "end" not in swap_times or not which.count(1) or not which.count(2) \
+                or lr_v1.state != "retired" or v1_left or _ledger_bytes("lr", 1) \
+                or not v1_bytes or reg.resolve("lr").version != 2:
+            raise AssertionError("the hot swap is off")
+
+        # -- unregistering a tenant frees its device caches --------------- #
+        gc.collect()
+        _sync(device)
+        alloc0 = torch.cuda.memory_allocated(device) if on_card else 0
+        twin_bytes = _ledger_bytes("lr_twin")
+        reg.unregister("lr_twin")
+        gc.collect()
+        _sync(device)
+        alloc1 = torch.cuda.memory_allocated(device) if on_card else 0
+        print(f"gateway unregister lr_twin: ledger {twin_bytes} -> {_ledger_bytes('lr_twin')} "
+              f"bytes, torch.cuda.memory_allocated {alloc0} -> {alloc1} (fell "
+              f"{alloc0 - alloc1} bytes); roster {reg.model_ids()}", flush=True)
+        if not twin_bytes or _ledger_bytes("lr_twin") or twin.state != "retired" \
+                or (on_card and alloc0 - alloc1 < twin_bytes):
+            raise AssertionError("unregistering lr_twin did not free its device caches")
+
+        # -- a tenant over its quota -------------------------------------- #
+        row = X[:SERVE_TREE_REQUEST]
+        st1, _ = _post_raw(srv.port, _json_req(row), {"Content-Type": "application/json",
+                                                      "X-DKS-Model": "gbt_inter"})
+        st2, p2 = _post_raw(srv.port, _json_req(row), {"Content-Type": "application/json",
+                                                       "X-DKS-Model": "gbt_inter"})
+        st3, _ = _post_raw(srv.port, _json_req(row), {"Content-Type": "application/json",
+                                                      "X-DKS-Model": "gbt"})
+        reason = json.loads(p2).get("reason") if st2 == 429 else None
+        _, metrics = _http_get(f"http://127.0.0.1:{srv.port}/metrics")
+        _, statusz = _http_get(f"http://127.0.0.1:{srv.port}/statusz?format=json")
+        panel = json.loads(statusz)["detail"]["registry"]
+        print(f"gateway quota on gbt_inter ({inter_rm.quota.describe()}): last admitted {st1}, "
+              f"next {st2} {reason}, gbt meanwhile {st3}; /statusz registry panel "
+              f"{[(m['model_id'], m['version'], m['path'], m['state']) for m in panel['models']]}",
+              flush=True)
+        if (st1, st2, st3) != (200, 429, 200) or reason != "tenant_rate_limited" \
+                or 'dks_registry_sheds_total{model="gbt_inter",reason="tenant_rate_limited"} 1' \
+                not in metrics:
+            raise AssertionError("the tenant quota is off")
+    finally:
+        srv.stop()
+    return out
+
+
+def _card_pids():
+    """PIDs of the processes holding the card, as ``nvidia-smi`` lists them."""
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return {int(x) for x in out.split() if x.strip().isdigit()}
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    # a reaped child is gone; an unreaped one is a zombie holding nothing
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split()[2] != "Z"
+    except OSError:
+        return False
+
+
+def _check_released(pids, what):
+    """Every pid in ``pids`` has exited and none holds the card."""
+
+    alive = sorted(p for p in pids if _pid_alive(p))
+    on_card = _card_pids()
+    held = sorted(set(pids) & on_card) if on_card is not None else []
+    print(f"{what}: worker pids {sorted(pids)} exited: {not alive}; nvidia-smi compute apps "
+          f"{sorted(on_card) if on_card is not None else 'not readable'}, workers among them "
+          f"{held}", flush=True)
+    if alive or held:
+        raise AssertionError(f"{what}: worker processes left on the card: {alive or held}")
+
+
+def _fleet_factory_name(device):
+    import torch
+
+    return "chip_smoke:fleet_factory" if torch.device(device).type == "cuda" \
+        else "chip_smoke:fleet_factory_cpu"
+
+
+def _wait_until(pred, budget_s, what, step=0.05):
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > budget_s:
+            raise AssertionError(f"timed out after {budget_s:.0f} s waiting for {what}")
+        time.sleep(step)
+    return time.perf_counter() - t0
+
+
+def fleet_phase(device, card, single):
+    """Phase 42: the replica fleet on one card — ``ReplicaManager(2)``
+    behind its fan-in proxy (both workers on card 0), the fixture's 2560
+    rows through the proxy beside phase 39's single process (``single``),
+    the workers' compile accounting on the federated ``/metrics``, hedging
+    around a slowed worker, a SIGKILLed worker restarted by the
+    supervisor, one autoscaler cycle, and ``serving.main --replica_procs
+    2``; no worker left on the card after each stop."""
+
+    import signal
+    import socket
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from distributedkernelshap_tpu_torch.resilience import HedgePolicy, RestartPolicy
+    from distributedkernelshap_tpu_torch.serving import client as cl
+    from distributedkernelshap_tpu_torch.serving import wire
+    from distributedkernelshap_tpu_torch.serving.autoscaler import AutoscalerConfig
+    from distributedkernelshap_tpu_torch.serving.replicas import ReplicaManager, _pinned_card
+
+    fx = adult_fixture()
+    X = fx["X"][:SERVE_N_ROWS]
+    requests = np.split(X, SERVE_N_ROWS // SERVE_ROWS_PER_REQUEST)
+    factory = _fleet_factory_name(device)
+    env = {"PYTHONPATH": REPO_ROOT,
+           "DKS_FAULTS": f"slow:site=server.explain,replica=1,times={FLEET_SLOW_TIMES},"
+                         f"delay={FLEET_SLOW_S}"}
+    headers = {"Content-Type": wire.CONTENT_TYPE, "Accept": wire.CONTENT_TYPE}
+
+    def post(port, i):
+        i %= len(requests)
+        t = time.perf_counter()
+        status, body = _post_raw(port, wire.encode_request(requests[i]), headers)
+        return i, status, body, time.perf_counter() - t
+
+    def phi_of(body):
+        return np.stack(wire.decode_explanation(body)["shap_values"], 1)
+
+    pids = set()
+    t0 = time.perf_counter()
+    mgr = ReplicaManager(2, factory=factory, max_batch_size=SERVE_MAX_BATCH,
+                         env_extra=env, startup_timeout_s=300.0,
+                         restart_policy=RestartPolicy(base_backoff_s=0.2, seed=0),
+                         hedge_policy=HedgePolicy(quantile=0.99, min_delay_s=FLEET_HEDGE_S,
+                                                  max_delay_s=FLEET_HEDGE_S,
+                                                  initial_delay_s=FLEET_HEDGE_S))
+    try:
+        mgr.start()
+        pids.update(p.pid for p in mgr.procs)
+        _wait_until(lambda: all(r.alive for r in mgr.proxy.replicas), 300, "both replicas")
+        up_s = time.perf_counter() - t0
+        port = mgr.proxy.port
+        url = f"http://127.0.0.1:{port}/explain"
+
+        # -- compile accounting on the federated /metrics ---------------- #
+        _, fed = _http_get(f"http://127.0.0.1:{port}/metrics?federate=1")
+        compile_lines = [ln for ln in fed.splitlines() if ln.startswith("dks_compile_total{")]
+        fresh = [ln for ln in compile_lines if 'kind="fresh"' in ln
+                 and float(ln.rsplit(" ", 1)[1]) > 0]
+        hits = {r: any('kind="cache_hit"' in ln and f'replica="{r}"' in ln
+                       for ln in compile_lines) for r in ("0", "1")}
+        pinned = [_pinned_card(k, os.environ.get("CUDA_VISIBLE_DEVICES")) for k in (0, 1)]
+        print(f"fleet: 2 workers ({factory}) healthy behind the proxy after {up_s:.3f} s, "
+              f"CUDA_VISIBLE_DEVICES {pinned}; federated dks_compile_total {compile_lines}",
+              flush=True)
+        if fresh or (_on_card(device) and (not all(hits.values()) or pinned != ["0", "0"])):
+            raise AssertionError("a worker built a kernel or loaded none from the cache")
+
+        # -- hedging around the slowed replica 1 -------------------------- #
+        h0, w0 = mgr.proxy._m_hedges.value(), mgr.proxy._m_hedge_wins.value()
+        hedged = []
+        while len(hedged) < 5 * FLEET_HEDGE_REQUESTS and (
+                len(hedged) < FLEET_HEDGE_REQUESTS
+                or _replica_requests(port).get("1", 0) < FLEET_SLOW_TIMES):
+            hedged.append(post(port, len(hedged)))
+        time.sleep(FLEET_SLOW_S + 0.1)  # the slowed losers finish answering
+        hedges = mgr.proxy._m_hedges.value() - h0
+        wins = mgr.proxy._m_hedge_wins.value() - w0
+        worst = max(t for _, _, _, t in hedged)
+        ok = all(s == 200 and _fixture_ok(phi_of(b), fx, _rows_of(i))[1].all()
+                 for i, s, b, _ in hedged)
+        print(f"fleet hedging (DKS_FAULTS slow:site=server.explain,replica=1, {FLEET_SLOW_S} s "
+              f"x {FLEET_SLOW_TIMES}; hedge after {FLEET_HEDGE_S} s): {len(hedged)} sequential "
+              f"requests, {hedges:.0f} hedged, {wins:.0f} hedge wins, slowest answer "
+              f"{1e3 * worst:.3f} ms, answers right {ok}", flush=True)
+        if not ok or hedges < 1 or wins < 1 or worst >= FLEET_SLOW_S:
+            raise AssertionError("the proxy did not hedge around the slowed replica")
+
+        # -- throughput through the proxy --------------------------------- #
+        before = _replica_requests(port)
+        lat = []
+        inner = cl.explain_request
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            res = inner(*a, **kw)
+            lat.append(time.perf_counter() - t)
+            return res
+
+        cl.explain_request = timed
+        try:
+            t = time.perf_counter()
+            payloads = cl.distribute_requests(url, X, batch_mode="default", minibatches=requests,
+                                              max_workers=SERVE_WORKERS, wire_format="binary")
+            wall = time.perf_counter() - t
+        finally:
+            cl.explain_request = inner
+        after = _replica_requests(port)
+        served = {r: after.get(r, 0) - before.get(r, 0) for r in after}
+        phi = np.concatenate([np.stack(p["shap_values"], 1) for p in payloads])
+        d_fix, ok = _fixture_ok(phi, fx, slice(0, SERVE_N_ROWS))
+        print(f"fleet load: {SERVE_N_ROWS} rows as {len(requests)} binary requests of "
+              f"{SERVE_ROWS_PER_REQUEST} from {SERVE_WORKERS} threads through the proxy: wall "
+              f"{1e3 * wall:.3f} ms, {SERVE_N_ROWS / wall:.1f} rows/s, {len(requests) / wall:.1f} "
+              f"requests/s, p50 {_pct(lat, 50):.3f} ms, p99 {_pct(lat, 99):.3f} ms; requests "
+              f"answered by replica {served}; phase 39 single process (staged): wall "
+              f"{1e3 * single['wall']:.3f} ms, {SERVE_N_ROWS / single['wall']:.1f} rows/s, p50 "
+              f"{single['p50']:.3f} ms, p99 {single['p99']:.3f} ms; |phi - fixture| max "
+              f"{d_fix.max():.3e} (1e-4 + {LOGIT_ULPS} p-ulps) on {card}", flush=True)
+        if not ok.all() or len(served) < 2 or min(served.values()) < 1:
+            raise AssertionError("the fleet's load is off")
+
+        # -- SIGKILL replica 0 mid-load ----------------------------------- #
+        victim = mgr.procs[0]
+        victim_addr = mgr.proxy.replicas[0].address
+        progress = []
+
+        def kill_when_busy():
+            while len(progress) < len(requests) // 4:
+                time.sleep(0.001)
+            os.kill(victim.pid, signal.SIGKILL)
+            killed_at.append(time.perf_counter())
+
+        killed_at = []
+
+        def tracked(i):
+            res = post(port, i)
+            progress.append(i)
+            return res
+
+        killer = threading.Thread(target=kill_when_busy, daemon=True)
+        killer.start()
+        with ThreadPoolExecutor(SERVE_WORKERS) as pool:
+            results = list(pool.map(tracked, range(len(requests))))
+        killer.join(60)
+        failed = [(i, s, b) for i, s, b, _ in results if s != 200]
+        named = all(s == 502 and victim_addr.encode() in b for _, s, b in failed)
+        right = all(_fixture_ok(phi_of(b), fx, _rows_of(i))[1].all()
+                    for i, s, b, _ in results if s == 200)
+        _wait_until(lambda: mgr.procs[0] is not victim and mgr.proxy.replicas[0].alive,
+                    300, "the killed replica to be routable again")
+        back_s = time.perf_counter() - killed_at[0]
+        pids.update(p.pid for p in mgr.procs)
+        restarts = mgr.supervisor.stats()["restarts_total"]
+        print(f"fleet SIGKILL of replica 0 ({victim_addr}, pid {victim.pid}) after "
+              f"{len(requests) // 4} answers: {len(failed)} of {len(results)} requests failed, "
+              f"all 502 naming it: {named}; the rest answered right: {right}; supervisor "
+              f"restarts {restarts}; routable again {back_s:.3f} s after the kill (process and "
+              f"CUDA start, warmup ladder)", flush=True)
+        if not named or not right or len(failed) > SERVE_WORKERS or restarts < 1:
+            raise AssertionError("the killed replica's failure is off")
+    finally:
+        mgr.stop()
+    pids.update(p.pid for p in mgr.procs)
+    _check_released(pids, "fleet stop")
+
+    # -- serving.main --replica_procs 2, started now: its start overlaps the
+    # autoscaler cycle's ---------------------------------------------------- #
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        cli_port = s.getsockname()[1]
+    t_cli = time.perf_counter()
+    # the CLI's and its workers' logs go to a file: an undrained pipe could
+    # fill and stall them
+    log = tempfile.TemporaryFile()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributedkernelshap_tpu_torch.serving.main",
+         "--replica_procs", "2", "--factory", factory, "--host", "127.0.0.1",
+         "--port", str(cli_port), "--max_batch_size", "8"],
+        cwd=REPO_ROOT, stdout=log, stderr=subprocess.STDOUT)
+    workers = set()
+    try:
+        # -- one autoscaler cycle: 1 -> 2 on queue pressure -> 1 -------------- #
+        pids = set()
+        cfg = AutoscalerConfig(min_replicas=1, max_replicas=2, interval_s=0.2, up_ticks=1,
+                               down_ticks=3, up_cooldown_s=0.5, down_cooldown_s=0.5,
+                               queue_wait_up_s=0.005, replica_wait_up_s=0.005,
+                               trend_factor=1e9, down_utilization=0.9, drain_timeout_s=30.0)
+        mgr = ReplicaManager(1, factory=factory, max_batch_size=SCALE_MAX_BATCH,
+                             env_extra={"PYTHONPATH": REPO_ROOT}, startup_timeout_s=300.0,
+                             restart_policy=RestartPolicy(base_backoff_s=0.2, seed=0),
+                             autoscale=cfg)
+        try:
+            mgr.start()
+            pids.update(p.pid for p in mgr.procs)
+            port = mgr.proxy.port
+            stop = threading.Event()
+            answers, lost = [], []
+            url = f"http://127.0.0.1:{port}/explain"
+
+            def flood(k):
+                i = k
+                while not stop.is_set():
+                    j = i % len(requests)
+                    try:
+                        answers.append((j, cl.explain_request(url, requests[j],
+                                                              wire_format="binary")))
+                    except Exception as e:  # a lost request: the check below fails
+                        lost.append((j, repr(e)))
+                    i += SCALE_CLIENTS
+
+            threads = [threading.Thread(target=flood, args=(k,), daemon=True)
+                       for k in range(SCALE_CLIENTS)]
+            for th in threads:
+                th.start()
+            try:
+                up_s = _wait_until(lambda: mgr.proxy.replica_state_counts()["ready"] >= 2, 300,
+                                   "the scale-up to 2 ready replicas")
+                time.sleep(1.0)  # both serve under the flood
+            finally:
+                stop.set()
+                for th in threads:
+                    th.join(120)
+            pids.update(p.pid for p in mgr.procs if p is not None)
+            down_s = _wait_until(lambda: mgr.proxy.replica_state_counts()["ready"] == 1
+                                 and mgr.proxy.replica_state_counts()["retired"] >= 1, 300,
+                                 "the drain back to 1 replica")
+            _, page = _http_get(f"http://127.0.0.1:{port}/metrics")
+            decisions = [ln for ln in page.splitlines()
+                         if ln.startswith("dks_autoscale_decisions_total{")
+                         and not ln.endswith(" 0")]
+            right = all(_fixture_ok(np.stack(a["shap_values"], 1), fx, _rows_of(j))[1].all()
+                        for j, a in answers)
+            print(f"fleet autoscaler (max_batch_size {SCALE_MAX_BATCH}, {SCALE_CLIENTS} flooding "
+                  f"clients): 2 ready {up_s:.3f} s after the flood began, back to 1 ready and 1 "
+                  f"retired {down_s:.3f} s after it stopped; {len(answers)} requests answered, "
+                  f"{len(lost)} lost, every answer its own rows' phi: {right}; decisions "
+                  f"{decisions}", flush=True)
+            if lost or not answers or not right \
+                    or not any("scale_up" in ln for ln in decisions) \
+                    or not any("scale_down" in ln for ln in decisions):
+                raise AssertionError("the autoscaler cycle is off")
+        finally:
+            mgr.stop()
+        pids.update(p.pid for p in mgr.procs if p is not None)
+        _check_released(pids, "autoscaled fleet stop")
+
+
+        def healthy():
+            workers.update(_children(proc.pid))
+            if proc.poll() is not None:
+                log.seek(0)
+                raise AssertionError("serving.main --replica_procs exited: "
+                                     + log.read().decode()[-2000:])
+            try:
+                code, _ = _http_get(f"http://127.0.0.1:{cli_port}/healthz", timeout=5)
+            except OSError:
+                return False
+            return code == 200
+
+        _wait_until(healthy, 300, "serving.main --replica_procs 2", step=0.1)
+        cli_s = time.perf_counter() - t_cli
+        workers.update(_children(proc.pid))
+        body = cl.explain_request(f"http://127.0.0.1:{cli_port}/explain", X[:2],
+                                  wire_format="binary")
+        _, cli_ok = _fixture_ok(np.stack(body["shap_values"], 1), fx, slice(0, 2))
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    print(f"fleet CLI (serving.main --replica_procs 2 --factory {factory}): healthy "
+          f"{cli_s:.3f} s after its start (beside the autoscaler cycle), {len(workers)} "
+          f"worker processes, answer right {bool(cli_ok.all())}, "
+          f"exit {rc} on SIGTERM", flush=True)
+    if rc != 0 or not cli_ok.all() or len(workers) != 2:
+        raise AssertionError("serving.main --replica_procs is off")
+    _check_released(workers, "CLI fleet stop")
+
+
+def _on_card(device):
+    import torch
+
+    return torch.device(device).type == "cuda"
+
+
+def _children(pid):
+    """The replica worker processes among ``pid``'s children, by process
+    id (some kernels list a child's threads in ``children`` too: each
+    entry maps to its thread group's id)."""
+
+    try:
+        with open(f"/proc/{pid}/task/{pid}/children") as f:
+            kids = [int(x) for x in f.read().split()]
+    except OSError:
+        return set()
+    out = set()
+    for kid in kids:
+        try:
+            with open(f"/proc/{kid}/cmdline", "rb") as f:
+                worker = b"replica_worker" in f.read()
+            with open(f"/proc/{kid}/status") as f:
+                tgid = next(int(ln.split()[1]) for ln in f if ln.startswith("Tgid:"))
+        except (OSError, StopIteration, ValueError):
+            continue
+        if worker:
+            out.add(tgid)
+    return out
+
+
+def _replica_requests(port):
+    """``{replica: requests answered}`` from the proxy's federated page."""
+
+    _, fed = _http_get(f"http://127.0.0.1:{port}/metrics?federate=1")
+    out = {}
+    for ln in fed.splitlines():
+        if ln.startswith("dks_serve_requests_total{"):
+            rep = ln.split('replica="', 1)[1].split('"', 1)[0]
+            out[rep] = out.get(rep, 0) + float(ln.rsplit(" ", 1)[1])
+    return out
+
+
+def _rows_of(i):
+    """The fixture rows of phase 42's ``i``-th request."""
+
+    return slice(i * SERVE_ROWS_PER_REQUEST, (i + 1) * SERVE_ROWS_PER_REQUEST)
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -5276,11 +6248,24 @@ def main() -> int:
     t = time.perf_counter()
     serving = serving_phase(device, card)
     seconds["39 serving"] = time.perf_counter() - t
+
+    # 40-42. the shard journal, the multi-tenant gateway, the replica fleet
+    t = time.perf_counter()
+    journal_phase(device, card)
+    seconds["40 journal"] = time.perf_counter() - t
+    t = time.perf_counter()
+    gateway = gateway_phase(device, card, args.seed)
+    seconds["41 gateway"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fleet_phase(device, card, serving["single"])
+    seconds["42 fleet"] = time.perf_counter() - t
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; script so far {time.perf_counter() - t_start:.1f}", flush=True)
 
     exact_record["serving_launches"] = serving["exact_tree_phi"]
     inter_record["serving_launches"] = serving["exact_tree_inter"]
+    exact_record["gateway_launches"] = gateway["exact_tree_phi"]
+    inter_record["gateway_launches"] = gateway["exact_tree_inter"]
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "fused_linear_ey", "route": "cuda",
@@ -5288,7 +6273,8 @@ def main() -> int:
         "replaces": "distributedkernelshap_tpu/ops/pallas_kernels.py:497",
         "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "serving_launches": serving["fused_linear_ey"]},
+        "library_ms": None, "serving_launches": serving["fused_linear_ey"],
+        "gateway_launches": gateway["fused_linear_ey"]},
         exact_record, inter_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

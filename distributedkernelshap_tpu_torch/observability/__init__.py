@@ -1,6 +1,5 @@
 """End-to-end observability for the serving stack of the PyTorch port
-(port of ``distributedkernelshap_tpu/observability/``; the fleet roll-up
-``fleet.py`` waits for ROADMAP.md queue A item 12c).
+(port of ``distributedkernelshap_tpu/observability/``).
 
 All stdlib-only at module scope (nothing here may import torch/numpy at
 import time — the server imports this before the heavyweight stack comes
@@ -84,6 +83,10 @@ from distributedkernelshap_tpu_torch.observability.memledger import (  # noqa: F
     MemLedger,
     TrackedCache,
     approx_nbytes,
+)
+from distributedkernelshap_tpu_torch.observability.fleet import (  # noqa: F401
+    fleet_rollup,
+    merge_expositions,
 )
 from distributedkernelshap_tpu_torch.observability.slo import (  # noqa: F401
     AvailabilitySLO,

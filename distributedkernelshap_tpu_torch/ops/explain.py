@@ -82,6 +82,67 @@ def record_kernel_path(tag: str, path: str) -> None:
         d[tag] = path
 
 
+def shared_program_key(model) -> Optional[str]:
+    """Digest under which two registered tenants' dispatches run the
+    IDENTICAL device program over IDENTICAL device constants — the
+    shared-padded-program gate of cross-tenant continuous batching
+    (reference ``ops/explain.py:83-143``).
+
+    Two deployments whose keys MATCH may have their request rows
+    coalesced into ONE padded device call (per-leader ``split_sizes``
+    carry the tenant boundaries): because every engine path has per-row
+    reduction scope (each request's phi is a function of its own rows
+    plus X-independent constants only — no cross-row reductions), and
+    the program + constants are bit-equal by construction of this key,
+    the coalesced call's per-slot phi is bit-identical to a dedicated
+    dispatch at the same padded bucket.
+
+    The digest covers the engine's content fingerprint (predictor
+    parameters, background, weights, grouping, link, ridge), the FULL
+    engine config (seed drives coalition sampling; the device, host
+    eval, the kernel choice, chunking and bucketing change the program),
+    the pinned explain kwargs (``nsamples`` selects the plan) and the
+    explainer/engine class names.  Returns ``None`` for deployments that
+    must never share (the eligibility gate lives in
+    ``registry/classify.share_eligible``)."""
+
+    import hashlib
+
+    from distributedkernelshap_tpu_torch.registry.classify import share_eligible
+    from distributedkernelshap_tpu_torch.scheduling.result_cache import (
+        predictor_fingerprint,
+    )
+
+    engine = share_eligible(model)
+    if engine is None:
+        return None
+    try:
+        content = engine.content_fingerprint()
+        # content_fingerprint falls back to repr(type(predictor)) for
+        # predictors with no linear decomposition / fingerprint_bytes —
+        # NOT content identity (two differently-fitted tree ensembles on
+        # the same background would collide, and a collision here means
+        # serving tenant B with tenant A's model).  Close the hole with
+        # the strong/weak-aware parameter hash: weak (host callbacks,
+        # stubs) ⇒ never share.
+        pred_digest, weak = predictor_fingerprint(engine.predictor)
+        if weak:
+            return None
+    except Exception:
+        return None
+    h = hashlib.sha256()
+    h.update(content.encode())
+    h.update(pred_digest.encode())
+    h.update(repr(engine.config).encode())
+    h.update(repr(sorted(
+        (getattr(model, "explain_kwargs", None) or {}).items())).encode())
+    explainer = getattr(model, "explainer", None)
+    inner = getattr(explainer, "_explainer", None)
+    h.update(type(explainer).__name__.encode())
+    h.update(type(inner).__name__.encode())
+    return h.hexdigest()
+
+
 @dataclass(frozen=True)
 class ShapConfig:
     """Static configuration of the explain pipeline."""

@@ -16,8 +16,9 @@ default measured by one cheap round-trip probe on the engine's device.
 
 Multi-process execution (a ``torch.distributed`` group of more than one
 process, whose fetches would have to agree on one order and one window)
-is ROADMAP.md queue A item 10 and raises ``NotImplementedError`` here, as
-does the resumable-journal hook of :func:`run_pipeline` (items 10 and 12).
+is ROADMAP.md queue A item 10 and raises ``NotImplementedError`` here.
+A :class:`~distributedkernelshap_tpu_torch.resilience.journal.ShardJournal`
+makes a :func:`run_pipeline` loop restartable.
 """
 
 import logging
@@ -152,38 +153,70 @@ def run_pipeline(items: Iterable[Any],
     to a small pool so their copies overlap; results come back in item
     order regardless.  ``threaded=False`` keeps a serial sliding window.
 
-    ``journal`` keeps the reference's parameter: a journal that makes the
-    loop restartable (``resilience/journal.py``) is ROADMAP.md queue A items
-    10 and 12, so anything but ``None`` raises ``NotImplementedError``.
+    ``journal`` (a :class:`~distributedkernelshap_tpu_torch.resilience.
+    journal.ShardJournal`) makes the loop restartable: items whose index
+    is already journaled are restored from disk without dispatching ANY
+    device work, and each fresh fetch is durably recorded before the loop
+    moves on — a killed run recomputes only the items in flight when it
+    died.  The chaos site ``pool.shard`` fires between fetch and record,
+    so an injected ``crash:site=pool.shard,after=K`` loses exactly the
+    K-th item's work — the worst case a resume must absorb.  A journaled
+    fetch must return a sequence of arrays (the journal's record).
 
     A fetch/dispatch exception propagates to the caller after in-flight
     work drains (the executor joins on exit), and a failed fetch stops
     further dispatches.
     """
 
-    if journal is not None:
-        raise NotImplementedError(
-            "journaled pipelines (resilience/journal.py) are ROADMAP.md queue "
-            "A items 10 and 12 and not ported yet")
     items = list(items)
     window = max(1, int(window))
+    # the pool.shard chaos site exists ONLY on journaled loops: its
+    # contract is "fetch done, journal record not yet written", and firing
+    # it from the engine's internal per-chunk pipelines would make an
+    # after=K kill count unrelated hits (and let a fleet-wide DKS_FAULTS
+    # pool spec crash serving workers through their in-server pipelines)
+    injector = None
+    if journal is not None:
+        from distributedkernelshap_tpu_torch.resilience.faults import env_injector
 
-    # per-item spans when the loop runs under a request's adopted context
+        injector = env_injector()
+
+    # per-item spans: journaled loops are batch runs (each item's
+    # dispatch→fetch interval, restored items tagged as such); a loop
+    # running under a request's adopted context parents its items to it
     tr = _tracing.tracer()
     trace_parent = _tracing.current_context() if tr.enabled else None
-    traced = trace_parent is not None
+    traced = tr.enabled and (journal is not None or trace_parent is not None)
 
     def finish(index, handle, t_disp):
         result = fetch(handle)
         if traced:
             tr.record_mono("pool.shard", t_disp, time.monotonic(),
                            parent=trace_parent, index=index)
+        if injector is not None:
+            injector.fire("pool.shard")
+        if journal is not None:
+            journal.put(index, result)
         return result
+
+    if journal is not None:
+        restored = {i: journal.get(i) for i in range(len(items))}
+        restored = {i: r for i, r in restored.items() if r is not None}
+        if traced and restored:
+            now = time.monotonic()
+            for i in restored:
+                tr.record_mono("pool.shard", now, now, parent=trace_parent,
+                               index=i, restored=True)
+    else:
+        restored = {}
 
     if not threaded or window <= 1 or len(items) <= 1:
         pending: deque = deque()
         results: List[Any] = [None] * len(items)
         for i, it in enumerate(items):
+            if i in restored:
+                results[i] = restored[i]
+                continue
             t_disp = time.monotonic()
             pending.append((i, dispatch(it), t_disp))
             if len(pending) >= window:
@@ -200,6 +233,9 @@ def run_pipeline(items: Iterable[Any],
     with ThreadPoolExecutor(max_workers=min(window, MAX_WINDOW)) as pool:
         futures = []
         for i, it in enumerate(items):
+            if i in restored:
+                results[i] = restored[i]
+                continue
             sem.acquire()  # bounds dispatched-but-unfetched items
             if failed.is_set():
                 break  # burn no device work after a fatal fetch error

@@ -1,8 +1,8 @@
-"""The model registry's graph lift and path classifier (port of
-``distributedkernelshap_tpu/registry/``): ONNX graphs onto port
-predictors, and the ONE engine-path classifier the serving wrappers
-auto-select from.  The registry itself waits for ROADMAP.md queue A
-item 12c."""
+"""The multi-tenant model registry of the PyTorch port (port of
+``distributedkernelshap_tpu/registry/``): the registry itself (many
+models behind one gateway, hot swap, per-tenant quotas), ONNX graphs onto
+port predictors, and the ONE engine-path classifier the serving wrappers
+auto-select from."""
 
 from distributedkernelshap_tpu_torch.registry.classify import (  # noqa: F401
     ENGINE_PATHS,
@@ -16,4 +16,9 @@ from distributedkernelshap_tpu_torch.registry.onnx_lift import (  # noqa: F401
     UnsupportedOpError,
     lift_graph,
     lift_onnx,
+)
+from distributedkernelshap_tpu_torch.registry.registry import (  # noqa: F401
+    ModelRegistry,
+    RegisteredModel,
+    TenantQuota,
 )

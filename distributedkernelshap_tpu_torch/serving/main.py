@@ -1,66 +1,33 @@
 """Serving entry point: fit the default Adult explainer (or load a saved
-one) and serve it.
+one) and serve it, from one process or from a replica fleet.
 
-Port of ``distributedkernelshap_tpu/serving/main.py``, single-process
-modes: ``python -m distributedkernelshap_tpu_torch.serving.main
---checkpoint <path>`` serves a ``KernelShap.save`` checkpoint on the device
-its ``engine_config.device`` names (a checkpoint saved on the card loads on
+Port of ``distributedkernelshap_tpu/serving/main.py``:
+``python -m distributedkernelshap_tpu_torch.serving.main --checkpoint
+<path>`` serves a ``KernelShap.save`` checkpoint on the device its
+``engine_config.device`` names (a checkpoint saved on the card loads on
 the card), ``--factory module:function`` serves a deployment tuple, and
 with neither it fits the Adult deployment, which needs the cached Adult
-files and scikit-learn to unpickle the model.  The multi-host
-(``--coordinator``) and replica-fleet (``--replica_procs``,
-``--pod_procs``) modes raise ``NotImplementedError``: they wait for
-ROADMAP.md queue A items 10 and 12c.  SIGTERM and SIGINT stop the server
-cleanly.
+files and scikit-learn to unpickle the model.  ``--replica_procs N``
+spawns N single-device worker processes (``serving/replica_worker.py``)
+behind a fan-in proxy on ``--port`` (``serving/replicas.py``).  The
+multi-host modes (``--coordinator``, and ``--pod_procs`` above 1, whose
+replica units are multi-process pods) raise ``NotImplementedError``: they
+wait for ROADMAP.md queue A item 10.  SIGTERM and SIGINT stop the server
+or the fleet cleanly.
 """
 
 import argparse
-import importlib
 import logging
 import signal
 import threading
 
+from distributedkernelshap_tpu_torch.serving.replica_worker import (
+    adult_factory,
+    resolve_factory,
+)
 from distributedkernelshap_tpu_torch.serving.server import serve_explainer
 
 logging.basicConfig(level=logging.INFO)
-
-
-def adult_factory():
-    """The default Adult deployment tuple ``(predictor, background,
-    ctor_kwargs, fit_kwargs)`` (reference ``serving/replica_worker.py:
-    24-39``).  The cached model is a scikit-learn estimator: without
-    scikit-learn this raises an ``ImportError`` that names the mode."""
-
-    try:
-        import sklearn  # noqa: F401
-    except ImportError as e:
-        raise ImportError(
-            "the default Adult deployment unpickles a scikit-learn model, "
-            "and scikit-learn is not installed; serve a saved explainer "
-            "with --checkpoint or a deployment with --factory") from e
-    from distributedkernelshap_tpu_torch.utils import (
-        data_provenance,
-        load_data,
-        load_model,
-    )
-
-    data = load_data()
-    predictor = load_model()
-    group_names, groups = data["all"]["group_names"], data["all"]["groups"]
-    return (predictor, data["background"]["X"]["preprocessed"],
-            {"link": "logit", "feature_names": group_names, "seed": 0},
-            {"group_names": group_names, "groups": groups,
-             "data_provenance": data_provenance(data)})
-
-
-def resolve_factory(spec: str):
-    """``module:function`` → the function (reference
-    ``serving/replica_worker.py:101-105``)."""
-
-    mod_name, _, fn_name = spec.partition(":")
-    if not fn_name:
-        raise ValueError(f"--factory must be 'module:function', got {spec!r}")
-    return getattr(importlib.import_module(mod_name), fn_name)
 
 
 def main():
@@ -83,33 +50,82 @@ def main():
                         help="module:function returning (predictor, "
                              "background, ctor_kwargs, fit_kwargs) "
                              "(default: the Adult deployment).")
-    # the reference's multi-host and replica-fleet modes: accepted so that
-    # their use names what is missing, not an unknown argument
+    # the reference's multi-host modes: accepted so that their use names
+    # what is missing, not an unknown argument
     queued = " Not in the port yet: raises NotImplementedError."
     parser.add_argument("--coordinator", default=None, type=str,
                         help="Multi-host coordinator address (ROADMAP.md "
                              "queue A item 10)." + queued)
+    parser.add_argument("--num_processes", default=None, type=int)
+    parser.add_argument("--process_id", default=None, type=int)
+    parser.add_argument("--max_rows", default=None, type=int,
+                        help="Multi-host broadcast slot (ROADMAP.md queue "
+                             "A item 10)." + queued)
+    parser.add_argument("--replicate_results", action="store_true",
+                        help="Multi-host only (ROADMAP.md queue A item "
+                             "10)." + queued)
+    parser.add_argument("--lockstep", action="store_true",
+                        help="Multi-host only (ROADMAP.md queue A item "
+                             "10)." + queued)
     parser.add_argument("--pod_procs", default=1, type=int,
-                        help="Processes per replica unit (ROADMAP.md queue "
-                             "A item 12c)." + queued)
+                        help="With --replica_procs: processes per replica "
+                             "UNIT; above 1 each unit is a multi-process "
+                             "pod (ROADMAP.md queue A item 10)." + queued)
     parser.add_argument("--replica_procs", default=0, type=int,
-                        help="Replica server processes behind a fan-in "
-                             "proxy (ROADMAP.md queue A item 12c)." + queued)
+                        help="Replica mode: spawn this many crash-isolated "
+                             "single-device server PROCESSES (replica k on "
+                             "card k mod the host's cards) behind a fan-in "
+                             "proxy on --port (serving/replicas.py).")
     args = parser.parse_args()
     explain_kwargs = {"nsamples": "exact"} if args.exact else None
 
+    if args.coordinator is None and (args.num_processes is not None
+                                     or args.process_id is not None):
+        parser.error("--num_processes/--process_id require --coordinator "
+                     "(a would-be follower must never start its own server)")
+    if args.pod_procs < 1:
+        parser.error("--pod_procs must be >= 1")
+    if args.pod_procs > 1 and not args.replica_procs:
+        parser.error("--pod_procs sizes the replica UNITS of the "
+                     "--replica_procs fleet; a standalone pod is "
+                     "--coordinator with one process per host")
+    if args.replicate_results and args.lockstep:
+        parser.error("--replicate_results and --lockstep are opposites")
     if args.factory and args.checkpoint:
         parser.error("--factory and --checkpoint both name a deployment; "
                      "pick one")
-    if args.coordinator is not None:
+    if args.replica_procs:
+        if args.coordinator is not None or args.checkpoint or args.exact \
+                or args.replicate_results or args.lockstep \
+                or args.max_rows is not None:
+            # fail loudly: a flag this mode cannot honour must never be
+            # silently dropped (--pod_procs composes: each replica unit
+            # becomes a pod)
+            parser.error("--replica_procs is the single-host replica "
+                         "fleet mode; it does not combine with "
+                         "--coordinator/--checkpoint/--exact/"
+                         "--replicate_results/--lockstep/--max_rows")
+    if args.coordinator is not None or args.pod_procs > 1:
         raise NotImplementedError(
-            "--coordinator (multi-host serving) waits for the multi-GPU "
-            "port (ROADMAP.md queue A item 10)")
-    if args.replica_procs or args.pod_procs != 1:
-        raise NotImplementedError(
-            "--replica_procs / --pod_procs (the replica fleet behind a "
-            "fan-in proxy) wait for ROADMAP.md queue A item 12c")
-    if args.checkpoint:
+            "--coordinator and --pod_procs above 1 (multi-process pods) "
+            "wait for the multi-GPU port (ROADMAP.md queue A item 10)")
+
+    if args.replica_procs:
+        from distributedkernelshap_tpu_torch.serving.replicas import ReplicaManager
+
+        manager = ReplicaManager(
+            args.replica_procs,
+            factory=args.factory or (adult_factory.__module__
+                                     + ":adult_factory"),
+            max_batch_size=args.max_batch_size,
+            pipeline_depth=args.pipeline_depth or None,
+            pod_processes=args.pod_procs,
+        ).start(proxy_port=args.port, proxy_host=args.host)
+        banner = (f"replica serving on "
+                  f"{manager.proxy.host}:{manager.proxy.port} "
+                  f"({args.replica_procs} worker processes)")
+        on_stop = manager.stop
+    elif args.checkpoint:
         from distributedkernelshap_tpu_torch.kernel_shap import KernelShap
         from distributedkernelshap_tpu_torch.serving.server import ExplainerServer
         from distributedkernelshap_tpu_torch.serving.wrappers import BatchKernelShapModel
@@ -121,6 +137,8 @@ def main():
         server = ExplainerServer(model, host=args.host, port=args.port,
                                  max_batch_size=args.max_batch_size,
                                  pipeline_depth=args.pipeline_depth or None).start()
+        banner = f"serving on {server.host}:{server.port} — Ctrl-C to stop"
+        on_stop = server.stop
     else:
         factory = resolve_factory(args.factory) if args.factory else adult_factory
         predictor, background, ctor_kwargs, fit_kwargs = factory()
@@ -130,8 +148,8 @@ def main():
             pipeline_depth=args.pipeline_depth or None,
             explain_kwargs=explain_kwargs,
         )
-    banner = f"serving on {server.host}:{server.port} — Ctrl-C to stop"
-    on_stop = server.stop
+        banner = f"serving on {server.host}:{server.port} — Ctrl-C to stop"
+        on_stop = server.stop
 
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *a: stop.set())

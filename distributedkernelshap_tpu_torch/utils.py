@@ -33,10 +33,16 @@ MODEL_LOCAL = os.path.join(REPO_ROOT, "assets", "predictor.pkl")
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """The device an entry point runs on: ``device`` when given, else the
     current CUDA device.  Without a GPU and without an explicit device this
-    raises — the port never carries on quietly on the CPU."""
+    raises — the port never carries on quietly on the CPU.  A CUDA device
+    given without an index resolves to the current one, so the threads
+    that serve an engine can bind it (``torch.cuda.set_device`` takes an
+    index; a new thread starts on device 0)."""
 
     if device is not None:
-        return torch.device(device)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None and torch.cuda.is_available():
+            device = torch.device("cuda", torch.cuda.current_device())
+        return device
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "

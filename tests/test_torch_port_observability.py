@@ -272,14 +272,10 @@ def test_the_scheduler_forms_the_references_batches_in_order():
 # exports
 
 
-#: reference names whose modules wait for later ROADMAP.md queue A items:
-#: 12c (the fleet roll-up; hedging, journal and supervision; the registry)
-QUEUED = {
-    "observability": {"fleet_rollup", "merge_expositions"},
-    "registry": {"ModelRegistry", "RegisteredModel", "TenantQuota"},
-    "resilience": {"HedgePolicy", "LatencyQuantiles", "ShardJournal",
-                   "journal_fingerprint", "ReplicaSupervisor", "RestartPolicy"},
-}
+#: reference names whose modules wait for later ROADMAP.md queue A items
+#: (none left in these packages since the fleet, the registry, hedging,
+#: the journal and supervision were ported)
+QUEUED = {}
 
 
 def _names(pkg):

@@ -353,7 +353,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "distributedkernelshap_tpu_torch.serving.wrappers, "
         "distributedkernelshap_tpu_torch.serving.multihost, "
         "distributedkernelshap_tpu_torch.serving.server, "
-        "distributedkernelshap_tpu_torch.serving.main\n"
+        "distributedkernelshap_tpu_torch.serving.main, "
+        "distributedkernelshap_tpu_torch.registry.registry, "
+        "distributedkernelshap_tpu_torch.resilience.journal, "
+        "distributedkernelshap_tpu_torch.resilience.hedging, "
+        "distributedkernelshap_tpu_torch.resilience.supervisor, "
+        "distributedkernelshap_tpu_torch.observability.fleet, "
+        "distributedkernelshap_tpu_torch.serving.replicas, "
+        "distributedkernelshap_tpu_torch.serving.replica_worker, "
+        "distributedkernelshap_tpu_torch.serving.autoscaler\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'distributedkernelshap_tpu', 'pandas', 'sklearn')]\n"
         "assert not bad, bad\n")

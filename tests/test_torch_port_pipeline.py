@@ -126,8 +126,25 @@ def test_run_pipeline_threaded_stops_dispatch_after_failure():
 
 
 def test_run_pipeline_journal_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item"):
-        pl.run_pipeline([1, 2], lambda i: i, lambda h: h, window=2, journal=object())
+    """The journal hook was ported with ``resilience/journal.py``: a
+    journal argument no longer raises; journaled items are restored
+    without a dispatch and fresh ones are recorded."""
+
+    class Journal:
+        def __init__(self):
+            self.put_calls = []
+
+        def get(self, i):
+            return ("restored", i) if i == 0 else None
+
+        def put(self, i, result):
+            self.put_calls.append((i, result))
+
+    journal, dispatched = Journal(), []
+    out = pl.run_pipeline([1, 2], lambda i: dispatched.append(i) or i, lambda h: h,
+                          window=2, journal=journal)
+    assert out == [("restored", 0), 2]
+    assert dispatched == [2] and journal.put_calls == [(1, 2)]
 
 
 # --------------------------------------------------------------------- #

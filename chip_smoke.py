@@ -17,7 +17,10 @@ whose linear members launch it, a second fixture of real scikit-learn
 fits), the ONNX graph lift (its ops, a logistic-regression export on
 ``fused_linear_ey``), DeepSHAP over lifted graphs and the MNIST CNN with
 superpixel image explanations (a third fixture of the JAX package's
-answers) through the public API, checks the answers, and times kernels,
+answers), the explanation server, its gateway, fleet and shard journal,
+and explains over a mesh of devices driven from one process (the headline
+and the exact paths at several layouts on the one card) and the CNN's
+training, through the public API, checks the answers, and times kernels,
 plain versions and explains.
 
     python3 chip_smoke.py [--seed 0]
@@ -328,7 +331,26 @@ Phases (each raises on failure, so the script exits non-zero):
    replicas on queue pressure, drained back to 1, no request lost); ``python
    -m distributedkernelshap_tpu_torch.serving.main --replica_procs 2``
    healthy, answering and exiting 0 on SIGTERM; after each stop no worker
-   process left (``nvidia-smi --query-compute-apps``).
+   process left (``nvidia-smi --query-compute-apps``);
+43. the headline on a mesh (``parallel/``: one process, a grid of
+   devices): ``KernelShap(..., distributed_opts={'n_devices': <visible
+   cards>})`` (1x1) and ``[cuda:0] * n`` at 2x1, 1x2 and 2x2 in slabs of
+   256 rows a data shard, each counted: ``fused_linear_ey`` launched
+   exactly shards x slabs times (1, 2, 2, 20), additive, phi within 1e-3
+   plus 16 p-ulps of phase 4's, the kernel against its plain version on
+   every shard's inputs, walls;
+44. exact paths on the mesh, the fixture GBT on 256 rows: dense with
+   interactions at 1x2 on 99 background rows (one zero-weight pad row:
+   2 ``exact_tree_phi`` + 2 ``exact_tree_inter``), packed at 1x2 (the plan
+   striped over 2 shards: one launch per local bucket and shard), a
+   journaled run at 2x1 in slabs whose replay launches nothing and returns
+   the same bits, the mid-size tensor train at 2x1; each within 2e-5 x
+   max(1, max|.|) of the single device, each launch against its plain
+   version, walls;
+45. ``models/cnn.train_mnist_cnn`` on the card: 2000 synthetic digits made
+   from ``--seed``, one epoch, accuracy above 0.5 on 200 more; one explain
+   of 16 of them over the 49 superpixels through the trained predictor,
+   additive; walls.
 
 The second-to-last line of stdout is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -1053,6 +1075,20 @@ SWAP_AFTER = 64
 #: step, and the autoscaler fleet's batch cap and client threads
 FLEET_SLOW_S, FLEET_SLOW_TIMES, FLEET_HEDGE_S, FLEET_HEDGE_REQUESTS = 1.0, 4, 0.25, 8
 SCALE_MAX_BATCH, SCALE_CLIENTS = 2, 32
+#: the twelfth slice (phases 43-45): the headline on the mesh, laid out
+#: ``(label, devices, coalition_parallel, batch_size)``: ``KernelShap(
+#: distributed_opts={'n_devices': <visible cards>})`` (1x1), then
+#: ``[cuda:0] * n`` at 2x1, 1x2 and 2x2 in slabs of MESH_BATCH rows a data
+#: shard; the fixture GBT's exact rows on the mesh, its dense interactions
+#: on a background of MESH_BG_ODD rows (padded by one zero-weight row at
+#: 1x2), its journaled run in slabs of MESH_JOURNAL_BATCH rows a data shard;
+#: the reference's mid-size tensor train at 2x1; train_mnist_cnn for one
+#: epoch on CNN_TRAIN synthetic digits, above CNN_MIN_ACC on CNN_TEST more,
+#: then one explain of B_CNN_EXPLAIN of them
+MESH_LAYOUTS = (("1x1", None, 1, None), ("2x1", 2, 1, None), ("1x2", 2, 2, None),
+                ("2x2 slabs", 4, 2, 256))
+MESH_EXACT_ROWS, MESH_BG_ODD, MESH_JOURNAL_BATCH = 256, 99, 64
+CNN_TRAIN, CNN_TEST, CNN_BATCH, CNN_MIN_ACC, B_CNN_EXPLAIN = 2000, 200, 128, 0.5, 16
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -5451,9 +5487,10 @@ def mnist_templates(rng):
     return templates
 
 
-def synthetic_digits(n, rng, templates):
+def synthetic_digits(n, rng, templates, with_labels=False):
     """Shifted, scaled, noisy instances of their class template, in [0, 1]
-    (``scripts/process_mnist_data._synthetic_digits``); ``(n, 784)``."""
+    (``scripts/process_mnist_data._synthetic_digits``); ``(n, 784)``, with
+    their class labels as a second value when ``with_labels``."""
 
     H = W = MNIST_SIDE
     labels = rng.integers(0, MNIST_CLASSES, size=n)
@@ -5464,6 +5501,8 @@ def synthetic_digits(n, rng, templates):
     for i in range(n):
         t = np.roll(templates[labels[i]], tuple(shifts[i]), axis=(0, 1))
         images[i] = np.clip(t * scales[i] + noise[i], 0.0, 1.0)
+    if with_labels:
+        return images.reshape(n, -1), labels
     return images.reshape(n, -1)
 
 
@@ -6054,6 +6093,338 @@ def mnist_sampled_phase(fx, X, train, device, card):
         raise AssertionError("the MNIST sampled explain disagrees with the JAX fixture")
 
 
+# ---------------------------------------------------------------------- #
+# the twelfth slice (phases 43-45): one process over a mesh of devices,
+# train_mnist_cnn
+
+
+def _mesh_opts(device, n, cp, batch_size):
+    """``distributed_opts`` of a mesh layout: ``n`` copies of ``device``
+    (``n=None``: ``n_devices`` = every visible card, the default devices)."""
+
+    import torch
+
+    if n is None:
+        return {"n_devices": torch.cuda.device_count(), "batch_size": batch_size}
+    return {"n_devices": n, "devices": [device] * n, "coalition_parallel": cp,
+            "batch_size": batch_size}
+
+
+def mesh_slabs(dist, B):
+    """Slabs a mesh explain of ``B`` rows runs (``DistributedExplainer``'s
+    ``batch_size`` rule)."""
+
+    slab = dist._slab_size()
+    return -(-B // slab) if slab and B > slab else 1
+
+
+def mesh_headline_phase(X, bg, est, device, card, expl_headline):
+    """Phase 43: the headline task (B = 2560, N = 100, the LR at K = 2,
+    ``link='logit'``) on the mesh layouts of ``MESH_LAYOUTS``, each through
+    ``KernelShap(..., distributed_opts=...)``: counted, ``fused_linear_ey``
+    launched exactly shards × slabs times (a shard's coalition rows go to
+    the kernel whole: one chunk), additive, phi within 1e-3 plus 16 p-ulps
+    of phase 4's single-device answer (ROADMAP C.9); the kernel against its
+    plain version on every shard's own inputs; the wall of each layout
+    (its counted run, then one more).  Returns ``(launches, max_abs_err)``."""
+
+    import torch
+    from distributedkernelshap_tpu_torch import KernelShap
+    from distributedkernelshap_tpu_torch.parallel.distributed import DistributedExplainer
+
+    phi_headline = np.stack(expl_headline.shap_values, 1)
+    tol = logit_tol(expl_headline.data["raw"]["raw_prediction"][:, 1])
+    total, worst, lines = 0, 0.0, []
+    for label, n, cp, batch_size in MESH_LAYOUTS:
+        explainer = KernelShap(est.predict_proba, link="logit",
+                               feature_names=ADULT_GROUP_NAMES, seed=0, device=device,
+                               distributed_opts=_mesh_opts(device, n, cp, batch_size))
+        explainer.fit(bg, group_names=ADULT_GROUP_NAMES, groups=adult_groups())
+        dist = explainer._explainer
+        if not isinstance(dist, DistributedExplainer):
+            raise AssertionError(f"{label}: distributed_opts built no DistributedExplainer")
+        shards = dist.mesh.size
+        want = shards * mesh_slabs(dist, X.shape[0])
+        with recorded_ey_calls() as calls:
+            reset_launches()
+            t0 = time.perf_counter()
+            expl = explainer.explain(X, silent=True)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            launches = kernel_launches()
+        phi, add_err = check_explanation(expl, X.shape[0])
+        d = np.abs(phi - phi_headline).max((1, 2))
+        err = kernel_vs_plain_on(calls)
+        worst = max(worst, err)
+        t0 = time.perf_counter()
+        explainer.explain(X, silent=True)
+        torch.cuda.synchronize()
+        wall2 = 1e3 * (time.perf_counter() - t0)
+        shapes = sorted({(a[0].shape[0], a[4].shape[0]) for a, _ in calls})
+        lines.append(f"{label} ({dist.mesh.shape['data']}x{dist.mesh.shape['coalition']}, "
+                     f"{shards} shards, {mesh_slabs(dist, X.shape[0])} slabs): launches "
+                     f"{launches} (want fused_linear_ey {want}), kernel_path "
+                     f"{explainer.kernel_path}, per-launch (B, S) {shapes}; additivity "
+                     f"{add_err:.3e}; |phi mesh - phi single| max {d.max():.3e} (rows "
+                     f"within 1e-3 + 16 p-ulps {int((d <= tol).sum())}/{X.shape[0]}); "
+                     f"kernel vs plain {err:.3e}; wall {wall:.3f} ms counted, "
+                     f"{wall2:.3f} ms again")
+        print("mesh headline: " + lines[-1], flush=True)
+        if launches != {"fused_linear_ey": want, "exact_tree_phi": 0, "exact_tree_inter": 0} \
+                or explainer.kernel_path.get("ey") != "cuda" or not (d <= tol).all():
+            raise AssertionError(f"the {label} mesh explain missed its launches or "
+                                 "disagrees with the single-device one")
+        total += launches["fused_linear_ey"]
+    print(f"mesh headline on {card}: {total} fused_linear_ey launches over "
+          f"{len(MESH_LAYOUTS)} layouts", flush=True)
+    return total, worst
+
+
+@contextlib.contextmanager
+def recorded_exact_calls():
+    """Inside the block, every ``exact_tree_phi`` / ``exact_tree_inter`` call
+    of the exact paths (``ops.treeshap`` imports the wrappers by name)
+    appends ``(name, args, kwargs)`` to the yielded list; the kernels still
+    launch and count."""
+
+    from distributedkernelshap_tpu_torch.ops import treeshap as treeshap_mod
+
+    calls, real = [], {}
+    for name in ("exact_tree_phi", "exact_tree_inter"):
+        real[name] = getattr(treeshap_mod, name)
+
+        def recorded(*a, _name=name, **k):
+            calls.append((_name, a, k))
+            return real[_name](*a, **k)
+
+        setattr(treeshap_mod, name, recorded)
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(treeshap_mod, name, fn)
+
+
+def exact_vs_plain_on(calls):
+    """Each recorded exact-kernel call against its plain version on the
+    same inputs (after the path's counts were read): phi within
+    ``PHI_REL`` × max(1, max|phi|), the raw pairwise sum within ``RAW_TOL``
+    (atol and rtol).  Returns ``{name: worst max abs diff}``."""
+
+    from distributedkernelshap_tpu_torch.ops import cuda_kernels as ck
+
+    worst = {"exact_tree_phi": 0.0, "exact_tree_inter": 0.0}
+    for name, a, k in calls:
+        got = getattr(ck, name)(*a, **k)
+        ref = getattr(ck, f"{name}_plain")(*a, **k)
+        if name == "exact_tree_phi":
+            err = rel_close(got.cpu().numpy(), ref.cpu().numpy())
+        else:
+            err, ok = raw_close(got, ref)
+            if not ok:
+                raise AssertionError(f"exact_tree_inter vs plain {err:.3e} on a mesh shard")
+        worst[name] = max(worst[name], err)
+    return worst
+
+
+def mesh_exact_phase(device, card, seed):
+    """Phase 44: the exact paths on the mesh, the fixture GBT
+    (``adult_trees_exact`` of ``tests/fixtures/adult_parity.npz``) on its
+    first ``MESH_EXACT_ROWS`` rows: dense with interactions at 1x2 on the
+    first ``MESH_BG_ODD`` background rows (``pad_background`` adds one
+    zero-weight row; one ``exact_tree_phi`` and one ``exact_tree_inter``
+    launch a shard), packed at 1x2 (the plan striped over 2 shards: one
+    launch per local bucket and shard), a journaled dense run at 2x1 in
+    slabs of ``MESH_JOURNAL_BATCH`` rows a data shard whose replay launches
+    nothing and returns the same bits; the reference's mid-size tensor train
+    (M = 24, rank 4, N = 32) at 2x1 (no hand kernel).  Each against the
+    single-device explain within ``PHI_REL`` × max(1, max|·|), each exact
+    launch against its plain version on the shard's inputs.  Returns
+    ``({kernel: launches}, {kernel: max_abs_err})``."""
+
+    import tempfile
+
+    import torch
+    from distributedkernelshap_tpu_torch import EngineConfig, KernelShap, TreeEnsemblePredictor
+    from distributedkernelshap_tpu_torch.models.tensor_net import TensorTrainPredictor
+    from distributedkernelshap_tpu_torch.ops.explain import ShapConfig
+    from distributedkernelshap_tpu_torch.ops.treeshap import build_packed_plan
+
+    fx = adult_fixture()
+    X = fx["X"][:MESH_EXACT_ROWS]
+    B = X.shape[0]
+
+    def tree():
+        return TreeEnsemblePredictor(
+            fx["tree_feature"], fx["tree_threshold"], fx["tree_left"], fx["tree_right"],
+            fx["tree_value"], depth=int(fx["tree_depth"]), aggregation="sum",
+            base=fx["tree_base"], scale=float(fx["tree_scale"]),
+            missing_left=fx["tree_missing_left"], vector_out=False, device=device)
+
+    def fitted(bg, opts=None, pack_paths=None, pred=None, groups=True):
+        ex = KernelShap(pred if pred is not None else tree(), task="regression", seed=0,
+                        device=device, distributed_opts=opts,
+                        engine_config=EngineConfig(shap=ShapConfig(pack_paths=pack_paths)))
+        if groups:
+            return ex.fit(bg, group_names=fx["names"], groups=fx["groups"])
+        return ex.fit(bg)
+
+    def run(ex, rows, inter=False):
+        with recorded_exact_calls() as calls:
+            reset_launches()
+            t0 = time.perf_counter()
+            expl = ex.explain(rows, nsamples="exact", interactions=inter, silent=True)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            launches = kernel_launches()
+        return expl, launches, calls, wall
+
+    total = {"exact_tree_phi": 0, "exact_tree_inter": 0}
+    worst = {"exact_tree_phi": 0.0, "exact_tree_inter": 0.0}
+
+    def account(label, launches, want, calls):
+        errs = exact_vs_plain_on(calls)
+        for k in worst:
+            worst[k] = max(worst[k], errs[k])
+            total[k] += launches[k]
+        if launches != {"fused_linear_ey": 0, **want}:
+            raise AssertionError(f"mesh {label}: launches {launches}, want {want}")
+        return errs
+
+    # dense with interactions at 1x2, the background padded by one row
+    bg_odd = fx["background"][:MESH_BG_ODD]
+    single = fitted(bg_odd).explain(X, nsamples="exact", interactions=True, silent=True)
+    phi_1 = exact_phi(single, B)[0]
+    inter_1 = interaction_values(single, B)[0]
+    ex = fitted(bg_odd, _mesh_opts(device, 2, 2, None))
+    expl, launches, calls, wall = run(ex, X, inter=True)
+    phi, inter = exact_phi(expl, B)[0], interaction_values(expl, B)[0]
+    d_phi, d_inter = rel_close(phi, phi_1), rel_close(inter, inter_1)
+    errs = account("dense interactions", launches,
+                   {"exact_tree_phi": 2, "exact_tree_inter": 2}, calls)
+    n_loc = {a[2].shape[0] for name, a, _ in calls}
+    print(f"mesh exact dense+interactions 1x2, N={MESH_BG_ODD} (background rows a shard "
+          f"{sorted(n_loc)}: one zero-weight pad row): launches {launches}, kernel_path "
+          f"{ex.kernel_path}; |phi - single|={d_phi:.3e}, |interactions - single|="
+          f"{d_inter:.3e} (tol {PHI_REL:g} x max(1, max|.|)); kernels vs plain {errs}; "
+          f"wall {wall:.3f} ms", flush=True)
+
+    # packed at 1x2: the plan's buckets striped over the coalition axis
+    bg = fx["background"]
+    single = fitted(bg, pack_paths=True).explain(X, nsamples="exact", silent=True)
+    phi_1 = exact_phi(single, B)[0]
+    ex = fitted(bg, _mesh_opts(device, 2, 2, None), pack_paths=True)
+    plan = build_packed_plan(ex._explainer.engine.predictor, ex._explainer.engine.G,
+                             shards=2)
+    expl, launches, calls, wall = run(ex, X)
+    d_phi = rel_close(exact_phi(expl, B)[0], phi_1)
+    errs = account("packed", launches, {"exact_tree_phi": 2 * len(plan.buckets),
+                                        "exact_tree_inter": 0}, calls)
+    print(f"mesh exact packed 1x2: plan with shards=2 has {len(plan.buckets)} buckets "
+          f"{list(plan.buckets)} ({plan.local_len} paths a shard); launches {launches} "
+          f"(want 2 x {len(plan.buckets)}); |phi - single|={d_phi:.3e}; kernel vs plain "
+          f"{errs['exact_tree_phi']:.3e}; wall {wall:.3f} ms", flush=True)
+
+    # a journaled dense run at 2x1 in slabs; the replay launches nothing
+    single = fitted(bg, pack_paths=False).explain(X, nsamples="exact", silent=True)
+    phi_1 = exact_phi(single, B)[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        opts = {**_mesh_opts(device, 2, 1, MESH_JOURNAL_BATCH), "checkpoint_dir": tmp}
+        ex = fitted(bg, opts, pack_paths=False)
+        slabs = mesh_slabs(ex._explainer, B)
+        expl, launches, calls, wall = run(ex, X)
+        stats = dict(ex._explainer.last_journal_stats)
+        phi = exact_phi(expl, B)[0]
+        d_phi = rel_close(phi, phi_1)
+        errs = account("journaled", launches, {"exact_tree_phi": 2 * slabs,
+                                               "exact_tree_inter": 0}, calls)
+        replay = fitted(bg, opts, pack_paths=False)
+        expl2, launches2, _, wall2 = run(replay, X)
+        stats2 = dict(replay._explainer.last_journal_stats)
+    same = np.array_equal(np.asarray(expl2.shap_values[0]), phi)
+    print(f"mesh exact journaled 2x1 in {slabs} slabs: launches {launches} (want 2 x "
+          f"{slabs}), journal {stats}; replay launches {launches2}, journal {stats2}, "
+          f"bit-identical {same}; |phi - single|={d_phi:.3e}; walls {wall:.3f} ms, replay "
+          f"{wall2:.3f} ms", flush=True)
+    if sum(launches2.values()) != 0 or not same or stats2.get("computed") != 0 \
+            or stats2.get("restored") != slabs:
+        raise AssertionError("the journaled mesh replay recomputed or changed its answer")
+
+    # the tensor train at 2x1
+    M, rank, N = TN_MID
+    rng = np.random.default_rng([seed, 44])
+    cores = tt_cores(M, rank, seed)
+    bg_tn = rng.normal(size=(N, M)).astype(np.float32)
+    X_tn = rng.normal(size=(B, M)).astype(np.float32)
+    single = fitted(bg_tn, pred=TensorTrainPredictor(cores, device=device), groups=False)
+    expl_1 = single.explain(X_tn, nsamples="exact", silent=True)
+    ex = fitted(bg_tn, _mesh_opts(device, 2, 1, None),
+                pred=TensorTrainPredictor(cores, device=device), groups=False)
+    reset_launches()
+    t0 = time.perf_counter()
+    expl = ex.explain(X_tn, nsamples="exact", silent=True)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    launches = kernel_launches()
+    d_phi = rel_close(np.asarray(expl.shap_values[0]), np.asarray(expl_1.shap_values[0]))
+    add_err = additivity(expl)
+    print(f"mesh exact tensor train 2x1 (M={M}, rank {rank}, N={N}, B={B}): launches "
+          f"{launches} (no hand kernel), kernel_path {ex.kernel_path}; additivity "
+          f"{add_err:.3e}; |phi - single|={d_phi:.3e}; wall {wall:.3f} ms on {card}",
+          flush=True)
+    if sum(launches.values()) or ex.kernel_path.get("exact_phi") != "tn_dp" \
+            or not add_err < ADDITIVITY:
+        raise AssertionError("the tensor-train mesh explain is off")
+    return total, worst
+
+
+def cnn_train_phase(device, card, seed):
+    """Phase 45: ``train_mnist_cnn`` on the card: ``CNN_TRAIN`` synthetic
+    digits made from ``--seed``, one epoch in batches of ``CNN_BATCH``,
+    accuracy above ``CNN_MIN_ACC`` on ``CNN_TEST`` more; then the trained
+    probs head explained on ``B_CNN_EXPLAIN`` of them over the 49
+    superpixels, the mean training image as the background,
+    ``link='logit'``, ``l1_reg=False`` (the generic route, no hand kernel):
+    finite, additive (1e-3).  Walls of the training and the explain."""
+
+    import torch
+    from distributedkernelshap_tpu_torch import KernelShap
+    from distributedkernelshap_tpu_torch.models.cnn import train_mnist_cnn
+    from distributedkernelshap_tpu_torch.ops.image import superpixel_groups
+
+    rng = np.random.default_rng([seed, 45])
+    templates = mnist_templates(rng)
+    images, labels = synthetic_digits(CNN_TRAIN, rng, templates, with_labels=True)
+    test, test_labels = synthetic_digits(CNN_TEST, rng, templates, with_labels=True)
+    t0 = time.perf_counter()
+    pred = train_mnist_cnn(images, labels, epochs=1, batch_size=CNN_BATCH, device=device)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    with torch.no_grad():
+        probs = pred(torch.as_tensor(test, device=device))
+    acc = float((probs.argmax(1).cpu().numpy() == test_labels).mean())
+    groups, names = superpixel_groups(MNIST_SIDE, MNIST_SIDE, MNIST_PATCH)
+    explainer = KernelShap(pred, link="logit", feature_names=names, seed=0, device=device)
+    explainer.fit(images.mean(0, keepdims=True), group_names=names, groups=groups)
+    reset_launches()
+    t0 = time.perf_counter()
+    expl = explainer.explain(test[:B_CNN_EXPLAIN], silent=True, l1_reg=False)
+    torch.cuda.synchronize()
+    explain_ms = 1e3 * (time.perf_counter() - t0)
+    launches = kernel_launches()
+    phi = np.stack(expl.shap_values, 1)
+    add_err = additivity(expl)
+    print(f"train_mnist_cnn on {card}: {CNN_TRAIN} digits, 1 epoch of "
+          f"{CNN_TRAIN // CNN_BATCH} steps in {train_s:.3f} s; accuracy on {CNN_TEST} "
+          f"held-out digits {acc:.3f} (> {CNN_MIN_ACC}); explain of {B_CNN_EXPLAIN} digits "
+          f"over {len(groups)} superpixels: phi {phi.shape}, additivity {add_err:.3e}, "
+          f"kernel_path {explainer.kernel_path}, launches {launches}, wall "
+          f"{explain_ms:.3f} ms", flush=True)
+    if not (acc > CNN_MIN_ACC and np.isfinite(phi).all() and add_err < ADDITIVITY
+            and phi.shape == (B_CNN_EXPLAIN, MNIST_CLASSES, len(groups))):
+        raise AssertionError("the CNN trained on the card is off")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6259,6 +6630,22 @@ def main() -> int:
     t = time.perf_counter()
     fleet_phase(device, card, serving["single"])
     seconds["42 fleet"] = time.perf_counter() - t
+
+    # 43-45. one process over a mesh of devices, train_mnist_cnn
+    t = time.perf_counter()
+    mesh_ey, mesh_ey_err = mesh_headline_phase(X, bg, est, device, card, expl)
+    max_err = max(max_err, mesh_ey_err)
+    seconds["43 mesh headline"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mesh_exact, mesh_exact_err = mesh_exact_phase(device, card, args.seed)
+    exact_record["max_abs_err"] = max(exact_record["max_abs_err"],
+                                      mesh_exact_err["exact_tree_phi"])
+    inter_record["max_abs_err"] = max(inter_record["max_abs_err"],
+                                      mesh_exact_err["exact_tree_inter"])
+    seconds["44 mesh exact"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cnn_train_phase(device, card, args.seed)
+    seconds["45 cnn training"] = time.perf_counter() - t
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; script so far {time.perf_counter() - t_start:.1f}", flush=True)
 
@@ -6266,6 +6653,8 @@ def main() -> int:
     inter_record["serving_launches"] = serving["exact_tree_inter"]
     exact_record["gateway_launches"] = gateway["exact_tree_phi"]
     inter_record["gateway_launches"] = gateway["exact_tree_inter"]
+    exact_record["mesh_launches"] = mesh_exact["exact_tree_phi"]
+    inter_record["mesh_launches"] = mesh_exact["exact_tree_inter"]
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "fused_linear_ey", "route": "cuda",
@@ -6274,7 +6663,7 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "serving_launches": serving["fused_linear_ey"],
-        "gateway_launches": gateway["fused_linear_ey"]},
+        "gateway_launches": gateway["fused_linear_ey"], "mesh_launches": mesh_ey},
         exact_record, inter_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -28,6 +28,9 @@ calibrated, search-CV, AdaBoost, transformed-target) lift too; a
 ``Pipeline(scaler, LogisticRegression)`` folds into one
 ``LinearPredictor`` and takes ``fused_linear_ey``, and the linear members
 of forwarding ensembles launch it through ``LinearPredictor.masked_ey``.
+``KernelShap(..., distributed_opts={'n_devices': n})`` explains over a mesh
+of devices driven from this process (``parallel/``), every shard running
+the same kernels.
 """
 
 from distributedkernelshap_tpu_torch.interface import (  # noqa: F401
@@ -38,9 +41,10 @@ from distributedkernelshap_tpu_torch.interface import (  # noqa: F401
     FitMixin,
     NumpyEncoder,
 )
-from distributedkernelshap_tpu_torch.utils import Bunch, methdispatch  # noqa: F401
+from distributedkernelshap_tpu_torch.utils import Bunch, batch, get_filename, methdispatch  # noqa: F401
 from distributedkernelshap_tpu_torch.data import Data, DenseData, DenseDataWithIndex  # noqa: F401
 from distributedkernelshap_tpu_torch.kernel_shap import (  # noqa: F401
+    DISTRIBUTED_OPTS,
     KERNEL_SHAP_BACKGROUND_THRESHOLD,
     KERNEL_SHAP_PARAMS,
     EngineConfig,

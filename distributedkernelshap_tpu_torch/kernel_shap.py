@@ -42,8 +42,9 @@ ONNX graphs (``registry/onnx_lift.py``) and the MNIST CNN
 (``models/cnn.py``) carry a ``graph_spec``, which the DeepSHAP flavour
 reads; image explanations group pixels into superpixels (``ops/image.py``).
 
-Not ported yet (ROADMAP.md, queue A): the memory ledger and multi-device
-execution.
+``KernelShap(..., distributed_opts={...})`` explains over a mesh of devices
+driven from this process (``parallel/distributed.DistributedExplainer``);
+several processes are ROADMAP.md queue A item 10.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 without a GPU and without a device they raise.  pandas is only touched when
@@ -167,6 +168,18 @@ KERNEL_SHAP_PARAMS = [
 ]
 
 KERNEL_SHAP_BACKGROUND_THRESHOLD = 300
+
+# Distribution knobs (reference kernel_shap.py:371-385).  The unit of
+# parallelism is a device in a mesh driven from this process; `n_cpus` is
+# accepted as an alias so reference call sites run unchanged.
+# `actor_cpu_fraction` > 1 (whole) maps to `coalition_parallel` — that many
+# devices co-operate on one batch; fractions < 1 have no device analog and
+# are ignored with a warning (parallel/distributed.py).
+DISTRIBUTED_OPTS = {
+    'n_devices': None,
+    'batch_size': None,
+    'actor_cpu_fraction': 1.0,
+}
 
 
 def _async_sync_fallback(explainer, X, nsamples, l1_reg, interactions):
@@ -2020,14 +2033,24 @@ class KernelExplainerEngine:
                 np.asarray(X, dtype=np.float32), device=self.device)))
         return out.cpu().numpy()
 
+    def return_attribute(self, name: str) -> Any:
+        """Named attribute access (distributed-context parity with the
+        reference's ``return_attribute``)."""
+
+        return getattr(self, name)
+
 
 class KernelShap(Explainer, FitMixin):
-    """Model-agnostic KernelSHAP explainer with grouping (reference
-    ``kernel_shap.py:264-1015``), on a torch device.
+    """Model-agnostic KernelSHAP explainer with grouping and distribution
+    (reference ``kernel_shap.py:264-1015``), on a torch device.
 
     ``device`` picks where the engine runs (default: the current CUDA
-    device; raises without one).  Multi-device execution
-    (``distributed_opts``) is not ported yet."""
+    device; raises without one).  ``distributed_opts`` (``n_devices`` or
+    ``n_cpus``, ``batch_size``, ``actor_cpu_fraction`` and the other
+    ``DistributedExplainer`` options) shards each explain over a mesh of
+    devices when ``n_devices`` is set, as in the reference: on a CUDA
+    device over the visible cards (or the ``devices`` option's list), with
+    ``device='cpu'`` over ``n_devices`` copies of the CPU device."""
 
     def __init__(self,
                  predictor: Callable,
@@ -2036,6 +2059,7 @@ class KernelShap(Explainer, FitMixin):
                  categorical_names: Optional[Dict[int, List[str]]] = None,
                  task: str = 'classification',
                  seed: Optional[int] = None,
+                 distributed_opts: Optional[Dict] = None,
                  engine_config: Optional[EngineConfig] = None,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__(meta=copy.deepcopy(DEFAULT_META_KERNEL_SHAP))
@@ -2061,6 +2085,34 @@ class KernelShap(Explainer, FitMixin):
         self.summarise_result = False
         self.summarise_background = False
         self._fitted = False
+
+        self.distributed_opts = copy.deepcopy(DISTRIBUTED_OPTS)
+        if distributed_opts:
+            opts = dict(distributed_opts)
+            # reference spelling: n_cpus
+            if 'n_cpus' in opts and 'n_devices' not in opts:
+                opts['n_devices'] = opts.pop('n_cpus')
+            self.distributed_opts.update(opts)
+        self.distributed_opts['algorithm'] = 'kernel_shap'
+        self.distribute = bool(self.distributed_opts['n_devices'])
+
+    def _new_engine(self, background_data):
+        """The engine of a fit: a :class:`KernelExplainerEngine`, or with
+        ``distribute`` a ``DistributedExplainer`` around one (reference
+        ``kernel_shap.py:2845-2857``)."""
+
+        if self.distribute:
+            from distributedkernelshap_tpu_torch.parallel.distributed import (
+                DistributedExplainer,
+            )
+
+            return DistributedExplainer(
+                self.distributed_opts, KernelExplainerEngine,
+                (self.predictor, background_data),
+                {'link': self.link, 'seed': self.seed, 'config': self.engine_config})
+        return KernelExplainerEngine(
+            self.predictor, background_data, link=self.link,
+            seed=self.seed, config=self.engine_config)
 
     # ------------------------------------------------------------------ #
     # input validation (reference kernel_shap.py:369-501, warn-and-degrade)
@@ -2344,9 +2396,7 @@ class KernelShap(Explainer, FitMixin):
 
         self.background_data = self._get_data(background_data, group_names, groups, weights, **kwargs)
 
-        self._explainer = KernelExplainerEngine(
-            self.predictor, self.background_data, link=self.link,
-            seed=self.seed, config=self.engine_config)
+        self._explainer = self._new_engine(self.background_data)
         self.expected_value = self._explainer.expected_value
         if not self._explainer.vector_out:
             logger.warning(
@@ -2389,6 +2439,11 @@ class KernelShap(Explainer, FitMixin):
             raise TypeError(
                 "Called explain on an unfitted object! Please fit the "
                 "explainer using the .fit method first!"
+            )
+
+        if self.distribute and (sparse.issparse(X) or _is_pandas(X, 'DataFrame')):
+            raise TypeError(
+                "Incorrect type for `X` due to distributed context. Cast `X` to np.ndarray."
             )
 
         if self.use_groups and sparse.issparse(X):
@@ -2538,6 +2593,7 @@ class KernelShap(Explainer, FitMixin):
             'categorical_names': self.categorical_names,
             'task': self.task,
             'seed': self.seed,
+            'distributed_opts': dict(self.distributed_opts),
             'engine_config': self.engine_config,
             'background_data': self.background_data,
             'meta': self.meta,
@@ -2559,6 +2615,8 @@ class KernelShap(Explainer, FitMixin):
 
         with open(path, 'rb') as f:
             state = pickle.load(f)
+        opts = dict(state.get('distributed_opts') or {})
+        opts.pop('algorithm', None)
         explainer = cls(
             state['predictor'],
             link=state['link'],
@@ -2566,6 +2624,7 @@ class KernelShap(Explainer, FitMixin):
             categorical_names=state['categorical_names'],
             task=state['task'],
             seed=state['seed'],
+            distributed_opts=opts or None,
             engine_config=state.get('engine_config'),
             device=device,
         )
@@ -2577,9 +2636,7 @@ class KernelShap(Explainer, FitMixin):
                 explainer.feature_names = bg.group_names
             explainer._fitted = True
             explainer.background_data = bg
-            explainer._explainer = KernelExplainerEngine(
-                explainer.predictor, bg, link=explainer.link,
-                seed=explainer.seed, config=explainer.engine_config)
+            explainer._explainer = explainer._new_engine(bg)
             explainer.expected_value = explainer._explainer.expected_value
         else:
             # ungrouped background: refit through the normal path

@@ -22,11 +22,11 @@ matmuls), the reference's ``matmul_precision="highest"``.
 :meth:`CNNPredictor.graph_spec` exports the same graph, node for node and
 initializer for initializer, as the reference's, for the DeepSHAP path.
 
-Training (the reference's ``train_mnist_cnn``) is not ported yet
-(ROADMAP.md queue A).
+:func:`train_mnist_cnn` trains the network with Adam on softmax cross
+entropy, as the reference's does with optax.
 """
 
-from typing import Optional, Tuple, Union
+from typing import Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -177,3 +177,80 @@ class CNNPredictor(BasePredictor):
             parts.append(p["kernel"].tobytes())
             parts.append(p["bias"].tobytes())
         return b"".join(parts)
+
+
+def _init_params(net: _CNN, generator: torch.Generator) -> None:
+    """Draw the initial parameters from ``generator`` with flax's default
+    scheme, as the reference initialises them: kernels LeCun normal
+    (truncated at two standard deviations, variance ``1/fan_in``), biases
+    zero.  The draws themselves differ from JAX's PRNG, so the parity tests
+    start both packages from equal parameters instead."""
+
+    with torch.no_grad():
+        for layer in _LAYERS:
+            mod = getattr(net, layer)
+            w = torch.randn(mod.weight.shape, generator=generator)
+            out = w.abs() > 2.0
+            while bool(out.any()):
+                w[out] = torch.randn(int(out.sum()), generator=generator)
+                out = w.abs() > 2.0
+            # 0.8796 = the std of a standard normal truncated to [-2, 2]
+            std = float(np.sqrt(1.0 / mod.weight[0].numel())) / 0.87962566103423978
+            mod.weight.copy_(w * std)
+            mod.bias.zero_()
+
+
+def _adam_steps(net: _CNN, batches: Iterable[Tuple[torch.Tensor, torch.Tensor]],
+                lr: float) -> None:
+    """Adam on the mean softmax cross entropy, one step per ``(images,
+    integer labels)`` batch (optax ``adam(lr)`` with its defaults:
+    ``b1=0.9``, ``b2=0.999``, ``eps=1e-8``), in full float32."""
+
+    opt = torch.optim.Adam(net.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    with full_f32_matmul():
+        for xb, yb in batches:
+            opt.zero_grad(set_to_none=True)
+            loss = F.cross_entropy(net(xb.reshape((-1,) + net.image_shape)), yb)
+            loss.backward()
+            opt.step()
+
+
+def train_mnist_cnn(images: np.ndarray, labels: np.ndarray,
+                    image_shape: Tuple[int, int, int] = (28, 28, 1),
+                    n_classes: int = 10, epochs: int = 2,
+                    batch_size: int = 256, lr: float = 1e-3,
+                    seed: int = 0, output: str = "probs",
+                    device: Optional[Union[str, torch.device]] = None) -> CNNPredictor:
+    """Train the small CNN and wrap it as a predictor (reference
+    ``models/cnn.py:135-174``).
+
+    ``images``: ``(n, H*W)`` or ``(n, H, W[, C])`` float in [0, 1].  The
+    initial parameters come from a ``torch.Generator`` seeded with ``seed``;
+    each epoch visits full batches in the order of numpy's
+    ``default_rng(seed).permutation``, as the reference does.
+    ``output='logits'`` serves raw margins — the DeepSHAP-attributable form
+    (a Softmax head keeps the graph off the attribution path)."""
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    flat = images.reshape(images.shape[0], -1).astype(np.float32)
+    net = _CNN(image_shape, n_classes)
+    _init_params(net, torch.Generator().manual_seed(int(seed)))
+    net = net.to(dev)
+    X = torch.as_tensor(flat, device=dev)
+    y = torch.as_tensor(np.asarray(labels, np.int64), device=dev)
+
+    def batches():
+        n = flat.shape[0]
+        for _ in range(epochs):
+            order = rng.permutation(n)
+            for i in range(0, n - batch_size + 1, batch_size):
+                idx = torch.as_tensor(order[i:i + batch_size], device=dev)
+                yield X[idx], y[idx]
+
+    net.train()
+    _adam_steps(net, batches(), lr)
+    net.eval()
+    for p in net.parameters():
+        p.requires_grad_(False)
+    return CNNPredictor(net, n_classes=n_classes, output=output, device=dev)

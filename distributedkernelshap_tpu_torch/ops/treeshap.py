@@ -227,6 +227,26 @@ def background_reach(pred, bg, G, target_chunk_elems: Optional[int] = None):
     return {"z_ok": z_ok, "z_ung_dead": z_ung_dead, "onpath_g": onpath_g}
 
 
+def pad_background(z_ok, z_ung_dead, bgw, multiple: int):
+    """Pad the background axis of the reach tensors to a whole number of
+    ``multiple``-row blocks with ZERO-WEIGHT rows (reference
+    ``ops/treeshap.py:310-327``): ``z_ok`` pads with ones (the row looks
+    alive — a zero would interact with the dead-group count) and the weight
+    of 0 makes its contribution to phi and to the interactions exactly 0.
+    The background-sharded exact path (``parallel/distributed.py``) uses it
+    to split the background evenly over the coalition axis."""
+
+    N = z_ok.shape[0]
+    pad = (-N) % multiple
+    if not pad:
+        return z_ok, z_ung_dead, bgw
+    z_ok_p = torch.cat([z_ok, z_ok.new_ones((pad,) + tuple(z_ok.shape[1:]))], 0)
+    z_ung_p = torch.cat([z_ung_dead,
+                         z_ung_dead.new_zeros((pad,) + tuple(z_ung_dead.shape[1:]))], 0)
+    bgw_p = torch.cat([bgw, bgw.new_zeros((pad,))], 0)
+    return z_ok_p, z_ung_p, bgw_p
+
+
 def _x_reach(pred, X, G, onpath_g, target_chunk_elems: Optional[int] = None):
     """Instance-side reach indicators ``(x_only, x_not)``, each ``(B, T, L,
     M)``: the groups ``x`` satisfies / fails on each path."""

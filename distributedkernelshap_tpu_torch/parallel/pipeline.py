@@ -33,6 +33,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 import torch
 
 import distributedkernelshap_tpu_torch.observability.tracing as _tracing
+from distributedkernelshap_tpu_torch.parallel.mesh import check_single_process
 
 logger = logging.getLogger(__name__)
 
@@ -45,19 +46,6 @@ MAX_WINDOW = 8
 
 _rtt_cache: Dict[str, float] = {}
 _rtt_lock = threading.Lock()
-
-
-def _check_single_process() -> None:
-    """Raise where ``torch.distributed`` runs more than one process: the
-    window and the fetch order would have to agree across processes
-    (ROADMAP.md queue A item 10)."""
-
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "multi-process dispatch pipelining (torch.distributed world size "
-            f"{dist.get_world_size()}) is ROADMAP.md queue A item 10 and not "
-            "ported yet")
 
 
 def device_round_trip_s(probes: int = 3, refresh: bool = False,
@@ -104,7 +92,8 @@ def resolve_window(requested: Optional[int] = None,
     ``NotImplementedError`` under a multi-process ``torch.distributed``
     group (ROADMAP.md queue A item 10)."""
 
-    _check_single_process()
+    # the window and the fetch order would have to agree across processes
+    check_single_process("dispatch pipelining")
     cap = MAX_WINDOW if n_items is None else max(1, min(MAX_WINDOW, n_items))
     resolved: Optional[int] = None
     if requested is not None:

@@ -28,6 +28,7 @@ from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+from torch import nn
 
 logger = logging.getLogger(__name__)
 
@@ -119,10 +120,52 @@ def _is_array_like(value) -> bool:
         and not np.isscalar(value)
 
 
+def _hash_array(value, h) -> int:
+    """Feed one array's digest into ``h``; returns 1 when it was hashed.  A
+    torch tensor (the port's predictors keep their parameters as buffers,
+    on the card too) is read back to the host first."""
+
+    try:
+        if hasattr(value, "detach"):
+            value = value.detach().cpu().numpy()
+        h.update(array_fingerprint(np.asarray(value)).encode())
+        return 1
+    except Exception:
+        return 0
+
+
+def _collect_module(module: nn.Module, h, depth: int) -> int:
+    """Feed an ``nn.Module``'s content into ``h``: its class name, its
+    parameters and buffers, its child modules in registration order (the
+    members of an ``nn.ModuleList`` / ``nn.ModuleDict`` at the container's
+    own depth, so a composite's members count as one level down, as the
+    reference's member lists do) and its plain attributes.  Nothing here
+    reads ``n_outputs``."""
+
+    h.update(f"module:{type(module).__qualname__}".encode())
+    found = 0
+    for kind in ("_parameters", "_buffers"):
+        for name, t in module.__dict__.get(kind, {}).items():
+            h.update(f"{kind}:{name}".encode())
+            if t is not None:
+                found += _hash_array(t, h)
+    container = isinstance(module, (nn.ModuleList, nn.ModuleDict))
+    for name, child in module.__dict__.get("_modules", {}).items():
+        h.update(f"child:{name}".encode())
+        if child is not None:
+            found += _collect_content(child, h, depth if container else depth + 1)
+    for key in sorted(module.__dict__):
+        if key.startswith("_") or key == "training":
+            continue
+        h.update(repr(key).encode())
+        found += _collect_content(module.__dict__[key], h, depth + 1)
+    return found
+
+
 def _collect_content(value, h, depth: int = 0) -> int:
     """Feed every array reachable from ``value`` (attr dicts, sequences,
-    nested predictors — bounded depth) into ``h``; returns how many
-    arrays were hashed."""
+    nested predictors and ``nn.Module`` children — bounded depth) into
+    ``h``; returns how many arrays were hashed."""
 
     if depth > 4:
         return 0
@@ -135,15 +178,11 @@ def _collect_content(value, h, depth: int = 0) -> int:
         h.update(repr(value).encode())
         return 0
     if _is_array_like(value):
-        try:
-            # a torch tensor (the port's predictors keep their parameters
-            # as buffers, on the card too) is read back to the host first
-            if hasattr(value, "detach"):
-                value = value.detach().cpu().numpy()
-            h.update(array_fingerprint(np.asarray(value)).encode())
-            return 1
-        except Exception:
-            return 0
+        return _hash_array(value, h)
+    if isinstance(value, nn.Module):
+        # composites keep their members in nn.ModuleList children, which
+        # carry no n_outputs: walk modules structurally
+        return _collect_module(value, h, depth)
     if isinstance(value, (list, tuple)):
         return sum(_collect_content(v, h, depth + 1) for v in value)
     if isinstance(value, dict):

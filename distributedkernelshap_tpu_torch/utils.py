@@ -3,7 +3,8 @@
 data/model loaders.
 
 ``Bunch``, ``methdispatch``, ``parse_bool_token``, ``resolve_bool_env``,
-``ensure_dir``, ``load_data``, ``load_model`` and ``data_provenance`` are
+``ensure_dir``, ``load_data``, ``load_model``, ``data_provenance``,
+``get_filename`` and ``batch`` are
 copies of ``distributedkernelshap_tpu/utils.py``
 (the JAX package's ``__init__`` imports JAX, so the port keeps its own).  The
 loaders here only READ the cached pickles: they never generate the data,
@@ -16,8 +17,9 @@ import os
 import pickle
 
 from functools import singledispatch, update_wrapper
-from typing import Callable, Optional, Union
+from typing import Callable, List, Optional, Union
 
+import numpy as np
 import torch
 
 logger = logging.getLogger(__name__)
@@ -203,6 +205,37 @@ def load_data():
         "background": _read_pickle(BACKGROUND_SET_LOCAL, "process_adult_data.py"),
         "all": _read_pickle(EXPLANATIONS_SET_LOCAL, "process_adult_data.py"),
     }
+
+
+def get_filename(workers: int, batch_size: int, cpu_fraction: float = 1.0, serve: bool = True) -> str:
+    """Result-file naming convention, kept identical to the reference
+    (``utils.py:67-86``) so the Analysis notebook keeps working.  ``workers``
+    maps to devices or replicas."""
+
+    if serve:
+        return f"results/ray_replicas_{workers}_maxbatch_{batch_size}_actorfr_{cpu_fraction}.pkl"
+    return f"results/ray_workers_{workers}_bsize_{batch_size}_actorfr_{cpu_fraction}.pkl"
+
+
+def batch(X: np.ndarray, batch_size: Optional[int] = None, n_batches: int = 4) -> List[np.ndarray]:
+    """Split ``X`` into mini-batches (reference ``utils.py:89-121``).
+
+    If ``batch_size`` is given, produces ceil(n/batch_size) chunks of that
+    size (last one smaller); otherwise ``n_batches`` roughly-equal parts.
+    Sparse input is densified.
+    """
+
+    n_records = X.shape[0]
+    if hasattr(X, "toarray"):  # scipy sparse
+        X = X.toarray()
+
+    if batch_size:
+        n = n_records // batch_size
+        if n_records % batch_size != 0:
+            n += 1
+        slices = [batch_size * i for i in range(1, n)]
+        return np.array_split(X, slices)
+    return np.array_split(X, n_batches)
 
 
 def ensure_dir(path: str) -> None:

@@ -309,6 +309,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "distributedkernelshap_tpu_torch.profiling, "
         "distributedkernelshap_tpu_torch.observability.tracing, "
         "distributedkernelshap_tpu_torch.parallel.pipeline, "
+        "distributedkernelshap_tpu_torch.parallel.mesh, "
+        "distributedkernelshap_tpu_torch.parallel.coalition_sharding, "
+        "distributedkernelshap_tpu_torch.parallel.distributed, "
         "distributedkernelshap_tpu_torch.anytime, "
         "distributedkernelshap_tpu_torch.anytime.engine, "
         "distributedkernelshap_tpu_torch.models.xgb, "

@@ -9,7 +9,9 @@ the reference's behaviour on the CPU:
   ``plan_constant_cache=False``;
 * ``content_fingerprint`` reads a predictor's ``fingerprint_bytes``;
 * the package exports the reference's top-level names;
-* ``silent`` reaches the host-eval pass of the l1 path.
+* ``silent`` reaches the host-eval pass of the l1 path;
+* composite predictors' members (``nn.ModuleList`` children) are part of
+  their content fingerprints (C.14).
 
 Inputs are made from a seed with numpy.  Tolerances: NaN patterns and
 cache keys compare exactly; phi of a positive-definite solve within the
@@ -37,9 +39,10 @@ from distributedkernelshap_tpu_torch.models.predictors import (
 from distributedkernelshap_tpu_torch.ops import explain as texp
 from distributedkernelshap_tpu_torch.ops.coalitions import coalition_plan
 
-#: reference exports the port does not define yet, by ROADMAP.md queue A
-#: item: 10 (multi-GPU: the pool benchmarks' helpers and options)
-QUEUED_EXPORTS = {"DISTRIBUTED_OPTS", "batch", "get_filename"}
+#: reference exports the port does not define yet (none since the
+#: one-process half of ROADMAP.md queue A item 10 brought DISTRIBUTED_OPTS,
+#: batch and get_filename)
+QUEUED_EXPORTS = set()
 
 
 def _indefinite(M1: int, seed: int, eigs) -> np.ndarray:
@@ -250,3 +253,109 @@ def test_hosteval_l1_logs_both_passes_unless_silent(caplog, silent, passes):
             and r.getMessage().split()[1].split("/")[0]
             == r.getMessage().split()[1].split("/")[1]]
     assert len(done) == passes
+
+
+# ---------------------------------------------------------------------------
+# C.14: composite predictors keep their members in nn.ModuleList children;
+# the content walk reads them, so two composites with different members
+# never share a fingerprint, a result-cache key or a shared program
+
+
+def _lin(seed, port: bool, D: int = 4):
+    from distributedkernelshap_tpu.models import LinearPredictor as JaxLinear
+    from distributedkernelshap_tpu_torch.models.predictors import LinearPredictor
+
+    rng = np.random.default_rng(seed)
+    W = rng.normal(size=(D, 2)).astype(np.float32)
+    b = rng.normal(size=(2,)).astype(np.float32)
+    if port:
+        return LinearPredictor(W, b, activation="softmax", device="cpu")
+    return JaxLinear(W, b, activation="softmax")
+
+
+def _composite(kind: str, member_seeds, port: bool):
+    """A voting / AdaBoost / stacking / one-vs-rest composite of linear
+    members made from ``member_seeds``, in the port or the JAX package."""
+
+    if port:
+        from distributedkernelshap_tpu_torch.models import compose
+    else:
+        from distributedkernelshap_tpu.models import compose
+    members = [_lin(s, port) for s in member_seeds]
+    if kind == "voting":
+        return compose.MeanEnsemblePredictor(members)
+    if kind == "adaboost":
+        return compose.AdaBoostPredictor(members, np.array([0.7, 0.3]), n_classes=2)
+    if kind == "stacking":
+        # the final estimator reads the members' positive columns
+        final = _lin(50, port, D=2)
+        return compose.StackingPredictor(members, [(1, 2), (1, 2)], final)
+    return compose.OneVsRestPredictor(members)
+
+
+def _served(pred, port: bool):
+    bg = np.random.default_rng(99).normal(size=(6, 4)).astype(np.float32)
+    if port:
+        from distributedkernelshap_tpu_torch.serving.wrappers import BatchKernelShapModel
+        return BatchKernelShapModel(pred, bg, {"seed": 0, "device": "cpu"}, {})
+    from distributedkernelshap_tpu.serving.wrappers import BatchKernelShapModel as JaxModel
+    return JaxModel(pred, bg, {"seed": 0}, {})
+
+
+def _keys(model, port: bool):
+    """``(predictor digest, weak, model fingerprint, shared-program key)``."""
+
+    if port:
+        from distributedkernelshap_tpu_torch.scheduling import result_cache as rc
+        share = texp.shared_program_key
+    else:
+        from distributedkernelshap_tpu.scheduling import result_cache as rc
+        share = jexp.shared_program_key
+    engine = model.explainer._explainer
+    digest, weak = rc.predictor_fingerprint(engine.predictor)
+    return digest, weak, rc.model_fingerprint(model, count_weak=False), share(model)
+
+
+@pytest.mark.parametrize("kind", ["voting", "adaboost", "stacking"])
+def test_composites_with_different_members_get_different_keys(kind):
+    for port in (False, True):
+        a = _keys(_served(_composite(kind, (1, 2), port), port), port)
+        a_again = _keys(_served(_composite(kind, (1, 2), port), port), port)
+        b = _keys(_served(_composite(kind, (1, 3), port), port), port)
+        assert not a[1] and not b[1], (kind, port)
+        # the reference's inequality, and the port's
+        assert a[0] != b[0] and a[2] != b[2], (kind, port)
+        assert a[3] is None or a[3] != b[3], (kind, port)
+        # content-identical composites still agree (restart-stable keys)
+        assert a[0] == a_again[0] and a[2] == a_again[2] and a[3] == a_again[3]
+    port_keys = _keys(_served(_composite(kind, (1, 2), True), True), True)
+    jax_keys = _keys(_served(_composite(kind, (1, 2), False), False), False)
+    assert (port_keys[3] is None) == (jax_keys[3] is None)
+
+
+def test_one_vs_rest_gets_a_strong_fingerprint_like_the_reference():
+    from distributedkernelshap_tpu.scheduling.result_cache import (
+        predictor_fingerprint as jax_fp,
+    )
+    from distributedkernelshap_tpu_torch.resilience.journal import _predictor_content_digest
+    from distributedkernelshap_tpu_torch.scheduling.result_cache import predictor_fingerprint
+
+    assert jax_fp(_composite("ovr", (1, 2), port=False))[1] is False
+    a, weak = predictor_fingerprint(_composite("ovr", (1, 2), port=True))
+    assert weak is False
+    assert a == predictor_fingerprint(_composite("ovr", (1, 2), port=True))[0]
+    assert a != predictor_fingerprint(_composite("ovr", (1, 3), port=True))[0]
+    # the journal's restart-stable digest reads the members too
+    assert _predictor_content_digest(_composite("ovr", (1, 2), port=True)) != \
+        _predictor_content_digest(_composite("ovr", (1, 3), port=True))
+
+
+def test_two_voting_tenants_with_different_members_are_not_coalesced():
+    from distributedkernelshap_tpu_torch.registry import ModelRegistry
+
+    reg = ModelRegistry()
+    reg.register("a", _served(_composite("voting", (1, 2), True), True))
+    reg.register("b", _served(_composite("voting", (1, 3), True), True))
+    ka, kb = reg.resolve("a").share_key, reg.resolve("b").share_key
+    assert ka and kb and ka != kb
+    assert reg.share_peers(ka) == 1 and reg.share_peers(kb) == 1

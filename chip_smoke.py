@@ -18,10 +18,12 @@ fits), the ONNX graph lift (its ops, a logistic-regression export on
 ``fused_linear_ey``), DeepSHAP over lifted graphs and the MNIST CNN with
 superpixel image explanations (a third fixture of the JAX package's
 answers), the explanation server, its gateway, fleet and shard journal,
-and explains over a mesh of devices driven from one process (the headline
+explains over a mesh of devices driven from one process (the headline
 and the exact paths at several layouts on the one card) and the CNN's
-training, through the public API, checks the answers, and times kernels,
-plain versions and explains.
+training, and the same mesh across processes joined by ``torch.distributed``
+(two worker processes of this script on the one card, one at world size 1
+on NCCL) and a two-process pod behind the fleet's proxy, through the public
+API, checks the answers, and times kernels, plain versions and explains.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -350,7 +352,29 @@ Phases (each raises on failure, so the script exits non-zero):
 45. ``models/cnn.train_mnist_cnn`` on the card: 2000 synthetic digits made
    from ``--seed``, one epoch, accuracy above 0.5 on 200 more; one explain
    of 16 of them over the 49 superpixels through the trained predictor,
-   additive; walls.
+   additive; walls;
+46. the cross-process mesh (``parallel/mesh.initialize_multihost``): two
+   worker processes of this script (``--mp-worker mesh``, files for logs and
+   answers) bind ``cuda:0`` and join a gloo group (the card-UUID rule: two
+   ranks on one card); they run the headline LR at 2x1 and 1x2 and the
+   fixture GBT's dense explain with interactions (99 background rows) and
+   packed explain at 1x2, each counted in its own process: each rank
+   launches each kernel once per shard it owns (packed: once per local
+   bucket), the ranks' phi bit-equal, each layout within phases 43/44's bars
+   of the one-process mesh of the same layout, every launch against its
+   plain version on the worker's inputs; then one worker at world size 1
+   (``--mp-worker nccl``: a card of its own, so NCCL) runs the 1x1 LR,
+   bit-equal to phase 4's, and sends it through NCCL all-gathers;
+47. a pod (``ReplicaManager(1, pod_processes=2,
+   factory="chip_smoke:fleet_factory")``: ``serving.main --coordinator``
+   lead and follower on card 0, the ``TCPStore`` wire, pipelined): the
+   fixture's 2560 rows as 256 requests of 10 from 16 threads through the
+   proxy, phi against the fixture and the direct explain (1e-4 plus 16
+   p-ulps); on each member ``fused_linear_ey`` launched once per frame it
+   served (its flight recorder's last ``pod_frame`` event at ``/debugz``:
+   the lead's server, the follower's health listener); broadcast bytes on
+   the lead; the stop's drain handshake with both members exiting 0 within
+   30 s and none left on the card; walls, rows/s, p50/p99.
 
 The second-to-last line of stdout is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -6227,6 +6251,24 @@ def exact_vs_plain_on(calls):
     return worst
 
 
+def fitted_fixture_tree(fx, bg, device, opts=None, pack_paths=None):
+    """The fixture GBT (``adult_trees_exact``) fitted on ``bg`` with the
+    Adult grouping, on a mesh where ``opts`` (``distributed_opts``) asks
+    for one."""
+
+    from distributedkernelshap_tpu_torch import EngineConfig, KernelShap, TreeEnsemblePredictor
+    from distributedkernelshap_tpu_torch.ops.explain import ShapConfig
+
+    tree = TreeEnsemblePredictor(
+        fx["tree_feature"], fx["tree_threshold"], fx["tree_left"], fx["tree_right"],
+        fx["tree_value"], depth=int(fx["tree_depth"]), aggregation="sum",
+        base=fx["tree_base"], scale=float(fx["tree_scale"]),
+        missing_left=fx["tree_missing_left"], vector_out=False, device=device)
+    ex = KernelShap(tree, task="regression", seed=0, device=device, distributed_opts=opts,
+                    engine_config=EngineConfig(shap=ShapConfig(pack_paths=pack_paths)))
+    return ex.fit(bg, group_names=fx["names"], groups=fx["groups"])
+
+
 def mesh_exact_phase(device, card, seed):
     """Phase 44: the exact paths on the mesh, the fixture GBT
     (``adult_trees_exact`` of ``tests/fixtures/adult_parity.npz``) on its
@@ -6245,7 +6287,7 @@ def mesh_exact_phase(device, card, seed):
     import tempfile
 
     import torch
-    from distributedkernelshap_tpu_torch import EngineConfig, KernelShap, TreeEnsemblePredictor
+    from distributedkernelshap_tpu_torch import EngineConfig, KernelShap
     from distributedkernelshap_tpu_torch.models.tensor_net import TensorTrainPredictor
     from distributedkernelshap_tpu_torch.ops.explain import ShapConfig
     from distributedkernelshap_tpu_torch.ops.treeshap import build_packed_plan
@@ -6254,16 +6296,11 @@ def mesh_exact_phase(device, card, seed):
     X = fx["X"][:MESH_EXACT_ROWS]
     B = X.shape[0]
 
-    def tree():
-        return TreeEnsemblePredictor(
-            fx["tree_feature"], fx["tree_threshold"], fx["tree_left"], fx["tree_right"],
-            fx["tree_value"], depth=int(fx["tree_depth"]), aggregation="sum",
-            base=fx["tree_base"], scale=float(fx["tree_scale"]),
-            missing_left=fx["tree_missing_left"], vector_out=False, device=device)
-
     def fitted(bg, opts=None, pack_paths=None, pred=None, groups=True):
-        ex = KernelShap(pred if pred is not None else tree(), task="regression", seed=0,
-                        device=device, distributed_opts=opts,
+        if pred is None:
+            return fitted_fixture_tree(fx, bg, device, opts, pack_paths)
+        ex = KernelShap(pred, task="regression", seed=0, device=device,
+                        distributed_opts=opts,
                         engine_config=EngineConfig(shap=ShapConfig(pack_paths=pack_paths)))
         if groups:
             return ex.fit(bg, group_names=fx["names"], groups=fx["groups"])
@@ -6425,9 +6462,418 @@ def cnn_train_phase(device, card, seed):
         raise AssertionError("the CNN trained on the card is off")
 
 
+# ---------------------------------------------------------------------- #
+# the thirteenth slice (phases 46-47): several processes over
+# torch.distributed — the cross-process mesh and a pod on the one card
+
+
+#: seconds a worker process may take end to end, and the rendezvous /
+#: collective timeout it runs under (a dead peer fails the other fast)
+MP_WAIT_S, MP_TIMEOUT_S = 300, 120
+#: phase 46's sampled layouts over two processes of one card each
+MP_LAYOUTS = (("2x1", 1), ("1x2", 2))
+#: phase 47: the bound on the pod's stop (drain handshake, both members out)
+POD_STOP_S = 30.0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_workers(case, world, out, seed, device):
+    """``world`` processes of ``chip_smoke.py --mp-worker case``, one per
+    rank, logging to files in ``out`` (a full pipe would stall the peer
+    inside a collective), each wait bounded; every process is killed on the
+    way out.  Returns each rank's result record; raises when a worker
+    failed."""
+
+    port = _free_port()
+    procs, logs = [], [os.path.join(out, f"{case}_{r}.log") for r in range(world)]
+    try:
+        for r in range(world):
+            with open(logs[r], "wb") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.join(REPO_ROOT, "chip_smoke.py"), "--seed",
+                     str(seed), "--mp-worker", case, "--rank", str(r), "--world", str(world),
+                     "--port", str(port), "--out", out, "--mp-device", str(device)],
+                    cwd=REPO_ROOT, env=dict(os.environ, PYTHONPATH=REPO_ROOT),
+                    stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + MP_WAIT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(logs[r], errors="replace") as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"{case} worker rank {r} exited {p.returncode}:\n{tail}")
+    out_recs = []
+    for r in range(world):
+        with open(os.path.join(out, f"{case}_{r}.json")) as f:
+            rec = json.load(f)
+        arrays = np.load(os.path.join(out, f"{case}_{r}.npz"))
+        rec["arrays"] = {k: arrays[k] for k in arrays.files}
+        out_recs.append(rec)
+    return out_recs
+
+
+def _counted(fn):
+    """``(result, {kernel: launches}, wall ms)`` of ``fn()`` with the counts
+    set to 0 just before and read just after."""
+
+    import torch
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, kernel_launches(), 1e3 * (time.perf_counter() - t0)
+
+
+def mp_worker(case, rank, world, port, out, seed, device):
+    """One process of phase 46 (``python3 chip_smoke.py --mp-worker ...``):
+    joins the group on ``127.0.0.1:port`` with ``device`` (the parent's,
+    ``cuda:0``) as its card, runs
+    its case with each path counted, holds every launch it made against
+    the kernel's plain version on the same inputs, and writes
+    ``<case>_<rank>.json`` / ``.npz`` into ``out``.
+
+    * ``mesh`` (world 2, both ranks on the one card: gloo): the headline LR
+      at 2×1 and 1×2, the fixture GBT's dense explain with interactions on
+      ``MESH_BG_ODD`` background rows and its packed explain, both at 1×2;
+    * ``nccl`` (world 1, a card of its own: NCCL): the headline LR at 1×1
+      through ``KernelShap(distributed_opts={'n_devices': 1})``, and its phi
+      through ``mesh.exchange`` (NCCL all-gathers) and ``broadcast_int``."""
+
+    import torch
+    from distributedkernelshap_tpu_torch import KernelShap
+    from distributedkernelshap_tpu_torch.parallel.mesh import (
+        broadcast_int,
+        collective_backend,
+        exchange,
+        initialize_multihost,
+        process_count,
+    )
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    t_join = time.perf_counter()
+    initialize_multihost(f"127.0.0.1:{port}", world, rank, timeout_s=MP_TIMEOUT_S)
+    rec = {"rank": rank, "backend": collective_backend(), "world": process_count(),
+           "join_s": time.perf_counter() - t_join, "launches": {}, "want": {},
+           "walls": {}, "errs": {"fused_linear_ey": 0.0, "exact_tree_phi": 0.0,
+                                 "exact_tree_inter": 0.0}}
+    arrays = {}
+    X, bg, est = adult_task(seed)
+
+    def lr(opts):
+        ex = KernelShap(est.predict_proba, link="logit", feature_names=ADULT_GROUP_NAMES,
+                        seed=0, device=device, distributed_opts=opts)
+        return ex.fit(bg, group_names=ADULT_GROUP_NAMES, groups=adult_groups())
+
+    def run_lr(label, ex):
+        with recorded_ey_calls() as calls:
+            expl, launches, wall = _counted(lambda: ex.explain(X, silent=True))
+        rec["errs"]["fused_linear_ey"] = max(rec["errs"]["fused_linear_ey"],
+                                             kernel_vs_plain_on(calls))
+        dist = ex._explainer
+        owned = len(dist.mesh.local_entries()) if hasattr(dist, "mesh") else 1
+        rec["launches"][label], rec["walls"][label] = launches, wall
+        rec["want"][label] = {"fused_linear_ey": owned, "exact_tree_phi": 0,
+                              "exact_tree_inter": 0}
+        arrays[label] = np.stack(expl.shap_values, 1)
+        return arrays[label]
+
+    if case == "nccl":
+        phi = run_lr("1x1", lr({"n_devices": 1}))
+        got = exchange({(0,): torch.as_tensor(phi, device=device)})
+        rec["exchange_equal"] = bool(np.array_equal(got[(0,)].numpy(), phi))
+        rec["broadcast"] = broadcast_int(11 + rank)
+    else:
+        for label, cp in MP_LAYOUTS:
+            run_lr(label, lr({"n_devices": 2, "devices": [device], "coalition_parallel": cp}))
+        fx = adult_fixture()
+        Xe = fx["X"][:MESH_EXACT_ROWS]
+        ex = fitted_fixture_tree(fx, fx["background"][:MESH_BG_ODD], device,
+                                 {"n_devices": 2, "devices": [device], "coalition_parallel": 2})
+        with recorded_exact_calls() as calls:
+            expl, launches, wall = _counted(lambda: ex.explain(
+                Xe, nsamples="exact", interactions=True, silent=True))
+        errs = exact_vs_plain_on(calls)
+        rec["launches"]["dense 1x2"], rec["walls"]["dense 1x2"] = launches, wall
+        rec["want"]["dense 1x2"] = {"fused_linear_ey": 0, "exact_tree_phi": 1,
+                                    "exact_tree_inter": 1}
+        arrays["dense 1x2"] = exact_phi(expl, MESH_EXACT_ROWS)[0]
+        arrays["dense 1x2 inter"] = interaction_values(expl, MESH_EXACT_ROWS)[0]
+        ex = fitted_fixture_tree(fx, fx["background"], device,
+                                 {"n_devices": 2, "devices": [device], "coalition_parallel": 2},
+                                 pack_paths=True)
+        from distributedkernelshap_tpu_torch.ops.treeshap import build_packed_plan
+
+        plan = build_packed_plan(ex._explainer.engine.predictor, ex._explainer.engine.G,
+                                 shards=2)
+        with recorded_exact_calls() as calls:
+            expl, launches, wall = _counted(lambda: ex.explain(Xe, nsamples="exact",
+                                                               silent=True))
+        for k, v in exact_vs_plain_on(calls).items():
+            errs[k] = max(errs[k], v)
+        rec["launches"]["packed 1x2"], rec["walls"]["packed 1x2"] = launches, wall
+        rec["want"]["packed 1x2"] = {"fused_linear_ey": 0, "exact_tree_phi": len(plan.buckets),
+                                     "exact_tree_inter": 0}
+        arrays["packed 1x2"] = exact_phi(expl, MESH_EXACT_ROWS)[0]
+        for k, v in errs.items():
+            rec["errs"][k] = max(rec["errs"][k], v)
+    np.savez(os.path.join(out, f"{case}_{rank}.npz"), **arrays)
+    with open(os.path.join(out, f"{case}_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def multiprocess_phase(X, bg, est, device, card, seed, phi_headline):
+    """Phase 46: the cross-process mesh on the one card.  Two worker
+    processes of this script (``mp_worker`` ``mesh``), each binding
+    ``cuda:0`` and joining a gloo group (the card-UUID rule: two ranks on
+    one card), run the headline LR at 2×1 and 1×2 and the fixture GBT's
+    dense explain with interactions and packed explain at 1×2; then one
+    worker at world size 1 (``nccl``: a card of its own) runs the 1×1 LR.
+    Checks: the ranks' phi bit-equal; each layout within phases 43/44's
+    bars of the one-process mesh of the same layout (LR 1e-3 + 16 p-ulps;
+    exact 2e-5 × max(1, max|.|)), recomputed here; each rank's launches
+    equal to the shards it owns (one slab); each worker's kernels against
+    their plain versions on its own inputs; the NCCL run bit-equal to phase
+    4's.  Returns ``({kernel: launches in the workers}, {kernel: worst
+    kernel-vs-plain}, walls)``."""
+
+    import tempfile
+
+    import torch
+    from distributedkernelshap_tpu_torch import KernelShap
+
+    fx = adult_fixture()
+    Xe = fx["X"][:MESH_EXACT_ROWS]
+    refs = {}
+    for label, cp in MP_LAYOUTS:
+        ex = KernelShap(est.predict_proba, link="logit", feature_names=ADULT_GROUP_NAMES,
+                        seed=0, device=device,
+                        distributed_opts=_mesh_opts(device, 2, cp, None))
+        ex.fit(bg, group_names=ADULT_GROUP_NAMES, groups=adult_groups())
+        expl = ex.explain(X, silent=True)
+        refs[label] = np.stack(expl.shap_values, 1)
+        raw = expl.data["raw"]["raw_prediction"][:, 1]
+    tol = logit_tol(raw)[:, None, None]
+    ex = fitted_fixture_tree(fx, fx["background"][:MESH_BG_ODD], device,
+                             _mesh_opts(device, 2, 2, None))
+    expl = ex.explain(Xe, nsamples="exact", interactions=True, silent=True)
+    refs["dense 1x2"] = exact_phi(expl, MESH_EXACT_ROWS)[0]
+    refs["dense 1x2 inter"] = interaction_values(expl, MESH_EXACT_ROWS)[0]
+    ex = fitted_fixture_tree(fx, fx["background"], device, _mesh_opts(device, 2, 2, None),
+                             pack_paths=True)
+    refs["packed 1x2"] = exact_phi(ex.explain(Xe, nsamples="exact", silent=True),
+                                   MESH_EXACT_ROWS)[0]
+    torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        ranks = _spawn_workers("mesh", 2, out, seed, device)
+        pair_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (nccl,) = _spawn_workers("nccl", 1, out, seed, device)
+        nccl_s = time.perf_counter() - t0
+    total = {"fused_linear_ey": 0, "exact_tree_phi": 0, "exact_tree_inter": 0}
+    errs = dict(total, fused_linear_ey=0.0, exact_tree_phi=0.0, exact_tree_inter=0.0)
+    bad = []
+    for rec in ranks + [nccl]:
+        for label, launches in rec["launches"].items():
+            if launches != rec["want"][label]:
+                bad.append(f"rank {rec['rank']} {label}: launches {launches}, want "
+                           f"{rec['want'][label]}")
+            for k in total:
+                total[k] += launches[k]
+        for k in errs:
+            errs[k] = max(errs[k], rec["errs"][k])
+    if [r["backend"] for r in ranks] != ["gloo", "gloo"] or nccl["backend"] != "nccl":
+        bad.append(f"backends {[r['backend'] for r in ranks]} / {nccl['backend']}, want "
+                   "gloo for two ranks on one card and nccl for a card of its own")
+    for label in refs:
+        a0, a1 = ranks[0]["arrays"][label], ranks[1]["arrays"][label]
+        same = bool(np.array_equal(a0, a1))
+        d = np.abs(a0 - refs[label])
+        ok = bool((d <= tol).all()) if label in dict(MP_LAYOUTS) else \
+            bool(d.max() <= phi_tol(refs[label]))
+        walls = [r["walls"].get(label.replace(" inter", ""), float("nan")) for r in ranks]
+        print(f"multi-process {label} over 2 processes on the one card: ranks bit-equal "
+              f"{same}; |phi - one-process mesh| max {d.max():.3e} (bit-equal "
+              f"{bool(np.array_equal(a0, refs[label]))}); launches rank 0 "
+              f"{ranks[0]['launches'].get(label.replace(' inter', ''))}, rank 1 "
+              f"{ranks[1]['launches'].get(label.replace(' inter', ''))}; walls "
+              f"{walls[0]:.3f} / {walls[1]:.3f} ms", flush=True)
+        if not (same and ok):
+            bad.append(f"{label}: ranks bit-equal {same}, within the bar {ok}")
+    phi_nccl = nccl["arrays"]["1x1"]
+    nccl_same = bool(np.array_equal(phi_nccl, phi_headline))
+    print(f"multi-process NCCL world size 1: backend {nccl['backend']}, 1x1 launches "
+          f"{nccl['launches']['1x1']}, phi bit-equal to phase 4's {nccl_same} (max diff "
+          f"{np.abs(phi_nccl - phi_headline).max():.3e}), exchange round trip "
+          f"{nccl['exchange_equal']}, broadcast {nccl['broadcast']}; wall "
+          f"{nccl['walls']['1x1']:.3f} ms", flush=True)
+    if not (nccl_same and nccl["exchange_equal"] and nccl["broadcast"] == 11):
+        bad.append("the NCCL run differs from phase 4's or its collectives failed")
+    print(f"multi-process on {card}: join {ranks[0]['join_s']:.3f} / {ranks[1]['join_s']:.3f} "
+          f"s; the pair {pair_s:.1f} s, the NCCL worker {nccl_s:.1f} s (process starts "
+          f"included); launches in the workers {total}; kernels vs plain {errs}", flush=True)
+    if bad:
+        raise AssertionError("multi-process mesh: " + "; ".join(bad))
+    return total, errs
+
+
+def _metric_lines(port, prefix):
+    """``{series: value}`` of ``prefix`` on a member's ``/metrics``."""
+
+    _, page = _http_get(f"http://127.0.0.1:{port}/metrics")
+    return {ln.split(" ")[0]: float(ln.rsplit(" ", 1)[1])
+            for ln in page.splitlines() if ln.startswith(prefix)}
+
+
+def _last_pod_frame(port):
+    """The last ``pod_frame`` event of a pod member's flight recorder
+    (``/debugz``): the frames it served by command and its kernel launches
+    after that frame's dispatch."""
+
+    _, body = _http_get(f"http://127.0.0.1:{port}/debugz")
+    events = [e for e in json.loads(body)["events"] if e["kind"] == "pod_frame"]
+    if not events:
+        raise AssertionError(f"no pod_frame event on 127.0.0.1:{port}/debugz")
+    return events[-1]
+
+
+def pod_phase(device, card):
+    """Phase 47: a pod on the one card.  ``ReplicaManager(1,
+    pod_processes=2, factory="chip_smoke:fleet_factory")``: a lead and a
+    follower (``serving.main --coordinator``) on card 0, over the
+    ``TCPStore`` wire, pipelined (``replicate_results``); the fixture LR's
+    2560 rows as 256 requests of 10 from 16 threads through the proxy.
+    Checks: served phi against the fixture and the direct explain (1e-4 +
+    16 p-ulps, phase 39's bar); on each member ``fused_linear_ey`` launched
+    once per frame it served (the last ``pod_frame`` event of each member's
+    flight recorder at ``/debugz``: the lead's server, the follower's
+    health listener); ``dks_pod_bcast_bytes_total`` above 0 on the lead; the stop
+    runs the drain handshake and both members exit 0 within
+    ``POD_STOP_S``, none left on the card.  Returns ``{kernel: launches on
+    both members}`` and the walls."""
+
+    from distributedkernelshap_tpu_torch.serving import client as cl
+    from distributedkernelshap_tpu_torch.serving.replicas import ReplicaManager
+
+    fx = adult_fixture()
+    X = fx["X"][:SERVE_N_ROWS]
+    requests = np.split(X, SERVE_N_ROWS // SERVE_ROWS_PER_REQUEST)
+    factory = _fleet_factory_name(device)
+    direct = np.stack(fixture_lr_explainer(fx, device).explain(X, silent=True).shap_values, 1)
+    t0 = time.perf_counter()
+    mgr = ReplicaManager(1, factory=factory, pod_processes=2, max_batch_size=SERVE_MAX_BATCH,
+                         env_extra={"PYTHONPATH": REPO_ROOT}, startup_timeout_s=300.0,
+                         restart=False)
+    stopped = False
+    try:
+        mgr.start()
+        pod = mgr.procs[0]
+        _wait_until(lambda: mgr.proxy.replicas[0].alive, 300, "the pod")
+        up_s = time.perf_counter() - t0
+        ports = [mgr.ports[0], int(pod.members[1].args[pod.members[1].args.index("--port") + 1])]
+        lat = []
+        inner = cl.explain_request
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            res = inner(*a, **kw)
+            lat.append(time.perf_counter() - t)
+            return res
+
+        cl.explain_request = timed
+        try:
+            t = time.perf_counter()
+            payloads = cl.distribute_requests(
+                f"http://127.0.0.1:{mgr.proxy.port}/explain", X, batch_mode="default",
+                minibatches=requests, max_workers=SERVE_WORKERS, wire_format="binary")
+            wall = time.perf_counter() - t
+        finally:
+            cl.explain_request = inner
+        phi = np.concatenate([np.stack(p["shap_values"], 1) for p in payloads])
+        d_fix, ok_fix = _fixture_ok(phi, fx, slice(0, SERVE_N_ROWS))
+        tol = 1e-4 + LOGIT_ULPS * 2.0 ** -24 * (2.0 + 2.0 * np.cosh(
+            fx["raw_prediction"][:SERVE_N_ROWS, 1]))
+        d_direct = np.abs(phi - direct).max((1, 2))
+        members = []
+        for role, port in zip(("lead", "follower"), ports):
+            event = _last_pod_frame(port)
+            frames, launches = event["frames"], event["launches"]
+            members.append((role, frames, launches, frames["explain"] + frames["warmup"]))
+        bcast = _metric_lines(ports[0], "dks_pod_bcast_bytes_total{")
+        pids = {m.pid for m in pod.members}
+        t = time.perf_counter()
+        mgr.stop()
+        stopped = True
+        stop_s = time.perf_counter() - t
+        codes = [m.returncode for m in pod.members]
+    finally:
+        if not stopped:
+            mgr.stop()
+    print(f"pod (2 processes on card 0, {factory}): healthy behind the proxy after "
+          f"{up_s:.3f} s; {SERVE_N_ROWS} rows as {len(requests)} binary requests of "
+          f"{SERVE_ROWS_PER_REQUEST} from {SERVE_WORKERS} threads: wall {1e3 * wall:.3f} ms, "
+          f"{SERVE_N_ROWS / wall:.1f} rows/s, {len(requests) / wall:.1f} requests/s, p50 "
+          f"{_pct(lat, 50):.3f} ms, p99 {_pct(lat, 99):.3f} ms; |phi - fixture| max "
+          f"{d_fix.max():.3e}, |phi - direct| max {d_direct.max():.3e} (1e-4 + {LOGIT_ULPS} "
+          f"p-ulps); lead dks_pod_bcast_bytes_total {bcast}", flush=True)
+    for role, frames, launches, served in members:
+        print(f"pod {role}: frames {frames}; launches {launches}; fused_linear_ey launches "
+              f"{launches['fused_linear_ey']} for {served} explain + warmup frames", flush=True)
+    print(f"pod stop (drain handshake): {stop_s:.3f} s, member exit codes {codes} on {card}",
+          flush=True)
+    _check_released(pids, "pod")
+    bad = []
+    if not (ok_fix.all() and (d_direct <= tol).all()):
+        bad.append("served phi off the fixture or the direct explain")
+    for role, frames, launches, served in members:
+        fle = launches["fused_linear_ey"]
+        # a CPU rehearsal runs the plain versions, which count nothing
+        if served < 1 or (_on_card(device) and fle != served):
+            bad.append(f"{role}: fused_linear_ey {fle} launches for {served} frames")
+    if not bcast or min(bcast.values()) <= 0:
+        bad.append("no broadcast bytes on the lead")
+    if codes != [0, 0] or stop_s > POD_STOP_S:
+        bad.append(f"the pod stopped with {codes} in {stop_s:.1f} s")
+    if members[0][1] != members[1][1]:
+        bad.append("the members counted different frames")
+    if bad:
+        raise AssertionError("pod: " + "; ".join(bad))
+    total = {}
+    for _, _, launches, _ in members:
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + int(v)
+    return total, {"wall": wall, "p50": _pct(lat, 50), "p99": _pct(lat, 99)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one process of phase 46, started by the script itself
+    ap.add_argument("--mp-worker", choices=("mesh", "nccl"), default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mp-device", default="cuda:0", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -6436,6 +6882,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
+    if args.mp_worker:
+        return mp_worker(args.mp_worker, args.rank, args.world, args.port, args.out,
+                         args.seed, args.mp_device)
 
     from distributedkernelshap_tpu_torch.ops import cuda_kernels
 
@@ -6646,6 +7095,18 @@ def main() -> int:
     t = time.perf_counter()
     cnn_train_phase(device, card, args.seed)
     seconds["45 cnn training"] = time.perf_counter() - t
+
+    # 46-47. several processes over torch.distributed: the cross-process
+    # mesh, a pod behind the fleet's proxy
+    t = time.perf_counter()
+    mp_launches, mp_errs = multiprocess_phase(X, bg, est, device, card, args.seed, phi)
+    max_err = max(max_err, mp_errs["fused_linear_ey"])
+    exact_record["max_abs_err"] = max(exact_record["max_abs_err"], mp_errs["exact_tree_phi"])
+    inter_record["max_abs_err"] = max(inter_record["max_abs_err"], mp_errs["exact_tree_inter"])
+    seconds["46 multi-process mesh"] = time.perf_counter() - t
+    t = time.perf_counter()
+    pod_launches, _ = pod_phase(device, card)
+    seconds["47 pod"] = time.perf_counter() - t
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; script so far {time.perf_counter() - t_start:.1f}", flush=True)
 
@@ -6655,6 +7116,11 @@ def main() -> int:
     inter_record["gateway_launches"] = gateway["exact_tree_inter"]
     exact_record["mesh_launches"] = mesh_exact["exact_tree_phi"]
     inter_record["mesh_launches"] = mesh_exact["exact_tree_inter"]
+    # launches inside the worker processes of phases 46 (both ranks and the
+    # NCCL worker) and 47 (both pod members)
+    multi = {k: mp_launches[k] + pod_launches.get(k, 0) for k in mp_launches}
+    exact_record["multiprocess_launches"] = multi["exact_tree_phi"]
+    inter_record["multiprocess_launches"] = multi["exact_tree_inter"]
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "fused_linear_ey", "route": "cuda",
@@ -6663,7 +7129,8 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "serving_launches": serving["fused_linear_ey"],
-        "gateway_launches": gateway["fused_linear_ey"], "mesh_launches": mesh_ey},
+        "gateway_launches": gateway["fused_linear_ey"], "mesh_launches": mesh_ey,
+        "multiprocess_launches": multi["fused_linear_ey"]},
         exact_record, inter_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

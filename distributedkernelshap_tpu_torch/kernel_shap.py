@@ -43,8 +43,8 @@ ONNX graphs (``registry/onnx_lift.py``) and the MNIST CNN
 reads; image explanations group pixels into superpixels (``ops/image.py``).
 
 ``KernelShap(..., distributed_opts={...})`` explains over a mesh of devices
-driven from this process (``parallel/distributed.DistributedExplainer``);
-several processes are ROADMAP.md queue A item 10.
+(``parallel/distributed.DistributedExplainer``) driven from this process or
+from several processes joined by ``parallel/mesh.initialize_multihost``.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 without a GPU and without a device they raise.  pandas is only touched when

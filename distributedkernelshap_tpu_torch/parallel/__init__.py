@@ -1,6 +1,6 @@
-"""One process over many devices (``mesh``, ``coalition_sharding``,
-``distributed``) and dispatch pipelining (``pipeline``).  Several processes
-are ROADMAP.md queue A item 10."""
+"""A mesh of devices driven from one process or from several processes
+joined by ``torch.distributed`` (``mesh``, ``coalition_sharding``,
+``distributed``) and dispatch pipelining (``pipeline``)."""
 
 from distributedkernelshap_tpu_torch.parallel.mesh import (  # noqa: F401
     device_mesh,

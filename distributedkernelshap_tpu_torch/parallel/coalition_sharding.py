@@ -7,7 +7,11 @@ data and accumulates *partial normal equations* ``A_part = Zt'·W·Zt`` and
 ``rhs_part`` — plain sums over coalition rows — which add up exactly to the
 single-device system.  The reference adds them with one ``psum`` over the
 coalition axis; here the group's partials are copied to its first device
-and summed there in shard order, and that device solves.
+and summed there in shard order, and that device solves.  Under several
+processes each process runs only the shards it owns; a group whose shards
+belong to several processes gathers them with ``mesh.exchange`` (every
+rank receives the same bytes), so the sum is the one-process mesh's, bit
+for bit.
 
 Each shard runs the single-device kernel stack on its local shapes: the
 linear route launches ``fused_linear_ey`` (``ops/cuda_kernels.py``) once per
@@ -40,6 +44,7 @@ from distributedkernelshap_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     DeviceMesh,
     PredictorReplicas,
+    exchange,
 )
 
 
@@ -66,6 +71,21 @@ def split_rows(X, n_data: int) -> List:
     return [X[i * step:(i + 1) * step] for i in range(n_data)]
 
 
+def gather_results(mesh: DeviceMesh, per_group: List) -> List[torch.Tensor]:
+    """The data groups' results (``per_group[i]`` on group ``i``'s first
+    device where this process leads it, else ``None``) as ONE tensor on
+    this process's first device, rows in order: the reference's
+    ``replicate_results`` gather.  Under several processes every rank
+    receives every group's result through ``mesh.exchange`` (a collective,
+    issued here at dispatch, so the later fetch is local)."""
+
+    d00 = mesh.first_local_device()
+    if mesh.multiprocess:
+        got = exchange({(i,): t for i, t in enumerate(per_group) if t is not None})
+        per_group = [got[(i,)] for i in range(len(per_group))]
+    return [torch.cat([t.to(d00) for t in per_group])]
+
+
 def build_coalition_sharded_fn(predictor: BasePredictor,
                                config: ShapConfig,
                                mesh: DeviceMesh,
@@ -80,9 +100,11 @@ def build_coalition_sharded_fn(predictor: BasePredictor,
     padded to a multiple of the coalition axis (:func:`pad_coalitions`).
     The outputs are the single-device function's, with ``shap_values`` and
     ``raw_prediction`` a list of one tensor per data shard, in row order,
-    each on its group's first device; ``expected_value`` is one tensor.
-    ``replicate_results=True`` gathers them into one tensor on the mesh's
-    first device (a one-element list): the host then makes one copy."""
+    each on its group's first device (``None`` for a group another process
+    leads); ``expected_value`` is one tensor (``None`` where this process
+    owns no shard).  ``replicate_results=True`` gathers them into one
+    tensor on this process's first device (a one-element list) on every
+    process: the host then makes one local copy."""
 
     link_fn = convert_to_link(config.link)
     linear = predictor.linear_decomposition
@@ -142,17 +164,20 @@ def build_coalition_sharded_fn(predictor: BasePredictor,
             raise ValueError(f"{S} coalition rows do not split over {n_coal} "
                              "coalition shards: pad them with pad_coalitions")
         s_loc = S // n_coal
-        phis, fxs = [], []
+        parts = {}
+        for i, j in mesh.local_entries():
+            dev = mesh.device(i, j)
+            sl = slice(j * s_loc, (j + 1) * s_loc)
+            out = shard_body(
+                replicas.on(dev), rows[i].to(dev), bg.on(dev), bgw.on(dev),
+                mask.on(dev)[sl], weights.on(dev)[sl], G.on(dev))
+            # a coalition shard past the first contributes its partial sums only
+            parts[(i, j)] = out if j == 0 else {k: out[k] for k in ("A", "rhs") if k in out}
+        phis: List = [None] * n_data
+        fxs: List = [None] * n_data
         expected_value = None
-        for i in range(n_data):
-            parts = []
-            for j in range(n_coal):
-                dev = mesh.device(i, j)
-                sl = slice(j * s_loc, (j + 1) * s_loc)
-                parts.append(shard_body(
-                    replicas.on(dev), rows[i].to(dev), bg.on(dev), bgw.on(dev),
-                    mask.on(dev)[sl], weights.on(dev)[sl], G.on(dev)))
-            first = parts[0]
+        for i, group in mesh.group_parts(parts).items():
+            first = group[0]
             if expected_value is None:
                 expected_value = first["expected_value"]
             if "A" not in first:
@@ -163,16 +188,14 @@ def build_coalition_sharded_fn(predictor: BasePredictor,
                 d0 = mesh.device(i, 0)
                 A = first["A"]
                 rhs = first["rhs"]
-                for p in parts[1:]:
+                for p in group[1:]:
                     A = A + p["A"].to(d0)
                     rhs = rhs + p["rhs"].to(d0)
                 phi = solve_from_normal(A, rhs, first["fx_minus_e"], config.ridge)
-            phis.append(phi)
-            fxs.append(first["fx"])
+            phis[i] = phi
+            fxs[i] = first["fx"]
         if replicate_results:
-            d00 = mesh.device(0, 0)
-            phis = [torch.cat([p.to(d00) for p in phis])]
-            fxs = [torch.cat([f.to(d00) for f in fxs])]
+            phis, fxs = gather_results(mesh, phis), gather_results(mesh, fxs)
         return {"shap_values": phis, "expected_value": expected_value,
                 "raw_prediction": fxs}
 

@@ -20,12 +20,17 @@ host loop:
   Each data shard's result comes back in one packed copy
   (``pack_transfer``), and the rows are put together on the host in order.
 
+Under several processes (``parallel/mesh.initialize_multihost``) every
+process runs the same explain on the same rows and issues only the shards
+it owns; partial sums that cross processes, and the results, move with
+``mesh.exchange``.  A data-sharded result is gathered at the fetch (the
+reference's ``process_allgather``), a ``replicate_results`` one at the
+dispatch, so its fetch is local; collective-bearing fetches run serially,
+in the same order on every process.
+
 ``batch`` / ``invert_permutation`` / the target and postprocess functions
 are kept (pure, tested) for API parity with the reference
-(``explainers/distributed.py:11-82`` of the original).  Several processes
-(``torch.distributed``, one card each) are ROADMAP.md queue A item 10: this
-module raises ``NotImplementedError`` under a group of more than one
-process.
+(``explainers/distributed.py:11-82`` of the original).
 """
 
 import hashlib
@@ -54,9 +59,10 @@ from distributedkernelshap_tpu_torch.parallel.mesh import (
     COALITION_AXIS,
     DATA_AXIS,
     PredictorReplicas,
-    check_single_process,
     device_mesh,
+    exchange,
     pad_to_multiple,
+    process_count,
     replicate,
 )
 from distributedkernelshap_tpu_torch.utils import batch as make_batches
@@ -109,6 +115,24 @@ def _stream_of(t: torch.Tensor) -> Optional["torch.cuda.Stream"]:
     return torch.cuda.current_stream(t.device) if t.is_cuda else None
 
 
+def _sum_in_order(group: List[Dict[str, torch.Tensor]], name: str,
+                  d0: torch.device) -> torch.Tensor:
+    """A data group's partial ``name`` summed on its first device in shard
+    order (the reference's ``psum``; the same order on every process)."""
+
+    acc = group[0][name]
+    for part in group[1:]:
+        acc = acc + part[name].to(d0)
+    return acc
+
+
+def _lead_predict(replicas: PredictorReplicas, mesh, rows, i: int) -> torch.Tensor:
+    """f(x) of data group ``i``'s rows on its first device."""
+
+    d0 = mesh.device(i, 0)
+    return replicas.on(d0)(rows[i].to(d0))
+
+
 class DistributedExplainer:
     """Shards explanation batches over a device mesh.
 
@@ -122,16 +146,17 @@ class DistributedExplainer:
     ``checkpoint_dir`` / ``journal_fingerprint`` (shard journaling),
     ``coalition_parallel`` (or a whole ``actor_cpu_fraction`` > 1),
     ``partitioning`` (``'shard_map'`` or ``'gspmd'``), ``replicate_results``
-    and ``devices`` (the devices to lay out; default every visible CUDA
-    device, or ``n_devices`` copies of the engine's device when that is the
-    CPU; a device may repeat)."""
+    and ``devices`` (this process's devices to lay out; default every
+    visible CUDA device, or ``n_devices`` copies of the engine's device when
+    that is the CPU, shared out over the processes; a device may repeat).
+    Under several processes ``n_devices`` counts the devices of all of
+    them."""
 
     def __init__(self,
                  distributed_opts: Dict[str, Any],
                  explainer_type: Callable,
                  init_args: tuple,
                  init_kwargs: dict):
-        check_single_process("DistributedExplainer")
         opts = dict(distributed_opts)
         n_devices = opts.get('n_devices') or opts.get('n_cpus')
         self.batch_size = opts.get('batch_size')
@@ -188,7 +213,8 @@ class DistributedExplainer:
         if devices is None:
             dev = _engine_device(init_kwargs)
             if dev.type != 'cuda':
-                devices = [dev] * int(n_devices or 1)
+                world = process_count()
+                devices = [dev] * max(1, -(-int(n_devices or world) // world))
         try:
             self.mesh = device_mesh(n_devices, coalition_parallel=self.coalition_parallel,
                                     devices=devices)
@@ -305,14 +331,18 @@ class DistributedExplainer:
             X = np.concatenate([X, np.tile(X[-1:], (padded - B, 1))], 0)
         return X, B
 
-    def _dispatch_call(self, fn, X: np.ndarray, args):
+    def _dispatch_call(self, fn, X: np.ndarray, args, replicated: bool = False):
         """Pad ``X`` to a whole number of device rows, issue ``fn`` on the
         mesh WITHOUT waiting (CUDA launches are asynchronous) and return
-        ``(packed, B, padded_B, has_interactions)`` for
-        :meth:`_fetch_sharded`: ``packed`` holds one :func:`pack_transfer`
-        tensor per data shard (one for a replicated result) with the stream
-        it was made on.  With ``transfer_dtype`` set only the wide segment
-        (phi + interactions) takes the reduced dtype."""
+        ``(packed, B, padded_B, has_interactions, replicated)`` for
+        :meth:`_fetch_sharded`: ``packed`` maps each data shard this process
+        holds (the one slot 0 of a replicated result) to its
+        :func:`pack_transfer` tensor and the stream it was made on.
+        ``replicated`` records whether THIS function gathered its outputs
+        (the sampled path under ``replicate_results``; the exact paths'
+        outputs stay data-sharded whatever the flag), and the fetch keys
+        its cross-process gather on it.  With ``transfer_dtype`` set only
+        the wide segment (phi + interactions) takes the reduced dtype."""
 
         engine = self.engine
         X, B = self._pad_sharded(X)
@@ -321,36 +351,51 @@ class DistributedExplainer:
         engine._kernel_paths.update(kp)  # kernel_path proxies via __getattr__
         has_inter = 'interaction_values' in out
         td = engine.config.shap.transfer_dtype
-        packed = []
+        packed = {}
         for s, phi in enumerate(out['shap_values']):
+            if phi is None:
+                continue  # a data shard another process holds
             wide = [phi.reshape(-1)]
             if has_inter:
                 wide.append(out['interaction_values'][s].reshape(-1))
             p = pack_transfer(torch.cat(wide), out['raw_prediction'][s].reshape(-1), td)
-            packed.append((p, _stream_of(p)))
-        return packed, B, X.shape[0], has_inter
+            packed[s] = (p, _stream_of(p))
+        return packed, B, X.shape[0], has_inter, replicated
 
     def _dispatch_sharded(self, X: np.ndarray, nsamples):
         plan = self.engine._plan(nsamples)
-        return self._dispatch_call(self._sharded_fn(), X, self._device_args(plan))
+        return self._dispatch_call(self._sharded_fn(), X, self._device_args(plan),
+                                   replicated=self.replicate_results)
 
     def _fetch_sharded(self, dispatched):
         """Copy one dispatched call's results to the host, one copy per
         packed tensor, and return ``(shap_values, link-space raw
         predictions)`` in row order, plus the ``(B, K, M, M)`` interaction
-        tensor when the dispatched function produced one."""
+        tensor when the dispatched function produced one.  Under several
+        processes a data-sharded result is first gathered from every
+        process (the reference's ``process_allgather(tiled=True)``): a
+        collective, so every process fetches in the same order."""
 
         from distributedkernelshap_tpu_torch.kernel_shap import _on_stream
 
-        packed, B, Bp, has_inter = dispatched
+        packed, B, Bp, has_inter, replicated = dispatched
         engine = self.engine
         K, M = engine.predictor.n_outputs, engine.M
         td = engine.config.shap.transfer_dtype
-        rows = Bp // len(packed)
+        n_slots = 1 if replicated else self.n_data
+        if self.mesh.multiprocess and not replicated:
+            host = {}
+            for s, (p, stream) in packed.items():
+                with _on_stream(stream):
+                    host[(s,)] = p.cpu()
+            got = exchange(host)
+            packed = {s: (got[(s,)], None) for s in range(n_slots)}
+        rows = Bp // n_slots
         n_phi = rows * K * M
         n_wide = n_phi + (rows * K * M * M if has_inter else 0)
         phis, fxs, inters = [], [], []
-        for p, stream in packed:
+        for s in range(n_slots):
+            p, stream = packed[s]
             with _on_stream(stream):
                 flat = fetch_transfer(p)
             wide, fx = unpack_transfer(flat, n_wide, td)
@@ -378,12 +423,12 @@ class DistributedExplainer:
         return self._fn_cache['replicas']
 
     def _column_devices(self, j: int) -> List[torch.device]:
-        """The distinct devices of coalition column ``j``."""
+        """The distinct devices of coalition column ``j`` this process owns."""
 
         out: List[torch.device] = []
         for i in range(self.n_data):
             d = self.mesh.device(i, j)
-            if d not in out:
+            if self.mesh.is_local(i, j) and d not in out:
                 out.append(d)
         return out
 
@@ -466,30 +511,27 @@ class DistributedExplainer:
         @torch.no_grad()
         def fn(X):
             rows = split_rows(torch.as_tensor(np.asarray(X, np.float32)), n_data)
-            phis, fxs, inters = [], [], []
-            for i in range(n_data):
-                d0 = mesh.device(i, 0)
-                phi = inter = None
-                for j in range(n_coal):
-                    dev = mesh.device(i, j)
-                    pred = replicas.on(dev)
-                    Xl = rows[i].to(dev)
-                    r = {'z_ok': cols[j]['z_ok'].on(dev),
-                         'z_ung_dead': cols[j]['z_ung_dead'].on(dev),
-                         'onpath_g': onpath_g.on(dev)}
-                    args = (pred, Xl, r, cols[j]['bgw'].on(dev), G.on(dev))
-                    kw = dict(normalized=True, target_chunk_elems=budget,
-                              use_kernel=use_kernel)
-                    if interactions:
-                        phi_l, inter_l = exact_shap_and_interactions(*args, **kw)
-                        inter = inter_l if inter is None else inter + inter_l.to(d0)
-                    else:
-                        phi_l = exact_shap_from_reach(*args, **kw)
-                    phi = phi_l if phi is None else phi + phi_l.to(d0)
-                phis.append(phi)
-                fxs.append(replicas.on(d0)(rows[i].to(d0)))
+            parts = {}
+            for i, j in mesh.local_entries():
+                dev = mesh.device(i, j)
+                r = {'z_ok': cols[j]['z_ok'].on(dev),
+                     'z_ung_dead': cols[j]['z_ung_dead'].on(dev),
+                     'onpath_g': onpath_g.on(dev)}
+                args = (replicas.on(dev), rows[i].to(dev), r, cols[j]['bgw'].on(dev),
+                        G.on(dev))
+                kw = dict(normalized=True, target_chunk_elems=budget,
+                          use_kernel=use_kernel)
                 if interactions:
-                    inters.append(inter)
+                    phi_l, inter_l = exact_shap_and_interactions(*args, **kw)
+                    parts[(i, j)] = {'phi': phi_l, 'inter': inter_l}
+                else:
+                    parts[(i, j)] = {'phi': exact_shap_from_reach(*args, **kw)}
+            phis, fxs, inters = [None] * n_data, [None] * n_data, [None] * n_data
+            for i, group in mesh.group_parts(parts).items():
+                phis[i] = _sum_in_order(group, 'phi', mesh.device(i, 0))
+                if interactions:
+                    inters[i] = _sum_in_order(group, 'inter', mesh.device(i, 0))
+                fxs[i] = _lead_predict(replicas, mesh, rows, i)
             out = {'shap_values': phis, 'raw_prediction': fxs}
             if interactions:
                 out['interaction_values'] = inters
@@ -545,20 +587,18 @@ class DistributedExplainer:
         @torch.no_grad()
         def fn(X):
             rows = split_rows(torch.as_tensor(np.asarray(X, np.float32)), n_data)
-            phis, fxs = [], []
-            for i in range(n_data):
-                d0 = mesh.device(i, 0)
-                phi = None
-                for j in range(n_coal):
-                    dev = mesh.device(i, j)
-                    packed_l = {k: v.on(dev) for k, v in cols[j].items()}
-                    phi_l = exact_shap_packed(
-                        replicas.on(dev), rows[i].to(dev), onpath_g.on(dev), packed_l,
-                        bgw.on(dev), G.on(dev), buckets, normalized=True,
-                        target_chunk_elems=budget, use_kernel=use_kernel)
-                    phi = phi_l if phi is None else phi + phi_l.to(d0)
-                phis.append(phi)
-                fxs.append(replicas.on(d0)(rows[i].to(d0)))
+            parts = {}
+            for i, j in mesh.local_entries():
+                dev = mesh.device(i, j)
+                packed_l = {k: v.on(dev) for k, v in cols[j].items()}
+                parts[(i, j)] = {'phi': exact_shap_packed(
+                    replicas.on(dev), rows[i].to(dev), onpath_g.on(dev), packed_l,
+                    bgw.on(dev), G.on(dev), buckets, normalized=True,
+                    target_chunk_elems=budget, use_kernel=use_kernel)}
+            phis, fxs = [None] * n_data, [None] * n_data
+            for i, group in mesh.group_parts(parts).items():
+                phis[i] = _sum_in_order(group, 'phi', mesh.device(i, 0))
+                fxs[i] = _lead_predict(replicas, mesh, rows, i)
             return {'shap_values': phis, 'raw_prediction': fxs}
 
         return fn
@@ -605,20 +645,20 @@ class DistributedExplainer:
         @torch.no_grad()
         def fn(X):
             rows = split_rows(torch.as_tensor(np.asarray(X, np.float32)), n_data)
-            phis, fxs = [], []
-            for i in range(n_data):
+            parts = {}
+            for i, j in mesh.local_entries():
+                dev = mesh.device(i, j)
+                parts[(i, j)] = {'rows': tn_phi_rows(
+                    consts['A'].on(dev), consts['B'].on(dev), consts['head'].on(dev),
+                    consts['Wt'].on(dev), rows[i].to(dev), bg_cols[j].on(dev),
+                    target_chunk_elems=budget)}
+            phis, fxs = [None] * n_data, [None] * n_data
+            for i, group in mesh.group_parts(parts).items():
                 d0 = mesh.device(i, 0)
-                parts = []
-                for j in range(n_coal):
-                    dev = mesh.device(i, j)
-                    parts.append(tn_phi_rows(
-                        consts['A'].on(dev), consts['B'].on(dev), consts['head'].on(dev),
-                        consts['Wt'].on(dev), rows[i].to(dev), bg_cols[j].on(dev),
-                        target_chunk_elems=budget).to(d0))
                 with full_f32_matmul():
-                    phis.append(torch.einsum('n,nbkm->bkm', consts['bgw'].on(d0),
-                                             torch.cat(parts)))
-                fxs.append(replicas.on(d0)(rows[i].to(d0)))
+                    phis[i] = torch.einsum('n,nbkm->bkm', consts['bgw'].on(d0),
+                                           torch.cat([g['rows'].to(d0) for g in group]))
+                fxs[i] = _lead_predict(replicas, mesh, rows, i)
             return {'shap_values': phis, 'raw_prediction': fxs}
 
         self._fn_cache[key] = (fn, ())
@@ -711,6 +751,13 @@ class DistributedExplainer:
 
         if not self.checkpoint_dir:
             return None
+        if self.mesh.multiprocess:
+            # each process journals locally, so two processes could restore
+            # DIFFERENT slab subsets and desync the collective order of the
+            # sharded fetches: a hang, not a resume.  Warn and degrade
+            logger.warning("checkpoint_dir is single-process only; "
+                           "ignoring it on this multi-process mesh")
+            return None
         from distributedkernelshap_tpu_torch.resilience.journal import (
             ShardJournal,
             journal_fingerprint,
@@ -739,12 +786,16 @@ class DistributedExplainer:
         path = run_journal_path(self.checkpoint_dir, fp, run_digest)
         return ShardJournal(path, meta)
 
-    def _run_slabs(self, slabs, dispatch, journal=None):
+    def _run_slabs(self, slabs, dispatch, fetch_is_local: bool = False, journal=None):
         """Run the slab sequence through the shared bounded pipeline
         (``parallel/pipeline.py``): window resolved from the
         ``dispatch_window`` opt, else ``EngineConfig.dispatch_window``, else
-        the env / a round-trip probe; fetches threaded so their copies
-        overlap (in one process every fetch is a local copy)."""
+        the env / a round-trip probe (under several processes rank 0's
+        window, broadcast); fetches threaded so their copies overlap,
+        except on a multi-process mesh whose fetches carry collectives,
+        which stay serial and in the same order on every process.
+        ``fetch_is_local`` is per call site: the sampled path under
+        ``replicate_results`` fetches locally, the exact paths never do."""
 
         from distributedkernelshap_tpu_torch.parallel.pipeline import (
             resolve_window,
@@ -756,8 +807,9 @@ class DistributedExplainer:
                      else self.engine.config.dispatch_window)
         window = resolve_window(requested, n_items=len(slabs), device=self.engine.device)
         try:
-            return run_pipeline(slabs, dispatch, self._fetch_sharded,
-                                window=window, threaded=True, journal=journal)
+            return run_pipeline(slabs, dispatch, self._fetch_sharded, window=window,
+                                threaded=(not self.mesh.multiprocess) or fetch_is_local,
+                                journal=journal)
         finally:
             if journal is not None:
                 self.last_journal_stats = journal.stats()
@@ -799,18 +851,27 @@ class DistributedExplainer:
         plan = engine._plan(nsamples)
         args = self._device_args(plan)
         fn = self._sharded_fn()
-        d00 = self.mesh.device(0, 0)
+        d00 = self.mesh.first_local_device()
         acc = None
         with capture_kernel_paths() as kp:
             for c in slabs:
                 Xc, Bc = self._pad_sharded(c)
                 out = fn(Xc, *args)
                 rows = Xc.shape[0] // len(out['shap_values'])
+                parts = {}
                 for s, phi in enumerate(out['shap_values']):
+                    if phi is None:
+                        continue  # a data shard another process holds
                     # mask the padded rows out instead of slicing them off
                     w = (torch.arange(s * rows, (s + 1) * rows, device=phi.device)
                          < Bc).to(phi.dtype)
-                    part = torch.einsum('bkm,b->km', phi.abs(), w).to(d00)
+                    parts[(s,)] = torch.einsum('bkm,b->km', phi.abs(), w)
+                if self.mesh.multiprocess and not self.replicate_results:
+                    # every process adds every shard's (K, M) partial, in
+                    # shard order: the same bits everywhere
+                    parts = exchange(parts)
+                for key in sorted(parts):
+                    part = parts[key].to(d00)
                     acc = part if acc is None else acc + part
         engine._kernel_paths.update(kp)
         return acc.cpu().numpy() / B
@@ -822,7 +883,8 @@ class DistributedExplainer:
         batch of ``n_rows`` with these options, vs computing synchronously
         in the fallback closure (reference ``distributed.py:923-936``)."""
 
-        return not (interactions or nsamples == 'exact'
+        return not ((self.mesh.multiprocess and not self.replicate_results)
+                    or interactions or nsamples == 'exact'
                     or self._needs_slabs(int(n_rows))
                     or self.engine._l1_active(l1_reg, nsamples))
 
@@ -833,9 +895,12 @@ class DistributedExplainer:
         """Asynchronous variant of :meth:`get_explanation` for the serving
         pipeline: issues the sharded device work now and returns
         ``finalize() -> (values, info)`` — the same contract as
-        ``KernelExplainerEngine.get_explanation_async``.  The exact path,
-        slab-split batches and active l1 selection fall back to a
-        synchronous closure, mirroring the engine's fallback matrix."""
+        ``KernelExplainerEngine.get_explanation_async``.  A multi-process
+        mesh pipelines only with ``replicate_results`` (the gather runs at
+        dispatch, so the finalize is a local copy any thread may make);
+        without it, and for the exact path, slab-split batches and active l1
+        selection, it falls back to a synchronous closure, mirroring the
+        engine's fallback matrix."""
 
         # a StagedRows could only arrive through a caller bypassing
         # stage_rows (which declines for sharded explainers); consume its
@@ -902,7 +967,8 @@ class DistributedExplainer:
         # slabs are on the devices at once
         journal = self._journal_for(slabs, 'sampled', nsamples)
         results = self._run_slabs(
-            slabs, lambda s: self._dispatch_sharded(s, nsamples), journal=journal)
+            slabs, lambda s: self._dispatch_sharded(s, nsamples),
+            fetch_is_local=self.replicate_results, journal=journal)
         phi = np.concatenate([r[0] for r in results], 0)[:B]
         self.last_raw_prediction = np.concatenate([r[1] for r in results], 0)[:B]
         self.last_X_fingerprint = _fingerprint(X)

@@ -14,9 +14,11 @@ The in-flight window is resolved in one place: an explicit request beats
 the ``DKS_DISPATCH_WINDOW`` environment knob beats a latency-derived
 default measured by one cheap round-trip probe on the engine's device.
 
-Multi-process execution (a ``torch.distributed`` group of more than one
-process, whose fetches would have to agree on one order and one window)
-is ROADMAP.md queue A item 10 and raises ``NotImplementedError`` here.
+Under several processes (a ``torch.distributed`` group) a sharded fetch
+carries collectives, so every process must dispatch and fetch in the same
+order with the same window: the resolver never probes there, and rank 0's
+window is broadcast to all (:func:`resolve_window`); the callers run such
+fetches with ``threaded=False``.
 A :class:`~distributedkernelshap_tpu_torch.resilience.journal.ShardJournal`
 makes a :func:`run_pipeline` loop restartable.
 """
@@ -33,7 +35,11 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 import torch
 
 import distributedkernelshap_tpu_torch.observability.tracing as _tracing
-from distributedkernelshap_tpu_torch.parallel.mesh import check_single_process
+from distributedkernelshap_tpu_torch.parallel.mesh import (
+    broadcast_int,
+    process_count,
+    process_index,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -46,6 +52,12 @@ MAX_WINDOW = 8
 
 _rtt_cache: Dict[str, float] = {}
 _rtt_lock = threading.Lock()
+
+# the agreed window under several processes, per (requested, env, cap): the
+# broadcast is a blocking collective and the answer cannot change for the
+# process's life.  Every process runs the same driver code, so the cache
+# misses (and the broadcasts) stay symmetric across processes
+_window_cache: Dict[tuple, int] = {}
 
 
 def device_round_trip_s(probes: int = 3, refresh: bool = False,
@@ -88,13 +100,20 @@ def resolve_window(requested: Optional[int] = None,
     probed on ``device``: a locally attached card or the CPU resolves to 2.
     The 10 ms divisor is the reference's: the round figure below the
     smallest per-chunk device time it saw at benchmark shapes, so the window
-    hides at least one fetch behind in-flight compute.  Raises
-    ``NotImplementedError`` under a multi-process ``torch.distributed``
-    group (ROADMAP.md queue A item 10)."""
+    hides at least one fetch behind in-flight compute.
 
-    # the window and the fetch order would have to agree across processes
-    check_single_process("dispatch pipelining")
+    Under several processes the window must be the same on every process
+    (the fetches carry collectives): the probe is skipped, each process
+    resolves explicit / env / :data:`DETERMINISTIC_WINDOW` locally, and
+    rank 0's value is broadcast to all, once per ``(requested, env, cap)``
+    (the inputs, not the resolved value: under a per-host skew two call
+    sites can resolve to one value here and two on a peer, and a key on
+    the value would then broadcast a different number of times).  A skew
+    is a logged warning, not a wedge.  Without a live group behind the
+    count the local value stands."""
+
     cap = MAX_WINDOW if n_items is None else max(1, min(MAX_WINDOW, n_items))
+    multiprocess = process_count() > 1
     resolved: Optional[int] = None
     if requested is not None:
         if int(requested) < 1:
@@ -115,6 +134,8 @@ def resolve_window(requested: Optional[int] = None,
                 resolved = max(1, min(int(env), cap))
             except ValueError:
                 logger.warning("ignoring non-integer DKS_DISPATCH_WINDOW=%r", env)
+    if resolved is None and multiprocess:
+        resolved = min(DETERMINISTIC_WINDOW, cap)
     if resolved is None:
         try:
             rtt = device_round_trip_s(device=device)
@@ -124,6 +145,25 @@ def resolve_window(requested: Optional[int] = None,
             resolved = min(DETERMINISTIC_WINDOW, cap)
         else:
             resolved = max(2, min(1 + math.ceil(rtt / 0.010), cap))
+    if multiprocess:
+        key = (requested, os.environ.get("DKS_DISPATCH_WINDOW"), cap)
+        if key in _window_cache:
+            return _window_cache[key]
+        try:
+            agreed = broadcast_int(resolved)
+        except (RuntimeError, ValueError):
+            # no live group behind the count (a spoofed count, a backend
+            # without collectives): the local resolution is the only one
+            logger.warning("dispatch-window broadcast unavailable; using "
+                           "locally resolved %d", resolved, exc_info=True)
+            return resolved
+        if agreed != resolved:
+            logger.warning(
+                "dispatch window %d on process %d differs from rank 0's %d; "
+                "using rank 0's (per-host env/config skew?)",
+                resolved, process_index(), agreed)
+        resolved = max(1, min(agreed, cap))
+        _window_cache[key] = resolved
     return resolved
 
 

@@ -1,8 +1,7 @@
 """HTTP serving of the PyTorch port (port of ``distributedkernelshap_tpu/
 serving/``): the model wrappers, the single-process ``ExplainerServer``,
-the client and the JSON / binary wire.  The multi-host entry points are
-exported as in the reference and raise ``NotImplementedError`` until
-ROADMAP.md queue A item 10."""
+the client and the JSON / binary wire, and the pod fabric that serves one
+mesh from several processes (``multihost``)."""
 
 from distributedkernelshap_tpu_torch.serving.wrappers import (  # noqa: F401
     BatchKernelShapModel,

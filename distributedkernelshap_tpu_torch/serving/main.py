@@ -9,11 +9,15 @@ the card), ``--factory module:function`` serves a deployment tuple, and
 with neither it fits the Adult deployment, which needs the cached Adult
 files and scikit-learn to unpickle the model.  ``--replica_procs N``
 spawns N single-device worker processes (``serving/replica_worker.py``)
-behind a fan-in proxy on ``--port`` (``serving/replicas.py``).  The
-multi-host modes (``--coordinator``, and ``--pod_procs`` above 1, whose
-replica units are multi-process pods) raise ``NotImplementedError``: they
-wait for ROADMAP.md queue A item 10.  SIGTERM and SIGINT stop the server
-or the fleet cleanly.
+behind a fan-in proxy on ``--port`` (``serving/replicas.py``); with
+``--pod_procs P`` above 1 each replica unit is a pod of P processes.
+``--coordinator host:port --num_processes P --process_id k`` makes this
+process member k of a multi-process pod (``serving/multihost.py``): rank
+0 serves HTTP, the others join each device call through the broadcast
+protocol; under ``torchrun`` the three come from the environment.
+SIGTERM and SIGINT stop the server or the fleet cleanly; a pod member
+ignores them until it knows its rank, and the lead then drains before it
+releases the followers.
 """
 
 import argparse
@@ -23,8 +27,10 @@ import threading
 
 from distributedkernelshap_tpu_torch.serving.replica_worker import (
     adult_factory,
+    checkpoint_factory,
     resolve_factory,
 )
+from distributedkernelshap_tpu_torch.parallel.mesh import _launch_from_env
 from distributedkernelshap_tpu_torch.serving.server import serve_explainer
 
 logging.basicConfig(level=logging.INFO)
@@ -50,27 +56,37 @@ def main():
                         help="module:function returning (predictor, "
                              "background, ctor_kwargs, fit_kwargs) "
                              "(default: the Adult deployment).")
-    # the reference's multi-host modes: accepted so that their use names
-    # what is missing, not an unknown argument
-    queued = " Not in the port yet: raises NotImplementedError."
     parser.add_argument("--coordinator", default=None, type=str,
-                        help="Multi-host coordinator address (ROADMAP.md "
-                             "queue A item 10)." + queued)
+                        help="Multi-process pod: the rendezvous address "
+                             "host:port (rank 0 hosts the store).  Every "
+                             "member runs this entry; process 0 serves "
+                             "HTTP, the rest join each device call via the "
+                             "broadcast protocol (serving/multihost.py).")
     parser.add_argument("--num_processes", default=None, type=int)
     parser.add_argument("--process_id", default=None, type=int)
     parser.add_argument("--max_rows", default=None, type=int,
-                        help="Multi-host broadcast slot (ROADMAP.md queue "
-                             "A item 10)." + queued)
+                        help="Multi-process broadcast slot (rows per "
+                             "stacked batch); default 256.")
     parser.add_argument("--replicate_results", action="store_true",
-                        help="Multi-host only (ROADMAP.md queue A item "
-                             "10)." + queued)
+                        help="Multi-process only: gather results at "
+                             "dispatch so the broadcast protocol PIPELINES "
+                             "device calls; the default, kept as an "
+                             "explicit no-op — see --lockstep.")
     parser.add_argument("--lockstep", action="store_true",
-                        help="Multi-host only (ROADMAP.md queue A item "
-                             "10)." + queued)
+                        help="Multi-process only: opt OUT of the pipelined "
+                             "default (replicate_results=False) and serve "
+                             "one device call at a time.")
+    parser.add_argument("--coalition_parallel", default=1, type=int,
+                        help="Multi-process only: shard the hot path 2D "
+                             "(batch x coalition) across the pod's mesh; a "
+                             "coalition group may span processes.")
     parser.add_argument("--pod_procs", default=1, type=int,
                         help="With --replica_procs: processes per replica "
-                             "UNIT; above 1 each unit is a multi-process "
-                             "pod (ROADMAP.md queue A item 10)." + queued)
+                             "UNIT — each replica becomes a multi-process "
+                             "pod (lead + followers over a local "
+                             "coordinator) that the proxy/supervisor/"
+                             "autoscaler treat as one citizen "
+                             "(serving/replicas.py).")
     parser.add_argument("--replica_procs", default=0, type=int,
                         help="Replica mode: spawn this many crash-isolated "
                              "single-device server PROCESSES (replica k on "
@@ -83,6 +99,10 @@ def main():
                                      or args.process_id is not None):
         parser.error("--num_processes/--process_id require --coordinator "
                      "(a would-be follower must never start its own server)")
+    if args.coordinator is not None and (args.num_processes is None
+                                         or args.process_id is None):
+        parser.error("--coordinator needs --num_processes and --process_id "
+                     "(under torchrun, omit all three)")
     if args.pod_procs < 1:
         parser.error("--pod_procs must be >= 1")
     if args.pod_procs > 1 and not args.replica_procs:
@@ -105,10 +125,18 @@ def main():
                          "fleet mode; it does not combine with "
                          "--coordinator/--checkpoint/--exact/"
                          "--replicate_results/--lockstep/--max_rows")
-    if args.coordinator is not None or args.pod_procs > 1:
-        raise NotImplementedError(
-            "--coordinator and --pod_procs above 1 (multi-process pods) "
-            "wait for the multi-GPU port (ROADMAP.md queue A item 10)")
+
+    def _load_deployment_args():
+        # ONE definition of the deployment tuple, shared with the replica
+        # workers, so a pod never serves a different explainer than the
+        # single-process modes: an explicit --factory wins, then
+        # --checkpoint (rebuilt through the ctor tuple so every pod
+        # process re-fits identically), else the default Adult deployment
+        if args.factory:
+            return resolve_factory(args.factory)()
+        if args.checkpoint:
+            return checkpoint_factory(args.checkpoint)
+        return adult_factory()
 
     if args.replica_procs:
         from distributedkernelshap_tpu_torch.serving.replicas import ReplicaManager
@@ -121,10 +149,59 @@ def main():
             pipeline_depth=args.pipeline_depth or None,
             pod_processes=args.pod_procs,
         ).start(proxy_port=args.port, proxy_host=args.host)
+        unit = "pods" if args.pod_procs > 1 else "worker processes"
         banner = (f"replica serving on "
                   f"{manager.proxy.host}:{manager.proxy.port} "
-                  f"({args.replica_procs} worker processes)")
+                  f"({args.replica_procs} {unit}"
+                  + (f" x {args.pod_procs} processes" if args.pod_procs > 1
+                     else "") + ")")
         on_stop = manager.stop
+    elif args.coordinator is not None or _launch_from_env() is not None:
+        # a pod member: every member runs this same entry (SPMD).  A
+        # pod-wide SIGTERM must not kill followers before the lead
+        # broadcasts shutdown — their orderly exit IS that broadcast — so
+        # EVERY member ignores the signals until it knows its rank; the
+        # lead reinstalls its drain-then-stop handler at the block below
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+
+        from distributedkernelshap_tpu_torch.parallel.mesh import (
+            initialize_multihost,
+            local_device_count,
+            process_count,
+            process_index,
+        )
+        from distributedkernelshap_tpu_torch.serving.multihost import serve_multihost
+
+        initialize_multihost(args.coordinator, args.num_processes, args.process_id)
+        predictor, background, ctor_kwargs, fit_kwargs = _load_deployment_args()
+        # every device of every member: each member lays out its own
+        # visible cards (one copy of the CPU off the card)
+        opts = {"n_devices": process_count() * max(1, local_device_count())}
+        if args.coalition_parallel > 1:
+            opts["coalition_parallel"] = args.coalition_parallel
+        if args.lockstep:
+            opts["replicate_results"] = False
+        # pipelined (replicate_results=True) is serve_multihost's default
+        server = serve_multihost(
+            predictor, background, ctor_kwargs, fit_kwargs, opts,
+            host=args.host, port=args.port,
+            max_batch_size=args.max_batch_size,
+            max_rows=args.max_rows if args.max_rows is not None else 256,
+            explain_kwargs=explain_kwargs,
+            pipeline_depth=args.pipeline_depth or None,
+        )
+        if server is None:
+            logging.info("follower %d released; exiting", process_index())
+            return
+        banner = (f"multi-process serving on {server.host}:{server.port} "
+                  f"(lead of {process_count()} processes)")
+
+        def on_stop():
+            # drain handshake: stop accepting, flush in-flight broadcast
+            # dispatches, THEN broadcast shutdown — followers must never be
+            # left in a half-finished collective
+            server.model.drain_and_shutdown(server)
     elif args.checkpoint:
         from distributedkernelshap_tpu_torch.kernel_shap import KernelShap
         from distributedkernelshap_tpu_torch.serving.server import ExplainerServer
@@ -140,8 +217,7 @@ def main():
         banner = f"serving on {server.host}:{server.port} — Ctrl-C to stop"
         on_stop = server.stop
     else:
-        factory = resolve_factory(args.factory) if args.factory else adult_factory
-        predictor, background, ctor_kwargs, fit_kwargs = factory()
+        predictor, background, ctor_kwargs, fit_kwargs = _load_deployment_args()
         server = serve_explainer(
             predictor, background, ctor_kwargs, fit_kwargs,
             host=args.host, port=args.port, max_batch_size=args.max_batch_size,

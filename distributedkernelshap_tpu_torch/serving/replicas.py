@@ -1586,14 +1586,45 @@ class ReplicaManager:
         return subprocess.Popen(argv, env=env)
 
     def _spawn_pod(self, index: int) -> "_PodProcess":
-        """One replica unit as a multi-process pod (``serving/main.py
-        --coordinator`` members over a local coordinator): the multi-GPU
-        serving fabric, ROADMAP.md queue A item 10, not ported yet."""
+        """One replica unit as a multi-process pod: ``pod_processes``
+        members of ``serving/main.py --coordinator`` over a locally
+        reserved coordinator port (reference ``replicas.py:1558-1595``).
+        The lead serves HTTP on the unit's probed port
+        (``self.ports[index]`` — the proxy/prober/supervisor see exactly
+        the surface a plain worker exposes); followers get their own
+        reserved ports for the follower health listener.  Ports are
+        reserved FRESH per spawn: a restarted pod must rendezvous on its
+        own coordinator, never a half-dead predecessor's.  Member k of pod
+        i is pinned to card ``(i·P + k) mod n`` (the reference pins chip
+        ``i·P + k``); members that share a card join a gloo group."""
 
-        raise NotImplementedError(
-            f"pod_processes={self.pod_processes}: multi-process pods "
-            "(serving.main --coordinator) wait for the multi-GPU port "
-            "(ROADMAP.md queue A item 10)")
+        P = self.pod_processes
+        cport, *follower_ports = self._reserve_ports(P)
+        members = []
+        for k in range(P):
+            env = dict(os.environ, **self.env_extra)
+            env["DKS_REPLICA_INDEX"] = str(index)
+            if self.pin_devices:
+                card = _pinned_card(index * P + k, env.get("CUDA_VISIBLE_DEVICES"))
+                if card is not None:
+                    env["CUDA_VISIBLE_DEVICES"] = card
+            argv = [sys.executable, "-m",
+                    "distributedkernelshap_tpu_torch.serving.main",
+                    "--coordinator", f"127.0.0.1:{cport}",
+                    "--num_processes", str(P),
+                    "--process_id", str(k),
+                    "--factory", self.factory,
+                    "--host", self.host,
+                    "--port", str(self.ports[index] if k == 0
+                                  else follower_ports[k - 1]),
+                    "--max_batch_size", str(self.max_batch_size)]
+            if self.pipeline_depth:
+                argv += ["--pipeline_depth", str(self.pipeline_depth)]
+            members.append(subprocess.Popen(argv, env=env))
+        logger.info("spawning pod %d (%d processes, lead on port %d, "
+                    "coordinator 127.0.0.1:%d)", index, P,
+                    self.ports[index], cport)
+        return _PodProcess(members)
 
     def _wait_healthy(self, index: int, timeout_s: float):
         """``True`` (ready), ``False`` (dead/unreachable) or ``"warming"``

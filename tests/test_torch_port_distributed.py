@@ -103,7 +103,7 @@ def test_target_fn_dispatches_an_indexed_work_item(setup):
     assert idx == 3 and sv[0].shape == (2, 5)
 
 
-def test_mesh_shapes_and_multi_process_guard(caplog):
+def test_mesh_shapes_and_multi_process_guard(caplog, monkeypatch):
     cpus = ["cpu"] * 8
     assert tmesh.device_mesh(8, devices=cpus).shape == {"data": 8, "coalition": 1}
     m2 = tmesh.device_mesh(8, coalition_parallel=2, devices=cpus)
@@ -116,26 +116,47 @@ def test_mesh_shapes_and_multi_process_guard(caplog):
     assert any("only 8 are attached" in r.message for r in caplog.records)
     assert tmesh.pad_to_multiple(10, 8) == (16, 6)
     assert tmesh.pad_to_multiple(16, 8) == (16, 0)
+    # without a coordinator or a torchrun environment: one process, no group
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
     assert tmesh.initialize_multihost() is None
-    for kw in ({"coordinator_address": "localhost:1234", "num_processes": 2,
-                "process_id": 0},
-               {"coordinator_address": "localhost:1234", "num_processes": 1,
-                "process_id": 0}):
-        with pytest.raises(NotImplementedError, match="item 10"):
+    assert not torch.distributed.is_initialized()
+    assert (tmesh.process_count(), tmesh.process_index(), tmesh.collective_backend()) \
+        == (1, 0, None)
+    assert m2.owners.tolist() == [[0, 0]] * 4 and not m2.multiprocess
+    # an explicit launch needs all three of its arguments and a host:port
+    for kw in ({"num_processes": 2},
+               {"coordinator_address": "localhost:1234"},
+               {"coordinator_address": "localhost", "num_processes": 2, "process_id": 0},
+               {"coordinator_address": "localhost:1234", "num_processes": 2,
+                "process_id": 2}):
+        with pytest.raises(ValueError):
             tmesh.initialize_multihost(**kw)
-    with pytest.raises(ValueError):
-        tmesh.initialize_multihost(num_processes=2)
 
 
 def test_a_group_of_several_processes_raises_naming_item_10(setup, monkeypatch):
+    """A group that already stands is left alone, and the process count and
+    rank read from it; the backend rule picks NCCL only for a card a rank."""
+
     monkeypatch.setattr(torch.distributed, "is_available", lambda: True)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a, **k: 4)
-    for build in (lambda: _port(setup, {"n_devices": 2}),
-                  lambda: tmesh.device_mesh(2, devices=["cpu"] * 2),
-                  tmesh.initialize_multihost):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            build()
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda *a, **k: 2)
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda *a, **k: "gloo")
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda *a, **k: pytest.fail("a standing group must be left alone"))
+    assert tmesh.initialize_multihost("127.0.0.1:1", 4, 2) is None
+    assert (tmesh.process_count(), tmesh.process_index(), tmesh.collective_backend()) \
+        == (4, 2, "gloo")
+    assert tmesh.choose_backend(["cpu", "cpu"]) == "gloo"
+    assert tmesh.choose_backend(["GPU-a", "GPU-a"]) == "gloo"      # one card, two ranks
+    assert tmesh.choose_backend(["GPU-a", "cpu"]) == "gloo"
+    assert tmesh.choose_backend(["GPU-a", "GPU-b"]) == "nccl"
+    assert tmesh.choose_backend(["GPU-a"]) == "nccl"
+    # rank 2's view of a 1x8 layout over four ranks of two devices
+    m = tmesh.mesh_from_lists([["cpu"] * 2] * 4, rank=2, coalition_parallel=8)
+    assert m.local_entries() == [(0, 4), (0, 5)] and not m.leads(0)
+    assert m.coalition_spans_processes and m.distinct_devices == [torch.device("cpu")]
 
 
 # ---------------------------------------------------------------------------

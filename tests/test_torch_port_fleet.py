@@ -349,16 +349,52 @@ def test_replica_k_is_pinned_to_card_k_mod_n(monkeypatch, index, visible, n_card
     assert _pinned_card(index, visible) == want
 
 
-def test_pod_replica_units_name_the_multi_gpu_item():
-    mgr = ReplicaManager(1, factory=CPU_FACTORY, pod_processes=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mgr.start()
-    assert mgr.procs == []
+def test_pod_replica_units_name_the_multi_gpu_item(monkeypatch):
+    """A pod unit spawns P ``serving.main --coordinator`` members on a fresh
+    coordinator port: the lead on the unit's probed port, each follower on
+    its own, member k of pod i on card (i·P + k) mod n.  (Real pods:
+    ``tests/test_torch_port_pod_serving.py``.)"""
+
+    spawned = []
+
+    class FakePopen:
+        def __init__(self, argv, env):
+            spawned.append((argv, env))
+            self.pid, self.returncode = 1000 + len(spawned), None
+
+        def poll(self):
+            return self.returncode
+
+    monkeypatch.setattr(replicas.subprocess, "Popen", FakePopen)
+    monkeypatch.setattr(replicas, "_visible_card_count", lambda: 3)
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    mgr = ReplicaManager(2, factory=CPU_FACTORY, pod_processes=2, pipeline_depth=2,
+                         env_extra={"X_EXTRA": "1"})
+    mgr.ports = mgr._reserve_ports()
+    pod = mgr._spawn(1)
+    assert isinstance(pod, replicas._PodProcess) and len(pod.members) == 2
+    assert pod.pid == pod.members[0].pid
+    coords, ports = set(), []
+    for k, (argv, env) in enumerate(spawned):
+        opt = {argv[i]: argv[i + 1] for i in range(3, len(argv) - 1, 2)}
+        assert argv[1:3] == ["-m", "distributedkernelshap_tpu_torch.serving.main"]
+        assert opt["--num_processes"] == "2" and opt["--process_id"] == str(k)
+        assert opt["--factory"] == CPU_FACTORY and opt["--pipeline_depth"] == "2"
+        assert env["CUDA_VISIBLE_DEVICES"] == str((1 * 2 + k) % 3)
+        assert env["DKS_REPLICA_INDEX"] == "1" and env["X_EXTRA"] == "1"
+        coords.add(opt["--coordinator"])
+        ports.append(int(opt["--port"]))
+    assert len(coords) == 1 and coords.pop().startswith("127.0.0.1:")
+    assert ports[0] == mgr.ports[1] and ports[1] not in mgr.ports
+    # one member's death is the pod's: the survivor is killed
+    pod.members[1].returncode = 3
+    pod.members[0].kill = lambda: setattr(pod.members[0], "returncode", -9)
+    assert pod.poll() == 3 and pod.members[0].returncode == -9
 
 
 @pytest.mark.parametrize("argv,raises", [
-    (["--pod_procs", "2", "--replica_procs", "1"], NotImplementedError),
-    (["--coordinator", "127.0.0.1:1234"], NotImplementedError),
+    (["--pod_procs", "2", "--replica_procs", "1", "--lockstep"], SystemExit),
+    (["--coordinator", "127.0.0.1:1234"], SystemExit),
     (["--replica_procs", "2", "--checkpoint", "x.pkl"], SystemExit),
     (["--replica_procs", "2", "--exact"], SystemExit),
     (["--pod_procs", "2"], SystemExit),
@@ -369,10 +405,7 @@ def test_the_cli_refuses_what_it_cannot_serve(monkeypatch, argv, raises):
     monkeypatch.setattr(sys, "argv", ["serving.main"] + argv)
     with pytest.raises(raises) as info:
         serving_main.main()
-    if raises is NotImplementedError:
-        assert "item 10" in str(info.value)
-    else:
-        assert info.value.code == 2
+    assert info.value.code == 2
 
 
 # --------------------------------------------------------------------- #

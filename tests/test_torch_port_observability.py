@@ -326,9 +326,48 @@ def test_the_port_never_demotes_an_exact_explain():
 
 
 def test_multihost_entry_points_name_their_roadmap_item():
-    from distributedkernelshap_tpu_torch.serving import multihost
+    """The pod entry points in one process: ``serve_multihost`` leads a pod
+    of one (no group: the collective wire, which then broadcasts to
+    nobody), serves, records its frames, and drains; the lead and
+    follower sides refuse the wrong role.  (Pods of two processes:
+    ``tests/test_torch_port_pod_serving.py``.)"""
 
-    for fn in (multihost.MultihostServingModel, multihost.follower_loop,
-               multihost.serve_multihost):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fn()
+    import http.client
+
+    import numpy as np
+
+    from distributedkernelshap_tpu_torch.models.predictors import LinearPredictor
+    from distributedkernelshap_tpu_torch.observability.flightrec import flightrec
+    from distributedkernelshap_tpu_torch.serving import multihost
+    from distributedkernelshap_tpu_torch.serving import wire
+
+    rng = np.random.default_rng(5)
+    D, K = 5, 2
+    pred = LinearPredictor(rng.normal(size=(D, K)).astype(np.float32),
+                           np.zeros(K, np.float32), "softmax", device="cpu")
+    bg = rng.normal(size=(8, D)).astype(np.float32)
+    srv = multihost.serve_multihost(
+        pred, bg, {"link": "logit", "seed": 0, "device": "cpu"}, {},
+        {"n_devices": 2, "devices": ["cpu"] * 2}, host="127.0.0.1", port=0,
+        max_batch_size=2, max_rows=8, explain_kwargs={"nsamples": 32, "l1_reg": False},
+        warmup=False)
+    try:
+        assert isinstance(srv.model, multihost.PipelinedMultihostServingModel)
+        assert isinstance(srv.model._transport, multihost.CollectiveTransport)
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+        conn.request("POST", "/explain", body=wire.encode_request(bg[:3]),
+                     headers={"Content-Type": wire.CONTENT_TYPE, "Accept": wire.CONTENT_TYPE})
+        resp = conn.getresponse()
+        assert resp.status == 200
+        phi = np.stack(wire.decode_explanation(resp.read())["shap_values"], 1)
+        conn.close()
+        assert phi.shape == (3, K, D)
+        last = flightrec().snapshot("pod_frame")[-1]
+        assert (last["role"], last["cmd"], last["rows"], last["frames"]["explain"]) \
+            == ("lead", "explain", 3, 1)
+        assert last["launches"]["fused_linear_ey"] == 0    # the CPU runs plain versions
+        with pytest.raises(RuntimeError, match="lead process"):
+            multihost.follower_loop(srv.model.model, transport=srv.model._transport)
+    finally:
+        assert srv.model.drain_and_shutdown(srv, grace_s=10)
+    assert flightrec().snapshot("pod_frame")[-1]["cmd"] == "shutdown"

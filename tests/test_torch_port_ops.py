@@ -308,6 +308,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "distributedkernelshap_tpu_torch.ops, distributedkernelshap_tpu_torch.utils, "
         "distributedkernelshap_tpu_torch.profiling, "
         "distributedkernelshap_tpu_torch.observability.tracing, "
+        "distributedkernelshap_tpu_torch.parallel, "
         "distributedkernelshap_tpu_torch.parallel.pipeline, "
         "distributedkernelshap_tpu_torch.parallel.mesh, "
         "distributedkernelshap_tpu_torch.parallel.coalition_sharding, "
@@ -364,7 +365,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "distributedkernelshap_tpu_torch.observability.fleet, "
         "distributedkernelshap_tpu_torch.serving.replicas, "
         "distributedkernelshap_tpu_torch.serving.replica_worker, "
-        "distributedkernelshap_tpu_torch.serving.autoscaler\n"
+        "distributedkernelshap_tpu_torch.serving.autoscaler, chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'distributedkernelshap_tpu', 'pandas', 'sklearn')]\n"
         "assert not bad, bad\n")

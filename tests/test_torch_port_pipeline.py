@@ -3,9 +3,8 @@ parallel/pipeline.py``) and the engine's instance chunking, on the CPU.
 
 The ``run_pipeline`` / ``resolve_window`` tests are the port's copies of
 ``tests/test_pipeline.py``'s (result order in both modes, the in-flight
-bound, error propagation, the resolution priority); where the reference
-broadcasts the window across processes, the port raises
-``NotImplementedError`` (ROADMAP.md queue A item 10).  The chunked
+bound, error propagation, the resolution priority, the multi-process
+resolution without a live group).  The chunked
 explains hold against the unchunked ones within the port (the same
 function per chunk, so the sampled phi differs only by f32 sums over
 other batch shapes, ``CHUNK_REL · max(1, max|φ|)``) and against the JAX
@@ -188,17 +187,27 @@ def test_resolve_window_probe_failure_falls_back(monkeypatch):
     assert pl.resolve_window(None) == pl.DETERMINISTIC_WINDOW
 
 
-def test_resolve_window_multiprocess_is_not_ported(monkeypatch):
-    """Where the reference broadcasts the lead's window to every process,
-    the port raises until queue A item 10 lands."""
+def test_resolve_window_multiprocess_is_not_ported(monkeypatch, caplog):
+    """Under several processes the window never comes from the probe: each
+    process resolves the deterministic window, and rank 0's is broadcast;
+    with no live group behind the count (here a spoofed one) the broadcast
+    is unavailable and the local value stands, with a warning, as in the
+    reference (``pipeline.py:173-180``).  The agreeing broadcast over two
+    real processes is ``tests/test_torch_port_multiprocess.py``."""
 
+    monkeypatch.delenv("DKS_DISPATCH_WINDOW", raising=False)
     monkeypatch.setattr(torch.distributed, "is_available", lambda: True)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a, **k: 4)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda *a, **k: 1)
     monkeypatch.setattr(pl, "device_round_trip_s",
                         lambda **kw: pytest.fail("probe must not run"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pl.resolve_window(None)
+    with caplog.at_level(logging.WARNING, logger=pl.logger.name):
+        assert pl.resolve_window(None) == pl.DETERMINISTIC_WINDOW
+        assert pl.resolve_window(None, n_items=2) == 2
+        assert pl.resolve_window(5) == 5
+    assert any("broadcast unavailable" in r.message for r in caplog.records)
+    assert pl._window_cache == {}  # nothing agreed, nothing cached
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a, **k: 1)
     assert pl.resolve_window(3) == 3
 

@@ -23,7 +23,9 @@ and the exact paths at several layouts on the one card) and the CNN's
 training, and the same mesh across processes joined by ``torch.distributed``
 (two worker processes of this script on the one card, one at world size 1
 on NCCL) and a two-process pod behind the fleet's proxy, through the public
-API, checks the answers, and times kernels, plain versions and explains.
+API, then the port's static gate (``scripts/torch_lint.py --check``) on this
+machine and the runtime lock witness over a server on the card, checks the
+answers, and times kernels, plain versions and explains.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -374,7 +376,24 @@ Phases (each raises on failure, so the script exits non-zero):
    served (its flight recorder's last ``pod_frame`` event at ``/debugz``:
    the lead's server, the follower's health listener); broadcast bytes on
    the lead; the stop's drain handshake with both members exiting 0 within
-   30 s and none left on the card; walls, rows/s, p50/p99.
+   30 s and none left on the card; walls, rows/s, p50/p99;
+48. the port's gate: ``python3 scripts/torch_lint.py --check`` in a
+   subprocess (the concurrency, torch-contract and serving-ladder analyzers
+   over every module of the port, the observability drift check with the
+   live catalog built on the card, the alert engine's golden replay): exit
+   0, no finding, no stale baseline entry, no parse error, the static pass
+   under 60 s, every module scanned, nothing of JAX or of the JAX package
+   loaded in that process; the report printed;
+49. the lock witness: a fresh process of this script (``--mp-worker
+   witness``) with ``DKS_LOCK_WITNESS=1`` serves phase 39's fixture LR
+   (staged, warmup ladder) and fixture GBT (auto-exact) from two servers
+   on the card, 64 requests of 10 rows from 8 threads alternating between
+   them, then ``lockwitness.assert_clean(max_hold_s=30)``: no lock-order
+   cycle, no hold over 30 s; ``fused_linear_ey`` launched once per LR batch
+   dispatched, ``exact_tree_phi`` once per bucket of the GBT's packed plan
+   per GBT batch, ``exact_tree_inter`` never; served phi within phase 39's
+   bars; acquisitions, lock-order edges, the longest hold and the serving
+   wall printed.
 
 The second-to-last line of stdout is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -6863,11 +6882,254 @@ def pod_phase(device, card):
     return total, {"wall": wall, "p50": _pct(lat, 50), "p99": _pct(lat, 99)}
 
 
+
+# ---------------------------------------------------------------------- #
+# the fourteenth slice (phases 48-49): the port's static gate on the card's
+# machine, and the runtime lock witness under serving load on the card
+
+
+#: phase 48: the bound on the gate's subprocess (the static pass itself
+#: asserts its own 60 s budget)
+GATE_TIMEOUT_S = 300
+#: phase 49: requests of SERVE_ROWS_PER_REQUEST rows from this many client
+#: threads, alternating between the LR and the GBT deployment; the GBT
+#: requests' windows start this many rows apart inside the fixture's
+#: tree_phi rows; the witness's hold budget (tests/conftest.py's) and the
+#: bound on the witness process
+WITNESS_REQUESTS, WITNESS_THREADS, WITNESS_GBT_STRIDE = 64, 8, 7
+WITNESS_MAX_HOLD_S, WITNESS_WAIT_S = 30.0, 600
+
+
+def _port_module_count() -> int:
+    return sum(len([f for f in files if f.endswith(".py")])
+               for root, _, files in os.walk(os.path.join(
+                   REPO_ROOT, "distributedkernelshap_tpu_torch"))
+               if "__pycache__" not in root)
+
+
+def gate_phase(card):
+    """Phase 48: ``python3 scripts/torch_lint.py --check`` in a subprocess
+    on the card's machine (no JAX there): the three analyzer families over
+    the port's sources, the observability drift check with the live catalog
+    built on the card, and the alert engine's golden replay.  Requires exit
+    0, no finding, no stale baseline entry, no parse error, the static pass
+    under its budget, every module of the port scanned, the live catalog
+    built on the card and nothing of JAX or of the JAX package loaded in
+    that process.  Returns the report."""
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(REPO_ROOT, "scripts", "torch_lint.py"),
+                           "--check"], cwd=REPO_ROOT, capture_output=True, text=True,
+                          timeout=GATE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"gate: {line}", flush=True)
+    try:
+        report = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        raise AssertionError(f"torch_lint.py --check printed no report (exit "
+                             f"{proc.returncode}):\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    n_modules = _port_module_count()
+    print(f"gate report: {json.dumps(report)}", flush=True)
+    print(f"gate: scripts/torch_lint.py --check exit {proc.returncode} in {wall:.3f} s "
+          f"(static pass {report.get('static_elapsed_s')} s of {report.get('static_budget_s')} "
+          f"s); {report.get('files_scanned')} of {n_modules} port modules scanned; "
+          f"obs-check on {report.get('obs_check_device')}; JAX modules loaded "
+          f"{report.get('foreign_modules')} on {card}", flush=True)
+    if proc.returncode != 0 or not report.get("ok") or report.get("findings") != 0 \
+            or report.get("stale_baseline") != 0 or report.get("parse_errors") != 0 \
+            or not report.get("static_elapsed_s", 1e9) < 60.0 \
+            or report.get("files_scanned") != n_modules \
+            or report.get("foreign_modules") != [] \
+            or report.get("obs_check_problems") != 0 \
+            or report.get("obs_check_device") != "cuda" \
+            or report.get("health_check_ok") is not True:
+        raise AssertionError("the port's gate is not green on the card's machine:\n"
+                             + proc.stdout[-4000:] + proc.stderr[-2000:])
+    return report
+
+
+def witness_worker(out, seed, device):
+    """The process of phase 49 (``python3 chip_smoke.py --mp-worker
+    witness``), started with ``DKS_LOCK_WITNESS=1`` so that every named
+    lock made in it, at import time too, is witnessed.  It serves phase
+    39's fixture LR (staged, warmup ladder) and fixture GBT (auto-exact)
+    from two ``ExplainerServer``s on ``device``, sends
+    ``WITNESS_REQUESTS`` requests of ``SERVE_ROWS_PER_REQUEST`` rows from
+    ``WITNESS_THREADS`` threads alternating between them, stops both, runs
+    ``lockwitness.assert_clean(max_hold_s=WITNESS_MAX_HOLD_S)`` and writes
+    ``witness.json``: launches over the request window, batches dispatched
+    per deployment, the GBT plan's bucket count, served phi against the
+    JAX fixture, the witness's acquisitions, edges and longest hold."""
+
+    import concurrent.futures
+
+    from distributedkernelshap_tpu_torch.analysis import lockwitness
+    from distributedkernelshap_tpu_torch.serving import client as cl
+    from distributedkernelshap_tpu_torch.serving.server import ExplainerServer
+    from distributedkernelshap_tpu_torch.serving.wrappers import BatchKernelShapModel
+
+    if not lockwitness.enabled():
+        raise AssertionError("the witness process was started without DKS_LOCK_WITNESS=1")
+    fx = adult_fixture()
+    X = fx["X"]
+    ks = fixture_lr_explainer(fx, device)
+    tks = fitted_fixture_tree(fx, fx["background"], device)
+    consts = tks._explainer._exact_consts()
+    n_buckets = len(consts["plan"].buckets) if consts["packed"] is not None else 1
+    reset_launches()
+    tks.explain(X[:SERVE_TREE_REQUEST], nsamples="exact", silent=True)
+    _sync(device)
+    per_explain = kernel_launches()["exact_tree_phi"]
+
+    models = {"lr": BatchKernelShapModel.from_explainer(ks),
+              "gbt": BatchKernelShapModel.from_explainer(tks)}
+    logs = {k: _BatchLog(m) for k, m in models.items()}
+    servers = {}
+    try:
+        servers["lr"] = ExplainerServer(models["lr"], host="127.0.0.1", port=0,
+                                        max_batch_size=SERVE_MAX_BATCH, warmup=True,
+                                        staging=True).start()
+        servers["gbt"] = ExplainerServer(models["gbt"], host="127.0.0.1", port=0,
+                                         max_batch_size=SERVE_MAX_BATCH, pipeline_depth=4,
+                                         warmup=False).start()
+        for srv in servers.values():
+            _wait_healthy(srv)
+        jobs = []
+        for i in range(WITNESS_REQUESTS):
+            k, j = ("lr", "gbt")[i % 2], i // 2
+            start = j * (SERVE_ROWS_PER_REQUEST if k == "lr" else WITNESS_GBT_STRIDE)
+            jobs.append((k, np.arange(start, start + SERVE_ROWS_PER_REQUEST)))
+        batches0 = {k: _metric_value(s, "dks_serve_batches_total")
+                    for k, s in servers.items()}
+        for log in logs.values():
+            log.batches.clear()
+            log.on = True
+        reset_launches()
+        latencies = []
+
+        def send(job):
+            k, rows = job
+            t = time.perf_counter()
+            ans = cl.explain_request(f"http://127.0.0.1:{servers[k].port}/explain", X[rows],
+                                     wire_format="binary")
+            latencies.append(time.perf_counter() - t)
+            return ans
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(WITNESS_THREADS) as pool:
+            answers = list(pool.map(send, jobs))
+        wall = time.perf_counter() - t0
+        _sync(device)
+        launches = kernel_launches()
+        for log in logs.values():
+            log.on = False
+        batches = {k: int(_metric_value(s, "dks_serve_batches_total") - batches0[k])
+                   for k, s in servers.items()}
+        paths = {k: m.explain_path for k, m in models.items()}
+    finally:
+        for srv in servers.values():
+            srv.stop()
+    snap = lockwitness.assert_clean(max_hold_s=WITNESS_MAX_HOLD_S)
+
+    d_lr, d_gbt, lr_ok = 0.0, 0.0, True
+    for (k, rows), ans in zip(jobs, answers):
+        if k == "lr":
+            d, ok = _fixture_ok(np.stack(ans["shap_values"], 1), fx, rows)
+            d_lr, lr_ok = max(d_lr, float(d.max())), lr_ok and bool(ok.all())
+        else:
+            d_gbt = max(d_gbt, rel_close(ans["shap_values"][0], fx["tree_phi"][rows]))
+    holds = snap["max_hold_s"]
+    longest = max(holds, key=holds.get) if holds else None
+    rec = {
+        "device": str(device), "launches": {k: int(v) for k, v in launches.items()},
+        "batches": batches, "logged": {k: len(v.batches) for k, v in logs.items()},
+        "paths": paths, "n_buckets": int(n_buckets), "per_explain": int(per_explain),
+        "wall_s": wall, "p50_ms": _pct(latencies, 50), "p99_ms": _pct(latencies, 99),
+        "d_lr": d_lr, "lr_ok": lr_ok, "d_gbt": d_gbt,
+        "acquisitions": int(sum(snap["acquisitions"].values())),
+        "locks": sorted(snap["acquisitions"]), "edges": len(snap["edges"]),
+        "longest_hold": [longest, holds.get(longest, 0.0)],
+        "overhead_s": snap["overhead_s"],
+    }
+    with open(os.path.join(out, "witness.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def witness_phase(device, card, seed):
+    """Phase 49: :func:`witness_worker` in a fresh process with
+    ``DKS_LOCK_WITNESS=1`` in its environment (locks made at import time
+    escape ``force_enable``); it exits non-zero on a lock-order cycle or a
+    hold over ``WITNESS_MAX_HOLD_S``.  Here: ``fused_linear_ey`` launched
+    once per LR batch dispatched, ``exact_tree_phi`` once per bucket of
+    the GBT's packed plan per GBT batch, ``exact_tree_inter`` never; served
+    phi within phase 39's bars.  Returns ``({kernel: launches}, record)``."""
+
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as out:
+        log_path = os.path.join(out, "witness.log")
+        t0 = time.perf_counter()
+        with open(log_path, "wb") as log:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.join(REPO_ROOT, "chip_smoke.py"), "--seed", str(seed),
+                 "--mp-worker", "witness", "--out", out, "--mp-device", str(device)],
+                cwd=REPO_ROOT, env=dict(os.environ, PYTHONPATH=REPO_ROOT, DKS_LOCK_WITNESS="1"),
+                stdout=log, stderr=subprocess.STDOUT)
+        try:
+            rc = proc.wait(timeout=WITNESS_WAIT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            with open(log_path, errors="replace") as f:
+                raise AssertionError(f"the witness process exited {rc}:\n{f.read()[-4000:]}")
+        with open(os.path.join(out, "witness.json")) as f:
+            rec = json.load(f)
+    lau, bat = rec["launches"], rec["batches"]
+    want = {"fused_linear_ey": bat["lr"], "exact_tree_phi": rec["n_buckets"] * bat["gbt"],
+            "exact_tree_inter": 0}
+    print(f"lock witness (DKS_LOCK_WITNESS=1, fresh process, {wall:.1f} s with its start): "
+          f"{WITNESS_REQUESTS} requests of {SERVE_ROWS_PER_REQUEST} rows from {WITNESS_THREADS} "
+          f"threads over the fixture LR (path {rec['paths']['lr']}) and the fixture GBT (path "
+          f"{rec['paths']['gbt']}): wall {1e3 * rec['wall_s']:.3f} ms, p50 {rec['p50_ms']:.3f} "
+          f"ms, p99 {rec['p99_ms']:.3f} ms; batches {bat} (logged {rec['logged']}); launches "
+          f"{lau} (want {want}; the GBT plan has {rec['n_buckets']} buckets, a direct explain "
+          f"launched {rec['per_explain']}); |phi LR - JAX fixture| {rec['d_lr']:.3e} (1e-4 + "
+          f"{LOGIT_ULPS} p-ulps: {rec['lr_ok']}), |phi GBT - tree_phi| {rec['d_gbt']:.3e}; "
+          f"witness: {rec['acquisitions']} acquisitions of {len(rec['locks'])} named locks, "
+          f"{rec['edges']} distinct lock-order edges, no cycle, longest hold "
+          f"{rec['longest_hold'][1]:.6f} s ({rec['longest_hold'][0]}; budget "
+          f"{WITNESS_MAX_HOLD_S:g} s), witness overhead {rec['overhead_s']:.6f} s on {card}",
+          flush=True)
+    bad = []
+    if not rec["lr_ok"]:
+        bad.append("served LR phi off the fixture")
+    if rec["paths"] != {"lr": "sampled", "gbt": "exact"}:
+        bad.append(f"paths {rec['paths']}")
+    if bat["lr"] < 1 or bat["gbt"] < 1 or rec["logged"] != bat:
+        bad.append(f"batches {bat} vs dispatches logged {rec['logged']}")
+    if not any(n.startswith("server.") for n in rec["locks"]) \
+            or "scheduler.cond" not in rec["locks"]:
+        bad.append(f"the witness saw no server locks: {rec['locks']}")
+    # a CPU rehearsal runs the plain versions, which count nothing
+    if _on_card(device) and (any(lau[k] != v for k, v in want.items())
+                             or rec["per_explain"] != rec["n_buckets"]):
+        bad.append(f"launches {lau}, want {want}")
+    if bad:
+        raise AssertionError("lock witness: " + "; ".join(bad))
+    return {k: int(lau[k]) for k in want}, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     # one process of phase 46, started by the script itself
-    ap.add_argument("--mp-worker", choices=("mesh", "nccl"), default=None,
+    ap.add_argument("--mp-worker", choices=("mesh", "nccl", "witness"), default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
@@ -6882,6 +7144,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
+    if args.mp_worker == "witness":
+        return witness_worker(args.out, args.seed, args.mp_device)
     if args.mp_worker:
         return mp_worker(args.mp_worker, args.rank, args.world, args.port, args.out,
                          args.seed, args.mp_device)
@@ -7107,6 +7371,15 @@ def main() -> int:
     t = time.perf_counter()
     pod_launches, _ = pod_phase(device, card)
     seconds["47 pod"] = time.perf_counter() - t
+
+    # 48-49. the port's static gate on this machine, the lock witness under
+    # serving load on the card
+    t = time.perf_counter()
+    gate_phase(card)
+    seconds["48 gate"] = time.perf_counter() - t
+    t = time.perf_counter()
+    witness, _ = witness_phase(device, card, args.seed)
+    seconds["49 lock witness"] = time.perf_counter() - t
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; script so far {time.perf_counter() - t_start:.1f}", flush=True)
 
@@ -7121,6 +7394,8 @@ def main() -> int:
     multi = {k: mp_launches[k] + pod_launches.get(k, 0) for k in mp_launches}
     exact_record["multiprocess_launches"] = multi["exact_tree_phi"]
     inter_record["multiprocess_launches"] = multi["exact_tree_inter"]
+    exact_record["witness_launches"] = witness["exact_tree_phi"]
+    inter_record["witness_launches"] = witness["exact_tree_inter"]
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "fused_linear_ey", "route": "cuda",
@@ -7130,7 +7405,8 @@ def main() -> int:
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "serving_launches": serving["fused_linear_ey"],
         "gateway_launches": gateway["fused_linear_ey"], "mesh_launches": mesh_ey,
-        "multiprocess_launches": multi["fused_linear_ey"]},
+        "multiprocess_launches": multi["fused_linear_ey"],
+        "witness_launches": witness["fused_linear_ey"]},
         exact_record, inter_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

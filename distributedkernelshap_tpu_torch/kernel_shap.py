@@ -773,8 +773,10 @@ class KernelExplainerEngine:
         #: which evaluation route each explain took ({'ey': 'cuda'|'plain'|
         #: 'einsum'|'einsum_cached'|'masked_ey'|'generic'|'host',
         #: 'host_fill': 'native'|'numpy', 'exact_phi'/'exact_inter':
-        #: 'cuda'|'plain'}), persisted across explains
+        #: 'cuda'|'plain'}), persisted across explains; server threads
+        #: explain concurrently, so it is read and written under its lock
         self._kernel_paths: Dict[str, str] = {}
+        self._kernel_paths_lock = threading.Lock()
 
         # host_eval=None resolves to False: a CUDA device (and the CPU)
         # serve CallbackPredictor's host round trips, as the reference's
@@ -860,7 +862,14 @@ class KernelExplainerEngine:
         ``'exact_phi'`` and ``'exact_inter'`` likewise for the exact
         TreeSHAP and interaction kernels.  Empty until the first explain."""
 
-        return dict(self._kernel_paths)
+        with self._kernel_paths_lock:
+            return dict(self._kernel_paths)
+
+    def _note_kernel_paths(self, paths: Dict[str, str]) -> None:
+        """Record the routes an explain took (see :attr:`kernel_path`)."""
+
+        with self._kernel_paths_lock:
+            self._kernel_paths.update(paths)
 
     def reset_device_state(self) -> None:
         """Drop the device-resident caches (explain functions, uploaded
@@ -1016,7 +1025,7 @@ class KernelExplainerEngine:
         consts = self._plan_consts(plan, chunk)
         with capture_kernel_paths() as kp:
             out = self._fn_cache[fnkey](torch.as_tensor(Xp, device=self.device), consts)
-        self._kernel_paths.update(kp)
+        self._note_kernel_paths(kp)
         return self._pack_fn(out, packed_dtype)
 
     @staticmethod
@@ -1073,7 +1082,7 @@ class KernelExplainerEngine:
             with capture_kernel_paths() as kp:
                 out = self._fn()(torch.as_tensor(Xp, device=self.device),
                                  *self._device_args(plan))
-            self._kernel_paths.update(kp)
+            self._note_kernel_paths(kp)
             packed = self._pack_fn(out, td)
         Bp = Xp.shape[0]
         stream = self._current_stream()
@@ -1209,7 +1218,7 @@ class KernelExplainerEngine:
                          else run.state)
                 phi_d, gap_d, state = fn(first, torch.as_tensor(draw_mask, device=dev),
                                          consts)
-            self._kernel_paths.update(kp)
+            self._note_kernel_paths(kp)
             phi = phi_d[:run.B].cpu().numpy()
             gap = gap_d[:run.B].cpu().numpy()
         run.state = state
@@ -1266,7 +1275,7 @@ class KernelExplainerEngine:
         K = self.predictor.n_outputs
         zc = (plan.mask @ self.G).astype(np.float32)
         bgw = (self.bg_weights / self.bg_weights.sum()).astype(np.float32)
-        self._kernel_paths['host_fill'] = native.fill_route()
+        self._note_kernel_paths({'host_fill': native.fill_route()})
 
         # parallel in-flight chunks share the memory budget: give each worker
         # at least one coalition row's worth (B*N*D elements), dropping
@@ -1330,7 +1339,7 @@ class KernelExplainerEngine:
         the device (reference ``kernel_shap.py:897-920``)."""
 
         plan = self._plan(nsamples)
-        self._kernel_paths['ey'] = 'host'
+        self._note_kernel_paths({'ey': 'host'})
         Xp, B = self._pad_to_bucket(X)
         with profiler().phase('host_eval'):
             ey_adj, fx, e_val = self._hosteval_stats(Xp, plan, silent=silent)
@@ -1454,7 +1463,7 @@ class KernelExplainerEngine:
                     target_chunk_elems=shap.target_chunk_elems,
                     use_kernel=shap.use_kernel)
             fx = self.predictor(Xt)
-        self._kernel_paths.update(kp)
+        self._note_kernel_paths(kp)
         stream = self._current_stream()
 
         def finalize() -> Dict[str, np.ndarray]:
@@ -1497,7 +1506,7 @@ class KernelExplainerEngine:
         with profiler().phase('device_explain'), capture_kernel_paths() as kp:
             results = run_pipeline(chunks, dispatch, fetch,
                                    window=self._resolve_window(len(chunks)))
-        self._kernel_paths.update(kp)
+        self._note_kernel_paths(kp)
         inter = np.concatenate([r['interaction_values'] for r in results], 0)  # (B, K, M, M)
         self.last_interaction_values = [inter[:, k] for k in range(inter.shape[1])]
         return {'shap_values': np.concatenate([r['shap_values'] for r in results], 0),
@@ -1579,7 +1588,7 @@ class KernelExplainerEngine:
                                   Xt, consts['bg'], consts['bgw'],
                                   target_chunk_elems=self.config.shap.target_chunk_elems)
             packed = pack_transfer(phi, self.predictor(Xt), td)
-        self._kernel_paths.update(kp)
+        self._note_kernel_paths(kp)
         Bp = Xt.shape[0]
         stream = self._current_stream()
 
@@ -1645,7 +1654,7 @@ class KernelExplainerEngine:
             phi = self._deepshap_fn()(Xt, consts['params'], consts['bg'], consts['bgw'],
                                       consts['G'])
             packed = pack_transfer(phi, self.predictor(Xt), td)
-        self._kernel_paths.update(kp)
+        self._note_kernel_paths(kp)
         Bp = Xt.shape[0]
         stream = self._current_stream()
 
@@ -1872,7 +1881,7 @@ class KernelExplainerEngine:
             with capture_kernel_paths() as kp:
                 out = self._fn(with_ey=True)(torch.as_tensor(X, device=self.device),
                                              *self._device_args(plan))
-            self._kernel_paths.update(kp)
+            self._note_kernel_paths(kp)
             ey_adj = out['ey_adj'].cpu().numpy().astype(np.float64)       # (B, S, K)
             fx = out['raw_prediction'].cpu().numpy().astype(np.float64)   # link space
             e_val = np.atleast_1d(out['expected_value'].cpu().numpy().astype(np.float64))
@@ -1939,7 +1948,7 @@ class KernelExplainerEngine:
                 out = self._fn()(torch.as_tensor(Xp, device=self.device), *args)
                 part = out['shap_values'][:B].abs().sum(0)      # (K, M)
                 acc = part if acc is None else acc + part
-        self._kernel_paths.update(kp)
+        self._note_kernel_paths(kp)
         return acc.cpu().numpy() / X.shape[0]
 
     def get_explanation(self,

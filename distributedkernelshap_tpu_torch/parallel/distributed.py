@@ -348,7 +348,7 @@ class DistributedExplainer:
         X, B = self._pad_sharded(X)
         with capture_kernel_paths() as kp:
             out = fn(X, *args)
-        engine._kernel_paths.update(kp)  # kernel_path proxies via __getattr__
+        engine._note_kernel_paths(kp)  # kernel_path proxies via __getattr__
         has_inter = 'interaction_values' in out
         td = engine.config.shap.transfer_dtype
         packed = {}
@@ -873,7 +873,7 @@ class DistributedExplainer:
                 for key in sorted(parts):
                     part = parts[key].to(d00)
                     acc = part if acc is None else acc + part
-        engine._kernel_paths.update(kp)
+        engine._note_kernel_paths(kp)
         return acc.cpu().numpy() / B
 
     def takes_async_fast_path(self, n_rows: int, nsamples=None,

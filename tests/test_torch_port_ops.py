@@ -302,77 +302,39 @@ def test_wls_solve_matches_jax(M):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port (walked, so that each new one is covered),
+    ``chip_smoke`` and each ``scripts/torch_*.py`` import in one fresh
+    process that then holds nothing of JAX, the JAX package, pandas or
+    scikit-learn."""
+
     code = (
-        "import sys, distributedkernelshap_tpu_torch, "
-        "distributedkernelshap_tpu_torch.convert, "
-        "distributedkernelshap_tpu_torch.ops, distributedkernelshap_tpu_torch.utils, "
-        "distributedkernelshap_tpu_torch.profiling, "
-        "distributedkernelshap_tpu_torch.observability.tracing, "
-        "distributedkernelshap_tpu_torch.parallel, "
-        "distributedkernelshap_tpu_torch.parallel.pipeline, "
-        "distributedkernelshap_tpu_torch.parallel.mesh, "
-        "distributedkernelshap_tpu_torch.parallel.coalition_sharding, "
-        "distributedkernelshap_tpu_torch.parallel.distributed, "
-        "distributedkernelshap_tpu_torch.anytime, "
-        "distributedkernelshap_tpu_torch.anytime.engine, "
-        "distributedkernelshap_tpu_torch.models.xgb, "
-        "distributedkernelshap_tpu_torch.models.lgbm, "
-        "distributedkernelshap_tpu_torch.models.compose, "
-        "distributedkernelshap_tpu_torch.models.svm, "
-        "distributedkernelshap_tpu_torch.models.quadratic, "
-        "distributedkernelshap_tpu_torch.models.tensor_net, "
-        "distributedkernelshap_tpu_torch.ops.tensor_shap, "
-        "distributedkernelshap_tpu_torch.ops.image, "
-        "distributedkernelshap_tpu_torch.registry, "
-        "distributedkernelshap_tpu_torch.registry.onnx_lift, "
-        "distributedkernelshap_tpu_torch.models.cnn, "
-        "distributedkernelshap_tpu_torch.attribution, "
-        "distributedkernelshap_tpu_torch.attribution.deepshap, "
-        "distributedkernelshap_tpu_torch.analysis, "
-        "distributedkernelshap_tpu_torch.analysis.core, "
-        "distributedkernelshap_tpu_torch.analysis.concurrency, "
-        "distributedkernelshap_tpu_torch.analysis.lockwitness, "
-        "distributedkernelshap_tpu_torch.observability, "
-        "distributedkernelshap_tpu_torch.observability.flightrec, "
-        "distributedkernelshap_tpu_torch.observability.metrics, "
-        "distributedkernelshap_tpu_torch.observability.timeseries, "
-        "distributedkernelshap_tpu_torch.observability.alerts, "
-        "distributedkernelshap_tpu_torch.observability.slo, "
-        "distributedkernelshap_tpu_torch.observability.statusz, "
-        "distributedkernelshap_tpu_torch.observability.costmeter, "
-        "distributedkernelshap_tpu_torch.observability.contprof, "
-        "distributedkernelshap_tpu_torch.observability.quality, "
-        "distributedkernelshap_tpu_torch.observability.memledger, "
-        "distributedkernelshap_tpu_torch.scheduling, "
-        "distributedkernelshap_tpu_torch.scheduling.admission, "
-        "distributedkernelshap_tpu_torch.scheduling.scheduler, "
-        "distributedkernelshap_tpu_torch.scheduling.result_cache, "
-        "distributedkernelshap_tpu_torch.resilience, "
-        "distributedkernelshap_tpu_torch.resilience.faults, "
-        "distributedkernelshap_tpu_torch.runtime.compile_cache, "
-        "distributedkernelshap_tpu_torch.registry.classify, "
-        "distributedkernelshap_tpu_torch.serving, "
-        "distributedkernelshap_tpu_torch.serving.wire, "
-        "distributedkernelshap_tpu_torch.serving.client, "
-        "distributedkernelshap_tpu_torch.serving.wrappers, "
-        "distributedkernelshap_tpu_torch.serving.multihost, "
-        "distributedkernelshap_tpu_torch.serving.server, "
-        "distributedkernelshap_tpu_torch.serving.main, "
-        "distributedkernelshap_tpu_torch.registry.registry, "
-        "distributedkernelshap_tpu_torch.resilience.journal, "
-        "distributedkernelshap_tpu_torch.resilience.hedging, "
-        "distributedkernelshap_tpu_torch.resilience.supervisor, "
-        "distributedkernelshap_tpu_torch.observability.fleet, "
-        "distributedkernelshap_tpu_torch.serving.replicas, "
-        "distributedkernelshap_tpu_torch.serving.replica_worker, "
-        "distributedkernelshap_tpu_torch.serving.autoscaler, chip_smoke\n"
+        "import glob, importlib, os, pkgutil, sys\n"
+        "import distributedkernelshap_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "mods += ['chip_smoke'] + ['scripts.' + os.path.basename(p)[:-3] "
+        "for p in sorted(glob.glob('scripts/torch_*.py'))]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'distributedkernelshap_tpu', 'pandas', 'sklearn')]\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "print(' '.join(mods))\n")
+    repo = tck.CSRC_DIR.parent.parent
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120,
-                         cwd=str(tck.CSRC_DIR.parent.parent))
+                         text=True, timeout=120, cwd=str(repo))
     assert res.returncode == 0, res.stderr
+    # the walk reached every source file of the package
+    imported = set(res.stdout.split())
+    pkg_dir = tck.CSRC_DIR.parent
+    for path in pkg_dir.rglob("*.py"):
+        parts = path.relative_to(repo).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        if len(parts) > 1:
+            assert ".".join(parts) in imported, parts
+    assert {"chip_smoke", "scripts.torch_lint", "scripts.torch_health_check",
+            "scripts.torch_observability_check"} <= imported
 
 
 def test_entry_points_raise_without_gpu_or_device(monkeypatch):

@@ -25,7 +25,10 @@ training, and the same mesh across processes joined by ``torch.distributed``
 on NCCL) and a two-process pod behind the fleet's proxy, through the public
 API, then the port's static gate (``scripts/torch_lint.py --check``) on this
 machine and the runtime lock witness over a server on the card, checks the
-answers, and times kernels, plain versions and explains.
+answers, then the shapes past the kernels' old limits (a 100-class LR, the
+Covertype configuration on all its rows, exact TreeSHAP of GBTs over 100
+and 300 columns, exact interactions over 64), and times kernels, plain
+versions and explains.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -37,15 +40,18 @@ Phases (each raises on failure, so the script exits non-zero):
    source, all started together; each kernel function's registers and
    spills from the build log; what the headline ``fused_linear_ey`` call
    launches (blocks, registers, shared memory, blocks/SM, waves); each exact
-   tile kernel's dynamic shared memory and resident blocks per SM at M = 12
-   and 63;
+   tile kernel's dynamic shared memory and resident blocks per SM at M = 12,
+   63 and 64, and ``exact_tree_phi``'s by path slot at M = 100;
 3. kernel vs plain on the card at the main path's shapes, the edge shapes
    and adversarial sigmoid-form inputs (logits of ±100–200, a background
    range past the factored route's guard, cancelling large logits, N above
    one staged chunk), at groups in several staged slices (M = 17, 48) and
    sigmoid classes on the grid (K = 3, 7, 32), max abs diff <= 1e-5 on
-   ``ey``, with how the guard split each sigmoid-form case; a class width
-   above the kernel's limit must raise;
+   ``ey``, with how the guard split each sigmoid-form case; softmax (the
+   class-tiled kernel) and sigmoid at K = 33, 64, 100 and 257 at a
+   headline-like shape, ragged edges and N above one chunk; sigmoid past
+   the grid's 65,535 classes must raise; the class-tiled kernel against
+   ``softmax_kernel<32>`` at K = 32, timed in turns (for the record);
 4. main path: ``KernelShap(est.predict_proba, link="logit", seed=0)
    .fit(bg, group_names=..., groups=...).explain(X)`` on an Adult-shaped task
    made from ``--seed`` (B=2560, D=48 in the Adult group widths, N=100), with
@@ -72,7 +78,7 @@ Phases (each raises on failure, so the script exits non-zero):
 7. ``exact_tree_phi`` against its plain version on the card at the main
    path's bucket inputs and at the edge shapes of ``EXACT_EDGES`` (ragged,
    N=300, dmax=1, M=40 K=3, M=16 K=2, M=24, all live, none live, N=1,
-   N=130, M=dmax=63 with every group on path), two launches
+   N=130, M=dmax=63 and M=dmax=64 with every group on path), two launches
    bit-identical, its Beta weights against the f64 table (rtol 5e-5); the
    divergence of each bucket's walk (``divergence``); times: exact explain
    wall at B=256 and B=2560, kernel and plain version by CUDA events per
@@ -393,7 +399,40 @@ Phases (each raises on failure, so the script exits non-zero):
    dispatched, ``exact_tree_phi`` once per bucket of the GBT's packed plan
    per GBT batch, ``exact_tree_inter`` never; served phi within phase 39's
    bars; acquisitions, lock-order edges, the longest hold and the serving
-   wall printed.
+   wall printed;
+50. 100 classes: a seeded 100-class multinomial LR on the Adult-shaped task
+   (B = 2560, D = 48 in the Adult groups, N = 100, M = 12, S = 2072,
+   ``ey`` 2.1 GB), ``KernelShap(...).fit(...).explain(X)`` with counts set
+   to 0 just before and read just after: exactly one ``fused_linear_ey``
+   launch (the class-tiled kernel); additive (< 1e-3), phi within 1e-3 +
+   16 p-ulps of the plain route on the card and of the CPU port on the
+   first 8 rows; the kernel against its plain version on the call's own
+   arguments; explain wall, kernel, plain and bound;
+51. Covertype (the JAX package's configuration 5, ``benchmarks/configs.py:
+   455-509``) with a seeded lookalike: 54 columns in 12 groups (10
+   numeric, wilderness 4, soil 40), a 7-class LR, all 581,012 rows with
+   ``EngineConfig(instance_chunk=65536)`` and ``transfer_dtype='float16'``,
+   counted (one launch per instance chunk, each call printed), then
+   ``rank_features``; the first chunk in float32 additive (< 1e-3) and the
+   float16 phi within atol 1e-3 / rtol 2e-3 of it; wall, rows/s, the top
+   feature, kernel, plain and bound;
+52. exact TreeSHAP past 63 groups: a GBT grown as phase 6's over 100
+   ungrouped columns explained with ``nsamples='exact'`` at B = 256, N =
+   100 on the packed route (one launch per bucket) and the dense route
+   (one), and one over 300 columns at B = 64 (dense), each additive (<
+   1e-4), within 2e-5·max(1, max|phi|) of the plain route and of the CPU
+   on the first 8 rows, and bit-identical over two runs;
+   ``exact_tree_phi`` against its plain version at both dense inputs and
+   at M in {64, 100, 300} x dmax in {1, 30, 64} with all-live and
+   none-live edges, bit-identical repeats; dmax = 65 at M = 100 raises;
+   kernel, plain and bound at the dense inputs;
+53. exact interactions at M = 64: a GBT over 64 ungrouped columns with
+   ``interactions=True`` at B = 64, counted (1 ``exact_tree_inter``, 1
+   dense ``exact_tree_phi``), symmetric with rows summing to phi (1e-5),
+   within 2e-5·max(1, max|·|) of the plain route and the CPU, bit-identical
+   repeats; ``exact_tree_inter`` against its plain version (atol = rtol =
+   3e-5) at the dense inputs; M = 65 raises at the wrapper and at the
+   explain; kernel, plain and bound.
 
 The second-to-last line of stdout is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -512,6 +551,28 @@ B_MNIST, B_MNIST_BIG, MNIST_CHUNK = 2048, 10000, 2048
 N_MNIST_TRAIN, N_MNIST_SAMPLE = 4000, 16
 GRAPH_REL, EXACT_RTOL, DEEP_REL, ONNX_PHI_ATOL = 1e-5, 1e-4, 1e-4, 1e-4
 DEEPSHAP_FIXTURE = "tests/fixtures/deepshap_parity.npz"
+# the fifteenth slice (phase 3's wide cases, phases 50-53): the kernels past
+# their old limits.  fused_linear_ey at K = 33, 64, 100 and 257 (softmax
+# through the class-tiled kernel, sigmoid one class a block) at a
+# headline-like shape, ragged edges and N above one staged chunk; a
+# 100-class multinomial LR on the Adult-shaped task (phase 50, the CPU on
+# its first rows); the JAX package's configuration 5, Covertype
+# (benchmarks/configs.py:455-509: a 7-class LR over 54 columns in 12 groups,
+# all 581,012 rows in 65,536-row instance chunks with a float16 transfer,
+# then rank_features; phase 51); exact TreeSHAP of GBTs over 100 and 300
+# ungrouped columns (phase 52) and exact interactions over 64 (phase 53),
+# each GBT grown as phase 6's
+WIDE_EY_KS = (33, 64, 100, 257)
+WIDE_EY_SHAPES = (("headline-like", 512, 1024, 100, 12), ("ragged edges", 33, 700, 9, 7),
+                  ("N above one chunk", 64, 300, 300, 12))
+N_CLASSES_WIDE, N_CLASSES_CPU = 100, 8
+COVERTYPE_ROWS, COVERTYPE_CHUNK, COVERTYPE_CLASSES = 581012, 65536, 7
+COVERTYPE_WIDTHS = [1] * 10 + [4, 40]       # 10 numeric, wilderness, soil
+COVERTYPE_NAMES = [f"num_{i}" for i in range(10)] + ["wilderness", "soil"]
+M_WIDE, M_WIDEST, M_INTER_WIDE = 100, 300, 64
+B_WIDEST, B_INTER_WIDE, N_WIDE_CPU = 64, 64, 8
+WIDE_PHI_EDGES = [(M, dmax, "random") for M in (64, 100, 300) for dmax in (1, 30, 64)] \
+    + [(M, 64, kind) for M in (100, 300) for kind in ("all live", "none live")]
 
 
 def adult_groups():
@@ -2180,15 +2241,53 @@ def compare_kernel(seed, device):
             raise AssertionError(f"fused_linear_ey disagrees with its plain version "
                                  f"at {name}: {err} (finite={finite})")
         worst = max(worst, err)
-    # above the kernel's class limit a card tensor raises, never runs plain
-    K = cuda_kernels.MAX_K + 1
+    # past the register kernel's classes: softmax through the class-tiled
+    # kernel, sigmoid one class a block, at the headline-like shape, ragged
+    # edges and N above one staged chunk
+    for K in WIDE_EY_KS:
+        for act in ("softmax", "sigmoid"):
+            for label, B, S, N, M in WIDE_EY_SHAPES:
+                args = group_space_inputs(rng, B, S, N, M, K, device)
+                got = fused_linear_ey(*args, act)
+                ref = fused_linear_ey_plain(*args, act)
+                err = float((got - ref).abs().max())
+                finite = bool(got.isfinite().all())
+                info = ey_launch_info(B, S, N, K, act)
+                print(f"kernel vs plain [{act} K={K}, {label}] B={B} S={S} N={N} M={M}: "
+                      f"max_abs_diff={err:.3e} (tol {EY_ATOL:g}); {info['blocks']} blocks, "
+                      f"{info['chunk_rows']} background rows a chunk", flush=True)
+                if not finite or not err <= EY_ATOL:
+                    raise AssertionError(f"fused_linear_ey disagrees with its plain "
+                                         f"version at {act} K={K}, {label}: {err}")
+                worst = max(worst, err)
+    # above sigmoid's class limit (the grid's z axis) a card tensor raises,
+    # never runs plain
+    K = cuda_kernels.MAX_SIGMOID_K + 1
     try:
-        cuda_kernels.fused_linear_ey(*group_space_inputs(rng, 8, 64, 5, 4, K, device),
-                                     "softmax")
+        cuda_kernels.fused_linear_ey(*group_space_inputs(rng, 1, 1, 1, 1, K, device),
+                                     "sigmoid")
     except ValueError as e:
-        print(f"kernel at K={K} raises on the card: {e}", flush=True)
+        print(f"kernel at sigmoid K={K} raises on the card: {e}", flush=True)
     else:
-        raise AssertionError(f"fused_linear_ey took K={K} > MAX_K on the card")
+        raise AssertionError(f"fused_linear_ey took sigmoid K={K} > MAX_SIGMOID_K")
+    # the class-tiled kernel against the register kernel at K = 32, same
+    # inputs, timed register, tiled, tiled, register (for the record)
+    B, S, N, M, K = 512, 1024, 100, 12, cuda_kernels.REGISTER_K
+    args = group_space_inputs(rng, B, S, N, M, K, device)
+    tiled = cuda_kernels.fused_linear_ey_tiled(*args)
+    err = float((tiled - fused_linear_ey_plain(*args, "softmax")).abs().max())
+    if not err <= EY_ATOL:
+        raise AssertionError(f"the class-tiled kernel disagrees with the plain version "
+                             f"at K={K}: {err}")
+    worst = max(worst, err)
+    ab = {"register": [], "tiled": []}
+    for arm in ("register", "tiled", "tiled", "register"):
+        fn = (lambda: fused_linear_ey(*args, "softmax")) if arm == "register" \
+            else (lambda: cuda_kernels.fused_linear_ey_tiled(*args))
+        ab[arm].append(cuda_time_ms(fn, 10))
+    print(f"A/B at softmax K={K} B={B} S={S} N={N} M={M} on {card_line()}: "
+          f"softmax_kernel<32> {ab['register']} ms, softmax_tiled_kernel {ab['tiled']} ms "
+          f"(order register, tiled, tiled, register); tiled vs plain {err:.3e}", flush=True)
     return worst
 
 
@@ -2266,9 +2365,12 @@ def additivity(expl) -> float:
     return float(np.abs(total - expl.data["raw"]["raw_prediction"]).max())
 
 
-def check_explanation(expl, B):
+def check_explanation(expl, B, K=2, M=len(ADULT_WIDTHS)):
+    """``(phi (B, K, M), additivity)`` of a sampled explanation, checked
+    finite, of the expected shape and additive (< ``ADDITIVITY``)."""
+
     phi = np.stack(expl.shap_values, 1)
-    if phi.shape != (B, 2, len(ADULT_WIDTHS)) or not np.isfinite(phi).all():
+    if phi.shape != (B, K, M) or not np.isfinite(phi).all():
         raise AssertionError(f"bad shap values: shape {phi.shape}, "
                              f"finite={np.isfinite(phi).all()}")
     err = additivity(expl)
@@ -2288,9 +2390,15 @@ def adult_shaped_gbt(seed):
     from that column's values at the leaf; leaf values ~N(0, 0.1)."""
 
     rng = np.random.default_rng([seed, 7])
-    sample = adult_shaped_rows(rng, 2000)
+    return grow_gbt(rng, adult_shaped_rows(rng, 2000))
+
+
+def grow_gbt(rng, sample, T=N_TREES):
+    """Node tables of ``T`` trees over ``sample``'s columns, each grown
+    best-first to at most ``MAX_LEAVES`` leaves by random splits (see
+    :func:`adult_shaped_gbt`)."""
+
     n_nodes = 2 * MAX_LEAVES - 1
-    T = N_TREES
     feature = np.zeros((T, n_nodes), np.int64)
     threshold = np.full((T, n_nodes), np.inf, np.float32)
     left = np.tile(np.arange(n_nodes), (T, 1))
@@ -2304,8 +2412,8 @@ def adult_shaped_gbt(seed):
         while len(rows) < MAX_LEAVES:
             j = max(rows, key=lambda leaf: rows[leaf].shape[0])
             sub = sample[rows[j]]
-            cols = [c for c in range(sub.shape[1]) if np.ptp(sub[:, c]) > 0]
-            if not cols:
+            cols = np.flatnonzero(np.ptp(sub, axis=0) > 0)
+            if not cols.size:
                 break
             c = int(rng.choice(cols))
             vals = np.unique(sub[:, c])
@@ -2339,7 +2447,10 @@ def tree_predictor(tables, device, head="identity", base=GBT_BASE):
 
 
 def explain_exact(tables, X, bg, device, pack_paths=None, use_kernel=None,
-                  interactions=False, instance_chunk=None):
+                  interactions=False, instance_chunk=None, grouped=True):
+    """The ensemble's exact explain of ``X``: over the Adult groups, or
+    (``grouped=False``) over every column."""
+
     from distributedkernelshap_tpu_torch import EngineConfig, KernelShap
     from distributedkernelshap_tpu_torch.ops.explain import ShapConfig
 
@@ -2347,14 +2458,17 @@ def explain_exact(tables, X, bg, device, pack_paths=None, use_kernel=None,
                            device=device, engine_config=EngineConfig(
                                shap=ShapConfig(pack_paths=pack_paths, use_kernel=use_kernel),
                                instance_chunk=instance_chunk))
-    explainer.fit(bg, group_names=ADULT_GROUP_NAMES, groups=adult_groups())
+    if grouped:
+        explainer.fit(bg, group_names=ADULT_GROUP_NAMES, groups=adult_groups())
+    else:
+        explainer.fit(bg)
     return explainer, explainer.explain(X, nsamples="exact", silent=True,
                                         interactions=interactions)
 
 
-def exact_phi(expl, B):
+def exact_phi(expl, B, M=len(ADULT_WIDTHS)):
     phi = np.asarray(expl.shap_values[0])
-    if phi.shape != (B, len(ADULT_WIDTHS)) or not np.isfinite(phi).all():
+    if phi.shape != (B, M) or not np.isfinite(phi).all():
         raise AssertionError(f"bad exact shap values: shape {phi.shape}, "
                              f"finite={np.isfinite(phi).all()}")
     err = additivity(expl)
@@ -2494,19 +2608,28 @@ def phi_bound_ms(args, sm_count, sm_clock_hz):
                                               "live": n_live, "adds": adds}
 
 
-def phi_edge_inputs(rng, B, P, N, M, K, device, kind="random"):
+def phi_edge_inputs(rng, B, P, N, M, K, device, kind="random", path_groups=None):
     """Random 0/1 ``exact_tree_phi`` inputs (disjoint x_only/x_not on each
-    path's groups, normalised weights).  ``kind``: ``"random"``; ``"all
-    live"`` (each path's x-not groups are the same for every instance and
-    lie in z_ok, z_dead = 0: every row is alive); ``"none live"`` (z_dead =
-    1 everywhere); ``"all on path"`` (every group on every path, x-only at a
-    rate of 0.9 and instance 0 on all of them, z_ok drawn at a rate of
-    U(0.2, 1) per row: the widest rank sets and many pairs)."""
+    path's groups, normalised weights).  Each group lies on a path at a rate
+    of 0.4, or (``path_groups``) each path holds between 1 and that many
+    groups drawn from all M, as a tree path of that depth does.  ``kind``:
+    ``"random"``; ``"all live"`` (each path's x-not groups are the same for
+    every instance and lie in z_ok, z_dead = 0: every row is alive);
+    ``"none live"`` (z_dead = 1 everywhere); ``"all on path"`` (every group
+    on every path, x-only at a rate of 0.9 and instance 0 on all of them,
+    z_ok drawn at a rate of U(0.2, 1) per row: the widest rank sets and many
+    pairs)."""
 
     import torch
 
     x_ok = (rng.random((B, P, M)) < 0.6).astype(np.float32)
-    onpath = (rng.random((P, M)) < 0.4).astype(np.float32)
+    if path_groups:
+        onpath = np.zeros((P, M), np.float32)
+        for p in range(P):
+            width = int(rng.integers(1, min(path_groups, M) + 1))
+            onpath[p, rng.choice(M, width, replace=False)] = 1.0
+    else:
+        onpath = (rng.random((P, M)) < 0.4).astype(np.float32)
     z_ok = (rng.random((N, P, M)) < 0.7).astype(np.float32)
     z_dead = (rng.random((N, P)) < 0.1).astype(np.float32)
     if kind == "all on path":
@@ -2542,6 +2665,7 @@ EXACT_EDGES = [
     ("N=1", (64, 256, 1, 12, 1, 12), "random"),
     ("N=130, not a multiple of the chunk", (32, 200, 130, 12, 1, 12), "random"),
     ("M=63 dmax=63 all on path", (16, 64, 40, 63, 1, 63), "all on path"),
+    ("M=64 dmax=64 all on path", (16, 64, 40, 64, 1, 64), "all on path"),
 ]
 
 
@@ -2650,8 +2774,9 @@ def tile_name(function: str) -> str:
 def exact_kernel_report(libs):
     """Each exact kernel's build report (registers, static shared memory,
     spills per kernel function, from the ``.log`` beside its library) and
-    what its tile kernel takes at the Adult width (M = 12) and at the widest
-    (M = 63): dynamic shared memory and resident blocks per SM."""
+    what its tile kernel takes at the Adult width (M = 12), at M = 63, at
+    the widest group word (M = 64) and (``exact_tree_phi``) by path slot (M
+    = 100): dynamic shared memory and resident blocks per SM."""
 
     from distributedkernelshap_tpu_torch.ops import cuda_kernels
 
@@ -2666,7 +2791,7 @@ def exact_kernel_report(libs):
                   flush=True)
         if not any("tile_kernel" in r["function"] for r in rows):
             raise AssertionError(f"no ptxas report for {name}'s tile kernels in {log}")
-        for M in (12, 63):
+        for M in (12, 63, 64) + ((M_WIDE,) if name == "exact_tree_phi" else ()):
             print(f"  {name} tile kernel at M={M}: "
                   f"{cuda_kernels.tile_kernel_info(name, M)}", flush=True)
 
@@ -2839,13 +2964,12 @@ def exact_phase(tables, X_all, bg, device, sm_count, sm_clock_hz, card, seed):
 # exact Shapley interactions (exact_tree_inter)
 
 
-def interaction_values(expl, B):
-    """The explanation's interaction matrices ``(B, 12, 12)``, checked:
+def interaction_values(expl, B, M=len(ADULT_WIDTHS)):
+    """The explanation's interaction matrices ``(B, M, M)``, checked:
     finite, symmetric and with rows summing to the shap values (1e-5)."""
 
     inter = np.asarray(expl.data["raw"]["interaction_values"][0])
     phi = np.asarray(expl.shap_values[0])
-    M = len(ADULT_WIDTHS)
     if inter.shape != (B, M, M) or not np.isfinite(inter).all():
         raise AssertionError(f"bad interaction values: shape {inter.shape}, "
                              f"finite={np.isfinite(inter).all()}")
@@ -7125,6 +7249,462 @@ def witness_phase(device, card, seed):
     return {k: int(lau[k]) for k in want}, rec
 
 
+# ---------------------------------------------------------------------- #
+# the fifteenth slice (phases 50-53): the kernels past their old limits
+
+
+class MultinomialLogisticRegression:
+    """A K-class multinomial logistic regression with scikit-learn's
+    attributes (``coef_ (K, D)``, ``intercept_ (K,)``) and a numpy softmax
+    ``predict_proba``: the port lifts it to one softmax ``LinearPredictor``."""
+
+    def __init__(self, rng, K, D, scale=0.5):
+        self.coef_ = rng.normal(scale=scale, size=(K, D))
+        self.intercept_ = rng.normal(scale=0.5, size=K)
+
+    def predict_proba(self, X):
+        z = np.asarray(X, dtype=np.float64) @ self.coef_.T + self.intercept_
+        e = np.exp(z - z.max(1, keepdims=True))
+        return e / e.sum(1, keepdims=True)
+
+
+def classes_explainer(est, bg, device, names, groups, use_kernel=None,
+                      instance_chunk=None, transfer_dtype=None):
+    """``KernelShap(est.predict_proba, link="logit")`` fitted on ``bg`` over
+    the named groups."""
+
+    from distributedkernelshap_tpu_torch import EngineConfig, KernelShap
+    from distributedkernelshap_tpu_torch.ops.explain import ShapConfig
+
+    explainer = KernelShap(est.predict_proba, link="logit", feature_names=names, seed=0,
+                           device=device, engine_config=EngineConfig(
+                               shap=ShapConfig(use_kernel=use_kernel,
+                                               transfer_dtype=transfer_dtype),
+                               instance_chunk=instance_chunk))
+    return explainer.fit(bg, group_names=names, groups=groups)
+
+
+def ey_timing(args, sm_count, sm_clock_hz, reps=3):
+    """Kernel and plain version of ``fused_linear_ey`` by CUDA events on one
+    call's arguments, and the call's bound: ``(kernel_ms, plain_ms,
+    bound_ms, bound_by)``."""
+
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+        fused_linear_ey,
+        fused_linear_ey_plain,
+    )
+
+    XWg, bgWg, _, _, mask, activation = args
+    B, M, K = XWg.shape
+    kernel_ms = cuda_time_ms(lambda: fused_linear_ey(*args), reps)
+    plain_ms = cuda_time_ms(lambda: fused_linear_ey_plain(*args), 1)
+    bound_ms, bound_by = ey_bound_ms(B, mask.shape[0], bgWg.shape[0], M, K, activation,
+                                     sm_count, sm_clock_hz)
+    return kernel_ms, plain_ms, bound_ms, bound_by
+
+
+def classes_phase(X, bg, device, card, sm_count, sm_clock_hz, seed):
+    """Phase 50: a 100-class multinomial LR on the Adult-shaped task (B =
+    2560, D = 48 in the Adult groups, N = 100, M = 12, S = 2072) through
+    ``KernelShap(...).fit(...).explain(X)``, counted: one
+    ``fused_linear_ey`` launch, through the class-tiled kernel; additive
+    (< 1e-3), phi within ``PHI_ATOL`` + 16 p-ulps (``logit_tol``) of the
+    plain route on the card and of the port on the CPU on the first rows;
+    the kernel against its plain version on the call's own arguments;
+    times.  Returns the record of the call."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+        ey_launch_info,
+        fused_linear_ey,
+    )
+
+    rng = np.random.default_rng([seed, 50])
+    B, K, M = X.shape[0], N_CLASSES_WIDE, len(ADULT_WIDTHS)
+    est = MultinomialLogisticRegression(rng, K, X.shape[1], scale=0.3)
+    explainer = classes_explainer(est, bg, device, ADULT_GROUP_NAMES, adult_groups())
+    fused_linear_ey.launches = 0
+    with recorded_ey_calls() as calls:
+        t0 = time.perf_counter()
+        expl = explainer.explain(X, silent=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, path = fused_linear_ey.launches, explainer.kernel_path
+    a = calls[0][0] if calls else None
+    print(f"classes: {K}-class LR, B={B} M={M}: launches fused_linear_ey={launches} "
+          f"(want 1), kernel_path={path}, the call: XWg {tuple(a[0].shape)}, mask "
+          f"{tuple(a[4].shape)}, {a[5]}, ey {(B, a[4].shape[0], K)} float32 = "
+          f"{4 * B * a[4].shape[0] * K / 1e9:.2f} GB; first explain wall {wall:.3f} s on "
+          f"{card}", flush=True)
+    if launches != 1 or len(calls) != 1 or path.get("ey") != "cuda":
+        raise AssertionError("the 100-class explain did not launch fused_linear_ey once")
+    phi, add_err = check_explanation(expl, B, K, M)
+    raw = np.asarray(expl.data["raw"]["raw_prediction"])
+    tol = logit_tol(raw)[:, :, None]
+    plain = classes_explainer(est, bg, device, ADULT_GROUP_NAMES, adult_groups(),
+                              use_kernel=False)
+    d_plain = np.abs(phi - check_explanation(plain.explain(X, silent=True), B, K, M)[0])
+    n = N_CLASSES_CPU
+    cpu = classes_explainer(est, bg, "cpu", ADULT_GROUP_NAMES, adult_groups())
+    d_cpu = np.abs(phi[:n] - check_explanation(cpu.explain(X[:n], silent=True), n, K, M)[0])
+    ey_err = kernel_vs_plain_on(calls)
+    print(f"classes: additivity={add_err:.3e} (< {ADDITIVITY:g}); |phi kernel - phi plain "
+          f"route| max {d_plain.max():.3e}, |phi card - phi cpu| (first {n} rows) max "
+          f"{d_cpu.max():.3e} (tol {PHI_ATOL:g} + {LOGIT_ULPS} p-ulps, {tol.min():.3e}.."
+          f"{tol.max():.3e}); ey kernel vs plain on the call {ey_err:.3e} (tol {EY_ATOL:g}); "
+          f"max|phi|={np.abs(phi).max():.3f}", flush=True)
+    if not ((d_plain <= tol).all() and (d_cpu <= tol[:n]).all()):
+        raise AssertionError("the 100-class explain disagrees with its references")
+    wall_ms, walls = median_wall_ms(lambda: explainer.explain(X, silent=True), 3)
+    kernel_ms, plain_ms, bound_ms, bound_by = ey_timing(a, sm_count, sm_clock_hz)
+    info = ey_launch_info(B, a[4].shape[0], a[1].shape[0], K, "softmax")
+    print(f"times on {card}: {K}-class explain B={B} wall median of 3 = {wall_ms:.3f} ms "
+          f"(runs {walls}); fused_linear_ey (softmax_tiled_kernel) at B={B} "
+          f"S={a[4].shape[0]} N={a[1].shape[0]} M={M} K={K}: kernel {kernel_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: one exp per "
+          f"(b, s, n, k) and one reciprocal per (b, s, n) on the SFUs), "
+          f"{100 * bound_ms / kernel_ms:.1f}% of bound; launch {info}; library_ms null",
+          flush=True)
+    return {"launches": launches, "max_abs_err": ey_err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def covertype_rows(rng, n):
+    """``n`` rows shaped like the processed Covertype data
+    (``scripts/process_covertype_data.py``'s synthetic fallback): 10
+    standard-normal numeric columns, a one-hot wilderness area of 4 and a
+    one-hot soil type of 40, each drawn from Dirichlet class shares."""
+
+    numeric = rng.normal(size=(n, 10))
+    wild = np.eye(4)[rng.choice(4, n, p=rng.dirichlet(np.full(4, 2.0)))]
+    soil = np.eye(40)[rng.choice(40, n, p=rng.dirichlet(np.full(40, 0.5)))]
+    return np.concatenate([numeric, wild, soil], 1).astype(np.float32)
+
+
+def covertype_groups():
+    groups, start = [], 0
+    for w in COVERTYPE_WIDTHS:
+        groups.append(list(range(start, start + w)))
+        start += w
+    return groups
+
+
+def covertype_phase(device, card, sm_count, sm_clock_hz, seed):
+    """Phase 51: the JAX package's configuration 5 with a seeded lookalike
+    (54 columns in 12 groups, a 7-class multinomial LR): all 581,012 rows
+    explained with ``EngineConfig(instance_chunk=65536)`` and
+    ``transfer_dtype='float16'``, counted (one ``fused_linear_ey`` launch
+    per instance chunk, each call printed), then ``rank_features``
+    (counted); the first chunk in float32 additive (< 1e-3) and the float16
+    phi within atol 1e-3 / rtol 2e-3 of it; wall, rows/s, the top feature;
+    the kernel against its plain version on a call's first rows; times.
+    Returns the record of the first call."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+        fused_linear_ey,
+        fused_linear_ey_plain,
+    )
+
+    rng = np.random.default_rng([seed, 51])
+    X = covertype_rows(rng, COVERTYPE_ROWS)
+    K, M, C = COVERTYPE_CLASSES, len(COVERTYPE_WIDTHS), COVERTYPE_CHUNK
+    est = MultinomialLogisticRegression(rng, K, X.shape[1], scale=0.8)
+    explainer = classes_explainer(est, X[:N_BACKGROUND], device, COVERTYPE_NAMES,
+                                  covertype_groups(), instance_chunk=C,
+                                  transfer_dtype="float16")
+    n_chunks = -(-X.shape[0] // C)
+    fused_linear_ey.launches = 0
+    with recorded_ey_calls() as calls:
+        t0 = time.perf_counter()
+        expl = explainer.explain(X, silent=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, path = fused_linear_ey.launches, explainer.kernel_path
+    for i, (a, _) in enumerate(calls):
+        print(f"covertype call {i}: fused_linear_ey XWg {tuple(a[0].shape)} bgWg "
+              f"{tuple(a[1].shape)} mask {tuple(a[4].shape)} {a[5]}: ey "
+              f"({a[0].shape[0]}, {a[4].shape[0]}, {K}) float32 = "
+              f"{4 * a[0].shape[0] * a[4].shape[0] * K / 1e9:.2f} GB", flush=True)
+    print(f"covertype: {X.shape[0]} rows, D={X.shape[1]} in M={M} groups, K={K}: launches "
+          f"fused_linear_ey={launches} (want {n_chunks}, one per {C}-row instance chunk), "
+          f"kernel_path={path}; wall {wall:.3f} s, {X.shape[0] / wall:.0f} rows/s on {card}",
+          flush=True)
+    if launches != n_chunks or len(calls) != n_chunks or path.get("ey") != "cuda":
+        raise AssertionError("the Covertype explain did not launch fused_linear_ey once "
+                             "per instance chunk")
+    phi16 = np.stack(expl.shap_values, 1)
+    if phi16.shape != (X.shape[0], K, M) or not np.isfinite(phi16).all():
+        raise AssertionError(f"bad Covertype shap values: shape {phi16.shape}")
+    exact32 = classes_explainer(est, X[:N_BACKGROUND], device, COVERTYPE_NAMES,
+                                covertype_groups(), instance_chunk=C)
+    phi32, add32 = check_explanation(exact32.explain(X[:C], silent=True), C, K, M)
+    d16 = np.abs(phi16[:C] - phi32)
+    f16_ok = bool((d16 <= F16_ATOL + F16_RTOL * np.abs(phi32)).all())
+    fused_linear_ey.launches = 0
+    t0 = time.perf_counter()
+    ranked = explainer.rank_features(X)
+    torch.cuda.synchronize()
+    t_rank = time.perf_counter() - t0
+    rank_launches = fused_linear_ey.launches
+    top = ranked["aggregated"]["names"][0]
+    print(f"covertype: first chunk in float32 additivity={add32:.3e} (< {ADDITIVITY:g}); "
+          f"float16 phi vs float32 max {d16.max():.3e} within atol {F16_ATOL:g} / rtol "
+          f"{F16_RTOL:g}: {f16_ok}; rank_features over all rows {t_rank:.3f} s on {card}, "
+          f"launches fused_linear_ey={rank_launches}, top feature {top!r}", flush=True)
+    if not f16_ok or rank_launches < 1:
+        raise AssertionError("the Covertype float16 phi or the ranking failed")
+    a = calls[0][0]
+    sub = (a[0][:2048].contiguous(),) + tuple(a[1:])
+    ey_err = float((fused_linear_ey(*sub) - fused_linear_ey_plain(*sub)).abs().max())
+    if not ey_err <= EY_ATOL:
+        raise AssertionError(f"fused_linear_ey vs plain {ey_err:.3e} on a Covertype call")
+    kernel_ms, plain_ms, bound_ms, bound_by = ey_timing(a, sm_count, sm_clock_hz)
+    print(f"times on {card}: Covertype fused_linear_ey (softmax_kernel<8>) at B="
+          f"{a[0].shape[0]} S={a[4].shape[0]} N={a[1].shape[0]} M={M} K={K}: kernel "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), {100 * bound_ms / kernel_ms:.1f}% of bound; kernel vs plain on "
+          f"the first 2048 rows {ey_err:.3e}; library_ms null", flush=True)
+    return {"launches": launches, "max_abs_err": ey_err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "wall_s": wall, "rows_per_s": X.shape[0] / wall, "top_feature": top}
+
+
+def wide_rows(rng, n, D):
+    """``n`` rows of ``D`` columns, 3/5 standard normal and the rest 0/1."""
+
+    n_cont = 3 * D // 5
+    return np.concatenate([rng.normal(size=(n, n_cont)),
+                           rng.integers(0, 2, size=(n, D - n_cont))], 1).astype(np.float32)
+
+
+def wide_gbt(seed, D, T=N_TREES):
+    """A GBT over ``D`` columns grown as phase 6's, with rows to explain and
+    a background: ``(tables, X (B_EXACT, D), bg (N_BACKGROUND, D))``."""
+
+    rng = np.random.default_rng([seed, 52, D])
+    tables = grow_gbt(rng, wide_rows(rng, 2000, D), T)
+    return tables, wide_rows(rng, B_EXACT, D), wide_rows(rng, N_BACKGROUND, D)
+
+
+def wide_exact_run(tables, X, bg, device, pack_paths, want):
+    """One ungrouped exact explain of ``X``, counted (``want`` launches of
+    ``exact_tree_phi``), checked against the plain route, the CPU port on
+    the first rows and itself.  Returns ``(explainer, phi, launches, worst
+    difference)``."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import exact_tree_phi
+
+    B, M = X.shape
+    route = "packed" if pack_paths else "dense"
+    exact_tree_phi.launches = 0
+    explainer, expl = explain_exact(tables, X, bg, device, pack_paths=pack_paths,
+                                    grouped=False)
+    torch.cuda.synchronize()
+    launches, path = exact_tree_phi.launches, explainer.kernel_path
+    packed_on = explainer._explainer._exact_consts()["packed"] is not None
+    print(f"wide exact M={M} {route} route: launches exact_tree_phi={launches} (want "
+          f"{want}), kernel_path={path}", flush=True)
+    if launches != want or path != {"exact_phi": "cuda"} or packed_on != bool(pack_paths):
+        raise AssertionError(f"the M={M} exact {route} explain did not go through "
+                             "exact_tree_phi as planned")
+    phi, add_err = exact_phi(expl, B, M)
+    again, _ = exact_phi(explainer.explain(X, nsamples="exact", silent=True), B, M)
+    _, expl_plain = explain_exact(tables, X, bg, device, pack_paths=pack_paths,
+                                  use_kernel=False, grouped=False)
+    d_plain = float(np.abs(phi - exact_phi(expl_plain, B, M)[0]).max())
+    n = N_WIDE_CPU
+    _, expl_cpu = explain_exact(tables, X[:n], bg, "cpu", pack_paths=pack_paths,
+                                grouped=False)
+    d_cpu = float(np.abs(phi[:n] - exact_phi(expl_cpu, n, M)[0]).max())
+    tol = phi_tol(phi)
+    bitwise = bool(np.array_equal(phi, again))
+    print(f"wide exact M={M} {route} route: additivity={add_err:.3e} (< "
+          f"{EXACT_ADDITIVITY:g}); |phi kernel - phi plain route|={d_plain:.3e}, |phi card "
+          f"- phi cpu| (first {n} rows)={d_cpu:.3e} (tol {tol:.2e}); repeat bit-identical="
+          f"{bitwise}; max|phi|={np.abs(phi).max():.4f}", flush=True)
+    if not (d_plain <= tol and d_cpu <= tol and bitwise):
+        raise AssertionError(f"the M={M} exact {route} explain disagrees with its references")
+    return explainer, phi, launches, max(d_plain, d_cpu)
+
+
+def wide_exact_phase(device, card, sm_count, sm_clock_hz, seed):
+    """Phase 52: exact TreeSHAP past 63 groups.  A GBT over 100 ungrouped
+    columns (50 trees, <= 31 leaves, random splits, as phase 6's) explained
+    with ``nsamples='exact'`` at B = 256, N = 100 on the packed and the
+    dense route (one launch per depth bucket, one dense), and one over 300
+    columns at B = 64 on the dense route, each counted, additive, against
+    the plain route, the CPU and itself (:func:`wide_exact_run`);
+    ``exact_tree_phi`` against its plain version at the dense inputs and
+    at M in {64, 100, 300} x dmax in {1, 30, 64} with all-live and
+    none-live edges, bit-identical repeats; dmax = 65 past 64 groups
+    raises; times.  Returns the record."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+        exact_tree_phi,
+        exact_tree_phi_plain,
+        tile_kernel_info,
+    )
+    from distributedkernelshap_tpu_torch.ops.explain import groups_to_matrix
+    from distributedkernelshap_tpu_torch.ops.treeshap import build_packed_plan
+
+    tables, X, bg = wide_gbt(seed, M_WIDE)
+    plan = build_packed_plan(tree_predictor(tables, "cpu"), groups_to_matrix(None, M_WIDE))
+    print(f"wide exact: GBT over {M_WIDE} ungrouped columns, T={N_TREES}, depth "
+          f"{tables['depth']}, plan: live paths {plan.n_live}, gain {plan.gain:.3f}, "
+          f"buckets {plan.buckets}", flush=True)
+    _, _, packed_launches, worst = wide_exact_run(tables, X, bg, device, True,
+                                                  len(plan.buckets))
+    dense_explainer, _, dense_launches, d = wide_exact_run(tables, X, bg, device, False, 1)
+    worst = max(worst, d)
+    tables3, X3, bg3 = wide_gbt(seed, M_WIDEST)
+    wide3, _, launches3, d = wide_exact_run(tables3, X3[:B_WIDEST], bg3, device, False, 1)
+    worst = max(worst, d)
+
+    rng = np.random.default_rng([seed, 52])
+    cases = [(f"dense inputs M={M_WIDE}",) + dense_inputs(dense_explainer, X, device),
+             (f"dense inputs M={M_WIDEST}",) + dense_inputs(wide3, X3[:B_WIDEST], device)]
+    cases += [(f"M={M} dmax={dmax} {kind}",
+               phi_edge_inputs(rng, 32, 100, 130, M, 2, device, kind, path_groups=dmax),
+               dmax)
+              for M, dmax, kind in WIDE_PHI_EDGES]
+    for name, args, dmax in cases:
+        got = exact_tree_phi(*args, dmax=dmax)
+        again = exact_tree_phi(*args, dmax=dmax)
+        ref = exact_tree_phi_plain(*args, dmax=dmax)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        tol = phi_tol(ref.cpu().numpy())
+        same = bool(torch.equal(got, again))
+        print(f"exact_tree_phi vs plain [{name}] B,P,N,M,K="
+              f"{tuple(args[0].shape[:2]) + (args[2].shape[0], args[0].shape[2], args[4].shape[1])}"
+              f" dmax={dmax}: max_abs_diff={err:.3e} (tol {tol:.2e}), bit-identical "
+              f"repeat={same}", flush=True)
+        if not (bool(got.isfinite().all()) and err <= tol and same):
+            raise AssertionError(f"exact_tree_phi disagrees with its plain version or "
+                                 f"with itself at {name}")
+        worst = max(worst, err)
+    try:
+        exact_tree_phi(*phi_edge_inputs(rng, 4, 8, 8, M_WIDE, 1, device, path_groups=64),
+                       dmax=65)
+    except ValueError as e:
+        print(f"exact_tree_phi at M={M_WIDE} dmax=65 raises on the card: {e}", flush=True)
+    else:
+        raise AssertionError("exact_tree_phi took dmax=65 past 64 groups")
+    print(f"exact_tree_phi tile kernel at M={M_WIDE}: {tile_kernel_info('exact_tree_phi', M_WIDE)}",
+          flush=True)
+    times = {}
+    for name, args, dmax in cases[:2]:
+        k_ms = cuda_time_ms(lambda: exact_tree_phi(*args, dmax=dmax), 20)
+        p_ms = cuda_time_ms(lambda: exact_tree_phi_plain(*args, dmax=dmax), 2)
+        b_ms, b_by, counts = phi_bound_ms(args, sm_count, sm_clock_hz)
+        times[name] = (k_ms, p_ms, b_ms, b_by)
+        print(f"times on {card}: exact_tree_phi [{name}] dmax={dmax}: kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{100 * b_ms / k_ms:.1f}% of bound; counts {counts}; library_ms null",
+              flush=True)
+    k_ms, p_ms, b_ms, b_by = times[cases[0][0]]
+    return {"launches": {"packed": packed_launches, "dense": dense_launches,
+                         "dense_m300": launches3},
+            "max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def wide_inter_phase(device, card, sm_count, sm_clock_hz, seed):
+    """Phase 53: exact interactions at M = 64 (the reference's cap): a GBT
+    over 64 ungrouped columns explained with ``interactions=True`` at B =
+    64, counted (one ``exact_tree_inter`` and one dense ``exact_tree_phi``
+    launch); symmetric, rows summing to phi (1e-5), within 2e-5·max(1,
+    max|·|) of the plain route and the CPU on the first rows, bit-identical
+    repeats; ``exact_tree_inter`` against its plain version at the dense
+    inputs (atol = rtol = 3e-5), bit-identical; M = 65 raises at the
+    wrapper and at the explain; times.  Returns ``(record, the dense phi
+    launch's max |kernel - plain|)``."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+        exact_tree_inter,
+        exact_tree_inter_plain,
+        exact_tree_phi,
+        exact_tree_phi_plain,
+        tile_kernel_info,
+    )
+
+    M, B, n = M_INTER_WIDE, B_INTER_WIDE, N_WIDE_CPU
+    tables, X, bg = wide_gbt(seed, M)
+    X = X[:B]
+    exact_tree_inter.launches = exact_tree_phi.launches = 0
+    explainer, expl = explain_exact(tables, X, bg, device, interactions=True, grouped=False)
+    torch.cuda.synchronize()
+    launches, phi_launches = exact_tree_inter.launches, exact_tree_phi.launches
+    path = explainer.kernel_path
+    print(f"wide interactions M={M}: launches exact_tree_inter={launches} (want 1), "
+          f"exact_tree_phi={phi_launches} (want 1, dense), kernel_path={path}", flush=True)
+    if launches != 1 or phi_launches != 1 or path != {"exact_phi": "cuda",
+                                                      "exact_inter": "cuda"}:
+        raise AssertionError("the M=64 interaction explain did not go through "
+                             "exact_tree_inter and exact_tree_phi as planned")
+    inter, sym, rows = interaction_values(expl, B, M)
+    again, _, _ = interaction_values(
+        explainer.explain(X, nsamples="exact", silent=True, interactions=True), B, M)
+    _, expl_plain = explain_exact(tables, X, bg, device, use_kernel=False,
+                                  interactions=True, grouped=False)
+    d_plain = float(np.abs(inter - interaction_values(expl_plain, B, M)[0]).max())
+    _, expl_cpu = explain_exact(tables, X[:n], bg, "cpu", interactions=True, grouped=False)
+    d_cpu = float(np.abs(inter[:n] - interaction_values(expl_cpu, n, M)[0]).max())
+    tol = phi_tol(inter)
+    bitwise = bool(np.array_equal(inter, again))
+    print(f"wide interactions M={M}: shape {inter.shape}, asymmetry {sym:.3e}, |row sums "
+          f"- phi| {rows:.3e} (tol {CONVENTION_ATOL:g}); |kernel - plain route|="
+          f"{d_plain:.3e}, |card - cpu| (first {n} rows)={d_cpu:.3e} (tol {tol:.2e}); "
+          f"repeat bit-identical={bitwise}; max|inter|={np.abs(inter).max():.4f}", flush=True)
+    if not (d_plain <= tol and d_cpu <= tol and bitwise):
+        raise AssertionError("the M=64 interaction explain disagrees with its references")
+
+    args, dmax = dense_inputs(explainer, X, device)
+    got = exact_tree_inter(*args, dmax=dmax)
+    same = bool(torch.equal(got, exact_tree_inter(*args, dmax=dmax)))
+    err, close = raw_close(got, exact_tree_inter_plain(*args, dmax=dmax))
+    phi_got = exact_tree_phi(*args, dmax=dmax)
+    phi_ref = exact_tree_phi_plain(*args, dmax=dmax)
+    phi_err = float((phi_got - phi_ref).abs().max())
+    phi_same = bool(torch.equal(phi_got, exact_tree_phi(*args, dmax=dmax)))
+    phi_ok = phi_err <= phi_tol(phi_ref.cpu().numpy())
+    print(f"exact_tree_inter vs plain [dense inputs M={M}] B,P,N={tuple(args[0].shape[:2])}"
+          f"+({args[2].shape[0]},) dmax={dmax}: max_abs_diff={err:.3e} (atol = rtol = "
+          f"{RAW_TOL:g}: {close}), bit-identical repeat={same}; the dense exact_tree_phi "
+          f"launch vs plain {phi_err:.3e} ({phi_ok}), bit-identical={phi_same}", flush=True)
+    if not (close and same and phi_ok and phi_same):
+        raise AssertionError("exact_tree_inter or the dense exact_tree_phi disagrees at M=64")
+    rng = np.random.default_rng([seed, 53])
+    try:
+        exact_tree_inter(*phi_edge_inputs(rng, 4, 8, 8, M + 1, 1, device), dmax=3)
+    except ValueError as e:
+        print(f"exact_tree_inter at M={M + 1} raises on the card: {e}", flush=True)
+    else:
+        raise AssertionError("exact_tree_inter took M=65")
+    tables65, X65, bg65 = wide_gbt(seed, M + 1, T=5)
+    try:
+        explain_exact(tables65, X65[:4], bg65, device, interactions=True, grouped=False)
+    except ValueError as e:
+        print(f"the interaction explain at M={M + 1} raises: {e}", flush=True)
+    else:
+        raise AssertionError("the interaction explain took M=65")
+    print(f"exact_tree_inter tile kernel at M={M}: {tile_kernel_info('exact_tree_inter', M)}",
+          flush=True)
+    k_ms = cuda_time_ms(lambda: exact_tree_inter(*args, dmax=dmax), 5)
+    p_ms = cuda_time_ms(lambda: exact_tree_inter_plain(*args, dmax=dmax), 1)
+    b_ms, b_by, counts = inter_bound_ms(args, sm_count, sm_clock_hz)
+    print(f"times on {card}: exact_tree_inter [dense inputs M={M}] B={B} dmax={dmax}: "
+          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+          f"{100 * b_ms / k_ms:.1f}% of bound; counts {counts}; library_ms null", flush=True)
+    return ({"launches": launches, "phi_launches": phi_launches,
+             "max_abs_err": max(err, d_plain, d_cpu), "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": b_ms, "bound_by": b_by}, phi_err)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7380,6 +7960,30 @@ def main() -> int:
     t = time.perf_counter()
     witness, _ = witness_phase(device, card, args.seed)
     seconds["49 lock witness"] = time.perf_counter() - t
+
+    # 50-53. the kernels past their old limits: 100 classes, Covertype, exact
+    # TreeSHAP past 63 groups, exact interactions at 64
+    t = time.perf_counter()
+    classes = classes_phase(X, bg, device, card, props.multi_processor_count, clock,
+                            args.seed)
+    max_err = max(max_err, classes["max_abs_err"])
+    seconds["50 100 classes"] = time.perf_counter() - t
+    t = time.perf_counter()
+    covertype = covertype_phase(device, card, props.multi_processor_count, clock, args.seed)
+    max_err = max(max_err, covertype["max_abs_err"])
+    seconds["51 covertype"] = time.perf_counter() - t
+    t = time.perf_counter()
+    wide_exact = wide_exact_phase(device, card, props.multi_processor_count, clock,
+                                  args.seed)
+    exact_record["max_abs_err"] = max(exact_record["max_abs_err"], wide_exact["max_abs_err"])
+    seconds["52 exact past 63 groups"] = time.perf_counter() - t
+    t = time.perf_counter()
+    wide_inter, wide_inter_phi_err = wide_inter_phase(device, card,
+                                                      props.multi_processor_count, clock,
+                                                      args.seed)
+    inter_record["max_abs_err"] = max(inter_record["max_abs_err"], wide_inter["max_abs_err"])
+    exact_record["max_abs_err"] = max(exact_record["max_abs_err"], wide_inter_phi_err)
+    seconds["53 interactions at 64"] = time.perf_counter() - t
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; script so far {time.perf_counter() - t_start:.1f}", flush=True)
 
@@ -7396,6 +8000,18 @@ def main() -> int:
     inter_record["multiprocess_launches"] = multi["exact_tree_inter"]
     exact_record["witness_launches"] = witness["exact_tree_phi"]
     inter_record["witness_launches"] = witness["exact_tree_inter"]
+    # the fifteenth slice's paths (phases 50-53): launches, and each new
+    # shape's kernel and plain times and bound
+    exact_record["wide_launches"] = dict(wide_exact["launches"],
+                                         interactions_m64=wide_inter["phi_launches"])
+    exact_record["wide_m100"] = {k: wide_exact[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                            "bound_by")}
+    inter_record["wide_launches"] = wide_inter["launches"]
+    inter_record["wide_m64"] = {k: wide_inter[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                           "bound_by")}
+    wide_ey = {name: {k: rec[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
+                                          "bound_by")}
+               for name, rec in (("k100", classes), ("covertype", covertype))}
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "fused_linear_ey", "route": "cuda",
@@ -7406,7 +8022,7 @@ def main() -> int:
         "library_ms": None, "serving_launches": serving["fused_linear_ey"],
         "gateway_launches": gateway["fused_linear_ey"], "mesh_launches": mesh_ey,
         "multiprocess_launches": multi["fused_linear_ey"],
-        "witness_launches": witness["fused_linear_ey"]},
+        "witness_launches": witness["fused_linear_ey"], "wide": wide_ey},
         exact_record, inter_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -4,8 +4,17 @@
 // kernel, its shared-memory size and its extern "C" names.
 //
 // Packed format: one 64-bit word per (background row n, path p) holds the
-// z_ok bits of the M groups in bits 0..M-1 and z_dead in bit 63, so M <= 63
-// (kMaxM; the wrapper's MAX_TREE_M).  A tile kernel runs one thread per
+// z_ok bits of the groups, bit m for group m.  Up to 63 groups z_dead rides
+// in bit 63 (kDeadBit); where all 64 bits carry groups (M = 64, kMaxM, the
+// wrapper's MAX_TREE_M, or path slots) z_dead is a byte array of its own,
+// (N, P) (the DB variants below: a byte load per staged row, which the
+// word's free bit saves on the narrower paths).  From 64 groups
+// exact_tree_phi runs by path slot: bit j is the path's slot j, the j-th
+// group, in ascending order, that any instance has on path p, from a
+// (P, 64) int32 slot table the wrapper builds (-1 past the path's last
+// slot; a path holds at most dmax <= 64 groups), and the instance bits are
+// gathered into slot order the same way.  So the state of a (b, p) is 64
+// bits wide whatever M is.  A tile kernel runs one thread per
 // (instance b, path p) in 256-thread blocks of 8 instances x 32 paths (one
 // path per lane), stages the background through shared memory kNC rows at a
 // time and writes one partial output per 32-path tile; sum_tiles_kernel adds
@@ -19,9 +28,10 @@
 // paths one at a time (a warp steps once per live triple).
 //
 // Weights: the kernels do no division.  The wrapper builds the reciprocal
-// weight tables once per (kind, dmax, M, device) from the reference's
-// masked-product binomial and passes them in; each kernel stages them in
-// shared memory, indexed [u][v] with row length M + 1.
+// weight tables once per (kind, dmax, table side, device) from the
+// reference's masked-product binomial and passes them in; each kernel stages
+// them in shared memory, indexed [u][v] with row length table_side(M) =
+// min(M, 64) + 1: u and v count bits of one word, so at most 64.
 
 #pragma once
 
@@ -33,8 +43,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTP = 32;                  // paths per block: one per lane
 constexpr int kTB = kThreads / kTP;      // instances per block: one per warp
-constexpr int kMaxM = 63;
-constexpr int kDeadBit = 63;
+constexpr int kMaxM = 64;                // bits of a group word
+constexpr int kDeadBit = 63;             // z_dead's bit, up to 63 groups
 constexpr int kNC = 64;                  // rows per chunk: one live-mask word
 constexpr size_t kMaxSmem = 232448;      // a block's shared memory after the opt-in
 static_assert(kTP == 32, "one path per lane: the shuffle reduction spans a warp");
@@ -42,26 +52,48 @@ static_assert(kNC == 64, "the live mask of a chunk is one 64-bit word");
 
 typedef unsigned long long u64;
 
+// Row length of the weight tables: u and v count bits of one word.
+__host__ __device__ constexpr int table_side(int M) { return (M < kMaxM ? M : kMaxM) + 1; }
+
+// Whether z_dead needs a byte array of its own: every bit of the word
+// carries a group (or a path slot).
+__host__ __device__ constexpr bool dead_bytes(int M) { return M >= kMaxM; }
+
 // Shared memory every tile kernel starts with: kNC rows x kTP packed words,
-// kNC weights and ntab weight tables of (M+1)x(M+1) floats.
+// kNC weights, ntab weight tables of table_side(M)^2 floats and, where
+// dead_bytes(M), kNC x kTP dead flags.
 constexpr size_t stage_bytes(int M, int ntab) {
   return sizeof(u64) * kNC * kTP +
-         sizeof(float) * (kNC + (size_t)ntab * (M + 1) * (M + 1));
+         sizeof(float) * (kNC + (size_t)ntab * table_side(M) * table_side(M)) +
+         (dead_bytes(M) ? kNC * kTP : 0);
 }
 
 constexpr int partial_tiles(int P) { return (P + kTP - 1) / kTP; }
 
-// Pack z_ok/z_dead into one word per (n, p).
+// Pack z_ok into one word per (n, p), by group or (slots != nullptr) by
+// the path's slots, and z_dead into one byte per (n, p) (zdead !=
+// nullptr) or bit 63 of the word.
 __global__ void pack_kernel(const float* __restrict__ z_ok,
                             const float* __restrict__ z_dead,
-                            u64* __restrict__ zbits, long long NP, int M) {
+                            const int* __restrict__ slots, u64* __restrict__ zbits,
+                            unsigned char* __restrict__ zdead, long long NP, int P,
+                            int M) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= NP) return;
   const float* z = z_ok + idx * M;
   u64 bits = 0;
-  for (int m = 0; m < M; ++m)
-    if (z[m] > 0.5f) bits |= 1ull << m;
-  if (z_dead[idx] > 0.5f) bits |= 1ull << kDeadBit;
+  if (slots) {
+    const int* sl = slots + (size_t)(idx % P) * kMaxM;
+    for (int j = 0; j < kMaxM && sl[j] >= 0; ++j)
+      if (z[sl[j]] > 0.5f) bits |= 1ull << j;
+  } else {
+    for (int m = 0; m < M; ++m)
+      if (z[m] > 0.5f) bits |= 1ull << m;
+  }
+  if (zdead)
+    zdead[idx] = z_dead[idx] > 0.5f;
+  else if (z_dead[idx] > 0.5f)
+    bits |= 1ull << kDeadBit;
   zbits[idx] = bits;
 }
 
@@ -73,11 +105,14 @@ __device__ __forceinline__ void stage_tables(float* tab, const float* __restrict
 }
 
 // Stage background chunk c (kNC rows: the packed words of the block's 32
-// paths, a dead word past P, and the weights) into shared memory; returns
-// the chunk's row count.  Starts with a barrier, so the block is done with
-// the previous chunk (and with the table copy before the first call).
-__device__ __forceinline__ int stage_chunk(u64* zs, float* ws,
+// paths and, DB, their dead flags, dead past P, and the weights) into
+// shared memory; returns the chunk's row count.  Starts with a barrier, so
+// the block is done with the previous chunk (and with the table copy
+// before the first call).
+template <bool DB>
+__device__ __forceinline__ int stage_chunk(u64* zs, unsigned char* ds, float* ws,
                                            const u64* __restrict__ zbits,
+                                           const unsigned char* __restrict__ zdead,
                                            const float* __restrict__ bgw,
                                            int c, int N, int P, int p0) {
   const int n0 = c * kNC;
@@ -85,7 +120,13 @@ __device__ __forceinline__ int stage_chunk(u64* zs, float* ws,
   __syncthreads();
   for (int i = threadIdx.x; i < nc * kTP; i += kThreads) {
     const int pl = p0 + i % kTP;
-    zs[i] = pl < P ? zbits[(size_t)(n0 + i / kTP) * P + pl] : (1ull << kDeadBit);
+    const size_t at = (size_t)(n0 + i / kTP) * P + pl;
+    if (DB) {
+      zs[i] = pl < P ? zbits[at] : 0ull;
+      ds[i] = pl < P ? zdead[at] : 1;
+    } else {
+      zs[i] = pl < P ? zbits[at] : (1ull << kDeadBit);
+    }
   }
   for (int i = threadIdx.x; i < nc; i += kThreads) ws[i] = bgw[n0 + i];
   __syncthreads();
@@ -98,30 +139,41 @@ __device__ __forceinline__ int popc(u64 x) { return __popcll(x); }
 // Bit n set: staged row n is alive for this lane's (b, p) -- z_dead clear
 // and no x-not group outside z_ok -- and at least need_u of its x-only
 // groups lie outside z_ok (the kernel's own "adds something" test).  Group
-// masks of width MaskT: 32 bits while M <= 32.
-template <typename MaskT>
-__device__ __forceinline__ u64 live_rows(const u64* zs, int nc, int lane, MaskT xo,
-                                         MaskT xn, MaskT mmask, int need_u) {
+// masks of width MaskT: 32 bits while M <= 32.  (~z sets bits past the
+// groups too; xo and xn have none there.)  DB: the dead flags are bytes.
+template <bool DB, typename MaskT>
+__device__ __forceinline__ u64 live_rows(const u64* zs, const unsigned char* ds, int nc,
+                                         int lane, MaskT xo, MaskT xn, int need_u) {
   u64 live = 0;
 #pragma unroll 4
   for (int n = 0; n < nc; ++n) {
     const u64 z = zs[n * kTP + lane];
-    const MaskT nz = ~(MaskT)z & mmask;
-    const bool keep = !(z >> kDeadBit) && !(xn & nz) && popc(xo & nz) >= need_u;
+    const MaskT nz = ~(MaskT)z;
+    const bool dead = DB ? ds[n * kTP + lane] != 0 : (z >> kDeadBit) != 0;
+    const bool keep = !dead && !(xn & nz) && popc(xo & nz) >= need_u;
     live |= (u64)keep << n;
   }
   return live;
 }
 
-// The x-only and x-not groups of (b, p) as bit masks in registers (0 for a
-// thread past B or P).
+// The x-only and x-not groups of (b, p) as bit masks in registers, by group
+// or (slots != nullptr) by path p's slots (0 for a thread past B or P).
 __device__ __forceinline__ void group_bits(const float* __restrict__ x_only,
                                            const float* __restrict__ x_not,
-                                           size_t bp, int M, bool ok, u64& xo, u64& xn) {
+                                           const int* __restrict__ slots, size_t bp,
+                                           int p, int M, bool ok, u64& xo, u64& xn) {
   xo = xn = 0;
   if (!ok) return;
   const float* a = x_only + bp * M;
   const float* c = x_not + bp * M;
+  if (slots) {
+    const int* sl = slots + (size_t)p * kMaxM;
+    for (int j = 0; j < kMaxM && sl[j] >= 0; ++j) {
+      if (a[sl[j]] > 0.5f) xo |= 1ull << j;
+      if (c[sl[j]] > 0.5f) xn |= 1ull << j;
+    }
+    return;
+  }
   for (int m = 0; m < M; ++m) {
     if (a[m] > 0.5f) xo |= 1ull << m;
     if (c[m] > 0.5f) xn |= 1ull << m;
@@ -139,11 +191,11 @@ __global__ void sum_tiles_kernel(const float* __restrict__ partial,
   out[i] = s;
 }
 
-// A tile kernel: (x_only, x_not, zbits, leaf_val, bgw, tables, partial, B,
-// P, N, M, K), writing partial (tiles, B, out_per_b).
-typedef void (*TileKernel)(const float*, const float*, const u64*, const float*,
-                           const float*, const float*, float*, int, int, int,
-                           int, int);
+// A tile kernel: (x_only, x_not, zbits, zdead, slots, leaf_val, bgw,
+// tables, partial, B, P, N, M, K), writing partial (tiles, B, out_per_b).
+typedef void (*TileKernel)(const float*, const float*, const u64*, const unsigned char*,
+                           const int*, const float*, const float*, const float*, float*,
+                           int, int, int, int, int);
 
 // Let the tile kernel take smem bytes of dynamic shared memory (an opt-in
 // above 48 KB); the cudaError_t, or cudaErrorInvalidValue above the card's
@@ -164,9 +216,11 @@ inline int blocks_per_sm(TileKernel tile, size_t smem) {
   return err ? -err : n;
 }
 
-inline bool valid_problem(int B, int P, int N, int M, int K, int dmax) {
-  return B > 0 && P > 0 && N > 0 && M > 0 && K > 0 && M <= kMaxM && dmax >= 1 &&
-         dmax <= M && partial_tiles(P) <= 65535;
+// A problem a launch takes: M <= kMaxM groups, or (slots) any M with
+// dmax <= kMaxM.
+inline bool valid_problem(int B, int P, int N, int M, int K, int dmax, bool slots) {
+  return B > 0 && P > 0 && N > 0 && M > 0 && K > 0 && (slots ? dmax <= kMaxM : M <= kMaxM) &&
+         dmax >= 1 && dmax <= M && partial_tiles(P) <= 65535;
 }
 
 // The launch sequence of an exact kernel: pack, opt the tile kernel in to
@@ -174,27 +228,33 @@ inline bool valid_problem(int B, int P, int N, int M, int K, int dmax) {
 // instance (M*K for phi, M*M*K for the pairs).  All pointers are device
 // pointers to contiguous arrays: float32 inputs x_only/x_not (B,P,M), z_ok
 // (N,P,M), z_dead (N,P), leaf_val (P,K), bgw (N,) (normalised), tables (the
-// kernel's weight tables, each (M+1)x(M+1)); scratch zbits (N,P) 64-bit,
-// partial (tiles,B,out_per_b) float32; out (B,out_per_b).  dmax must be in
-// [1, M].  Returns the cudaError_t of the first step that failed.
+// kernel's weight tables, each table_side(M)^2), slots (P,64) int32 or null
+// (by group; required past kMaxM groups); scratch zbits (N,P) 64-bit, zdead
+// (N,P) bytes where dead_bytes(M) (else unused), partial (tiles,B,out_per_b)
+// float32; out (B,out_per_b).
+// dmax must be in [1, M].  Returns the cudaError_t of the first step that
+// failed.
 inline int launch_exact(TileKernel tile, size_t smem, long long out_per_b,
                         const float* x_only, const float* x_not, const float* z_ok,
                         const float* z_dead, const float* leaf_val, const float* bgw,
-                        const float* tables, void* zbits, float* partial, float* out,
-                        int B, int P, int N, int M, int K, int dmax, void* stream) {
-  if (!valid_problem(B, P, N, M, K, dmax)) return (int)cudaErrorInvalidValue;
+                        const float* tables, const int* slots, void* zbits, void* zdead,
+                        float* partial, float* out, int B, int P, int N, int M, int K,
+                        int dmax, void* stream) {
+  if (!valid_problem(B, P, N, M, K, dmax, slots != nullptr) || (M > kMaxM && !slots))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   u64* zb = static_cast<u64*>(zbits);
+  unsigned char* zd = dead_bytes(M) ? static_cast<unsigned char*>(zdead) : nullptr;
   const long long NP = (long long)N * P;
   pack_kernel<<<(unsigned)((NP + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      z_ok, z_dead, zb, NP, M);
+      z_ok, z_dead, slots, zb, zd, NP, P, M);
   int err = (int)cudaGetLastError();
   if (err) return err;
   err = allow_smem(tile, smem);
   if (err) return err;
   dim3 grid((B + kTB - 1) / kTB, partial_tiles(P));
-  tile<<<grid, kThreads, smem, st>>>(x_only, x_not, zb, leaf_val, bgw, tables, partial,
-                                     B, P, N, M, K);
+  tile<<<grid, kThreads, smem, st>>>(x_only, x_not, zb, zd, slots, leaf_val, bgw, tables,
+                                     partial, B, P, N, M, K);
   err = (int)cudaGetLastError();
   if (err) return err;
   const long long total = (long long)B * out_per_b;

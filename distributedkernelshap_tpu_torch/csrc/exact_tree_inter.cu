@@ -42,7 +42,7 @@
 //   write and no data-dependent loop.  PPL is 3 up to M = 12 (the Adult
 //   width: 78 pairs, one band), 5 up to M = 17 and 8 beyond; where the
 //   triangle has more than 32*PPL pairs the walk repeats per band of pairs
-//   (M = 32: 3 bands, M = 63: 8).  The leaf value is folded into the row
+//   (M = 32: 3 bands, M = 64: 9).  The leaf value is folded into the row
 //   weight, so the sums run over all paths and chunks at once (one walk
 //   per class k).
 // - The weights come from reciprocal tables staged in shared memory (W_uu,
@@ -62,15 +62,17 @@
 // (B, M, M, K) per path tile and a second kernel sums the tiles in a fixed
 // order: no float atomics, so two launches on the same inputs give
 // bit-identical output (the TPU kernel accumulated over a sequential grid
-// axis instead).  Limit: M <= 63 groups.  The packing, staging, live masks,
-// tile sum and launch sequence are in exact_tree_common.cuh, shared with
+// axis instead).  Limit: M <= 64 groups, the reference's own cap on exact
+// interactions (one 64-bit word per (n, p) carries the z_ok bits; at M = 64
+// z_dead is a byte array of its own, the DB variant).  The packing, staging, live masks, tile sum and
+// launch sequence are in exact_tree_common.cuh, shared with
 // exact_tree_phi.cu.
 
 #include "exact_tree_common.cuh"
 
 namespace {
 
-constexpr int kTabs = 3;   // W_uu, W_uv, W_vv over C(u+v-1, v), each (M+1)x(M+1)
+constexpr int kTabs = 3;   // W_uu, W_uv, W_vv over C(u+v-1, v), each table_side(M)^2
 
 __host__ __device__ constexpr int tri(int j) { return j * (j + 1) / 2; }
 
@@ -84,19 +86,21 @@ __device__ __forceinline__ void pair_of(int s, int& i, int& j) {
 size_t inter_smem(int M) { return stage_bytes(M, kTabs); }
 
 // Group masks of width MaskT (32 bits while M <= 32); each lane owns PPL
-// pairs of the triangle per band.
-template <typename MaskT, int PPL>
+// pairs of the triangle per band; DB: the dead flags are bytes (M = 64).
+template <typename MaskT, int PPL, bool DB>
 __global__ void __launch_bounds__(kThreads)
 inter_tile_kernel(const float* __restrict__ x_only, const float* __restrict__ x_not,
-                  const u64* __restrict__ zbits, const float* __restrict__ leaf_val,
+                  const u64* __restrict__ zbits, const unsigned char* __restrict__ zdead,
+                  const int* __restrict__ slots, const float* __restrict__ leaf_val,
                   const float* __restrict__ bgw, const float* __restrict__ tables,
                   float* __restrict__ partial, int B, int P, int N, int M, int K) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ts = M + 1;
+  const int ts = table_side(M);
   const int tn = ts * ts;
   u64* zs = reinterpret_cast<u64*>(smem_raw);           // [kNC][kTP]
   float* ws = reinterpret_cast<float*>(zs + kNC * kTP);  // [kNC]
-  float* tab = ws + kNC;                                 // [kTabs][M+1][M+1]
+  float* tab = ws + kNC;                                 // [kTabs][ts][ts]
+  unsigned char* ds = reinterpret_cast<unsigned char*>(tab + kTabs * tn);  // DB: [kNC][kTP]
   stage_tables(tab, tables, kTabs * tn);
 
   const int lane = threadIdx.x % kTP;
@@ -105,9 +109,8 @@ inter_tile_kernel(const float* __restrict__ x_only, const float* __restrict__ x_
   const int p = p0 + lane;
   const bool ok = b < B && p < P;
   u64 xo64, xn64;
-  group_bits(x_only, x_not, (size_t)b * P + p, M, ok, xo64, xn64);
+  group_bits(x_only, x_not, nullptr, (size_t)b * P + p, p, M, ok, xo64, xn64);
   const MaskT xo = (MaskT)xo64, xn = (MaskT)xn64;
-  const MaskT mmask = (MaskT)((1ull << M) - 1);   // M <= 63
   const int v = __popcll(xn64);        // |V| on every alive row of this path
   const int need_u = v >= 2 ? 0 : (v == 1 ? 1 : 2);
   const int npairs = tri(M);
@@ -135,8 +138,8 @@ inter_tile_kernel(const float* __restrict__ x_only, const float* __restrict__ x_
       for (int c = 0; c < nchunks; ++c) {
         // one chunk stays staged across walks; more are staged again
         if ((k == 0 && band == 0) || nchunks > 1)
-          nc = stage_chunk(zs, ws, zbits, bgw, c, N, P, p0);
-        const u64 live = live_rows(zs, nc, lane, xo, xn, mmask, need_u);
+          nc = stage_chunk<DB>(zs, ds, ws, zbits, zdead, bgw, c, N, P, p0);
+        const u64 live = live_rows<DB>(zs, ds, nc, lane, xo, xn, need_u);
         for (int q = 0; q < kTP; ++q) {   // the warp's paths, one at a time
           u64 lq = __shfl_sync(0xffffffffu, live, q);
           if (!lq) continue;
@@ -197,10 +200,11 @@ inter_tile_kernel(const float* __restrict__ x_only, const float* __restrict__ x_
 // 32-bit masks up to 32 groups; pairs per lane so that the Adult width (M =
 // 12: 78 pairs) takes one band
 TileKernel inter_tile(int M) {
-  if (M <= 12) return inter_tile_kernel<unsigned, 3>;
-  if (M <= 17) return inter_tile_kernel<unsigned, 5>;
-  if (M <= 32) return inter_tile_kernel<unsigned, 8>;
-  return inter_tile_kernel<u64, 8>;
+  if (M <= 12) return inter_tile_kernel<unsigned, 3, false>;
+  if (M <= 17) return inter_tile_kernel<unsigned, 5, false>;
+  if (M <= 32) return inter_tile_kernel<unsigned, 8, false>;
+  if (!dead_bytes(M)) return inter_tile_kernel<u64, 8, false>;
+  return inter_tile_kernel<u64, 8, true>;
 }
 
 }  // namespace
@@ -215,25 +219,26 @@ int exact_tree_inter_partial_tiles(int P) { return partial_tiles(P); }
 // the tile kernel's dynamic shared memory and resident blocks per SM at M
 // groups, or -1 (blocks: minus the cudaError_t)
 long long exact_tree_inter_smem_bytes(int M) {
-  return valid_problem(1, 1, 1, M, 1, 1) ? (long long)inter_smem(M) : -1;
+  return valid_problem(1, 1, 1, M, 1, 1, false) ? (long long)inter_smem(M) : -1;
 }
 int exact_tree_inter_blocks_per_sm(int M) {
-  if (!valid_problem(1, 1, 1, M, 1, 1)) return -(int)cudaErrorInvalidValue;
+  if (!valid_problem(1, 1, 1, M, 1, 1, false)) return -(int)cudaErrorInvalidValue;
   return blocks_per_sm(inter_tile(M), inter_smem(M));
 }
 
 // The arguments of launch_exact (exact_tree_common.cuh): tables is W_uu,
-// W_uv, W_vv over C(u+v-1, v), each (M+1)x(M+1); partial is (tiles,B,M,M,K)
-// and out (B,M,M,K).
+// W_uv, W_vv over C(u+v-1, v), each table_side(M)^2; slots is unused (by
+// group only: M <= 64); partial is (tiles,B,M,M,K) and out (B,M,M,K).
 int exact_tree_inter_launch(const float* x_only, const float* x_not,
                             const float* z_ok, const float* z_dead,
                             const float* leaf_val, const float* bgw,
-                            const float* tables, void* zbits, float* partial,
-                            float* out, int B, int P, int N, int M, int K, int dmax,
-                            void* stream) {
+                            const float* tables, const int* slots, void* zbits,
+                            void* zdead, float* partial, float* out, int B, int P,
+                            int N, int M, int K, int dmax, void* stream) {
+  (void)slots;
   return launch_exact(inter_tile(M), inter_smem(M), (long long)M * M * K, x_only,
-                      x_not, z_ok, z_dead, leaf_val, bgw, tables, zbits, partial, out,
-                      B, P, N, M, K, dmax, stream);
+                      x_not, z_ok, z_dead, leaf_val, bgw, tables, nullptr, zbits, zdead,
+                      partial, out, B, P, N, M, K, dmax, stream);
 }
 
 }  // extern "C"

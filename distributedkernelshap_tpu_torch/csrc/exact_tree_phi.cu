@@ -43,32 +43,49 @@
 // shuffle tree per (m, k); blocks write one partial phi per path tile and a
 // second kernel sums the tiles in a fixed order: no float atomics, so two
 // launches on the same inputs give bit-identical phi (the TPU kernel
-// accumulated over a sequential grid axis instead).  Limit: M <= 63 groups
-// (one 64-bit word per (n, p) holds the z_ok bits and the z_dead bit).
-// The packing, staging, live masks, tile sum and launch sequence are in
-// exact_tree_common.cuh, shared with exact_tree_inter.cu.
+// accumulated over a sequential grid axis instead).
+//
+// Width: up to 63 groups the masks are by group, one accumulator register
+// per group.  From 64 groups (any M) the masks are by path slot: a path
+// holds at most dmax <= 64 groups (the reference kernel's own dmax gate),
+// so the wrapper's (P, 64) slot table maps bit j of a path's masks to its
+// j-th group, the pack pass gathers z_ok and the instance bits into slot
+// order, and the same body runs on 64 slot registers.  Its epilogue adds
+// each lane's slots into the warp's row of the partial output, lane 0 to 31
+// in turn (a row is zeroed first; __syncwarp orders the turns), so the sum
+// over a tile's paths still runs in a fixed order and two launches stay
+// bit-identical.  The state of a (b, p) is 64 bits and 64 registers
+// whatever M is; the tables are (min(M, 64) + 1)^2.  dmax > 64 past 64
+// groups raises in the wrapper.  (At M = 64 the slots only drop the groups
+// no instance has on the path: the word's 64 bits carry groups, so z_dead
+// is a byte array there.)  The packing, staging, live masks, tile sum
+// and launch sequence are in exact_tree_common.cuh, shared with
+// exact_tree_inter.cu.
 
 #include "exact_tree_common.cuh"
 
 namespace {
 
-constexpr int kTabs = 2;   // wp_tab, wm_tab, each (M+1)x(M+1)
+constexpr int kTabs = 2;   // wp_tab, wm_tab, each table_side(M)^2
 
 size_t phi_smem(int M) { return stage_bytes(M, kTabs); }
 
-// Group masks of width MaskT (32 bits while M <= 32), MT group registers.
-template <typename MaskT, int MT>
+// Group masks of width MaskT (32 bits while M <= 32), MT group registers;
+// SLOTS: by path slot (M >= 64), MT = 64, the dead flags as bytes.
+template <typename MaskT, int MT, bool SLOTS>
 __global__ void __launch_bounds__(kThreads)
 phi_tile_kernel(const float* __restrict__ x_only, const float* __restrict__ x_not,
-                const u64* __restrict__ zbits, const float* __restrict__ leaf_val,
+                const u64* __restrict__ zbits, const unsigned char* __restrict__ zdead,
+                const int* __restrict__ slots, const float* __restrict__ leaf_val,
                 const float* __restrict__ bgw, const float* __restrict__ tables,
                 float* __restrict__ partial, int B, int P, int N, int M, int K) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ts = M + 1;
+  const int ts = table_side(M);
   const int tn = ts * ts;
   u64* zs = reinterpret_cast<u64*>(smem_raw);           // [kNC][kTP]
   float* ws = reinterpret_cast<float*>(zs + kNC * kTP);  // [kNC]
-  float* tab = ws + kNC;                                 // [kTabs][M+1][M+1]
+  float* tab = ws + kNC;                                 // [kTabs][ts][ts]
+  unsigned char* ds = reinterpret_cast<unsigned char*>(tab + kTabs * tn);  // SLOTS: [kNC][kTP]
   stage_tables(tab, tables, kTabs * tn);
 
   const int lane = threadIdx.x % kTP;
@@ -77,9 +94,9 @@ phi_tile_kernel(const float* __restrict__ x_only, const float* __restrict__ x_no
   const int p = p0 + lane;
   const bool ok = b < B && p < P;
   u64 xo64, xn64;
-  group_bits(x_only, x_not, (size_t)b * P + p, M, ok, xo64, xn64);
+  group_bits(x_only, x_not, SLOTS ? slots : nullptr, (size_t)b * P + p, p, M, ok, xo64,
+             xn64);
   const MaskT xo = (MaskT)xo64, xn = (MaskT)xn64;
-  const MaskT mmask = (MaskT)((1ull << M) - 1);   // M <= 63
   // column v = |x_not| of each table, read at [u * ts]
   const float* t_p = tab + __popcll(xn64);
   const float* t_m = t_p + tn;
@@ -93,8 +110,8 @@ phi_tile_kernel(const float* __restrict__ x_only, const float* __restrict__ x_no
 
   const int nchunks = (N + kNC - 1) / kNC;
   for (int c = 0; c < nchunks; ++c) {
-    const int nc = stage_chunk(zs, ws, zbits, bgw, c, N, P, p0);
-    for (u64 live = live_rows(zs, nc, lane, xo, xn, mmask, need_u); live;
+    const int nc = stage_chunk<SLOTS>(zs, ds, ws, zbits, zdead, bgw, c, N, P, p0);
+    for (u64 live = live_rows<SLOTS>(zs, ds, nc, lane, xo, xn, need_u); live;
          live &= live - 1) {
       const int n = __ffsll(live) - 1;
       const MaskT su = xo & ~(MaskT)zs[n * kTP + lane];   // groups that must be IN
@@ -111,6 +128,26 @@ phi_tile_kernel(const float* __restrict__ x_only, const float* __restrict__ x_no
   // d = s_p*x_only - s_m*x_not: +acc on x-only groups, -S_m on x-not groups;
   // sum d*leaf_val over the warp's 32 paths in a fixed shuffle tree
   float* out = partial + ((size_t)blockIdx.y * B + b) * M * K;
+  if (SLOTS) {
+    // by slot: the warp's row is zeroed, then each lane in turn adds its
+    // slots' d*leaf_val at their groups (b, so the branch, is warp-uniform)
+    if (b >= B) return;
+    for (size_t i = lane; i < (size_t)M * K; i += kTP) out[i] = 0.0f;
+    const int* sl = slots + (size_t)p * kMaxM;
+    for (int q = 0; q < kTP; ++q) {
+      __syncwarp();
+      if (lane != q || !ok) continue;
+      for (int k = 0; k < K; ++k) {
+        const float lv = leaf_val[(size_t)p * K + k];
+#pragma unroll
+        for (int j = 0; j < MT; ++j) {
+          if (xo & (MaskT(1) << j)) out[(size_t)sl[j] * K + k] += acc[j] * lv;
+          else if (xn & (MaskT(1) << j)) out[(size_t)sl[j] * K + k] += -sm * lv;
+        }
+      }
+    }
+    return;
+  }
   for (int k = 0; k < K; ++k) {
     const float lv = ok ? leaf_val[(size_t)p * K + k] : 0.0f;
 #pragma unroll
@@ -128,17 +165,20 @@ phi_tile_kernel(const float* __restrict__ x_only, const float* __restrict__ x_no
 }
 
 // 32-bit masks up to 32 groups; one register per group, the per-group
-// loops unrolled to the template width
+// loops unrolled to the template width; from 64 groups, by path slot
 TileKernel phi_tile(int M) {
-  if (M <= 16) return phi_tile_kernel<unsigned, 16>;
-  if (M <= 32) return phi_tile_kernel<unsigned, 32>;
-  return phi_tile_kernel<u64, 64>;
+  if (M <= 16) return phi_tile_kernel<unsigned, 16, false>;
+  if (M <= 32) return phi_tile_kernel<unsigned, 32, false>;
+  if (!dead_bytes(M)) return phi_tile_kernel<u64, 64, false>;
+  return phi_tile_kernel<u64, 64, true>;
 }
 
 }  // namespace
 
 extern "C" {
 
+// the most groups one word carries: from it the kernel runs by path slot
+// and takes dmax <= this
 int exact_tree_phi_max_m() { return kMaxM; }
 
 // number of path tiles = leading dimension of the partial-phi scratch
@@ -147,24 +187,25 @@ int exact_tree_phi_partial_tiles(int P) { return partial_tiles(P); }
 // the tile kernel's dynamic shared memory and resident blocks per SM at M
 // groups, or -1 (blocks: minus the cudaError_t)
 long long exact_tree_phi_smem_bytes(int M) {
-  return valid_problem(1, 1, 1, M, 1, 1) ? (long long)phi_smem(M) : -1;
+  return valid_problem(1, 1, 1, M, 1, 1, dead_bytes(M)) ? (long long)phi_smem(M) : -1;
 }
 int exact_tree_phi_blocks_per_sm(int M) {
-  if (!valid_problem(1, 1, 1, M, 1, 1)) return -(int)cudaErrorInvalidValue;
+  if (!valid_problem(1, 1, 1, M, 1, 1, dead_bytes(M))) return -(int)cudaErrorInvalidValue;
   return blocks_per_sm(phi_tile(M), phi_smem(M));
 }
 
 // The arguments of launch_exact (exact_tree_common.cuh): tables is wp_tab,
-// wm_tab, each (M+1)x(M+1); partial is (tiles,B,M,K) and out (B,M,K).
+// wm_tab, each table_side(M)^2; slots the (P,64) slot table from 64 groups
+// (else null); partial is (tiles,B,M,K) and out (B,M,K).
 int exact_tree_phi_launch(const float* x_only, const float* x_not,
                           const float* z_ok, const float* z_dead,
                           const float* leaf_val, const float* bgw,
-                          const float* tables, void* zbits, float* partial,
-                          float* out, int B, int P, int N, int M, int K, int dmax,
-                          void* stream) {
+                          const float* tables, const int* slots, void* zbits,
+                          void* zdead, float* partial, float* out, int B, int P,
+                          int N, int M, int K, int dmax, void* stream) {
   return launch_exact(phi_tile(M), phi_smem(M), (long long)M * K, x_only, x_not,
-                      z_ok, z_dead, leaf_val, bgw, tables, zbits, partial, out, B, P,
-                      N, M, K, dmax, stream);
+                      z_ok, z_dead, leaf_val, bgw, tables, dead_bytes(M) ? slots : nullptr,
+                      zbits, zdead, partial, out, B, P, N, M, K, dmax, stream);
 }
 
 }  // extern "C"

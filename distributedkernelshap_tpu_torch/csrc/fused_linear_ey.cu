@@ -74,6 +74,22 @@
 // spills.  At the headline the grid is 32 x 33 = 1056 blocks = 132 SMs x 8,
 // two full waves of 528.  The general-K softmax branch is a kernel of its
 // own with its own tiles (R = 16 at K = 1 down to 1 at K = 32).
+//
+// Past 32 classes (kRegisterK) the general-K softmax takes a class-tiled
+// kernel, softmax_tiled_kernel, so that no register array is K wide and any
+// K runs.  A denominator spans every class, so each background chunk of
+// kTiledNC rows takes two passes over the classes, kTiledKC at a time, with
+// the tile's t' staged in shared memory each time: the first keeps, per
+// (row, background row) in registers, the running max and denominator
+// (rescaled when the max moves), the second adds w_n * e_k / den into the
+// tile's sums and adds them to the thread's own out[b, s, k0..] (written by
+// the first chunk).  Each output element has one owning thread, so there
+// are no atomics and two launches are bit-identical.  Arithmetic: accurate
+// expf, one IEEE division per (b, s, n); K + K/kTiledKC + K exponentials
+// per (b, s, n), so at a K of 100 about twice the MUFU work of the
+// function's K exponentials.  It is the simple kernel of its branch: its
+// times sit beside its bound in PERF.md.  Sigmoid takes any K up to the
+// grid's z limit (kMaxGridZ = 65535 classes), one class a block.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -85,7 +101,8 @@ constexpr int kTS = 64;                     // coalitions per block
 constexpr int kTBY = kThreads / kTS;        // instance rows per pass
 constexpr int kSmemBudget = 48 * 1024;      // bytes of staged background:
                                             // the limit without an opt-in
-constexpr int kMaxK = 32;
+constexpr int kRegisterK = 32;             // widest class array of softmax_kernel
+constexpr int kMaxGridZ = 65535;            // sigmoid: classes on the grid's z axis
 constexpr float kSpread = 80.0f;            // widest t' range of a chunk the
                                             // factored route takes
 constexpr float kClamp = 87.0f;             // |dp - shift| clamp: exp normal
@@ -101,14 +118,22 @@ constexpr int kSigmoidTB = kTBY * kSigmoidRows;
 constexpr int kSigmoidChunkRows =
     (kSmemBudget / 4 - kTS - kMC * kTS - kSigmoidTB * kMC) / (kTS + 2 + kMC);
 
+// class-tiled softmax: classes a tile, background rows a chunk, rows a thread
+constexpr int kTiledKC = 8;
+constexpr int kTiledNC = 16;
+constexpr int kTiledRows = 2;
+constexpr int kTiledTB = kTBY * kTiledRows;
+
 // softmax: instances per thread for a register class-array of width KT
 __host__ __device__ constexpr int rows_for(int kt) {
   return kt == 1 ? 16 : (kt == 2 ? 8 : (kt <= 8 ? 4 : (kt == 16 ? 2 : 1)));
 }
 
-static_assert(kSmemBudget / (4 * (kMaxK * kTS + 1)) >= 1,
+static_assert(kSmemBudget / (4 * (kRegisterK * kTS + 1)) >= 1,
               "one background row of the widest class tile must fit");
 static_assert(kSigmoidChunkRows >= 1, "one sigmoid-form background row must fit");
+static_assert(sizeof(float) * (kTiledKC * kTiledNC * kTS + kTiledNC) <= kSmemBudget,
+              "a class tile of a chunk must fit without an opt-in");
 static_assert(kTS * 4 == kThreads, "the shift reduction gives four lanes a coalition");
 
 typedef void (*EyKernel)(const float*, const float*, const float*, const float*,
@@ -232,6 +257,160 @@ softmax_kernel(const float* __restrict__ XWg, const float* __restrict__ bgWg,
 #pragma unroll
     for (int k = 0; k < KT; ++k)
       if (k < KE) o[k] = acc[r][k];
+  }
+}
+
+// Stage the t' of classes [k0, k0 + kc) and background rows [n0, n0 + nc)
+// of the block's coalitions, and the chunk's weights, into shared memory.
+// Starts with a barrier, so the block is done with the previous tile.
+__device__ __forceinline__ void stage_class_tile(float* ts, float* ws,
+                                                 const float* __restrict__ bgWg,
+                                                 const float* __restrict__ bgW,
+                                                 const float* __restrict__ bgw,
+                                                 const float* __restrict__ mask,
+                                                 int s0, int S, int n0, int nc, int k0,
+                                                 int kc, int M, int K) {
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kc * nc * kTS; idx += kThreads) {
+    const int sl = idx % kTS;
+    const int n = (idx / kTS) % nc;
+    const int kk = idx / (kTS * nc);
+    const int sg = s0 + sl;
+    ts[(kk * kTiledNC + n) * kTS + sl] =
+        sg < S ? background_logit(bgWg, bgW, mask, sg, n0 + n, k0 + kk, M, K, false) : 0.0f;
+  }
+  for (int idx = threadIdx.x; idx < nc; idx += kThreads) ws[idx] = bgw[n0 + idx];
+  __syncthreads();
+}
+
+// p[r][kk] = sum_m mask[s,m] * XWg[b_r,m,k0+kk] for the thread's rows and the
+// tile's classes (0 past kc)
+__device__ __forceinline__ void tile_row_logits(float (&p)[kTiledRows][kTiledKC],
+                                                const float* __restrict__ XWg,
+                                                const float* __restrict__ mk,
+                                                const int (&br)[kTiledRows], int k0,
+                                                int kc, int M, int K) {
+#pragma unroll
+  for (int r = 0; r < kTiledRows; ++r)
+#pragma unroll
+    for (int kk = 0; kk < kTiledKC; ++kk) p[r][kk] = 0.0f;
+  for (int m = 0; m < M; ++m) {
+    const float mv = mk[m];
+#pragma unroll
+    for (int r = 0; r < kTiledRows; ++r) {
+      const float* xw = XWg + ((size_t)br[r] * M + m) * K + k0;
+#pragma unroll
+      for (int kk = 0; kk < kTiledKC; ++kk)
+        if (kk < kc) p[r][kk] = fmaf(mv, xw[kk], p[r][kk]);
+    }
+  }
+}
+
+// The general-K softmax past kRegisterK classes (or forced): class tiles of
+// kTiledKC, two passes per background chunk.  See the head comment.
+__global__ void __launch_bounds__(kThreads)
+softmax_tiled_kernel(const float* __restrict__ XWg, const float* __restrict__ bgWg,
+                     const float* __restrict__ bgW, const float* __restrict__ bgw,
+                     const float* __restrict__ mask, float* __restrict__ out,
+                     int B, int S, int N, int M, int K, int NC) {
+  constexpr int R = kTiledRows;
+  constexpr int KC = kTiledKC;
+  constexpr int NCT = kTiledNC;
+
+  extern __shared__ float smem[];
+  float* ts = smem;                         // [KC][NCT][kTS]: t' of a class tile
+  float* ws = ts + KC * NCT * kTS;          // [NCT]
+
+  const int tx = threadIdx.x % kTS;
+  const int ty = threadIdx.x / kTS;
+  const int s0 = blockIdx.y * kTS;
+  const int s = s0 + tx;
+  const bool s_ok = s < S;
+  // coalitions past S and rows past B read the last one and are never written
+  const float* mk = mask + (size_t)min(s, S - 1) * M;
+  int br[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) br[r] = min((int)blockIdx.x * kTiledTB + ty + r * kTBY, B - 1);
+
+  for (int n0 = 0; n0 < N; n0 += NC) {
+    const int nc = min(NC, N - n0);
+    // pass 1: per (row, background row), the max and the denominator over
+    // every class, one class tile at a time
+    float mx[R][NCT], den[R][NCT];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int n = 0; n < NCT; ++n) {
+        mx[r][n] = -INFINITY;
+        den[r][n] = 0.0f;
+      }
+    for (int k0 = 0; k0 < K; k0 += KC) {
+      const int kc = min(KC, K - k0);
+      stage_class_tile(ts, ws, bgWg, bgW, bgw, mask, s0, S, n0, nc, k0, kc, M, K);
+      float p[R][KC];
+      tile_row_logits(p, XWg, mk, br, k0, kc, M, K);
+#pragma unroll
+      for (int n = 0; n < NCT; ++n) {
+        if (n < nc) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float tm = -INFINITY;
+#pragma unroll
+            for (int kk = 0; kk < KC; ++kk)
+              if (kk < kc) tm = fmaxf(tm, p[r][kk] - ts[(kk * NCT + n) * kTS + tx]);
+            const float m_new = fmaxf(mx[r][n], tm);
+            float sum = mx[r][n] == -INFINITY ? 0.0f : den[r][n] * expf(mx[r][n] - m_new);
+#pragma unroll
+            for (int kk = 0; kk < KC; ++kk)
+              if (kk < kc) sum += expf(p[r][kk] - ts[(kk * NCT + n) * kTS + tx] - m_new);
+            mx[r][n] = m_new;
+            den[r][n] = sum;
+          }
+        }
+      }
+    }
+    // den becomes the row's scale w_n / den: one IEEE division per (b, s, n)
+#pragma unroll
+    for (int n = 0; n < NCT; ++n)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (n < nc) den[r][n] = ws[n] / den[r][n];
+    // pass 2: per class tile, the sums of w_n * e_k / den over the chunk,
+    // added to the thread's own output row
+    for (int k0 = 0; k0 < K; k0 += KC) {
+      const int kc = min(KC, K - k0);
+      stage_class_tile(ts, ws, bgWg, bgW, bgw, mask, s0, S, n0, nc, k0, kc, M, K);
+      float p[R][KC];
+      tile_row_logits(p, XWg, mk, br, k0, kc, M, K);
+      float acc[R][KC];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk) acc[r][kk] = 0.0f;
+#pragma unroll
+      for (int n = 0; n < NCT; ++n) {
+        if (n < nc) {
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int kk = 0; kk < KC; ++kk)
+              if (kk < kc)
+                acc[r][kk] = fmaf(den[r][n],
+                                  expf(p[r][kk] - ts[(kk * NCT + n) * kTS + tx] - mx[r][n]),
+                                  acc[r][kk]);
+        }
+      }
+      if (!s_ok) continue;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int b = (int)blockIdx.x * kTiledTB + ty + r * kTBY;
+        if (b >= B) break;
+        float* o = out + ((size_t)b * S + s) * K + k0;
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk)
+          if (kk < kc) o[kk] = n0 == 0 ? acc[r][kk] : o[kk] + acc[r][kk];
+      }
+    }
   }
 }
 
@@ -401,7 +580,7 @@ template <int KT>
 Plan softmax_plan(int B, int S, int N, int K) {
   constexpr int TB = kTBY * rows_for(KT);
   // background rows per shared-memory chunk: K*NC*kTS + NC floats, at most
-  // kSmemBudget bytes (K <= kMaxK keeps NC >= 1)
+  // kSmemBudget bytes (K <= kRegisterK keeps NC >= 1)
   int nc = kSmemBudget / (int)(sizeof(float) * (K * kTS + 1));
   nc = nc > N ? N : nc;
   return {softmax_kernel<KT>, dim3((B + TB - 1) / TB, (S + kTS - 1) / kTS),
@@ -428,13 +607,22 @@ Plan sigmoid_plan(bool binary, int B, int S, int N, int K) {
           nc};
 }
 
+// the class-tiled softmax: any K, the chunk fixed at kTiledNC rows
+Plan softmax_tiled_plan(int B, int S) {
+  return {softmax_tiled_kernel, dim3((B + kTiledTB - 1) / kTiledTB, (S + kTS - 1) / kTS),
+          sizeof(float) * ((size_t)kTiledKC * kTiledNC * kTS + kTiledNC), kTiledNC};
+}
+
+// activation: 0 = softmax, 1 = sigmoid, 2 = softmax through the class-tiled
+// kernel at any K (what K > kRegisterK takes anyway)
 bool valid(int B, int S, int N, int M, int K, int activation) {
-  return B > 0 && S > 0 && N > 0 && M > 0 && K > 0 && K <= kMaxK &&
-         (activation == 0 || activation == 1);
+  return B > 0 && S > 0 && N > 0 && M > 0 && K > 0 &&
+         (activation == 0 || activation == 2 || (activation == 1 && K <= kMaxGridZ));
 }
 
 Plan make_plan(int B, int S, int N, int K, int activation) {
   if (activation == 1) return sigmoid_plan(false, B, S, N, K);
+  if (activation == 2 || K > kRegisterK) return softmax_tiled_plan(B, S);
   return K == 2 ? sigmoid_plan(true, B, S, N, K) : softmax_by_width(B, S, N, K);
 }
 
@@ -442,11 +630,14 @@ Plan make_plan(int B, int S, int N, int K, int activation) {
 
 extern "C" {
 
-int fused_linear_ey_max_k() { return kMaxK; }
+// the most classes the sigmoid branch takes (one class a block on the
+// grid's z axis); softmax takes any K
+int fused_linear_ey_max_sigmoid_k() { return kMaxGridZ; }
 
-// activation: 0 = softmax, 1 = sigmoid.  All pointers are device pointers
-// to contiguous float32 arrays; bgw must sum to 1 for binary softmax.
-// Returns the cudaError_t of the launch (0 on success).
+// activation: 0 = softmax, 1 = sigmoid, 2 = softmax through the class-tiled
+// kernel (any K; K > 32 takes it with 0 as well).  All pointers are device
+// pointers to contiguous float32 arrays; bgw must sum to 1 for binary
+// softmax.  Returns the cudaError_t of the launch (0 on success).
 int fused_linear_ey_launch(const float* XWg, const float* bgWg,
                            const float* bgW, const float* bgw,
                            const float* mask, float* out, int B, int S, int N,

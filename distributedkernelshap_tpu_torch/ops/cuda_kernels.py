@@ -51,12 +51,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: every kernel source of the port (``csrc/<name>.cu``)
 KERNELS = ("fused_linear_ey", "exact_tree_phi", "exact_tree_inter")
-#: widest class axis the kernel's register tiles take (``kMaxK`` in the .cu)
-MAX_K = 32
-#: most feature groups exact_tree_phi and exact_tree_inter take: one 64-bit
-#: word per (background row, path) holds the M z_ok bits and the z_dead bit
-#: (``kMaxM`` in each .cu)
-MAX_TREE_M = 63
+#: widest class axis of the general-K softmax's register kernel
+#: (``kRegisterK`` in the .cu): wider softmax takes the class-tiled kernel
+REGISTER_K = 32
+#: most classes the sigmoid branch takes, one class a block on the grid's z
+#: axis (``kMaxGridZ`` in the .cu); softmax takes any K
+MAX_SIGMOID_K = 65535
+#: the bits of one packed group word (``kMaxM`` in
+#: ``csrc/exact_tree_common.cuh``): exact_tree_inter takes at most this many
+#: groups, exact_tree_phi any number of groups with ``dmax`` at most this
+#: (from this many groups on, each path's groups are gathered into this
+#: many slots, and z_dead, which rides the word's last bit on narrower
+#: inputs, goes into a byte array)
+MAX_TREE_M = 64
 #: background rows the exact kernels stage per chunk, one bit of a lane's
 #: live-row mask each (``kNC`` in ``csrc/exact_tree_common.cuh``)
 EXACT_CHUNK_ROWS = 64
@@ -67,29 +74,31 @@ _VOID, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SYMBOLS = {
     "fused_linear_ey": {
         "fused_linear_ey_launch": ([_VOID] * 6 + [_INT] * 6 + [_VOID], _INT),
-        "fused_linear_ey_max_k": ([], _INT),
+        "fused_linear_ey_max_sigmoid_k": ([], _INT),
         "fused_linear_ey_launch_info": ([_INT] * 5 + [_VOID], _INT),
     },
     "exact_tree_phi": {
-        "exact_tree_phi_launch": ([_VOID] * 10 + [_INT] * 6 + [_VOID], _INT),
+        "exact_tree_phi_launch": ([_VOID] * 12 + [_INT] * 6 + [_VOID], _INT),
         "exact_tree_phi_partial_tiles": ([_INT], _INT),
         "exact_tree_phi_max_m": ([], _INT),
         "exact_tree_phi_smem_bytes": ([_INT], _LONG),
         "exact_tree_phi_blocks_per_sm": ([_INT], _INT),
     },
     "exact_tree_inter": {
-        "exact_tree_inter_launch": ([_VOID] * 10 + [_INT] * 6 + [_VOID], _INT),
+        "exact_tree_inter_launch": ([_VOID] * 12 + [_INT] * 6 + [_VOID], _INT),
         "exact_tree_inter_partial_tiles": ([_INT], _INT),
         "exact_tree_inter_max_m": ([], _INT),
         "exact_tree_inter_smem_bytes": ([_INT], _LONG),
         "exact_tree_inter_blocks_per_sm": ([_INT], _INT),
     },
 }
-_LIMITS = {"fused_linear_ey": ("fused_linear_ey_max_k", MAX_K),
+_LIMITS = {"fused_linear_ey": ("fused_linear_ey_max_sigmoid_k", MAX_SIGMOID_K),
            "exact_tree_phi": ("exact_tree_phi_max_m", MAX_TREE_M),
            "exact_tree_inter": ("exact_tree_inter_max_m", MAX_TREE_M)}
 
 _ACTIVATION_CODE = {"softmax": 0, "sigmoid": 1}
+#: the C interface's code for softmax through the class-tiled kernel at any K
+_TILED_SOFTMAX = 2
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: kernels whose library this process compiled (their load is no cache hit)
@@ -225,17 +234,48 @@ def fused_linear_ey(XWg: torch.Tensor, bgWg: torch.Tensor, bgW: torch.Tensor,
 
     CUDA tensors launch ``csrc/fused_linear_ey.cu`` (building it on first
     use) and count one in ``fused_linear_ey.launches``; a failed build or
-    launch raises.  CPU tensors run :func:`fused_linear_ey_plain`."""
+    launch raises.  The kernel takes any K for softmax (past
+    ``REGISTER_K`` classes its class-tiled kernel) and up to
+    ``MAX_SIGMOID_K`` for sigmoid, and raises above that.  CPU tensors run
+    :func:`fused_linear_ey_plain`."""
 
     B, S, N, M, K = _check(XWg, bgWg, bgW, bgw, mask, activation)
     if XWg.device.type == "cpu":
         return fused_linear_ey_plain(XWg, bgWg, bgW, bgw, mask, activation)
-    if K > MAX_K:
+    if activation == "sigmoid" and K > MAX_SIGMOID_K:
         raise ValueError(
-            f"the fused_linear_ey kernel takes at most {MAX_K} classes, got {K}; "
-            "explain wider models with ShapConfig(use_kernel=False)")
+            f"the fused_linear_ey kernel takes at most {MAX_SIGMOID_K} sigmoid "
+            f"classes (one a block on the grid's z axis), got {K}; explain wider "
+            "models with ShapConfig(use_kernel=False)")
+    return _ey_launch(XWg, bgWg, bgW, bgw, mask, _ACTIVATION_CODE[activation])
+
+
+fused_linear_ey.launches = 0
+
+
+def fused_linear_ey_tiled(XWg: torch.Tensor, bgWg: torch.Tensor, bgW: torch.Tensor,
+                          bgw: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Softmax ``ey`` through ``fused_linear_ey``'s class-tiled kernel at any
+    K, the kernel :func:`fused_linear_ey` takes past ``REGISTER_K`` classes:
+    at K <= ``REGISTER_K`` it puts the tiled kernel beside the register
+    kernel on the same inputs.  CUDA tensors launch it and count in
+    ``fused_linear_ey.launches``; CPU tensors run the plain version."""
+
+    _check(XWg, bgWg, bgW, bgw, mask, "softmax")
+    if XWg.device.type == "cpu":
+        return fused_linear_ey_plain(XWg, bgWg, bgW, bgw, mask, "softmax")
+    return _ey_launch(XWg, bgWg, bgW, bgw, mask, _TILED_SOFTMAX)
+
+
+def _ey_launch(XWg, bgWg, bgW, bgw, mask, code: int) -> torch.Tensor:
+    """Launch ``csrc/fused_linear_ey.cu`` with activation ``code`` on card
+    tensors that :func:`_check` passed; raises off a CUDA device and on a
+    failed build or launch."""
+
     if XWg.device.type != "cuda":
         raise ValueError(f"fused_linear_ey runs on cuda or cpu, not {XWg.device}")
+    B, M, K = XWg.shape
+    N, S = bgWg.shape[0], mask.shape[0]
     lib = _library("fused_linear_ey")
     bgw = (bgw / bgw.sum()).contiguous()
     out = torch.empty((B, S, K), dtype=torch.float32, device=XWg.device)
@@ -245,15 +285,11 @@ def fused_linear_ey(XWg: torch.Tensor, bgWg: torch.Tensor, bgW: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_linear_ey_launch(
             XWg.data_ptr(), bgWg.data_ptr(), bgW.data_ptr(), bgw.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), B, S, N, M, K,
-            _ACTIVATION_CODE[activation], stream)
+            mask.data_ptr(), out.data_ptr(), B, S, N, M, K, code, stream)
     if err:
         raise RuntimeError(f"fused_linear_ey launch failed with CUDA error {err}")
     fused_linear_ey.launches += 1
     return out
-
-
-fused_linear_ey.launches = 0
 
 
 def ey_launch_info(B: int, S: int, N: int, K: int,
@@ -262,8 +298,9 @@ def ey_launch_info(B: int, S: int, N: int, K: int,
     card: ``blocks``, ``threads`` a block, dynamic ``smem_bytes``, resident
     ``blocks_per_sm`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
     ``registers`` and ``local_bytes`` a thread (``cudaFuncGetAttributes``)
-    and background ``chunk_rows``.  Builds the kernel if needed; raises where
-    the card refuses the query."""
+    and background ``chunk_rows``; past ``REGISTER_K`` softmax classes, of
+    the class-tiled kernel.  Builds the kernel if needed; raises where the
+    card refuses the query."""
 
     lib = _library("fused_linear_ey")
     info = (ctypes.c_int * 7)()
@@ -376,10 +413,11 @@ def exact_tree_phi(x_only: torch.Tensor, x_not: torch.Tensor, z_ok: torch.Tensor
     as ``> 0.5``), ``bgw`` the normalised background weights and ``dmax``
     the bound on the conjunction counts.  CUDA tensors launch
     ``csrc/exact_tree_phi.cu`` (building it on first use) and count one in
-    ``exact_tree_phi.launches``; the kernel takes any N, P, K and dmax and
-    at most ``MAX_TREE_M`` groups, and above that it raises.  Two launches
-    on the same inputs give bit-identical phi.  CPU tensors run the plain
-    version."""
+    ``exact_tree_phi.launches``; the kernel takes any N, P, K and M, and
+    from ``MAX_TREE_M`` groups on runs by path slot (:func:`path_slots`),
+    where it takes ``dmax`` up to ``MAX_TREE_M`` (the reference kernel's
+    own gate) and raises above it.  Two launches on the same inputs give
+    bit-identical phi.  CPU tensors run the plain version."""
 
     B, P, N, M, K = _check_phi(x_only, x_not, z_ok, z_dead, leaf_val, bgw, dmax)
     if x_only.device.type == "cpu":
@@ -395,15 +433,22 @@ def _exact_launch(wrapper, out_shape, args, dmax: int) -> torch.Tensor:
     """Launch the kernel of ``wrapper`` (:func:`exact_tree_phi` or
     :func:`exact_tree_inter`, whose ``csrc/<name>.cu`` share their inputs and
     their C interface) on card tensors that :func:`_check_phi` passed, and
-    return its output of ``out_shape``.  Raises above the group limit, off a
+    return its output of ``out_shape``.  Raises above the limits
+    (``exact_tree_phi``: ``dmax`` past ``MAX_TREE_M`` with more groups than
+    that; ``exact_tree_inter``: more than ``MAX_TREE_M`` groups), off a
     CUDA device, and on a failed build or launch."""
 
     name, x_only = wrapper.__name__, args[0]
     M = x_only.shape[2]
-    if M > MAX_TREE_M:
+    if name == "exact_tree_inter" and M > MAX_TREE_M:
         raise ValueError(
-            f"the {name} kernel takes at most {MAX_TREE_M} feature groups, "
-            f"got {M}; explain wider groupings with ShapConfig(use_kernel=False)")
+            f"the exact_tree_inter kernel takes at most {MAX_TREE_M} feature "
+            f"groups, got {M}: the reference's exact interactions stop there too")
+    if min(int(dmax), M) > MAX_TREE_M:
+        raise ValueError(
+            f"the exact_tree_phi kernel takes dmax <= {MAX_TREE_M} past "
+            f"{MAX_TREE_M} groups (the reference kernel's gate), got dmax={dmax} "
+            f"at M={M}; explain deeper trees with ShapConfig(use_kernel=False)")
     if x_only.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {x_only.device}")
     lib = _library(name)
@@ -427,14 +472,20 @@ def _exact_run(wrapper, lib, stream, out_shape, args, dmax: int) -> torch.Tensor
         return out.zero_()
     dm = min(int(dmax), M)
     tables = exact_weight_tables(_TABLE_KIND[name], dm, M, dev)
-    # scratch: the packed background bits and one partial output per path
-    # tile (summed in a fixed order by a second pass)
+    # where every bit of the word carries a group, z_dead gets bytes of its
+    # own and exact_tree_phi runs by path slot
+    wide = M >= MAX_TREE_M
+    slots = path_slots(args[0], args[1]) if wide and name == "exact_tree_phi" else None
+    # scratch: the packed background bits (and dead flags), and one partial
+    # output per path tile (summed in a fixed order by a second pass)
     zbits = torch.empty((N, P), dtype=torch.int64, device=dev)
+    zdead = torch.empty((N, P) if wide else (0,), dtype=torch.uint8, device=dev)
     partial = torch.empty((getattr(lib, f"{name}_partial_tiles")(P), *out_shape),
                           dtype=torch.float32, device=dev)
     err = getattr(lib, f"{name}_launch")(
-        *(t.data_ptr() for t in args), tables.data_ptr(), zbits.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), B, P, N, M, K, dm, stream)
+        *(t.data_ptr() for t in args), tables.data_ptr(),
+        None if slots is None else slots.data_ptr(), zbits.data_ptr(),
+        zdead.data_ptr(), partial.data_ptr(), out.data_ptr(), B, P, N, M, K, dm, stream)
     if err:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     wrapper.launches += 1
@@ -446,10 +497,21 @@ _TABLE_KIND = {"exact_tree_phi": "phi", "exact_tree_inter": "inter"}
 _tables: Dict[tuple, torch.Tensor] = {}
 
 
+def table_side(M: int) -> int:
+    """Row length of an exact kernel's weight tables at ``M`` groups: u and
+    v count the bits of one group word (groups, or a path's slots past
+    ``MAX_TREE_M`` groups), so ``min(M, MAX_TREE_M) + 1``."""
+
+    return min(int(M), MAX_TREE_M) + 1
+
+
 def build_weight_tables(kind: str, dmax: int, M: int) -> torch.Tensor:
     """The reciprocal weight tables of an exact kernel, on the CPU: float32
-    ``(ntab, M+1, M+1)`` indexed ``[table, u, v]``, so a live row reads its
-    weights and multiplies by ``bgw[n]`` instead of dividing.
+    ``(ntab, W, W)`` with ``W = table_side(M)``, indexed ``[table, u, v]``,
+    so a live row reads its weights and multiplies by ``bgw[n]`` instead of
+    dividing.  The tables run past ``dmax`` to every count a word can hold,
+    so inputs whose counts pass ``dmax`` get the plain version's truncated
+    product too.
 
     Each comes from the reference's masked-product binomial in float32 (the
     plain versions' arithmetic: steps ``i = 1..dmax`` of ``(v+i)/i``, taken
@@ -463,10 +525,11 @@ def build_weight_tables(kind: str, dmax: int, M: int) -> torch.Tensor:
     if kind not in ("phi", "inter"):
         raise ValueError(f"kind must be 'phi' or 'inter', got {kind!r}")
     dm = min(int(dmax), M)
-    f = torch.arange(M + 1, dtype=torch.float32)
+    W = table_side(M)
+    f = torch.arange(W, dtype=torch.float32)
     u, v = f[:, None], f[None, :]
     steps = u if kind == "phi" else u - 1.0
-    binom = torch.ones((M + 1, M + 1), dtype=torch.float32)
+    binom = torch.ones((W, W), dtype=torch.float32)
     for i in range(1, dm + 1):
         binom = binom * torch.where(steps + 0.5 >= i, (v + i) / i, 1.0)
     C, u, v = binom.double(), u.double(), v.double()
@@ -486,9 +549,10 @@ def build_weight_tables(kind: str, dmax: int, M: int) -> torch.Tensor:
 def exact_weight_tables(kind: str, dmax: int, M: int,
                         device: torch.device) -> torch.Tensor:
     """:func:`build_weight_tables` on ``device``, built once per ``(kind,
-    dmax, M, device)`` and cached."""
+    min(dmax, M), table_side(M) - 1, device)`` and cached (past
+    ``MAX_TREE_M`` groups every M shares the tables of its dmax)."""
 
-    key = (kind, min(int(dmax), M), M, str(device))
+    key = (kind, min(int(dmax), M), table_side(M) - 1, str(device))
     with _lock:
         if key not in _tables:
             _tables[key] = build_weight_tables(kind, dmax, M).to(device)
@@ -559,9 +623,20 @@ def exact_tree_phi_plain(x_only: torch.Tensor, x_not: torch.Tensor,
 
     B, P, N, M, K = _check_phi(x_only, x_not, z_ok, z_dead, leaf_val, bgw, dmax)
     # steps past M multiply by exactly 1 (u <= M): the clamp is exact
-    dm = min(int(dmax), M)
+    d = _phi_path_terms(x_only, x_not, z_ok, z_dead, bgw, min(int(dmax), M), chunk)
+    return torch.einsum("bpm,pk->bmk", d, leaf_val)
+
+
+def _phi_path_terms(x_only, x_not, z_ok, z_dead, bgw, dm: int,
+                    chunk: Optional[int]) -> torch.Tensor:
+    """:func:`exact_tree_phi_plain`'s per-path terms ``d = s_p·x_only −
+    s_m·x_not`` ``(B, P, W)`` over the last axis of its inputs (groups, or
+    a path's slots), with ``dm`` binomial steps."""
+
+    B, P, W = x_only.shape
+    N = z_ok.shape[0]
     c = chunk or max(1, min(N, (1 << 23) // max(1, B * P)))
-    s_p = torch.zeros((B, P, M), dtype=torch.float32, device=x_only.device)
+    s_p = torch.zeros((B, P, W), dtype=torch.float32, device=x_only.device)
     s_m = torch.zeros_like(s_p)
     for n0 in range(0, N, c):
         z = z_ok[n0:n0 + c]
@@ -578,8 +653,54 @@ def exact_tree_phi_plain(x_only: torch.Tensor, x_not: torch.Tensor,
         wm = torch.where(v > 0.5, a / v.clamp(min=1.0), 0.0)
         s_p += torch.einsum("bnp,npm->bpm", wp, nz)
         s_m += torch.einsum("bnp,npm->bpm", wm, z)
-    d = s_p * x_only - s_m * x_not
-    return torch.einsum("bpm,pk->bmk", d, leaf_val)
+    return s_p * x_only - s_m * x_not
+
+
+def path_slots(x_only: torch.Tensor, x_not: torch.Tensor) -> torch.Tensor:
+    """The slot table :func:`exact_tree_phi` runs by from ``MAX_TREE_M``
+    groups on: ``(P, MAX_TREE_M)`` int32, row ``p`` the groups that any
+    instance has on path ``p`` (x-only or x-not) in ascending order, then
+    -1.  A tree path holds at most ``dmax`` groups; inputs with a path of
+    more than ``MAX_TREE_M`` raise.  Slot ``j`` of a path is bit ``j`` of
+    its packed words in the kernel."""
+
+    touched = ((x_only > 0.5) | (x_not > 0.5)).any(0)            # (P, M)
+    P, M = touched.shape
+    most = int(touched.sum(1).max()) if P else 0
+    if most > MAX_TREE_M:
+        raise ValueError(
+            f"a path holds {most} groups, more than the {MAX_TREE_M} slots of "
+            "exact_tree_phi's packed word; explain with ShapConfig(use_kernel=False)")
+    idx = torch.arange(M, dtype=torch.int32, device=touched.device)
+    order = torch.where(touched, idx, M).sort(dim=1).values[:, :MAX_TREE_M]
+    if order.shape[1] < MAX_TREE_M:
+        order = torch.cat([order, order.new_full((P, MAX_TREE_M - order.shape[1]), M)], 1)
+    return torch.where(order >= M, -1, order).to(torch.int32).contiguous()
+
+
+def exact_tree_phi_slots_plain(x_only: torch.Tensor, x_not: torch.Tensor,
+                               z_ok: torch.Tensor, z_dead: torch.Tensor,
+                               leaf_val: torch.Tensor, bgw: torch.Tensor, dmax: int,
+                               chunk: Optional[int] = None) -> torch.Tensor:
+    """:func:`exact_tree_phi_plain` in the layout the kernel takes from
+    ``MAX_TREE_M`` groups on: the inputs gathered into each path's slots
+    (:func:`path_slots`), the per-path terms taken over the 64 slots, and
+    each slot's term added back at its group.  Equal to the dense plain
+    version up to the order of the last sum."""
+
+    B, P, N, M, K = _check_phi(x_only, x_not, z_ok, z_dead, leaf_val, bgw, dmax)
+    slots = path_slots(x_only, x_not).long()
+    valid = (slots >= 0).to(torch.float32)                       # (P, S)
+    g = slots.clamp(min=0)
+
+    def gather(t):
+        return torch.gather(t, 2, g[None].expand(t.shape[0], -1, -1)) * valid[None]
+
+    d = _phi_path_terms(gather(x_only), gather(x_not), gather(z_ok), z_dead, bgw,
+                        min(int(dmax), M), chunk)                # (B, P, S)
+    terms = d[..., None] * leaf_val[None, :, None, :]            # (B, P, S, K)
+    phi = torch.zeros((B, M, K), dtype=torch.float32, device=x_only.device)
+    return phi.index_add_(1, g.reshape(-1), terms.reshape(B, -1, K))
 
 
 # ---------------------------------------------------------------------- #

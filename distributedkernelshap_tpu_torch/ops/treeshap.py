@@ -31,10 +31,12 @@ once per call on the dense route and once per depth bucket on the packed
 route (``ops/treeshap_pack.py``); the interactions take one
 ``exact_tree_inter`` launch and one dense ``exact_tree_phi`` launch for the
 diagonal.  Every non-kernel branch is the kernel's plain version — there is
-no second plain route.  The TPU gates of the JAX package (VMEM footprint,
-the 256-row background slice, the dmax cap of 64) do not exist here: one
-launch takes any N and any dmax.  So the port never demotes an exact
-explain off its kernel: ``dks_treeshap_fallback_total``
+no second plain route.  The TPU gates of the JAX package's VMEM footprint
+and its 256-row background slice do not exist here: one launch takes any N
+and any M.  Its dmax cap of 64 does: from 64 groups on the kernel runs by
+path slot and raises above the cap, naming ``ShapConfig(use_kernel=False)``;
+and the interactions stop at 64 groups, as the reference's do.  The port
+never demotes an exact explain off its kernel: ``dks_treeshap_fallback_total``
 (:func:`attach_treeshap_metrics`) is registered as in the reference and
 always reads empty (ROADMAP.md C.10).
 """

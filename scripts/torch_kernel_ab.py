@@ -9,17 +9,24 @@ the parent commit unpacked into ``build/``).  Its kernel sources are built
 with this checkout's ``nvcc`` flags into ``build/base_kernels/`` and called
 through their C interface.
 
-- ``--kernel ey``: ``csrc/fused_linear_ey.cu`` through
+- ``--kernel ey``: ``csrc/fused_linear_ey.cu`` of both checkouts through
   ``fused_linear_ey_launch`` (the background weights normalised as the
-  wrapper does), at the headline inputs of ``chip_smoke.py`` (binary
+  wrapper does; the wrapper's own checks stay out of both arms, so the
+  times at small shapes compare kernels, not host issue), at the headline
+  inputs of ``chip_smoke.py`` (binary
   softmax, B = 2560, S = 2072 coalitions of the Adult plan, N = 100, M = 12,
-  K = 2) and at sigmoid K = 2, 7 (B = 512, S = 1024) and 32 (B = 128,
-  S = 512), N = 100, M = 12; the outputs must agree within 1e-5.
+  K = 2), at sigmoid K = 2, 7 (B = 512, S = 1024) and 32 (B = 128,
+  S = 512) and at general softmax K = 7 (B = 512, S = 1024), N = 100,
+  M = 12; the outputs must agree within 1e-5.
 - ``--kernel exact``: ``csrc/exact_tree_phi.cu`` and
-  ``csrc/exact_tree_inter.cu`` through the C interface they had before the
-  weight tables moved to the wrapper (``..., bgw, zbits, table, partial,
-  out, B, P, N, M, K, dmax, stream``, the binomial table built on the card),
-  at the inputs of ``chip_smoke.py``'s exact and interaction phases: the
+  ``csrc/exact_tree_inter.cu`` through the C interface of the base's
+  sources, read from them: the one before the weight tables moved to the
+  wrapper (``..., bgw, zbits, table, partial, out, B, P, N, M, K, dmax,
+  stream``, the binomial table built on the card), the one with the tables
+  and the dead bit in the group word (``..., bgw, tables, zbits, partial,
+  out, ...``), or this one (``..., bgw, tables, slots, zbits, zdead,
+  partial, out, ...``); at the inputs of ``chip_smoke.py``'s exact and
+  interaction phases: the
   seeded Adult-shaped GBT at B = 256, N = 100, M = 12 -- the two packed
   depth buckets of the exact explain and the dense inputs of the
   interaction explain; the outputs must agree within the kernels' bars (phi
@@ -41,12 +48,28 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 _VOID, _INT = ctypes.c_void_p, ctypes.c_int
-_EXACT_ARGS = [_VOID] * 10 + [_INT] * 6 + [_VOID]
-#: per kernel choice: each source and its launch function's argument types
-SOURCES = {
-    "ey": {"fused_linear_ey": [_VOID] * 6 + [_INT] * 6 + [_VOID]},
-    "exact": {"exact_tree_phi": _EXACT_ARGS, "exact_tree_inter": _EXACT_ARGS},
-}
+#: per kernel choice: each source's launch function
+SOURCES = {"ey": ("fused_linear_ey",), "exact": ("exact_tree_phi", "exact_tree_inter")}
+
+
+def interface(source: str) -> str:
+    """The C interface of a kernel source: ``"ey"``; for an exact kernel
+    ``"binomial"`` (the binomial table built on the card), ``"tables"`` (the
+    wrapper's weight tables, the dead bit in the group word) or ``"slots"``
+    (the tables, a slot table and a dead-flag array)."""
+
+    if "fused_linear_ey_launch(" in source:
+        return "ey"
+    if "void* zdead" in source:
+        return "slots"
+    return "tables" if "_smem_bytes(int M)" in source else "binomial"
+
+
+#: launch argument types per interface
+_ARGS = {"ey": [_VOID] * 6 + [_INT] * 6 + [_VOID],
+         "binomial": [_VOID] * 10 + [_INT] * 6 + [_VOID],
+         "tables": [_VOID] * 10 + [_INT] * 6 + [_VOID],
+         "slots": [_VOID] * 12 + [_INT] * 6 + [_VOID]}
 
 
 def build_base(base: Path, kernel: str):
@@ -70,7 +93,8 @@ def build_base(base: Path, kernel: str):
         if proc.returncode:
             raise RuntimeError(f"building the base {name} failed:\n{log}")
         lib = ctypes.CDLL(str(so))
-        getattr(lib, f"{name}_launch").argtypes = SOURCES[kernel][name]
+        lib.interface = interface((csrc / f"{name}.cu").read_text())
+        getattr(lib, f"{name}_launch").argtypes = _ARGS[lib.interface]
         getattr(lib, f"{name}_launch").restype = _INT
         if kernel == "exact":
             getattr(lib, f"{name}_partial_tiles").argtypes = [_INT]
@@ -79,7 +103,8 @@ def build_base(base: Path, kernel: str):
 
 
 def ey_base_call(lib, args, activation):
-    """One launch of the base ``fused_linear_ey``, as the wrapper makes it."""
+    """One launch of a checkout's ``fused_linear_ey`` library ``lib``, as
+    the wrapper makes it."""
 
     import torch
 
@@ -93,14 +118,18 @@ def ey_base_call(lib, args, activation):
         out.data_ptr(), B, S, N, M, K, {"softmax": 0, "sigmoid": 1}[activation],
         torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"base fused_linear_ey launch failed with CUDA error {err}")
+        raise RuntimeError(f"fused_linear_ey launch failed with CUDA error {err}")
     return out
 
 
 def exact_base_call(lib, name, args, dmax):
-    """One launch of a base exact kernel through its earlier C interface."""
+    """One launch of a base exact kernel through its C interface
+    (:func:`interface`); the weight tables of the later interfaces are this
+    checkout's (the same for up to 64 groups)."""
 
     import torch
+
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import exact_weight_tables
 
     x_only = args[0]
     B, P, M = x_only.shape
@@ -110,13 +139,21 @@ def exact_base_call(lib, name, args, dmax):
     shape = (B, M, K) if name == "exact_tree_phi" else (B, M, M, K)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     zbits = torch.empty((N, P), dtype=torch.int64, device=dev)
-    table = torch.empty(((dm + 1) * (M + 1),), dtype=torch.float32, device=dev)
     partial = torch.empty((getattr(lib, f"{name}_partial_tiles")(P), *shape),
                           dtype=torch.float32, device=dev)
+    kind = "phi" if name == "exact_tree_phi" else "inter"
+    if lib.interface == "binomial":
+        table = torch.empty(((dm + 1) * (M + 1),), dtype=torch.float32, device=dev)
+        scratch = (zbits.data_ptr(), table.data_ptr())
+    elif lib.interface == "tables":
+        scratch = (exact_weight_tables(kind, dm, M, dev).data_ptr(), zbits.data_ptr())
+    else:
+        zdead = torch.empty((N, P), dtype=torch.uint8, device=dev)
+        scratch = (exact_weight_tables(kind, dm, M, dev).data_ptr(), None,
+                   zbits.data_ptr(), zdead.data_ptr())
     err = getattr(lib, f"{name}_launch")(
-        *(t.data_ptr() for t in args), zbits.data_ptr(), table.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), B, P, N, M, K, dm,
-        torch.cuda.current_stream().cuda_stream)
+        *(t.data_ptr() for t in args), *scratch, partial.data_ptr(), out.data_ptr(),
+        B, P, N, M, K, dm, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"base {name} launch failed with CUDA error {err}")
     return out
@@ -130,13 +167,15 @@ def ey_cases(base, seed, device):
     import numpy as np
 
     import chip_smoke as cs
-    from distributedkernelshap_tpu_torch.ops.cuda_kernels import fused_linear_ey
+    from distributedkernelshap_tpu_torch.ops import cuda_kernels
 
+    mine = cuda_kernels._library("fused_linear_ey")
     rng = np.random.default_rng(seed)
     M, N = len(cs.ADULT_WIDTHS), cs.N_BACKGROUND
     mask = cs.coalition_plan_mask()
     specs = [("headline binary softmax", "softmax", cs.B_HEADLINE, len(mask), 2, mask),
              ("sigmoid K=2", "sigmoid", 512, 1024, 2, None),
+             ("general softmax K=7", "softmax", 512, 1024, 7, None),
              ("sigmoid K=7", "sigmoid", 512, 1024, 7, None),
              ("sigmoid K=32", "sigmoid", 128, 512, 32, None)]
 
@@ -150,7 +189,7 @@ def ey_cases(base, seed, device):
         cases.append((label, [B, S, N, M, K],
                       lambda kargs=kargs, act=act: ey_base_call(base["fused_linear_ey"],
                                                                 kargs, act),
-                      lambda kargs=kargs, act=act: fused_linear_ey(*kargs, act), agree))
+                      lambda kargs=kargs, act=act: ey_base_call(mine, kargs, act), agree))
     return cases
 
 

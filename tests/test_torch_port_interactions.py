@@ -136,10 +136,14 @@ def test_exact_tree_inter_wrapper_launches_or_raises(monkeypatch):
     args = [_t(a).to("meta") for a in _phi_inputs(4, 10, 5, 3, 1, seed=0)]
     with pytest.raises(ValueError, match="cuda or cpu"):
         tck.exact_tree_inter(*args, dmax=3)
+    # 64 groups (the reference's cap) reach the launch, 65 raise
+    widest = [_t(a).to("meta") for a in _phi_inputs(2, 3, 2, tck.MAX_TREE_M, 1, 0)]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tck.exact_tree_inter(*widest, dmax=3)
     wide = [_t(a).to("meta") for a in _phi_inputs(2, 3, 2, tck.MAX_TREE_M + 1, 1, 0)]
-    with pytest.raises(ValueError, match="at most"):
+    with pytest.raises(ValueError, match="at most 64"):
         tck.exact_tree_inter(*wide, dmax=3)
-    with pytest.raises(ValueError, match="at most"):
+    with pytest.raises(ValueError, match="at most 64"):
         tts._inter_call(*wide, dmax=3, use_kernel=True)
     # a card tensor within the limits goes to the launch (which counts; a
     # stand-in that launches nothing leaves the count alone)
@@ -169,9 +173,9 @@ class _FakeLibrary:
         setattr(self, f"{name}_launch", self._launch)
 
     def _launch(self, *cargs):
-        # x_only, x_not, z_ok, z_dead, leaf_val, bgw, tables, zbits, partial,
-        # out, then B, P, N, M, K, dmax and the stream
-        assert len(cargs) == 17
+        # x_only, x_not, z_ok, z_dead, leaf_val, bgw, tables, slots, zbits,
+        # zdead, partial, out, then B, P, N, M, K, dmax and the stream
+        assert len(cargs) == 19
         self.calls.append(cargs[-7:-1])     # B, P, N, M, K, dmax
         return self.err
 

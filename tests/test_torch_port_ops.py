@@ -238,25 +238,37 @@ def test_fused_wrapper_rejects_bad_inputs():
         tck.fused_linear_ey(XWg, bgWg, bgW, bgw, torch.ones(3, 6).T)
     with pytest.raises(ValueError, match="shape"):
         tck.fused_linear_ey(XWg, bgWg, bgW, torch.ones(4), mask)
-    # the kernel's class limit binds on the card only: CPU tensors take the
-    # plain version, any device but the CPU raises before a launch
-    K = tck.MAX_K + 1
+    # past the register kernel's classes softmax goes on to the class-tiled
+    # kernel: CPU tensors take the plain version, any device but the CPU
+    # and the card raises at the launch; sigmoid's class limit (the grid's
+    # z axis) binds before it
+    K = tck.REGISTER_K + 1
     wide = (torch.zeros(4, 3, K), torch.zeros(5, 3, K), torch.zeros(5, K), bgw, mask)
     assert tck.fused_linear_ey(*wide).shape == (4, 6, K)
-    with pytest.raises(ValueError, match="at most"):
+    with pytest.raises(ValueError, match="cuda or cpu"):
         tck.fused_linear_ey(*(t.to("meta") for t in wide))
+    K = tck.MAX_SIGMOID_K + 1
+    widest = [torch.zeros(4, 3, K, device="meta"), torch.zeros(5, 3, K, device="meta"),
+              torch.zeros(5, K, device="meta"), bgw.to("meta"), mask.to("meta")]
+    with pytest.raises(ValueError, match="at most"):
+        tck.fused_linear_ey(*widest, "sigmoid")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tck.fused_linear_ey(*widest, "softmax")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tck.fused_linear_ey_tiled(*(t.to("meta") for t in wide))
 
 
 def test_ey_linear_kernel_branch_never_gives_way_to_plain():
     """With the kernel asked for, tensors off the CPU reach the wrapper at any
-    class width: above the kernel's limit it raises instead of running the
-    plain version.  The meta device stands in for the card here."""
+    class width: past the register kernel's classes they go on to the
+    launch (which raises off the card) instead of running the plain
+    version.  The meta device stands in for the card here."""
 
-    K = tck.MAX_K + 1
+    K = tck.REGISTER_K + 1
     X, bg, W, b, G, mask, bgw = _linear_problem(4, 6, 5, 3, K, seed=0)
     meta = [_t(a).to("meta") for a in (W, b, X, bg, bgw, mask, G)]
     W_, b_, X_, bg_, bgw_, mask_, G_ = meta
-    with pytest.raises(ValueError, match="at most"):
+    with pytest.raises(ValueError, match="cuda or cpu"):
         texp._ey_linear(W_, b_, "softmax", X_, bg_, bgw_, mask_, G_, 8,
                         use_kernel=True)
     got = texp._ey_linear(*(_t(a) for a in (W, b)), "softmax",
@@ -269,7 +281,8 @@ def test_kernel_source_is_packaged_and_named_by_digest():
     assert src.exists()
     text = src.read_text()
     assert "pallas_kernels.py:fused_linear_ey" in text
-    assert f"kMaxK = {tck.MAX_K}" in text
+    assert f"kRegisterK = {tck.REGISTER_K};" in text
+    assert f"kMaxGridZ = {tck.MAX_SIGMOID_K};" in text
     path = tck.library_path("fused_linear_ey")
     assert path.parent == tck.BUILD_DIR and path.suffix == ".so"
 

@@ -285,15 +285,19 @@ def test_exact_tree_phi_wrapper_checks_and_never_gives_way_to_plain():
     with pytest.raises(ValueError, match="dmax"):
         tck.exact_tree_phi(*args, dmax=0)
     # tensors off the CPU launch the kernel or raise — the meta device
-    # stands in for the card: above the group limit, and on a non-CUDA device
-    wide = [_t(a).to("meta") for a in _phi_inputs(2, 3, 2, tck.MAX_TREE_M + 1, 1, 0)]
-    with pytest.raises(ValueError, match="at most"):
-        tck.exact_tree_phi(*wide, dmax=3)
+    # stands in for the card: any M reaches the launch (which raises off the
+    # card), past one word of groups only with dmax <= 64
+    for M in (tck.MAX_TREE_M, 100):
+        wide = [_t(a).to("meta") for a in _phi_inputs(2, 3, 2, M, 1, 0)]
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            tck.exact_tree_phi(*wide, dmax=tck.MAX_TREE_M)
+    with pytest.raises(ValueError, match="dmax <= 64"):
+        tck.exact_tree_phi(*wide, dmax=tck.MAX_TREE_M + 1)
     with pytest.raises(ValueError, match="cuda or cpu"):
         tck.exact_tree_phi(*(a.to("meta") for a in args), dmax=3)
     # the dispatch with the kernel asked for reaches the wrapper, too
-    with pytest.raises(ValueError, match="at most"):
-        tts._phi_call(*wide, dmax=3, use_kernel=True)
+    with pytest.raises(ValueError, match="ShapConfig"):
+        tts._phi_call(*wide, dmax=tck.MAX_TREE_M + 1, use_kernel=True)
 
 
 def test_kernel_source_is_packaged():

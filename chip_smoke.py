@@ -48,10 +48,14 @@ Phases (each raises on failure, so the script exits non-zero):
    one staged chunk), at groups in several staged slices (M = 17, 48) and
    sigmoid classes on the grid (K = 3, 7, 32), max abs diff <= 1e-5 on
    ``ey``, with how the guard split each sigmoid-form case; softmax (the
-   class-tiled kernel) and sigmoid at K = 33, 64, 100 and 257 at a
-   headline-like shape, ragged edges and N above one chunk; sigmoid past
-   the grid's 65,535 classes must raise; the class-tiled kernel against
-   ``softmax_kernel<32>`` at K = 32, timed in turns (for the record);
+   factored kernel) and sigmoid at K = 33, 64, 100 and 257 at a
+   headline-like shape, ragged edges and N above one chunk; the general
+   softmax's factored kernel on the adversarial kinds and on top classes
+   that disagree past its guard (K = 3, 7, 33, 100), and at K = 1000 (u
+   formed per class tile), each case with the (b, s, n) triples the guard
+   sent to its in-kernel exact route; sigmoid
+   past the grid's 65,535 classes must raise; the factored kernel against
+   the plain version's time at K = 32, in turns (for the record);
 4. main path: ``KernelShap(est.predict_proba, link="logit", seed=0)
    .fit(bg, group_names=..., groups=...).explain(X)`` on an Adult-shaped task
    made from ``--seed`` (B=2560, D=48 in the Adult group widths, N=100), with
@@ -404,10 +408,12 @@ Phases (each raises on failure, so the script exits non-zero):
    (B = 2560, D = 48 in the Adult groups, N = 100, M = 12, S = 2072,
    ``ey`` 2.1 GB), ``KernelShap(...).fit(...).explain(X)`` with counts set
    to 0 just before and read just after: exactly one ``fused_linear_ey``
-   launch (the class-tiled kernel); additive (< 1e-3), phi within 1e-3 +
+   launch (the factored kernel); additive (< 1e-3), phi within 1e-3 +
    16 p-ulps of the plain route on the card and of the CPU port on the
    first 8 rows; the kernel against its plain version on the call's own
-   arguments; explain wall, kernel, plain and bound;
+   arguments; explain wall, kernel, plain, the factored bound beside the
+   earlier count, the kernel's launch info (registers, local memory,
+   shared memory, blocks per SM);
 51. Covertype (the JAX package's configuration 5, ``benchmarks/configs.py:
    455-509``) with a seeded lookalike: 54 columns in 12 groups (10
    numeric, wilderness 4, soil 40), a 7-class LR, all 581,012 rows with
@@ -415,7 +421,8 @@ Phases (each raises on failure, so the script exits non-zero):
    counted (one launch per instance chunk, each call printed), then
    ``rank_features``; the first chunk in float32 additive (< 1e-3) and the
    float16 phi within atol 1e-3 / rtol 2e-3 of it; wall, rows/s, the top
-   feature, kernel, plain and bound;
+   feature, kernel, plain, the factored bound beside the earlier count,
+   the kernel's launch info;
 52. exact TreeSHAP past 63 groups: a GBT grown as phase 6's over 100
    ungrouped columns explained with ``nsamples='exact'`` at B = 256, N =
    100 on the packed route (one launch per bucket) and the dense route
@@ -553,7 +560,7 @@ GRAPH_REL, EXACT_RTOL, DEEP_REL, ONNX_PHI_ATOL = 1e-5, 1e-4, 1e-4, 1e-4
 DEEPSHAP_FIXTURE = "tests/fixtures/deepshap_parity.npz"
 # the fifteenth slice (phase 3's wide cases, phases 50-53): the kernels past
 # their old limits.  fused_linear_ey at K = 33, 64, 100 and 257 (softmax
-# through the class-tiled kernel, sigmoid one class a block) at a
+# through the factored kernel's class tiles, sigmoid one class a block) at a
 # headline-like shape, ragged edges and N above one staged chunk; a
 # 100-class multinomial LR on the Adult-shaped task (phase 50, the CPU on
 # its first rows); the JAX package's configuration 5, Covertype
@@ -660,6 +667,11 @@ def group_space_inputs(rng, B, S, N, M, K, device, mask=None):
 
 #: kinds of adversarial sigmoid-form inputs (:func:`adversarial_ey_inputs`)
 EY_ADVERSARIAL = ("large logits", "spread past the guard", "cancelling")
+#: kinds of adversarial general-softmax inputs: the sigmoid form's, and top
+#: classes that disagree so far that the factored D underflows
+EY_SOFTMAX_ADVERSARIAL = EY_ADVERSARIAL + ("top classes apart",)
+#: general-softmax class counts phase 3 gives each adversarial kind
+EY_SOFTMAX_ADVERSARIAL_KS = (3, 7, 33, 100)
 
 
 def _quantised(a):
@@ -685,10 +697,16 @@ def adversarial_ey_inputs(rng, kind, B, S, N, M, K, activation, device):
       random (so most pass it): both routes in one warp;
     - ``"cancelling"``: instance and background group logits both c_m ±
       N(0, 0.3) with c_m of 20–30 (one sign per class): dp and t' of up
-      to ±360 that cancel to x of O(1).
+      to ±360 that cancel to x of O(1);
+    - ``"top classes apart"`` (for the general softmax): every group adds
+      25 to instance b's class b mod K and to background row n's class
+      (n + 1) mod K of -t', over N(0, 0.3) noise: where the two disagree
+      and the coalition holds three groups or more, the factored D =
+      Σ_k u·v falls below the kernel's guard (e^-75 and less) while the
+      softmax itself is an even split.
 
     Binary softmax carries the designed logit in class 1 (class 0 is 0);
-    sigmoid designs every class.  Values sit on the :func:`_quantised`
+    sigmoid and the general softmax design every class.  Values sit on the :func:`_quantised`
     grid; background weights are U(0.5, 1.5)."""
 
     import torch
@@ -714,6 +732,11 @@ def adversarial_ey_inputs(rng, kind, B, S, N, M, K, activation, device):
             A[:, :, k] = c + rng.normal(0, 0.3, (B, M))
             G[:, :, k] = c + rng.normal(0, 0.3, (N, M))
             Wn[:, k] = rng.normal(0, 1, N)
+        elif kind == "top classes apart":
+            A[:, :, k] = rng.normal(0, 0.3, (B, M)) + 25.0 * (np.arange(B) % K == k)[:, None]
+            G[:, :, k] = rng.normal(0, 0.3, (N, M)) \
+                - 25.0 * ((np.arange(N) + 1) % K == k)[:, None]
+            Wn[:, k] = rng.normal(0, 0.3, N)
         else:
             raise ValueError(f"unknown kind {kind!r}")
     if kind == "spread past the guard":
@@ -754,6 +777,28 @@ def ey_guard_stats(args, activation, chunk_rows):
         out["rows"] += int(rows.sum())
         out["rows_clamped"] += int(((dp - shift[None]).abs() > guard["clamp"])[rows].sum())
     return out
+
+
+def softmax_guard_stats(args):
+    """How the factored general softmax's guard splits these inputs,
+    counted in float32 with the kernel's steps (``csrc/fused_linear_ey.cu``,
+    head comment): ``u = exp(p1 − max_k p1)``, ``v = exp(−t' − max_k −t')``
+    (a row of zeros where a t' is not finite), ``D = Σ_k u·v``; of the ``(b, s,
+    n)`` triples, those with D below ``kTau`` or NaN, which the kernel
+    computes exactly (``cuda_kernels.ey_softmax_tau``)."""
+
+    import torch
+
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import ey_softmax_tau
+
+    XWg, bgWg, bgW, _, mask = args
+    p1 = torch.einsum("sm,bmk->bsk", mask, XWg)
+    tp = torch.einsum("sm,nmk->snk", mask, bgWg) - bgW[None]
+    u = torch.exp(p1 - p1.nan_to_num(nan=-float("inf")).amax(-1, keepdim=True))
+    v = torch.exp(-tp - (-tp).nan_to_num(nan=-float("inf")).amax(-1, keepdim=True))
+    v = torch.where(tp.isfinite().all(-1, keepdim=True), v, 0.0)
+    D = torch.einsum("bsk,snk->bsn", u, v)
+    return {"triples": D.numel(), "exact_route": int((~(D >= ey_softmax_tau())).sum())}
 
 
 # ---------------------------------------------------------------------- #
@@ -2145,8 +2190,14 @@ def ey_bound_ms(B, S, N, M, K, activation, sm_count, sm_clock_hz, design="paired
       0.2537 ms at the headline), 2·M FLOP per (b, s, class) and per
       (s, n, class) product, plus ~3 FLOP per activation.
 
-    A general softmax takes the unfactored count in every design: K exps
-    and one reciprocal per activation on the SFUs."""
+    A general softmax (K != 2) takes, in the paired and factored designs,
+    the floor of ``softmax_factored_kernel``'s factored form: B·S·N
+    reciprocals and K·(B·S + S·N) exponentials on the SFUs, 2·K·B·S·N
+    FFMAs (D = Σ_k u·v, then Σ_n r·v) and M·K·(B·S + S·N) on the FP32
+    lanes: 3.3688 ms at K = 100 and the headline shape, 6.0241 ms at a
+    Covertype chunk (B = 65536, K = 7), both FP32-bound.  ``"unfactored"``
+    keeps its earlier count: K exps and one reciprocal per activation on
+    the SFUs (12.8113 and 25.9777 ms there)."""
 
     binary = activation == "softmax" and K == 2
     KE = 1 if binary else K
@@ -2161,6 +2212,9 @@ def ey_bound_ms(B, S, N, M, K, activation, sm_count, sm_clock_hz, design="paired
         sfu_act, fp32_act = per_act[design]
         sfu = KE * (sfu_act * acts + B * S + S * N)
         fp32_s = KE * (fp32_act * acts + M * (B * S + S * N)) / fp32_lanes
+    elif design in per_act:
+        sfu = acts + K * (B * S + S * N)
+        fp32_s = K * (2 * acts + M * (B * S + S * N)) / fp32_lanes
     else:
         sfu = acts * (2 * KE if activation == "sigmoid" or binary else KE + 1)
         fp32_s = (2 * M * KE * (B * S + S * N) + 3 * acts * KE) / FP32_FLOPS_PER_S
@@ -2178,7 +2232,10 @@ def compare_kernel(seed, device):
     at the main path's shapes, the edge shapes and the adversarial
     sigmoid-form inputs (:func:`adversarial_ey_inputs`: large logits, a
     t' range past the guard, cancelling logits, and N above one staged
-    chunk), with the guard's split of each sigmoid-form case."""
+    chunk), with the guard's split of each sigmoid-form case; the general
+    softmax's factored kernel on every adversarial kind (top classes apart
+    too) at ``EY_SOFTMAX_ADVERSARIAL_KS`` classes, with the (b, s, n)
+    triples its guard sent to the in-kernel exact route."""
 
     from distributedkernelshap_tpu_torch.ops import cuda_kernels
     from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
@@ -2219,6 +2276,16 @@ def compare_kernel(seed, device):
                   (f"{kind}, sigmoid K=7 M=48", 64, 300, 100, 48, 7, "sigmoid", kind),
                   (f"{kind}, binary, N above one chunk", 128, 512, 300, 12, 2, "softmax",
                    kind)]
+    for kind in EY_SOFTMAX_ADVERSARIAL:
+        cases += [(f"{kind}, softmax K={K}", 128, 512, 100, 12, K, "softmax", kind)
+                  for K in EY_SOFTMAX_ADVERSARIAL_KS]
+    # past the classes whose u a block keeps for every class: u formed per
+    # class tile
+    cases += [("u per class tile, softmax K=1000", 64, 256, 100, 12, 1000, "softmax", None),
+              ("u per class tile, ragged edges, softmax K=1000", 33, 70, 9, 7, 1000, "softmax",
+               None),
+              ("u per class tile, top classes apart, softmax K=1000", 32, 64, 300, 12, 1000,
+               "softmax", "top classes apart")]
     worst = 0.0
     for name, B, S, N, M, K, act, mask in cases:
         if isinstance(mask, str):
@@ -2231,19 +2298,23 @@ def compare_kernel(seed, device):
         finite = bool(got.isfinite().all())
         guard = ""
         if act == "sigmoid" or K == 2:
-            st = ey_guard_stats(args, act, ey_launch_info(B, S, N, K, act)["chunk_rows"])
+            st = ey_guard_stats(args, act, ey_launch_info(B, S, N, M, K, act)["chunk_rows"])
             guard = (f"; guard: {st['exact_route']} of {st['columns']} (class, coalition, "
                      f"chunk) columns on the exact loop, {st['rows_clamped']} of "
                      f"{st['rows']} factored rows clamped")
+        else:
+            st = softmax_guard_stats(args)
+            guard = (f"; guard: {st['exact_route']} of {st['triples']} (b, s, n) on the "
+                     f"in-kernel exact route")
         print(f"kernel vs plain [{name}] B={B} S={S} N={N} M={M} K={K}: "
               f"max_abs_diff={err:.3e} (tol {EY_ATOL:g}){guard}", flush=True)
         if not finite or not err <= EY_ATOL:
             raise AssertionError(f"fused_linear_ey disagrees with its plain version "
                                  f"at {name}: {err} (finite={finite})")
         worst = max(worst, err)
-    # past the register kernel's classes: softmax through the class-tiled
-    # kernel, sigmoid one class a block, at the headline-like shape, ragged
-    # edges and N above one staged chunk
+    # past 32 classes: softmax through the factored kernel's class tiles,
+    # sigmoid one class a block, at the headline-like shape, ragged edges
+    # and N above one staged chunk
     for K in WIDE_EY_KS:
         for act in ("softmax", "sigmoid"):
             for label, B, S, N, M in WIDE_EY_SHAPES:
@@ -2252,10 +2323,14 @@ def compare_kernel(seed, device):
                 ref = fused_linear_ey_plain(*args, act)
                 err = float((got - ref).abs().max())
                 finite = bool(got.isfinite().all())
-                info = ey_launch_info(B, S, N, K, act)
+                info = ey_launch_info(B, S, N, M, K, act)
+                guard = ""
+                if act == "softmax":
+                    st = softmax_guard_stats(args)
+                    guard = f"; {st['exact_route']} of {st['triples']} (b, s, n) exact"
                 print(f"kernel vs plain [{act} K={K}, {label}] B={B} S={S} N={N} M={M}: "
                       f"max_abs_diff={err:.3e} (tol {EY_ATOL:g}); {info['blocks']} blocks, "
-                      f"{info['chunk_rows']} background rows a chunk", flush=True)
+                      f"{info['chunk_rows']} background rows a chunk{guard}", flush=True)
                 if not finite or not err <= EY_ATOL:
                     raise AssertionError(f"fused_linear_ey disagrees with its plain "
                                          f"version at {act} K={K}, {label}: {err}")
@@ -2270,24 +2345,23 @@ def compare_kernel(seed, device):
         print(f"kernel at sigmoid K={K} raises on the card: {e}", flush=True)
     else:
         raise AssertionError(f"fused_linear_ey took sigmoid K={K} > MAX_SIGMOID_K")
-    # the class-tiled kernel against the register kernel at K = 32, same
-    # inputs, timed register, tiled, tiled, register (for the record)
-    B, S, N, M, K = 512, 1024, 100, 12, cuda_kernels.REGISTER_K
+    # the factored kernel against the plain version's time at K = 32, same
+    # inputs, timed plain, kernel, kernel, plain (for the record)
+    B, S, N, M, K = 512, 1024, 100, 12, 32
     args = group_space_inputs(rng, B, S, N, M, K, device)
-    tiled = cuda_kernels.fused_linear_ey_tiled(*args)
-    err = float((tiled - fused_linear_ey_plain(*args, "softmax")).abs().max())
+    err = float((fused_linear_ey(*args) - fused_linear_ey_plain(*args)).abs().max())
     if not err <= EY_ATOL:
-        raise AssertionError(f"the class-tiled kernel disagrees with the plain version "
+        raise AssertionError(f"the factored kernel disagrees with the plain version "
                              f"at K={K}: {err}")
     worst = max(worst, err)
-    ab = {"register": [], "tiled": []}
-    for arm in ("register", "tiled", "tiled", "register"):
-        fn = (lambda: fused_linear_ey(*args, "softmax")) if arm == "register" \
-            else (lambda: cuda_kernels.fused_linear_ey_tiled(*args))
-        ab[arm].append(cuda_time_ms(fn, 10))
+    ab = {"plain": [], "kernel": []}
+    for arm in ("plain", "kernel", "kernel", "plain"):
+        fn = (lambda: fused_linear_ey(*args)) if arm == "kernel" \
+            else (lambda: fused_linear_ey_plain(*args))
+        ab[arm].append(cuda_time_ms(fn, 10 if arm == "kernel" else 2))
     print(f"A/B at softmax K={K} B={B} S={S} N={N} M={M} on {card_line()}: "
-          f"softmax_kernel<32> {ab['register']} ms, softmax_tiled_kernel {ab['tiled']} ms "
-          f"(order register, tiled, tiled, register); tiled vs plain {err:.3e}", flush=True)
+          f"softmax_factored_kernel {ab['kernel']} ms, plain {ab['plain']} ms "
+          f"(order plain, kernel, kernel, plain); kernel vs plain {err:.3e}", flush=True)
     return worst
 
 
@@ -2309,7 +2383,8 @@ def ey_kernel_report(lib_path, sm_count):
     if not any("sigmoid_kernel" in r["function"] for r in rows):
         raise AssertionError(f"no ptxas report for fused_linear_ey's kernels in {log}")
     S = len(coalition_plan_mask())
-    info = cuda_kernels.ey_launch_info(B_HEADLINE, S, N_BACKGROUND, 2, "softmax")
+    info = cuda_kernels.ey_launch_info(B_HEADLINE, S, N_BACKGROUND, len(ADULT_WIDTHS), 2,
+                                       "softmax")
     waves = info["blocks"] / (sm_count * info["blocks_per_sm"])
     print(f"  fused_linear_ey headline launch (B={B_HEADLINE} S={S} N={N_BACKGROUND} K=2, "
           f"sigmoid_kernel<true>): {info}; {info['blocks'] / sm_count:.2f} blocks per "
@@ -7303,21 +7378,45 @@ def ey_timing(args, sm_count, sm_clock_hz, reps=3):
     return kernel_ms, plain_ms, bound_ms, bound_by
 
 
+def general_softmax_report(label, args, kernel_ms, bound_ms, bound_by, sm_count,
+                           sm_clock_hz, card):
+    """Print what a general-softmax ``fused_linear_ey`` call launches
+    (``ey_launch_info`` of ``softmax_factored_kernel``: blocks, registers,
+    local memory, shared memory, resident blocks per SM), the kernel's time
+    against its bound (the factored count) and against the earlier count
+    (``design="unfactored"``: K exps and a reciprocal per activation), with
+    the share of each.  Returns the earlier count in ms."""
+
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import ey_launch_info
+
+    XWg, bgWg, _, _, mask = args[:5]
+    B, M, K = XWg.shape
+    S, N = mask.shape[0], bgWg.shape[0]
+    info = ey_launch_info(B, S, N, M, K, "softmax")
+    old_ms, old_by = ey_bound_ms(B, S, N, M, K, "softmax", sm_count, sm_clock_hz,
+                                 design="unfactored")
+    print(f"{label}: softmax_factored_kernel (after softmax_v_kernel) at B={B} S={S} N={N} "
+          f"M={M} K={K} on {card}: launch {info} ({info['local_bytes']} B local memory a "
+          f"thread); kernel {kernel_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"factored: B·S·N reciprocals, K·(B·S + S·N) exps, 2·K·B·S·N FFMAs) "
+          f"{100 * bound_ms / kernel_ms:.1f}% of it; the earlier count {old_ms:.4f} ms "
+          f"({old_by}: an exp per (b, s, n, k), a reciprocal per (b, s, n)) "
+          f"{100 * old_ms / kernel_ms:.1f}%", flush=True)
+    return old_ms
+
+
 def classes_phase(X, bg, device, card, sm_count, sm_clock_hz, seed):
     """Phase 50: a 100-class multinomial LR on the Adult-shaped task (B =
     2560, D = 48 in the Adult groups, N = 100, M = 12, S = 2072) through
     ``KernelShap(...).fit(...).explain(X)``, counted: one
-    ``fused_linear_ey`` launch, through the class-tiled kernel; additive
+    ``fused_linear_ey`` launch, through the factored kernel; additive
     (< 1e-3), phi within ``PHI_ATOL`` + 16 p-ulps (``logit_tol``) of the
     plain route on the card and of the port on the CPU on the first rows;
     the kernel against its plain version on the call's own arguments;
     times.  Returns the record of the call."""
 
     import torch
-    from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
-        ey_launch_info,
-        fused_linear_ey,
-    )
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import fused_linear_ey
 
     rng = np.random.default_rng([seed, 50])
     B, K, M = X.shape[0], N_CLASSES_WIDE, len(ADULT_WIDTHS)
@@ -7357,16 +7456,15 @@ def classes_phase(X, bg, device, card, sm_count, sm_clock_hz, seed):
         raise AssertionError("the 100-class explain disagrees with its references")
     wall_ms, walls = median_wall_ms(lambda: explainer.explain(X, silent=True), 3)
     kernel_ms, plain_ms, bound_ms, bound_by = ey_timing(a, sm_count, sm_clock_hz)
-    info = ey_launch_info(B, a[4].shape[0], a[1].shape[0], K, "softmax")
     print(f"times on {card}: {K}-class explain B={B} wall median of 3 = {wall_ms:.3f} ms "
-          f"(runs {walls}); fused_linear_ey (softmax_tiled_kernel) at B={B} "
-          f"S={a[4].shape[0]} N={a[1].shape[0]} M={M} K={K}: kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: one exp per "
-          f"(b, s, n, k) and one reciprocal per (b, s, n) on the SFUs), "
-          f"{100 * bound_ms / kernel_ms:.1f}% of bound; launch {info}; library_ms null",
-          flush=True)
+          f"(runs {walls}); fused_linear_ey at B={B} S={a[4].shape[0]} N={a[1].shape[0]} "
+          f"M={M} K={K}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; library_ms "
+          f"null", flush=True)
+    old_ms = general_softmax_report(f"classes K={K}", a, kernel_ms, bound_ms, bound_by,
+                                    sm_count, sm_clock_hz, card)
     return {"launches": launches, "max_abs_err": ey_err, "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_unfactored": old_ms}
 
 
 def covertype_rows(rng, n):
@@ -7460,14 +7558,16 @@ def covertype_phase(device, card, sm_count, sm_clock_hz, seed):
     if not ey_err <= EY_ATOL:
         raise AssertionError(f"fused_linear_ey vs plain {ey_err:.3e} on a Covertype call")
     kernel_ms, plain_ms, bound_ms, bound_by = ey_timing(a, sm_count, sm_clock_hz)
-    print(f"times on {card}: Covertype fused_linear_ey (softmax_kernel<8>) at B="
-          f"{a[0].shape[0]} S={a[4].shape[0]} N={a[1].shape[0]} M={M} K={K}: kernel "
-          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}), {100 * bound_ms / kernel_ms:.1f}% of bound; kernel vs plain on "
-          f"the first 2048 rows {ey_err:.3e}; library_ms null", flush=True)
+    print(f"times on {card}: Covertype fused_linear_ey at B={a[0].shape[0]} "
+          f"S={a[4].shape[0]} N={a[1].shape[0]} M={M} K={K}: kernel {kernel_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms; kernel vs plain on the first 2048 rows {ey_err:.3e}; "
+          f"library_ms null", flush=True)
+    old_ms = general_softmax_report("Covertype chunk", a, kernel_ms, bound_ms, bound_by,
+                                    sm_count, sm_clock_hz, card)
     return {"launches": launches, "max_abs_err": ey_err, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "wall_s": wall, "rows_per_s": X.shape[0] / wall, "top_feature": top}
+            "bound_ms_unfactored": old_ms, "wall_s": wall, "rows_per_s": X.shape[0] / wall,
+            "top_feature": top}
 
 
 def wide_rows(rng, n, D):
@@ -8010,7 +8110,7 @@ def main() -> int:
     inter_record["wide_m64"] = {k: wide_inter[k] for k in ("ms", "plain_ms", "bound_ms",
                                                            "bound_by")}
     wide_ey = {name: {k: rec[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
-                                          "bound_by")}
+                                          "bound_by", "bound_ms_unfactored")}
                for name, rec in (("k100", classes), ("covertype", covertype))}
     print(f"card: {card}")
     print(json.dumps({"kernels": [{

@@ -72,26 +72,100 @@
 // output after it.  R = 20 rows a thread (TB = 80), a chunk of 120
 // background rows, built for 4 resident blocks an SM: 64 registers, no
 // spills.  At the headline the grid is 32 x 33 = 1056 blocks = 132 SMs x 8,
-// two full waves of 528.  The general-K softmax branch is a kernel of its
-// own with its own tiles (R = 16 at K = 1 down to 1 at K = 32).
+// two full waves of 528.  Sigmoid takes any K up to the grid's z limit
+// (kMaxGridZ = 65535 classes), one class a block.
 //
-// Past 32 classes (kRegisterK) the general-K softmax takes a class-tiled
-// kernel, softmax_tiled_kernel, so that no register array is K wide and any
-// K runs.  A denominator spans every class, so each background chunk of
-// kTiledNC rows takes two passes over the classes, kTiledKC at a time, with
-// the tile's t' staged in shared memory each time: the first keeps, per
-// (row, background row) in registers, the running max and denominator
-// (rescaled when the max moves), the second adds w_n * e_k / den into the
-// tile's sums and adds them to the thread's own out[b, s, k0..] (written by
-// the first chunk).  Each output element has one owning thread, so there
-// are no atomics and two launches are bit-identical.  Arithmetic: accurate
-// expf, one IEEE division per (b, s, n); K + K/kTiledKC + K exponentials
-// per (b, s, n), so at a K of 100 about twice the MUFU work of the
-// function's K exponentials.  It is the simple kernel of its branch: its
-// times sit beside its bound in PERF.md.  Sigmoid takes any K up to the
-// grid's z limit (kMaxGridZ = 65535 classes), one class a block.
+// The general-K softmax (every softmax K but 2, K = 1 included) is one
+// factored kernel, softmax_factored_kernel, after a prologue launch,
+// softmax_v_kernel, in the same call.  Its logit p1[b,s,k] - t'[k,n,s] is a
+// sum of an instance term and a background term, so the exponential
+// factors.  With the shifts alpha[b,s] = max_k p1 and gamma[s,n] =
+// max_k -t',
+//
+//   u[b,s,k]  = exp(p1 - alpha)   in (0, 1]    K B S exponentials
+//   v[s,n,k]  = exp(-t' - gamma)  in (0, 1]    K S N exponentials
+//   D[b,s,n]  = sum_k u v                      K FFMAs per (b, s, n)
+//   r[b,s,n]  = bgw[n] / D                     one reciprocal per (b, s, n)
+//   ey[b,s,k] = u[b,s,k] * sum_n r v[s,n,k]    K FFMAs per (b, s, n)
+//
+// (at K = 2 the sigmoid form's 1 / (1 + u v)).  Per coalition these are two
+// small f32 products, (rows x K)(K x N) and (rows x N)(N x K), around an
+// elementwise reciprocal: the exponentials leave the (b, s, n) loop and the
+// work goes to the FP32 lanes.  The prologue writes v once per (s, n, k),
+// one warp per (s, n), into the wrapper's scratch (S N K floats).  A block
+// of the main kernel takes kFTB = 64 rows and up to kFMaxSPB = 16
+// coalitions, one after another (fewer where the grid would fall under 8
+// waves); the row tiles run fastest, so a group of coalitions' v stays in
+// L2 across them.  Where they fit beside two blocks an SM, the rows' XWg
+// stay in shared memory for all the block's coalitions (at a Covertype
+// chunk; not at K = 100, M = 12, 300 KB).  Per coalition the block forms
+// p1 for every class in shared memory (ures: where that fits, every K up
+// to ~400; past it u is formed per class tile), four elements a thread at
+// a time; alpha and u, four lanes a row; then per pass over at most
+// kFMaxNR background rows:
+//
+// - pass 1, D: each thread owns 4 rows x 8 background rows in registers;
+//   per class tile (KC = 4 CG classes, CG = 1..16 the class groups of pass
+//   2) v is staged in shared memory with cp.async and u and v are read as
+//   float4s, 32 FFMAs per three loads; a background chunk is kFNC = 128
+//   rows.  Then r = w * rcp.approx.ftz(D), or 0 and a flag (the guard,
+//   below), goes to shared memory;
+// - pass 2, the output: per class tile each thread owns 4 rows x 4 classes
+//   of one of NG = 16 / CG background groups (n = g mod NG) and adds r v
+//   over the pass's rows, 16 FFMAs per two loads; the groups' partial sums
+//   are added in group order through shared memory (in v's place), times u,
+//   and written once (added to, on a second pass past kFMaxNR background
+//   rows).
+//
+// No atomics touch the output: each element has one owner in each step, so
+// two launches are bit-identical (the flags are set by a shared-memory
+// atomicOr, which commutes).  Shared memory: ~100 KB at N = 100, K = 100,
+// ~78 KB at a Covertype chunk (two blocks an SM), up to ~218 KB at K = 257,
+// N >= kFMaxNR, opted into past 48 KB with cudaFuncSetAttribute.
+//
+// The guard.  u and v are at most 1, so D <= K and nothing overflows; D can
+// underflow, where the instance's top class and the background row's top
+// class disagree by more than ~87 in logit.  The factored route takes a
+// (b, s, n) only where D >= kTau = 2^-100.  Why r = w/D and the sums stay
+// finite and right there:
+//
+// - r <= 2^100 w, so sum_n r v[n,k] <= 2^100 (sum w = 1, v <= 1): every
+//   accumulator is finite, far below FLT_MAX = 2^128;
+// - D is a normal float, so rcp.approx.ftz does not flush it, and its error
+//   is that of K fmafs; a product u v that is subnormal or flushed moves D
+//   by at most 2^-149 absolute, 2^-49 of D;
+// - a subnormal u or v is off by at most 2^-150, which moves a probability
+//   u_k v_k / D by at most 2^-150 / 2^-100 = 2^-50 and the output u_k acc_k
+//   by at most 2^-150 2^100 = 2^-50: far below the 1e-5 bar.
+//
+// Below 2^-126 the reciprocal flushes D to zero, and there K subnormal
+// roundings of 2^-150 reach the 1e-5 bar at K = 257; kTau keeps 2^26 of
+// room above that and bounds the sums by 2^100.  Where D < kTau, or D is
+// NaN (a non-finite p1), or the background row has a non-finite t' (the
+// prologue writes its v as zeros, so D = 0 and no NaN reaches the sums of
+// pass 2), the kernel computes that (b, s, n) exactly: r is 0 and a bit
+// is set, and after the pass's outputs are written the block adds, per
+// flagged pair in background order, bgw / Z * exp(x_k - m), with
+// x = p1 - t' recomputed from the inputs,
+// m = max_k x and Z = sum_k exp(x_k - m) (accurate expf, an IEEE
+// division): the reference's max-subtracted exponentials.  Those
+// contributions cannot be scaled by u afterwards (u may be e^-80), so they
+// go straight into the output, four lanes a row, after a barrier: the exact
+// route reads its outputs back, the factored route never does.
+//
+// The function's floor under this contract (chip_smoke.py's ey_bound_ms):
+// B S N reciprocals and K (B S + S N) exponentials on the SFUs, 2 K B S N
+// FFMAs and M K (B S + S N) on the FP32 lanes, over the bytes: 3.3688 ms at
+// K = 100 and the headline shape, 6.0241 ms a Covertype chunk (FP32, 132
+// SMs at 1980 MHz).  What the kernel spends beyond it: class tiles of 64
+// past K = 64 (36 of 64 classes live in the second at K = 100) and of 8 at
+// K = 7 (7 live), chunks of 128 background rows (100 live at N = 100), the
+// group sums of p1 from global memory where XWg is not resident (M loads an
+// element), the loads and stores of r and the partial sums, a handful of
+// barriers per coalition with 16 warps an SM to hide them (PERF.md).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 
 namespace {
@@ -101,7 +175,6 @@ constexpr int kTS = 64;                     // coalitions per block
 constexpr int kTBY = kThreads / kTS;        // instance rows per pass
 constexpr int kSmemBudget = 48 * 1024;      // bytes of staged background:
                                             // the limit without an opt-in
-constexpr int kRegisterK = 32;             // widest class array of softmax_kernel
 constexpr int kMaxGridZ = 65535;            // sigmoid: classes on the grid's z axis
 constexpr float kSpread = 80.0f;            // widest t' range of a chunk the
                                             // factored route takes
@@ -118,23 +191,25 @@ constexpr int kSigmoidTB = kTBY * kSigmoidRows;
 constexpr int kSigmoidChunkRows =
     (kSmemBudget / 4 - kTS - kMC * kTS - kSigmoidTB * kMC) / (kTS + 2 + kMC);
 
-// class-tiled softmax: classes a tile, background rows a chunk, rows a thread
-constexpr int kTiledKC = 8;
-constexpr int kTiledNC = 16;
-constexpr int kTiledRows = 2;
-constexpr int kTiledTB = kTBY * kTiledRows;
+// the factored general softmax
+constexpr int kFTB = 64;                    // instance rows a block
+constexpr int kFGroups = 16;                // row groups of 4; pass 1's
+                                            // background groups of 8
+constexpr int kFNC = kFGroups * 8;          // background rows a staged chunk
+constexpr int kFMaxNR = 256;                // background rows a pass keeps r of
+constexpr int kFRS = kFTB + 16;             // row stride of r[n][row]
+constexpr int kFMaxCG = 16;                 // class groups of 4 in a tile
+constexpr int kFRed = kFGroups * 4 * kFTB;  // pass 2's partials: NG KC = 64 a row
+constexpr int kFMaxSPB = 16;                // coalitions a block, at most
+constexpr float kTau = 0x1p-100f;           // least D the factored route takes
+constexpr int kFMaxSmem = 227 * 1024;       // a block's shared memory on sm_90
+constexpr int kFTwoBlocks = 228 * 1024 / 2 - 1024;  // two blocks' share of an SM
 
-// softmax: instances per thread for a register class-array of width KT
-__host__ __device__ constexpr int rows_for(int kt) {
-  return kt == 1 ? 16 : (kt == 2 ? 8 : (kt <= 8 ? 4 : (kt == 16 ? 2 : 1)));
-}
-
-static_assert(kSmemBudget / (4 * (kRegisterK * kTS + 1)) >= 1,
-              "one background row of the widest class tile must fit");
 static_assert(kSigmoidChunkRows >= 1, "one sigmoid-form background row must fit");
-static_assert(sizeof(float) * (kTiledKC * kTiledNC * kTS + kTiledNC) <= kSmemBudget,
-              "a class tile of a chunk must fit without an opt-in");
 static_assert(kTS * 4 == kThreads, "the shift reduction gives four lanes a coalition");
+static_assert(kFGroups * kFGroups == kThreads && kFTB == 4 * kFGroups,
+              "the factored passes give each thread 4 of the block's rows");
+static_assert(kFTB * 4 == kThreads, "alpha and the exact route take four lanes a row");
 
 typedef void (*EyKernel)(const float*, const float*, const float*, const float*,
                          const float*, float*, int, int, int, int, int, int);
@@ -149,266 +224,309 @@ __device__ __forceinline__ float rcp_approx(float x) {
   return r;
 }
 
-// t'[k,n,s] = t2[s,n,k] - bgW[n,k] (binary: of the class difference) for
-// coalition sg < S and background row n
+// sum_m mk[m] * x[m * K]: one fmaf per group, in order (a row's logit of a
+// class, or a background row's group sum)
+__device__ __forceinline__ float group_sum(const float* __restrict__ x,
+                                           const float* __restrict__ mk, int M, int K) {
+  float v = 0.0f;
+#pragma unroll 4
+  for (int m = 0; m < M; ++m) v = fmaf(mk[m], x[(size_t)m * K], v);
+  return v;
+}
+
+// t'[k,n,s] = t2[s,n,k] - bgW[n,k] for the coalition whose mask row is mk
 __device__ __forceinline__ float background_logit(const float* __restrict__ bgWg,
                                                   const float* __restrict__ bgW,
-                                                  const float* __restrict__ mask,
-                                                  int sg, int n, int k, int M, int K,
-                                                  bool binary) {
-  const float* mk = mask + (size_t)sg * M;
-  const float* bw = bgWg + (size_t)n * M * K;
-  const float* bl = bgW + (size_t)n * K;
-  float v = 0.0f;
-  if (binary) {
-    for (int m = 0; m < M; ++m) v = fmaf(mk[m], bw[m * K + 1] - bw[m * K], v);
-    return v - (bl[1] - bl[0]);
-  }
-  for (int m = 0; m < M; ++m) v = fmaf(mk[m], bw[m * K + k], v);
-  return v - bl[k];
+                                                  const float* __restrict__ mk, int n,
+                                                  int k, int M, int K) {
+  return group_sum(bgWg + (size_t)n * M * K + k, mk, M, K) - bgW[(size_t)n * K + k];
 }
 
-// The general-K softmax branch.
-template <int KT>
+// The factored softmax's prologue: one warp per (coalition s, background row
+// n) writes v[s,n,k] = exp(-t' - gamma) for every class, gamma = max_k -t';
+// a row with a non-finite t' is written as zeros, which sends each (b, s, n)
+// of it to the exact route (D = 0).
 __global__ void __launch_bounds__(kThreads)
-softmax_kernel(const float* __restrict__ XWg, const float* __restrict__ bgWg,
-               const float* __restrict__ bgW, const float* __restrict__ bgw,
-               const float* __restrict__ mask, float* __restrict__ out,
-               int B, int S, int N, int M, int K, int NC) {
-  constexpr int R = rows_for(KT);
-  constexpr int TB = kTBY * R;
-  const int KE = K;
-
-  extern __shared__ float smem[];
-  float* t2s = smem;                        // [KE][NC][kTS]
-  float* ws = smem + KE * NC * kTS;         // [NC]
-
-  const int tx = threadIdx.x % kTS;
-  const int ty = threadIdx.x / kTS;
-  const int s = blockIdx.y * kTS + tx;
-  const int b_base = blockIdx.x * TB + ty;
-  const bool s_ok = s < S;
-
-  float p[R][KT];
-  float acc[R][KT];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int b = b_base + r * kTBY;
-    const bool ok = s_ok && b < B;
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      acc[r][k] = 0.0f;
-      p[r][k] = 0.0f;
-      if (!ok || k >= KE) continue;
-      float v = 0.0f;
-      const float* xw = XWg + (size_t)b * M * K;
-      const float* mk = mask + (size_t)s * M;
-      for (int m = 0; m < M; ++m) v = fmaf(mk[m], xw[m * K + k], v);
-      p[r][k] = v;
-    }
+softmax_v_kernel(const float* __restrict__ bgWg, const float* __restrict__ bgW,
+                 const float* __restrict__ mask, float* __restrict__ v, int S, int N,
+                 int M, int K) {
+  const size_t w = ((size_t)blockIdx.x * kThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= (size_t)S * N) return;  // whole warps
+  const int s = (int)(w / N), n = (int)(w % N);
+  const float* mk = mask + (size_t)s * M;
+  float g = -INFINITY;
+  bool finite = true;
+  for (int k = lane; k < K; k += 32) {
+    const float t = background_logit(bgWg, bgW, mk, n, k, M, K);
+    finite = finite && isfinite(t);
+    g = fmaxf(g, -t);
   }
+  for (int o = 16; o; o >>= 1) g = fmaxf(g, __shfl_xor_sync(0xffffffffu, g, o));
+  finite = __all_sync(0xffffffffu, finite);
+  float* dst = v + w * K;
+  for (int k = lane; k < K; k += 32)
+    dst[k] = finite ? expf(-background_logit(bgWg, bgW, mk, n, k, M, K) - g) : 0.0f;
+}
 
-  for (int n0 = 0; n0 < N; n0 += NC) {
-    const int nc = min(NC, N - n0);
-    __syncthreads();  // the previous chunk is consumed
-    for (int idx = threadIdx.x; idx < KE * nc * kTS; idx += kThreads) {
-      const int sl = idx % kTS;
-      const int n = (idx / kTS) % nc;
-      const int k = idx / (kTS * nc);
-      const int sg = blockIdx.y * kTS + sl;
-      t2s[(k * NC + n) * kTS + sl] =
-          sg < S ? background_logit(bgWg, bgW, mask, sg, n0 + n, k, M, K, false) : 0.0f;
+// One float from global into shared memory, asynchronously (cp.async),
+// zero-filled where !ok (src is then not read); cp_async_wait waits for the
+// thread's own copies, a barrier after it shows them to the block.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The general-K softmax, factored: kFTB rows and SPB coalitions a block, CG
+// class groups of 4 in a class tile, NR background rows a pass; u resident
+// for every class (ures) or staged per class tile; the rows' XWg resident
+// (xres) or read from global memory.  See the head comment.
+__global__ void __launch_bounds__(kThreads, 2)
+softmax_factored_kernel(const float* __restrict__ XWg, const float* __restrict__ bgWg,
+                        const float* __restrict__ bgW, const float* __restrict__ bgw,
+                        const float* __restrict__ mask, const float* __restrict__ v,
+                        float* __restrict__ out, int B, int S, int N, int M, int K,
+                        int CG, int NR, int SPB, int ures, int xres) {
+  const int KC = 4 * CG, NG = kFGroups / CG, KCS = KC + 4;
+  const int nt = (K + KC - 1) / KC;             // class tiles
+  const int US = ures ? nt * KC + 4 : KCS;      // row stride of u
+  const int MK = M * K;
+  extern __shared__ float4 smem4[];
+  float* us = reinterpret_cast<float*>(smem4);  // [kFTB][US]: u, every class or a tile
+  float* vs = us + kFTB * US;                   // [kFNC][KCS]: v of a chunk and tile
+  float* red = vs;                              // [NG][kFTB][KC]: pass 2's partials,
+                                                // in v's place once v is consumed
+  float* rs = vs + max(kFNC * KCS, kFRed);      // [NR][kFRS]: r, 0 on the exact route
+  float* al = rs + (size_t)NR * kFRS;           // [kFTB]: alpha
+  unsigned* xb = reinterpret_cast<unsigned*>(al + kFTB);  // [NR][2]: exact flags,
+  unsigned* xany = xb + 2 * NR;                 // and whether any is set
+  float* xs = reinterpret_cast<float*>(xany + 1);  // [kFTB][M K]: the rows' XWg (xres)
+
+  // row tiles fast, so a group of coalitions' v stays in L2 across them
+  const int nbt = (B + kFTB - 1) / kFTB;
+  const int b0 = (blockIdx.x % nbt) * kFTB;
+  const int s_lo = (blockIdx.x / nbt) * SPB, s_hi = min(S, s_lo + SPB);
+  const int tid = threadIdx.x;
+  if (xres) {
+    for (int idx = tid; idx < kFTB * MK; idx += kThreads)
+      cp_async_f32(xs + idx, XWg + (size_t)min(b0 + idx / MK, B - 1) * MK + idx % MK, true);
+    cp_async_wait();
+  }
+  // a row's M x K logits; rows past B repeat row B-1 and are never written
+  auto xrow = [&](int row) {
+    return xres ? xs + row * MK : XWg + (size_t)min(b0 + row, B - 1) * MK;
+  };
+  // u of classes [k0, k0 + KC) into us (0 past K), without ures; mk is the
+  // coalition's mask row
+  const float* mk = mask;
+  auto stage_u = [&](int k0) {
+    for (int idx = tid; idx < kFTB * KC; idx += kThreads) {
+      const int row = idx / KC, kk = idx % KC, k = k0 + kk;
+      us[row * KCS + kk] = k < K ? expf(group_sum(xrow(row) + k, mk, M, K) - al[row]) : 0.0f;
     }
-    for (int idx = threadIdx.x; idx < nc; idx += kThreads) ws[idx] = bgw[n0 + idx];
-    __syncthreads();
+  };
 
-    for (int n = 0; n < nc; ++n) {
-      const float wn = ws[n];
-      float t[KT];
+  for (int s = s_lo; s < s_hi; ++s) {
+    const float* vrow = v + (size_t)s * N * K;
+    mk = mask + (size_t)s * M;
+    // v of background rows [n0, n0 + nc) and classes [k0, k0 + KC) into vs
+    // (0 past them)
+    auto stage_v = [&](int n0, int nc, int k0) {
+      for (int idx = tid; idx < kFNC * KC; idx += kThreads) {
+        const int n = idx / KC, kk = idx % KC, k = k0 + kk;
+        const bool ok = n < nc && k < K;
+        cp_async_f32(vs + n * KCS + kk, ok ? vrow + (size_t)(n0 + n) * K + k : vrow, ok);
+      }
+      cp_async_wait();
+    };
+    __syncthreads();  // the previous coalition is done with every buffer
+    // with ures, p1 of every class into us, four elements a thread at a
+    // time (each one fmaf chain over the groups in order)
+    if (ures) {
+      for (int i0 = tid; i0 < kFTB * K; i0 += 4 * kThreads) {
+        const float* x[4];
+        float a[4];
 #pragma unroll
-      for (int k = 0; k < KT; ++k)
-        t[k] = k < KE ? t2s[(k * NC + n) * kTS + tx] : 0.0f;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float mx = p[r][0] - t[0];
-#pragma unroll
-        for (int k = 1; k < KT; ++k)
-          if (k < KE) mx = fmaxf(mx, p[r][k] - t[k]);
-        float e[KT];
-        float den = 0.0f;
-#pragma unroll
-        for (int k = 0; k < KT; ++k) {
-          e[k] = k < KE ? expf(p[r][k] - t[k] - mx) : 0.0f;
-          den += e[k];
+        for (int e = 0; e < 4; ++e) {
+          const int i = min(i0 + e * kThreads, kFTB * K - 1);
+          x[e] = xrow(i / K) + i % K;
+          a[e] = 0.0f;
         }
-        const float sc = wn / den;
+#pragma unroll 2
+        for (int m = 0; m < M; ++m) {
+          const float mv = mk[m];
 #pragma unroll
-        for (int k = 0; k < KT; ++k) acc[r][k] = fmaf(sc, e[k], acc[r][k]);
+          for (int e = 0; e < 4; ++e) a[e] = fmaf(mv, x[e][(size_t)m * K], a[e]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = i0 + e * kThreads;
+          if (i < kFTB * K) us[(i / K) * US + i % K] = a[e];
+        }
       }
+      __syncthreads();
     }
-  }
-
-  if (!s_ok) return;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int b = b_base + r * kTBY;
-    if (b >= B) continue;
-    float* o = out + ((size_t)b * S + s) * K;
-#pragma unroll
-    for (int k = 0; k < KT; ++k)
-      if (k < KE) o[k] = acc[r][k];
-  }
-}
-
-// Stage the t' of classes [k0, k0 + kc) and background rows [n0, n0 + nc)
-// of the block's coalitions, and the chunk's weights, into shared memory.
-// Starts with a barrier, so the block is done with the previous tile.
-__device__ __forceinline__ void stage_class_tile(float* ts, float* ws,
-                                                 const float* __restrict__ bgWg,
-                                                 const float* __restrict__ bgW,
-                                                 const float* __restrict__ bgw,
-                                                 const float* __restrict__ mask,
-                                                 int s0, int S, int n0, int nc, int k0,
-                                                 int kc, int M, int K) {
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kc * nc * kTS; idx += kThreads) {
-    const int sl = idx % kTS;
-    const int n = (idx / kTS) % nc;
-    const int kk = idx / (kTS * nc);
-    const int sg = s0 + sl;
-    ts[(kk * kTiledNC + n) * kTS + sl] =
-        sg < S ? background_logit(bgWg, bgW, mask, sg, n0 + n, k0 + kk, M, K, false) : 0.0f;
-  }
-  for (int idx = threadIdx.x; idx < nc; idx += kThreads) ws[idx] = bgw[n0 + idx];
-  __syncthreads();
-}
-
-// p[r][kk] = sum_m mask[s,m] * XWg[b_r,m,k0+kk] for the thread's rows and the
-// tile's classes (0 past kc)
-__device__ __forceinline__ void tile_row_logits(float (&p)[kTiledRows][kTiledKC],
-                                                const float* __restrict__ XWg,
-                                                const float* __restrict__ mk,
-                                                const int (&br)[kTiledRows], int k0,
-                                                int kc, int M, int K) {
-#pragma unroll
-  for (int r = 0; r < kTiledRows; ++r)
-#pragma unroll
-    for (int kk = 0; kk < kTiledKC; ++kk) p[r][kk] = 0.0f;
-  for (int m = 0; m < M; ++m) {
-    const float mv = mk[m];
-#pragma unroll
-    for (int r = 0; r < kTiledRows; ++r) {
-      const float* xw = XWg + ((size_t)br[r] * M + m) * K + k0;
-#pragma unroll
-      for (int kk = 0; kk < kTiledKC; ++kk)
-        if (kk < kc) p[r][kk] = fmaf(mv, xw[kk], p[r][kk]);
+    // alpha[row] = max_k p1, four lanes a row; with ures the same lanes
+    // turn the row's p1 into u (0 past K)
+    {
+      const int row = tid / 4, q = tid % 4;
+      float a = -INFINITY;
+      for (int k = q; k < K; k += 4)
+        a = fmaxf(a, ures ? us[row * US + k] : group_sum(xrow(row) + k, mk, M, K));
+      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 1));
+      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 2));
+      if (q == 0) al[row] = a;
+      if (ures)
+        for (int k = q; k < nt * KC; k += 4)
+          us[row * US + k] = k < K ? expf(us[row * US + k] - a) : 0.0f;
     }
-  }
-}
 
-// The general-K softmax past kRegisterK classes (or forced): class tiles of
-// kTiledKC, two passes per background chunk.  See the head comment.
-__global__ void __launch_bounds__(kThreads)
-softmax_tiled_kernel(const float* __restrict__ XWg, const float* __restrict__ bgWg,
-                     const float* __restrict__ bgW, const float* __restrict__ bgw,
-                     const float* __restrict__ mask, float* __restrict__ out,
-                     int B, int S, int N, int M, int K, int NC) {
-  constexpr int R = kTiledRows;
-  constexpr int KC = kTiledKC;
-  constexpr int NCT = kTiledNC;
+    for (int p0 = 0; p0 < N; p0 += NR) {
+      const int np = min(NR, N - p0);
+      __syncthreads();  // the previous pass is done with rs and xb (and u written)
+      for (int i = tid; i < 2 * np; i += kThreads) xb[i] = 0u;
+      if (tid == 0) *xany = 0u;
 
-  extern __shared__ float smem[];
-  float* ts = smem;                         // [KC][NCT][kTS]: t' of a class tile
-  float* ws = ts + KC * NCT * kTS;          // [NCT]
-
-  const int tx = threadIdx.x % kTS;
-  const int ty = threadIdx.x / kTS;
-  const int s0 = blockIdx.y * kTS;
-  const int s = s0 + tx;
-  const bool s_ok = s < S;
-  // coalitions past S and rows past B read the last one and are never written
-  const float* mk = mask + (size_t)min(s, S - 1) * M;
-  int br[R];
+      // pass 1: D over every class tile, then r or the exact flag; the
+      // thread's rows are rg + 16 i, its background rows ng + 16 j of each
+      // chunk
+      {
+        const int rg = tid % kFGroups, ng = tid / kFGroups;
+        for (int c0 = 0; c0 < np; c0 += kFNC) {
+          const int nc = min(kFNC, np - c0);
+          float d[4][8];
 #pragma unroll
-  for (int r = 0; r < R; ++r) br[r] = min((int)blockIdx.x * kTiledTB + ty + r * kTBY, B - 1);
-
-  for (int n0 = 0; n0 < N; n0 += NC) {
-    const int nc = min(NC, N - n0);
-    // pass 1: per (row, background row), the max and the denominator over
-    // every class, one class tile at a time
-    float mx[R][NCT], den[R][NCT];
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int r = 0; r < R; ++r)
+            for (int j = 0; j < 8; ++j) d[i][j] = 0.0f;
+          for (int k0 = 0; k0 < K; k0 += KC) {
+            __syncthreads();  // the tiles are consumed
+            if (!ures) stage_u(k0);
+            stage_v(p0 + c0, nc, k0);
+            __syncthreads();
+            const float* ut = us + (ures ? k0 : 0);
+            for (int kk = 0; kk < KC; kk += 4) {
+              float4 u[4];
 #pragma unroll
-      for (int n = 0; n < NCT; ++n) {
-        mx[r][n] = -INFINITY;
-        den[r][n] = 0.0f;
-      }
-    for (int k0 = 0; k0 < K; k0 += KC) {
-      const int kc = min(KC, K - k0);
-      stage_class_tile(ts, ws, bgWg, bgW, bgw, mask, s0, S, n0, nc, k0, kc, M, K);
-      float p[R][KC];
-      tile_row_logits(p, XWg, mk, br, k0, kc, M, K);
+              for (int i = 0; i < 4; ++i)
+                u[i] = *reinterpret_cast<const float4*>(ut + (rg + 16 * i) * US + kk);
 #pragma unroll
-      for (int n = 0; n < NCT; ++n) {
-        if (n < nc) {
+              for (int j = 0; j < 8; ++j) {
+                const float4 w =
+                    *reinterpret_cast<const float4*>(vs + (ng + 16 * j) * KCS + kk);
 #pragma unroll
-          for (int r = 0; r < R; ++r) {
-            float tm = -INFINITY;
+                for (int i = 0; i < 4; ++i) {
+                  d[i][j] = fmaf(u[i].x, w.x, d[i][j]);
+                  d[i][j] = fmaf(u[i].y, w.y, d[i][j]);
+                  d[i][j] = fmaf(u[i].z, w.z, d[i][j]);
+                  d[i][j] = fmaf(u[i].w, w.w, d[i][j]);
+                }
+              }
+            }
+          }
 #pragma unroll
-            for (int kk = 0; kk < KC; ++kk)
-              if (kk < kc) tm = fmaxf(tm, p[r][kk] - ts[(kk * NCT + n) * kTS + tx]);
-            const float m_new = fmaxf(mx[r][n], tm);
-            float sum = mx[r][n] == -INFINITY ? 0.0f : den[r][n] * expf(mx[r][n] - m_new);
+          for (int j = 0; j < 8; ++j) {
+            if (ng + 16 * j >= nc) continue;
+            const int nl = c0 + ng + 16 * j;
+            const float wn = bgw[p0 + nl];
 #pragma unroll
-            for (int kk = 0; kk < KC; ++kk)
-              if (kk < kc) sum += expf(p[r][kk] - ts[(kk * NCT + n) * kTS + tx] - m_new);
-            mx[r][n] = m_new;
-            den[r][n] = sum;
+            for (int i = 0; i < 4; ++i) {
+              const int row = rg + 16 * i;
+              float r = 0.0f;
+              if (d[i][j] >= kTau) {  // NaN fails the comparison
+                r = wn * rcp_approx(d[i][j]);
+              } else {
+                atomicOr(xb + 2 * nl + row / 32, 1u << (row % 32));
+                *xany = 1u;
+              }
+              rs[nl * kFRS + row] = r;
+            }
           }
         }
       }
-    }
-    // den becomes the row's scale w_n / den: one IEEE division per (b, s, n)
+
+      // pass 2: per class tile, sum_n r v over the pass's rows, the
+      // thread's rows 4 rg + i, classes 4 cg + c, background rows g mod NG
+      bool exact = false;  // any flag of the pass, read after pass 2's first barrier
+      {
+        const int rg = tid % kFGroups, cg = (tid / kFGroups) % CG;
+        const int g = tid / (kFGroups * CG);
+        for (int k0 = 0; k0 < K; k0 += KC) {
+          float acc[4][4];
 #pragma unroll
-    for (int n = 0; n < NCT; ++n)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        if (n < nc) den[r][n] = ws[n] / den[r][n];
-    // pass 2: per class tile, the sums of w_n * e_k / den over the chunk,
-    // added to the thread's own output row
-    for (int k0 = 0; k0 < K; k0 += KC) {
-      const int kc = min(KC, K - k0);
-      stage_class_tile(ts, ws, bgWg, bgW, bgw, mask, s0, S, n0, nc, k0, kc, M, K);
-      float p[R][KC];
-      tile_row_logits(p, XWg, mk, br, k0, kc, M, K);
-      float acc[R][KC];
+            for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+          // one class tile and one chunk: vs still holds them from pass 1
+          const bool keep = nt == 1 && np <= kFNC;
+          for (int c0 = 0; c0 < np; c0 += kFNC) {
+            const int nc = min(kFNC, np - c0);
+            __syncthreads();  // vs, us and red are consumed; rs is complete
+            exact = *xany != 0u;
+            if (!keep) stage_v(p0 + c0, nc, k0);
+            if (!ures && c0 == 0) stage_u(k0);
+            if (!keep || !ures) __syncthreads();
+            for (int n = g; n < nc; n += NG) {
+              const float4 r = *reinterpret_cast<const float4*>(rs + (c0 + n) * kFRS + 4 * rg);
+              const float4 w = *reinterpret_cast<const float4*>(vs + n * KCS + 4 * cg);
+              const float rr[4] = {r.x, r.y, r.z, r.w}, ww[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-      for (int r = 0; r < R; ++r)
+              for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int kk = 0; kk < KC; ++kk) acc[r][kk] = 0.0f;
+                for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(rr[i], ww[c], acc[i][c]);
+            }
+          }
+          __syncthreads();  // v is consumed: red takes its place
 #pragma unroll
-      for (int n = 0; n < NCT; ++n) {
-        if (n < nc) {
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int r = 0; r < R; ++r)
-#pragma unroll
-            for (int kk = 0; kk < KC; ++kk)
-              if (kk < kc)
-                acc[r][kk] = fmaf(den[r][n],
-                                  expf(p[r][kk] - ts[(kk * NCT + n) * kTS + tx] - mx[r][n]),
-                                  acc[r][kk]);
+            for (int c = 0; c < 4; ++c)
+              red[(g * kFTB + 4 * rg + i) * KC + 4 * cg + c] = acc[i][c];
+          __syncthreads();
+          for (int idx = tid; idx < kFTB * KC; idx += kThreads) {
+            const int row = idx / KC, kk = idx % KC, b = b0 + row, k = k0 + kk;
+            if (b >= B || k >= K) continue;
+            float o = 0.0f;
+            for (int gg = 0; gg < NG; ++gg) o += red[(gg * kFTB + row) * KC + kk];
+            o *= us[row * US + (ures ? k0 : 0) + kk];
+            float* dst = out + ((size_t)b * S + s) * K + k;
+            *dst = p0 == 0 ? o : *dst + o;
+          }
         }
       }
-      if (!s_ok) continue;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int b = (int)blockIdx.x * kTiledTB + ty + r * kTBY;
-        if (b >= B) break;
-        float* o = out + ((size_t)b * S + s) * K + k0;
-#pragma unroll
-        for (int kk = 0; kk < KC; ++kk)
-          if (kk < kc) o[kk] = n0 == 0 ? acc[r][kk] : o[kk] + acc[r][kk];
+
+      // the exact route, after every output of the pass is written: per
+      // flagged (row, background row), in background order, four lanes a row
+      if (exact) {
+        __syncthreads();
+        const int row = tid / 4, q = tid % 4, b = b0 + row;
+        if (b < B) {
+          const float* xr = xrow(row);
+          float* o = out + ((size_t)b * S + s) * K;
+          for (int nl = 0; nl < np; ++nl) {
+            if (!((xb[2 * nl + row / 32] >> (row % 32)) & 1u)) continue;
+            const int n = p0 + nl;
+            float m = -INFINITY;
+            for (int k = 0; k < K; ++k)
+              m = fmaxf(m, group_sum(xr + k, mk, M, K) -
+                               background_logit(bgWg, bgW, mk, n, k, M, K));
+            float z = 0.0f;
+            for (int k = 0; k < K; ++k)
+              z += expf(group_sum(xr + k, mk, M, K) -
+                        background_logit(bgWg, bgW, mk, n, k, M, K) - m);
+            const float c = bgw[n] / z;
+            for (int k = q; k < K; k += 4)
+              o[k] = fmaf(c,
+                          expf(group_sum(xr + k, mk, M, K) -
+                               background_logit(bgWg, bgW, mk, n, k, M, K) - m),
+                          o[k]);
+          }
+        }
       }
     }
   }
@@ -567,35 +685,14 @@ sigmoid_kernel(const float* __restrict__ XWg, const float* __restrict__ bgWg,
   }
 }
 
-// What one call launches: the kernel, its grid, its dynamic shared memory
-// and its background rows per chunk.
+// What one sigmoid-form call launches: the kernel, its grid, its dynamic
+// shared memory and its background rows per chunk.
 struct Plan {
   EyKernel fn;
   dim3 grid;
   size_t smem;
   int nc;
 };
-
-template <int KT>
-Plan softmax_plan(int B, int S, int N, int K) {
-  constexpr int TB = kTBY * rows_for(KT);
-  // background rows per shared-memory chunk: K*NC*kTS + NC floats, at most
-  // kSmemBudget bytes (K <= kRegisterK keeps NC >= 1)
-  int nc = kSmemBudget / (int)(sizeof(float) * (K * kTS + 1));
-  nc = nc > N ? N : nc;
-  return {softmax_kernel<KT>, dim3((B + TB - 1) / TB, (S + kTS - 1) / kTS),
-          sizeof(float) * ((size_t)K * nc * kTS + nc), nc};
-}
-
-// the general-K softmax's class-width instantiation for K classes
-Plan softmax_by_width(int B, int S, int N, int K) {
-  if (K <= 1) return softmax_plan<1>(B, S, N, K);
-  if (K <= 2) return softmax_plan<2>(B, S, N, K);
-  if (K <= 4) return softmax_plan<4>(B, S, N, K);
-  if (K <= 8) return softmax_plan<8>(B, S, N, K);
-  if (K <= 16) return softmax_plan<16>(B, S, N, K);
-  return softmax_plan<32>(B, S, N, K);
-}
 
 // one class a block: binary softmax's one carried class, or sigmoid's K on
 // the grid's z axis
@@ -607,23 +704,61 @@ Plan sigmoid_plan(bool binary, int B, int S, int N, int K) {
           nc};
 }
 
-// the class-tiled softmax: any K, the chunk fixed at kTiledNC rows
-Plan softmax_tiled_plan(int B, int S) {
-  return {softmax_tiled_kernel, dim3((B + kTiledTB - 1) / kTiledTB, (S + kTS - 1) / kTS),
-          sizeof(float) * ((size_t)kTiledKC * kTiledNC * kTS + kTiledNC), kTiledNC};
+// What one general-softmax call launches: the main kernel's blocks, their
+// class groups, background rows a pass and coalitions, whether u stays
+// resident for every class and the rows' XWg in shared memory, the dynamic
+// shared memory; the prologue's blocks.
+struct FactoredPlan {
+  long long blocks;
+  int cg;
+  int nr;
+  int spb;
+  int ures;
+  int xres;
+  size_t smem;
+  long long v_blocks;
+};
+
+int sm_count() {
+  int dev = 0, n = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
 }
 
-// activation: 0 = softmax, 1 = sigmoid, 2 = softmax through the class-tiled
-// kernel at any K (what K > kRegisterK takes anyway)
+FactoredPlan factored_plan(int B, int S, int N, int M, int K) {
+  int cg = 1;
+  while (cg < kFMaxCG && 4 * cg < K) cg *= 2;
+  const int kc = 4 * cg, kcs = kc + 4, nt = (K + kc - 1) / kc;
+  const int nr = N < kFMaxNR ? N : kFMaxNR;
+  const size_t rest = (size_t)(kFNC * kcs > kFRed ? kFNC * kcs : kFRed) +
+                      (size_t)nr * kFRS + kFTB + 2 * (size_t)nr + 1;
+  // u resident for every class where that fits a block's shared memory
+  const size_t resident = sizeof(float) * ((size_t)kFTB * (nt * kc + 4) + rest);
+  const int ures = resident <= (size_t)kFMaxSmem;
+  const size_t base = ures ? resident : sizeof(float) * ((size_t)kFTB * kcs + rest);
+  // the rows' XWg resident where that keeps two blocks an SM, or costs none
+  const size_t xs = sizeof(float) * (size_t)kFTB * M * K;
+  const int xres = base + xs <= (size_t)kFTwoBlocks ||
+                   (base > (size_t)kFTwoBlocks && base + xs <= (size_t)kFMaxSmem);
+  // coalitions a block: up to kFMaxSPB while the grid keeps 8 waves
+  const long long nbt = (B + kFTB - 1) / kFTB, waves = 8LL * 2 * sm_count();
+  int spb = kFMaxSPB;
+  while (spb > 1 && nbt * ((S + spb - 1) / spb) < waves) spb /= 2;
+  return {nbt * ((S + spb - 1) / spb), cg, nr, spb, ures, xres, base + (xres ? xs : 0),
+          ((long long)S * N * 32 + kThreads - 1) / kThreads};
+}
+
+bool general_softmax(int K, int activation) { return activation == 0 && K != 2; }
+
+// activation: 0 = softmax, 1 = sigmoid
 bool valid(int B, int S, int N, int M, int K, int activation) {
-  return B > 0 && S > 0 && N > 0 && M > 0 && K > 0 &&
-         (activation == 0 || activation == 2 || (activation == 1 && K <= kMaxGridZ));
-}
-
-Plan make_plan(int B, int S, int N, int K, int activation) {
-  if (activation == 1) return sigmoid_plan(false, B, S, N, K);
-  if (activation == 2 || K > kRegisterK) return softmax_tiled_plan(B, S);
-  return K == 2 ? sigmoid_plan(true, B, S, N, K) : softmax_by_width(B, S, N, K);
+  if (!(B > 0 && S > 0 && N > 0 && M > 0 && K > 0)) return false;
+  if (activation == 1) return K <= kMaxGridZ;
+  if (activation != 0) return false;
+  if (K == 2) return true;
+  const FactoredPlan f = factored_plan(B, S, N, M, K);
+  return f.blocks <= INT_MAX && f.v_blocks <= INT_MAX && f.smem <= (size_t)kFMaxSmem;
 }
 
 }  // namespace
@@ -634,43 +769,86 @@ extern "C" {
 // grid's z axis); softmax takes any K
 int fused_linear_ey_max_sigmoid_k() { return kMaxGridZ; }
 
-// activation: 0 = softmax, 1 = sigmoid, 2 = softmax through the class-tiled
-// kernel (any K; K > 32 takes it with 0 as well).  All pointers are device
-// pointers to contiguous float32 arrays; bgw must sum to 1 for binary
-// softmax.  Returns the cudaError_t of the launch (0 on success).
-int fused_linear_ey_launch(const float* XWg, const float* bgWg,
-                           const float* bgW, const float* bgw,
-                           const float* mask, float* out, int B, int S, int N,
-                           int M, int K, int activation, void* stream) {
+// floats of device scratch a call at these sizes needs (the general
+// softmax's v, S N K floats; 0 otherwise)
+long long fused_linear_ey_scratch_floats(int S, int N, int K, int activation) {
+  return general_softmax(K, activation) ? (long long)S * N * K : 0;
+}
+
+// activation: 0 = softmax, 1 = sigmoid.  All pointers are device pointers to
+// contiguous float32 arrays; bgw must sum to 1 for binary softmax; scratch
+// holds fused_linear_ey_scratch_floats(S, N, K, activation) floats.
+// Returns the cudaError_t of the first failed call (0 on success).
+int fused_linear_ey_launch(const float* XWg, const float* bgWg, const float* bgW,
+                           const float* bgw, const float* mask, float* out, float* scratch,
+                           int B, int S, int N, int M, int K, int activation, void* stream) {
   if (!valid(B, S, N, M, K, activation)) return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(B, S, N, K, activation);
-  p.fn<<<p.grid, kThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(
-      XWg, bgWg, bgW, bgw, mask, out, B, S, N, M, K, p.nc);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!general_softmax(K, activation)) {
+    const Plan p = sigmoid_plan(K == 2 && activation == 0, B, S, N, K);
+    p.fn<<<p.grid, kThreads, p.smem, st>>>(XWg, bgWg, bgW, bgw, mask, out, B, S, N, M, K,
+                                           p.nc);
+    return (int)cudaGetLastError();
+  }
+  const FactoredPlan f = factored_plan(B, S, N, M, K);
+  softmax_v_kernel<<<(unsigned)f.v_blocks, kThreads, 0, st>>>(bgWg, bgW, mask, scratch, S,
+                                                               N, M, K);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  err = (int)cudaFuncSetAttribute(softmax_factored_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)f.smem);
+  if (err) return err;
+  softmax_factored_kernel<<<(unsigned)f.blocks, kThreads, f.smem, st>>>(
+      XWg, bgWg, bgW, bgw, mask, scratch, out, B, S, N, M, K, f.cg, f.nr, f.spb, f.ures,
+      f.xres);
   return (int)cudaGetLastError();
 }
 
-// What a call at (B, S, N, K, activation) launches, into info[0..6]: blocks,
-// threads a block, dynamic shared memory bytes, resident blocks per SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers a thread and
-// local memory bytes a thread (cudaFuncGetAttributes), background rows per
-// chunk.  Returns the cudaError_t of the first query that failed.
-int fused_linear_ey_launch_info(int B, int S, int N, int K, int activation, int* info) {
-  if (!valid(B, S, N, 1, K, activation)) return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(B, S, N, K, activation);
+// What a call at (B, S, N, M, K, activation) launches, into info[0..7]:
+// blocks, threads a block, dynamic shared memory bytes, resident blocks per
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers a thread
+// and local memory bytes a thread (cudaFuncGetAttributes), background rows
+// per staged chunk, coalitions a block; of softmax_factored_kernel for the
+// general softmax.  Returns the cudaError_t of the first query that failed.
+int fused_linear_ey_launch_info(int B, int S, int N, int M, int K, int activation,
+                                int* info) {
+  if (!valid(B, S, N, M, K, activation)) return (int)cudaErrorInvalidValue;
+  const void* fn;
+  long long blocks;
+  size_t smem;
+  int nc, coalitions;
+  if (general_softmax(K, activation)) {
+    const FactoredPlan f = factored_plan(B, S, N, M, K);
+    fn = reinterpret_cast<const void*>(softmax_factored_kernel);
+    blocks = f.blocks;
+    smem = f.smem;
+    nc = N < kFNC ? N : kFNC;
+    coalitions = f.spb;
+    const int err = (int)cudaFuncSetAttribute(
+        softmax_factored_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+  } else {
+    const Plan p = sigmoid_plan(K == 2 && activation == 0, B, S, N, K);
+    fn = reinterpret_cast<const void*>(p.fn);
+    blocks = (long long)p.grid.x * p.grid.y * p.grid.z;
+    smem = p.smem;
+    nc = p.nc;
+    coalitions = kTS;
+  }
   int per_sm = 0;
-  int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, reinterpret_cast<const void*>(p.fn), kThreads, p.smem);
+  int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem);
   if (err) return err;
   cudaFuncAttributes attr;
-  err = (int)cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(p.fn));
+  err = (int)cudaFuncGetAttributes(&attr, fn);
   if (err) return err;
-  info[0] = (int)(p.grid.x * p.grid.y * p.grid.z);
+  info[0] = (int)blocks;
   info[1] = kThreads;
-  info[2] = (int)p.smem;
+  info[2] = (int)smem;
   info[3] = per_sm;
   info[4] = attr.numRegs;
   info[5] = (int)attr.localSizeBytes;
-  info[6] = p.nc;
+  info[6] = nc;
+  info[7] = coalitions;
   return 0;
 }
 

@@ -51,9 +51,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: every kernel source of the port (``csrc/<name>.cu``)
 KERNELS = ("fused_linear_ey", "exact_tree_phi", "exact_tree_inter")
-#: widest class axis of the general-K softmax's register kernel
-#: (``kRegisterK`` in the .cu): wider softmax takes the class-tiled kernel
-REGISTER_K = 32
 #: most classes the sigmoid branch takes, one class a block on the grid's z
 #: axis (``kMaxGridZ`` in the .cu); softmax takes any K
 MAX_SIGMOID_K = 65535
@@ -73,9 +70,10 @@ _VOID, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: the limit function the wrapper's constant must agree with
 _SYMBOLS = {
     "fused_linear_ey": {
-        "fused_linear_ey_launch": ([_VOID] * 6 + [_INT] * 6 + [_VOID], _INT),
+        "fused_linear_ey_launch": ([_VOID] * 7 + [_INT] * 6 + [_VOID], _INT),
+        "fused_linear_ey_scratch_floats": ([_INT] * 4, _LONG),
         "fused_linear_ey_max_sigmoid_k": ([], _INT),
-        "fused_linear_ey_launch_info": ([_INT] * 5 + [_VOID], _INT),
+        "fused_linear_ey_launch_info": ([_INT] * 6 + [_VOID], _INT),
     },
     "exact_tree_phi": {
         "exact_tree_phi_launch": ([_VOID] * 12 + [_INT] * 6 + [_VOID], _INT),
@@ -97,8 +95,6 @@ _LIMITS = {"fused_linear_ey": ("fused_linear_ey_max_sigmoid_k", MAX_SIGMOID_K),
            "exact_tree_inter": ("exact_tree_inter_max_m", MAX_TREE_M)}
 
 _ACTIVATION_CODE = {"softmax": 0, "sigmoid": 1}
-#: the C interface's code for softmax through the class-tiled kernel at any K
-_TILED_SOFTMAX = 2
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: kernels whose library this process compiled (their load is no cache hit)
@@ -234,10 +230,10 @@ def fused_linear_ey(XWg: torch.Tensor, bgWg: torch.Tensor, bgW: torch.Tensor,
 
     CUDA tensors launch ``csrc/fused_linear_ey.cu`` (building it on first
     use) and count one in ``fused_linear_ey.launches``; a failed build or
-    launch raises.  The kernel takes any K for softmax (past
-    ``REGISTER_K`` classes its class-tiled kernel) and up to
-    ``MAX_SIGMOID_K`` for sigmoid, and raises above that.  CPU tensors run
-    :func:`fused_linear_ey_plain`."""
+    launch raises.  The kernel takes any K for softmax (every K but 2
+    through its factored general-softmax kernel, with ``S·N·K`` floats of
+    scratch) and up to ``MAX_SIGMOID_K`` for sigmoid, and raises above
+    that.  CPU tensors run :func:`fused_linear_ey_plain`."""
 
     B, S, N, M, K = _check(XWg, bgWg, bgW, bgw, mask, activation)
     if XWg.device.type == "cpu":
@@ -251,20 +247,6 @@ def fused_linear_ey(XWg: torch.Tensor, bgWg: torch.Tensor, bgW: torch.Tensor,
 
 
 fused_linear_ey.launches = 0
-
-
-def fused_linear_ey_tiled(XWg: torch.Tensor, bgWg: torch.Tensor, bgW: torch.Tensor,
-                          bgw: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Softmax ``ey`` through ``fused_linear_ey``'s class-tiled kernel at any
-    K, the kernel :func:`fused_linear_ey` takes past ``REGISTER_K`` classes:
-    at K <= ``REGISTER_K`` it puts the tiled kernel beside the register
-    kernel on the same inputs.  CUDA tensors launch it and count in
-    ``fused_linear_ey.launches``; CPU tensors run the plain version."""
-
-    _check(XWg, bgWg, bgW, bgw, mask, "softmax")
-    if XWg.device.type == "cpu":
-        return fused_linear_ey_plain(XWg, bgWg, bgW, bgw, mask, "softmax")
-    return _ey_launch(XWg, bgWg, bgW, bgw, mask, _TILED_SOFTMAX)
 
 
 def _ey_launch(XWg, bgWg, bgW, bgw, mask, code: int) -> torch.Tensor:
@@ -281,36 +263,54 @@ def _ey_launch(XWg, bgWg, bgW, bgw, mask, code: int) -> torch.Tensor:
     out = torch.empty((B, S, K), dtype=torch.float32, device=XWg.device)
     if B == 0 or S == 0:
         return out
+    n_scratch = lib.fused_linear_ey_scratch_floats(S, N, K, code)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=XWg.device) \
+        if n_scratch else None
     with torch.cuda.device(XWg.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_linear_ey_launch(
             XWg.data_ptr(), bgWg.data_ptr(), bgW.data_ptr(), bgw.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), B, S, N, M, K, code, stream)
+            mask.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            B, S, N, M, K, code, stream)
     if err:
         raise RuntimeError(f"fused_linear_ey launch failed with CUDA error {err}")
     fused_linear_ey.launches += 1
     return out
 
 
-def ey_launch_info(B: int, S: int, N: int, K: int,
+def ey_launch_info(B: int, S: int, N: int, M: int, K: int,
                    activation: str = "softmax") -> Dict[str, int]:
     """What a :func:`fused_linear_ey` call at these sizes launches on the
     card: ``blocks``, ``threads`` a block, dynamic ``smem_bytes``, resident
     ``blocks_per_sm`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
-    ``registers`` and ``local_bytes`` a thread (``cudaFuncGetAttributes``)
-    and background ``chunk_rows``; past ``REGISTER_K`` softmax classes, of
-    the class-tiled kernel.  Builds the kernel if needed; raises where the
-    card refuses the query."""
+    ``registers`` and ``local_bytes`` a thread (``cudaFuncGetAttributes``),
+    background ``chunk_rows`` a staged chunk and ``coalitions`` a block; for
+    softmax at K != 2, of
+    the factored kernel (``softmax_factored_kernel``; its prologue,
+    ``softmax_v_kernel``, is not counted).  Builds the kernel if needed;
+    raises where the card refuses the query."""
 
     lib = _library("fused_linear_ey")
-    info = (ctypes.c_int * 7)()
-    err = lib.fused_linear_ey_launch_info(B, S, N, K, _ACTIVATION_CODE[activation],
+    info = (ctypes.c_int * 8)()
+    err = lib.fused_linear_ey_launch_info(B, S, N, M, K, _ACTIVATION_CODE[activation],
                                           ctypes.addressof(info))
     if err:
         raise RuntimeError(f"fused_linear_ey launch info failed with CUDA error {err}")
     keys = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "registers",
-            "local_bytes", "chunk_rows")
+            "local_bytes", "chunk_rows", "coalitions")
     return dict(zip(keys, info))
+
+
+def _ey_source_float(name: str) -> float:
+    """The ``constexpr float`` ``name`` of ``csrc/fused_linear_ey.cu``, in
+    decimal or hexadecimal notation."""
+
+    src = (CSRC_DIR / "fused_linear_ey.cu").read_text()
+    m = re.search(rf"constexpr float {name} = ([0-9a-fA-Fx.p+-]+)f;", src)
+    if not m:
+        raise RuntimeError(f"csrc/fused_linear_ey.cu defines no {name}")
+    text = m.group(1)
+    return float.fromhex(text) if text.lower().startswith("0x") else float(text)
 
 
 def ey_guard_constants() -> Dict[str, float]:
@@ -319,14 +319,16 @@ def ey_guard_constants() -> Dict[str, float]:
     route takes (``kSpread``), and ``clamp``, the bound on ``|dp − shift|``
     (``kClamp``).  Readable without a card."""
 
-    src = (CSRC_DIR / "fused_linear_ey.cu").read_text()
-    out = {}
-    for key, name in (("spread", "kSpread"), ("clamp", "kClamp")):
-        m = re.search(rf"constexpr float {name} = ([0-9.]+)f;", src)
-        if not m:
-            raise RuntimeError(f"csrc/fused_linear_ey.cu defines no {name}")
-        out[key] = float(m.group(1))
-    return out
+    return {"spread": _ey_source_float("kSpread"), "clamp": _ey_source_float("kClamp")}
+
+
+def ey_softmax_tau() -> float:
+    """The guard of ``fused_linear_ey``'s factored general softmax, read from
+    its source (``kTau``): the least ``D = Σ_k u·v`` the factored route
+    takes; a ``(b, s, n)`` below it, or with a NaN D, is computed exactly
+    inside the kernel.  Readable without a card."""
+
+    return _ey_source_float("kTau")
 
 
 def fused_linear_ey_plain(XWg: torch.Tensor, bgWg: torch.Tensor, bgW: torch.Tensor,

@@ -10,14 +10,17 @@ with this checkout's ``nvcc`` flags into ``build/base_kernels/`` and called
 through their C interface.
 
 - ``--kernel ey``: ``csrc/fused_linear_ey.cu`` of both checkouts through
-  ``fused_linear_ey_launch`` (the background weights normalised as the
-  wrapper does; the wrapper's own checks stay out of both arms, so the
-  times at small shapes compare kernels, not host issue), at the headline
-  inputs of ``chip_smoke.py`` (binary
-  softmax, B = 2560, S = 2072 coalitions of the Adult plan, N = 100, M = 12,
-  K = 2), at sigmoid K = 2, 7 (B = 512, S = 1024) and 32 (B = 128,
-  S = 512) and at general softmax K = 7 (B = 512, S = 1024), N = 100,
-  M = 12; the outputs must agree within 1e-5.
+  ``fused_linear_ey_launch`` (with the general softmax's scratch where the
+  source takes it; the background weights normalised and the buffers
+  allocated as the wrapper does, once and outside the timed launches, and
+  the wrapper's own checks out of both arms, so the times at small shapes
+  compare kernels, not host issue), at the headline inputs of
+  ``chip_smoke.py`` (binary softmax, B = 2560, S = 2072 coalitions of the
+  Adult plan, N = 100, M = 12, K = 2), at sigmoid K = 2, 7 (B = 512, S =
+  1024) and 32 (B = 128, S = 512), at general softmax K = 3, 7 and 32 (B =
+  512, S = 1024), at K = 100 at the headline shape and at one Covertype
+  chunk (B = 65536, K = 7, S = 2072; both at a tenth of the reps), N =
+  100, M = 12; the outputs must agree within 1e-5.
 - ``--kernel exact``: ``csrc/exact_tree_phi.cu`` and
   ``csrc/exact_tree_inter.cu`` through the C interface of the base's
   sources, read from them: the one before the weight tables moved to the
@@ -53,20 +56,22 @@ SOURCES = {"ey": ("fused_linear_ey",), "exact": ("exact_tree_phi", "exact_tree_i
 
 
 def interface(source: str) -> str:
-    """The C interface of a kernel source: ``"ey"``; for an exact kernel
+    """The C interface of a kernel source: ``"ey"`` (the general softmax's
+    scratch after ``out``) or ``"ey_no_scratch"`` (before it); for an exact kernel
     ``"binomial"`` (the binomial table built on the card), ``"tables"`` (the
     wrapper's weight tables, the dead bit in the group word) or ``"slots"``
     (the tables, a slot table and a dead-flag array)."""
 
     if "fused_linear_ey_launch(" in source:
-        return "ey"
+        return "ey" if "float* scratch" in source else "ey_no_scratch"
     if "void* zdead" in source:
         return "slots"
     return "tables" if "_smem_bytes(int M)" in source else "binomial"
 
 
 #: launch argument types per interface
-_ARGS = {"ey": [_VOID] * 6 + [_INT] * 6 + [_VOID],
+_ARGS = {"ey": [_VOID] * 7 + [_INT] * 6 + [_VOID],
+         "ey_no_scratch": [_VOID] * 6 + [_INT] * 6 + [_VOID],
          "binomial": [_VOID] * 10 + [_INT] * 6 + [_VOID],
          "tables": [_VOID] * 10 + [_INT] * 6 + [_VOID],
          "slots": [_VOID] * 12 + [_INT] * 6 + [_VOID]}
@@ -96,30 +101,46 @@ def build_base(base: Path, kernel: str):
         lib.interface = interface((csrc / f"{name}.cu").read_text())
         getattr(lib, f"{name}_launch").argtypes = _ARGS[lib.interface]
         getattr(lib, f"{name}_launch").restype = _INT
+        if lib.interface == "ey":
+            lib.fused_linear_ey_scratch_floats.argtypes = [_INT] * 4
+            lib.fused_linear_ey_scratch_floats.restype = ctypes.c_longlong
         if kernel == "exact":
             getattr(lib, f"{name}_partial_tiles").argtypes = [_INT]
         libs[name] = lib
     return libs
 
 
-def ey_base_call(lib, args, activation):
-    """One launch of a checkout's ``fused_linear_ey`` library ``lib``, as
-    the wrapper makes it."""
+def ey_launcher(lib, args, activation):
+    """A launch of a checkout's ``fused_linear_ey`` library ``lib`` on
+    ``args`` as the wrapper makes it (the background weights normalised,
+    the output and any scratch allocated), those done once: the returned
+    function only calls the C interface and returns the output."""
 
     import torch
 
     XWg, bgWg, bgW, bgw, mask = args
     B, M, K = XWg.shape
     N, S = bgWg.shape[0], mask.shape[0]
+    code = {"softmax": 0, "sigmoid": 1}[activation]
     bgw = (bgw / bgw.sum()).contiguous()
     out = torch.empty((B, S, K), dtype=torch.float32, device=XWg.device)
-    err = lib.fused_linear_ey_launch(
-        XWg.data_ptr(), bgWg.data_ptr(), bgW.data_ptr(), bgw.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), B, S, N, M, K, {"softmax": 0, "sigmoid": 1}[activation],
-        torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"fused_linear_ey launch failed with CUDA error {err}")
-    return out
+    ptrs = [t.data_ptr() for t in (XWg, bgWg, bgW, bgw, mask, out)]
+    scratch = None
+    if lib.interface == "ey":
+        n = lib.fused_linear_ey_scratch_floats(S, N, K, code)
+        scratch = torch.empty((n,), dtype=torch.float32, device=XWg.device) if n else None
+        ptrs.append(None if scratch is None else scratch.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = lib.fused_linear_ey_launch(*ptrs, B, S, N, M, K, code, stream)
+        if err:
+            raise RuntimeError(f"fused_linear_ey launch failed with CUDA error {err}")
+        return out
+
+    # the launcher holds only pointers: it keeps their tensors alive
+    launch.buffers = (args, bgw, scratch)
+    return launch
 
 
 def exact_base_call(lib, name, args, dmax):
@@ -160,9 +181,9 @@ def exact_base_call(lib, name, args, dmax):
 
 
 def ey_cases(base, seed, device):
-    """``(label, shape, run_base, run_this, agree)`` for ``--kernel ey``;
-    ``agree(got, ref)`` gives the max abs difference and whether it is
-    within the bar."""
+    """``(label, shape, run_base, run_this, agree, reps_divisor)`` for
+    ``--kernel ey``; ``agree(got, ref)`` gives the max abs difference and
+    whether it is within the bar."""
 
     import numpy as np
 
@@ -170,31 +191,37 @@ def ey_cases(base, seed, device):
     from distributedkernelshap_tpu_torch.ops import cuda_kernels
 
     mine = cuda_kernels._library("fused_linear_ey")
+    mine.interface = "ey"
     rng = np.random.default_rng(seed)
     M, N = len(cs.ADULT_WIDTHS), cs.N_BACKGROUND
     mask = cs.coalition_plan_mask()
-    specs = [("headline binary softmax", "softmax", cs.B_HEADLINE, len(mask), 2, mask),
-             ("sigmoid K=2", "sigmoid", 512, 1024, 2, None),
-             ("general softmax K=7", "softmax", 512, 1024, 7, None),
-             ("sigmoid K=7", "sigmoid", 512, 1024, 7, None),
-             ("sigmoid K=32", "sigmoid", 128, 512, 32, None)]
+    specs = [("headline binary softmax", "softmax", cs.B_HEADLINE, len(mask), 2, mask, 1),
+             ("sigmoid K=2", "sigmoid", 512, 1024, 2, None, 1),
+             ("general softmax K=3", "softmax", 512, 1024, 3, None, 1),
+             ("general softmax K=7", "softmax", 512, 1024, 7, None, 1),
+             ("general softmax K=32", "softmax", 512, 1024, 32, None, 1),
+             ("general softmax K=100, headline shape", "softmax", cs.B_HEADLINE, len(mask),
+              100, mask, 10),
+             ("general softmax K=7, Covertype chunk", "softmax", cs.COVERTYPE_CHUNK, len(mask),
+              cs.COVERTYPE_CLASSES, mask, 10),
+             ("sigmoid K=7", "sigmoid", 512, 1024, 7, None, 1),
+             ("sigmoid K=32", "sigmoid", 128, 512, 32, None, 1)]
 
     def agree(got, ref):
         diff = float((got - ref).abs().max())
         return diff, diff <= cs.EY_ATOL
 
     cases = []
-    for label, act, B, S, K, m in specs:
+    for label, act, B, S, K, m, div in specs:
         kargs = cs.group_space_inputs(rng, B, S, N, M, K, device, m)
-        cases.append((label, [B, S, N, M, K],
-                      lambda kargs=kargs, act=act: ey_base_call(base["fused_linear_ey"],
-                                                                kargs, act),
-                      lambda kargs=kargs, act=act: ey_base_call(mine, kargs, act), agree))
+        cases.append((label, [B, S, N, M, K], ey_launcher(base["fused_linear_ey"], kargs, act),
+                      ey_launcher(mine, kargs, act), agree, div))
     return cases
 
 
 def exact_cases(base, seed, device):
-    """``(label, shape, run_base, run_this, agree)`` for ``--kernel exact``."""
+    """``(label, shape, run_base, run_this, agree, reps_divisor)`` for
+    ``--kernel exact``."""
 
     import chip_smoke as cs
     from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
@@ -226,7 +253,7 @@ def exact_cases(base, seed, device):
                       lambda name=name, kargs=kargs, d=d: exact_base_call(base[name], name,
                                                                           kargs, d),
                       lambda name=name, kargs=kargs, d=d: mine[name](*kargs, dmax=d),
-                      cs.raw_close if name == "exact_tree_inter" else phi_agree))
+                      cs.raw_close if name == "exact_tree_inter" else phi_agree, 1))
     return cases
 
 
@@ -252,18 +279,19 @@ def main() -> int:
     make = ey_cases if args.kernel == "ey" else exact_cases
     cases = make(base, args.seed, device)
     record = {"card": card, "kernel": args.kernel, "reps": args.reps, "cases": []}
-    for label, shape, run_base, run_mine, agree in cases:
-        got, ref = run_mine(), run_base()
+    for label, shape, run_base, run_mine, agree, div in cases:
+        got = run_mine().clone()
+        ref = run_base()
         torch.cuda.synchronize()
         if not bool(got.isfinite().all()):
             raise AssertionError(f"{label}: this checkout's output is not finite")
         diff, ok = agree(got, ref)
         if not ok:
             raise AssertionError(f"{label}: this checkout and the base disagree ({diff})")
-        times = [cs.cuda_time_ms(fn, args.reps)
-                 for fn in (run_base, run_mine, run_mine, run_base)]
+        reps = max(1, args.reps // div)
+        times = [cs.cuda_time_ms(fn, reps) for fn in (run_base, run_mine, run_mine, run_base)]
         b_ms, m_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
-        record["cases"].append({"case": label, "shape": shape,
+        record["cases"].append({"case": label, "shape": shape, "reps": reps,
                                 "base_ms": [times[0], times[3]], "this_ms": [times[1], times[2]],
                                 "speedup": b_ms / m_ms, "max_abs_diff": diff})
         print(f"{label} {shape} on {card}: base {times[0]:.4f} / {times[3]:.4f} ms, this "

@@ -238,11 +238,11 @@ def test_fused_wrapper_rejects_bad_inputs():
         tck.fused_linear_ey(XWg, bgWg, bgW, bgw, torch.ones(3, 6).T)
     with pytest.raises(ValueError, match="shape"):
         tck.fused_linear_ey(XWg, bgWg, bgW, torch.ones(4), mask)
-    # past the register kernel's classes softmax goes on to the class-tiled
-    # kernel: CPU tensors take the plain version, any device but the CPU
-    # and the card raises at the launch; sigmoid's class limit (the grid's
-    # z axis) binds before it
-    K = tck.REGISTER_K + 1
+    # past 32 classes softmax goes on to the factored kernel's class tiles:
+    # CPU tensors take the plain version, any device but the CPU and the
+    # card raises at the launch; sigmoid's class limit (the grid's z axis)
+    # binds before it
+    K = 33
     wide = (torch.zeros(4, 3, K), torch.zeros(5, 3, K), torch.zeros(5, K), bgw, mask)
     assert tck.fused_linear_ey(*wide).shape == (4, 6, K)
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -254,17 +254,15 @@ def test_fused_wrapper_rejects_bad_inputs():
         tck.fused_linear_ey(*widest, "sigmoid")
     with pytest.raises(ValueError, match="cuda or cpu"):
         tck.fused_linear_ey(*widest, "softmax")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        tck.fused_linear_ey_tiled(*(t.to("meta") for t in wide))
 
 
 def test_ey_linear_kernel_branch_never_gives_way_to_plain():
     """With the kernel asked for, tensors off the CPU reach the wrapper at any
-    class width: past the register kernel's classes they go on to the
-    launch (which raises off the card) instead of running the plain
-    version.  The meta device stands in for the card here."""
+    class width: past 32 classes they go on to the launch (which raises off
+    the card) instead of running the plain version.  The meta device stands
+    in for the card here."""
 
-    K = tck.REGISTER_K + 1
+    K = 33
     X, bg, W, b, G, mask, bgw = _linear_problem(4, 6, 5, 3, K, seed=0)
     meta = [_t(a).to("meta") for a in (W, b, X, bg, bgw, mask, G)]
     W_, b_, X_, bg_, bgw_, mask_, G_ = meta
@@ -281,7 +279,7 @@ def test_kernel_source_is_packaged_and_named_by_digest():
     assert src.exists()
     text = src.read_text()
     assert "pallas_kernels.py:fused_linear_ey" in text
-    assert f"kRegisterK = {tck.REGISTER_K};" in text
+    assert "constexpr float kTau = 0x1p-100f;" in text and tck.ey_softmax_tau() == 2.0 ** -100
     assert f"kMaxGridZ = {tck.MAX_SIGMOID_K};" in text
     path = tck.library_path("fused_linear_ey")
     assert path.parent == tck.BUILD_DIR and path.suffix == ".so"

@@ -84,21 +84,6 @@ def test_fused_plain_matches_pallas_past_32_classes(K, activation):
     assert tck.fused_linear_ey.launches == launches      # CPU tensors never launch
 
 
-def test_tiled_wrapper_takes_the_plain_version_on_the_cpu():
-    """The class-tiled kernel's own wrapper (the kernel softmax takes past
-    32 classes, callable at any K for an A/B) runs the plain softmax on CPU
-    tensors, never a launch."""
-
-    for K in (7, 33):
-        args = [_t(a) for a in _ey_inputs(4, 16, 5, 3, K, seed=1)]
-        launches = tck.fused_linear_ey.launches
-        got = tck.fused_linear_ey_tiled(*args)
-        assert torch.equal(got, tck.fused_linear_ey_plain(*args, "softmax"))
-        assert tck.fused_linear_ey.launches == launches
-    with pytest.raises(TypeError, match="float32"):
-        tck.fused_linear_ey_tiled(args[0].double(), *args[1:])
-
-
 GROUPS = [[0, 1], [2], [3, 4, 5], [6], [7, 8, 9]]
 NAMES = [f"g{i}" for i in range(len(GROUPS))]
 

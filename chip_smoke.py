@@ -99,7 +99,8 @@ Phases (each raises on failure, so the script exits non-zero):
    must match half the brute-force Shapley interaction index on 2 rows;
 9. ``exact_tree_inter`` against its plain version on the card (atol = rtol
    = 3e-5) at the main path's dense inputs and at the edge shapes of
-   ``EXACT_EDGES``, two launches bit-identical, its weights against the f64
+   ``EXACT_EDGES`` and ``INTER_EDGES`` (the walk by path slot's worst
+   cases), two launches bit-identical, its weights against the f64
    table (rtol 5e-5); the divergence of both kernels' walks over the dense
    inputs; the path's dense ``exact_tree_phi`` launch
    against its plain version on the same inputs (2e-5·max(1, max|phi|)),
@@ -431,15 +432,18 @@ Phases (each raises on failure, so the script exits non-zero):
    on the first 8 rows, and bit-identical over two runs;
    ``exact_tree_phi`` against its plain version at both dense inputs and
    at M in {64, 100, 300} x dmax in {1, 30, 64} with all-live and
-   none-live edges, bit-identical repeats; dmax = 65 at M = 100 raises;
-   kernel, plain and bound at the dense inputs;
+   none-live edges, bit-identical repeats, the slot-table kernel equal to
+   its plain version at each; dmax = 65 at M = 100 raises; the by-slot
+   tile kernel's registers, spills, shared memory and blocks
+   per SM at M = 100 and 300; kernel, plain and bound at the dense inputs;
 53. exact interactions at M = 64: a GBT over 64 ungrouped columns with
    ``interactions=True`` at B = 64, counted (1 ``exact_tree_inter``, 1
    dense ``exact_tree_phi``), symmetric with rows summing to phi (1e-5),
    within 2e-5·max(1, max|·|) of the plain route and the CPU, bit-identical
    repeats; ``exact_tree_inter`` against its plain version (atol = rtol =
    3e-5) at the dense inputs; M = 65 raises at the wrapper and at the
-   explain; kernel, plain and bound.
+   explain; the slot walk's registers, spills, shared memory and blocks per
+   SM at M = 64 and at M = 32, K = 3; kernel, plain and bound.
 
 The second-to-last line of stdout is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -2744,9 +2748,21 @@ EXACT_EDGES = [
 ]
 
 
-def edge_cases(rng, device):
+#: edge shapes of exact_tree_inter's walk by path slot (from
+#: ``INTER_SLOT_M`` groups), beside ``EXACT_EDGES``' M = dmax = 64 with every
+#: group on path (2080 slot pairs, the most bands a path can need): a banded
+#: width with classes and N past the chunk, and every row live or none at
+#: M = 64
+INTER_EDGES = [
+    ("M=32 K=3 N=130", (64, 256, 130, 32, 3, 32), "random"),
+    ("M=64 all live", (32, 128, 100, 64, 1, 64), "all live"),
+    ("M=64 none live", (32, 128, 100, 64, 1, 64), "none live"),
+]
+
+
+def edge_cases(rng, device, edges=EXACT_EDGES):
     return [(name, phi_edge_inputs(rng, B, P, N, M, K, device, kind), dmax)
-            for name, (B, P, N, M, K, dmax), kind in EXACT_EDGES]
+            for name, (B, P, N, M, K, dmax), kind in edges]
 
 
 def beta_weight_inputs(D, device):
@@ -2850,8 +2866,9 @@ def exact_kernel_report(libs):
     """Each exact kernel's build report (registers, static shared memory,
     spills per kernel function, from the ``.log`` beside its library) and
     what its tile kernel takes at the Adult width (M = 12), at M = 63, at
-    the widest group word (M = 64) and (``exact_tree_phi``) by path slot (M
-    = 100): dynamic shared memory and resident blocks per SM."""
+    the widest group word (M = 64) and by path slot (``exact_tree_phi`` at
+    M = 100, ``exact_tree_inter`` from ``INTER_SLOT_M``): dynamic shared
+    memory and resident blocks per SM."""
 
     from distributedkernelshap_tpu_torch.ops import cuda_kernels
 
@@ -2866,9 +2883,32 @@ def exact_kernel_report(libs):
                   flush=True)
         if not any("tile_kernel" in r["function"] for r in rows):
             raise AssertionError(f"no ptxas report for {name}'s tile kernels in {log}")
-        for M in (12, 63, 64) + ((M_WIDE,) if name == "exact_tree_phi" else ()):
+        for M in (12, 63, 64) + ((M_WIDE,) if name == "exact_tree_phi"
+                                 else (cuda_kernels.INTER_SLOT_M,)):
             print(f"  {name} tile kernel at M={M}: "
                   f"{cuda_kernels.tile_kernel_info(name, M)}", flush=True)
+
+
+def tile_report(name, function, M, K):
+    """Print what the tile kernel ``function`` (e.g. ``"inter_slot_kernel<u64,
+    true>"``) of ``csrc/<name>.cu`` took at its build (registers, spills,
+    from the ``.log`` beside the library) and takes on the card at ``M``
+    groups and ``K`` classes (dynamic shared memory, blocks per SM); raises
+    where the build report lacks it."""
+
+    from distributedkernelshap_tpu_torch.ops import cuda_kernels
+
+    lib = cuda_kernels.library_path(name)
+    log = lib.with_name(lib.name + ".log")
+    rows = [r for r in cuda_kernels.ptxas_report(log.read_text() if log.exists() else "")
+            if tile_name(r["function"]) == function]
+    if not rows:
+        raise AssertionError(f"no ptxas report for {function} in {log}")
+    r = rows[0]
+    print(f"{function} ({name}) at M={M} K={K}: {r.get('registers')} registers, spill "
+          f"stores {r.get('spill_stores')} B, spill loads {r.get('spill_loads')} B, "
+          f"{r.get('stack_bytes')} B stack; {cuda_kernels.tile_kernel_info(name, M, K)}",
+          flush=True)
 
 
 def compare_exact_kernel(buckets, seed, device):
@@ -3134,6 +3174,7 @@ def compare_inter_kernel(dense, seed, device):
 
     rng = np.random.default_rng([seed, 13])
     cases = [("dense main path", *dense)] + edge_cases(rng, device)
+    cases += edge_cases(rng, device, INTER_EDGES)
     worst = 0.0
     for name, args, dmax in cases:
         got = exact_tree_inter(*args, dmax=dmax)
@@ -7629,6 +7670,24 @@ def wide_exact_run(tables, X, bg, device, pack_paths, want):
     return explainer, phi, launches, max(d_plain, d_cpu)
 
 
+def check_slot_table(label, args):
+    """The slot-table kernel (``cuda_kernels.slot_table``) against its plain
+    version on the card at these inputs: the table and the counts must be
+    equal."""
+
+    import torch
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import _slot_table_plain, slot_table
+
+    got, counts = slot_table(args[0], args[1])
+    ref, ref_counts = _slot_table_plain(args[0], args[1])
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, ref) and torch.equal(counts, ref_counts))
+    print(f"slot table kernel vs plain [{label}] P={got.shape[0]}: equal={same}, most "
+          f"groups on a path {int(counts.max())}", flush=True)
+    if not same:
+        raise AssertionError(f"the slot-table kernel disagrees with its plain version at {label}")
+
+
 def wide_exact_phase(device, card, sm_count, sm_clock_hz, seed):
     """Phase 52: exact TreeSHAP past 63 groups.  A GBT over 100 ungrouped
     columns (50 trees, <= 31 leaves, random splits, as phase 6's) explained
@@ -7639,13 +7698,13 @@ def wide_exact_phase(device, card, sm_count, sm_clock_hz, seed):
     ``exact_tree_phi`` against its plain version at the dense inputs and
     at M in {64, 100, 300} x dmax in {1, 30, 64} with all-live and
     none-live edges, bit-identical repeats; dmax = 65 past 64 groups
-    raises; times.  Returns the record."""
+    raises; the by-slot tile kernel's build and occupancy; times.  Returns
+    the record."""
 
     import torch
     from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
         exact_tree_phi,
         exact_tree_phi_plain,
-        tile_kernel_info,
     )
     from distributedkernelshap_tpu_torch.ops.explain import groups_to_matrix
     from distributedkernelshap_tpu_torch.ops.treeshap import build_packed_plan
@@ -7671,6 +7730,7 @@ def wide_exact_phase(device, card, sm_count, sm_clock_hz, seed):
                dmax)
               for M, dmax, kind in WIDE_PHI_EDGES]
     for name, args, dmax in cases:
+        check_slot_table(name, args)
         got = exact_tree_phi(*args, dmax=dmax)
         again = exact_tree_phi(*args, dmax=dmax)
         ref = exact_tree_phi_plain(*args, dmax=dmax)
@@ -7693,8 +7753,8 @@ def wide_exact_phase(device, card, sm_count, sm_clock_hz, seed):
         print(f"exact_tree_phi at M={M_WIDE} dmax=65 raises on the card: {e}", flush=True)
     else:
         raise AssertionError("exact_tree_phi took dmax=65 past 64 groups")
-    print(f"exact_tree_phi tile kernel at M={M_WIDE}: {tile_kernel_info('exact_tree_phi', M_WIDE)}",
-          flush=True)
+    for M, K in ((M_WIDE, 1), (M_WIDEST, 1), (M_WIDEST, 2)):
+        tile_report("exact_tree_phi", "phi_tile_kernel<u64, 64, true>", M, K)
     times = {}
     for name, args, dmax in cases[:2]:
         k_ms = cuda_time_ms(lambda: exact_tree_phi(*args, dmax=dmax), 20)
@@ -7720,8 +7780,8 @@ def wide_inter_phase(device, card, sm_count, sm_clock_hz, seed):
     max|·|) of the plain route and the CPU on the first rows, bit-identical
     repeats; ``exact_tree_inter`` against its plain version at the dense
     inputs (atol = rtol = 3e-5), bit-identical; M = 65 raises at the
-    wrapper and at the explain; times.  Returns ``(record, the dense phi
-    launch's max |kernel - plain|)``."""
+    wrapper and at the explain; the slot walk's build and occupancy; times.
+    Returns ``(record, the dense phi launch's max |kernel - plain|)``."""
 
     import torch
     from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
@@ -7729,7 +7789,6 @@ def wide_inter_phase(device, card, sm_count, sm_clock_hz, seed):
         exact_tree_inter_plain,
         exact_tree_phi,
         exact_tree_phi_plain,
-        tile_kernel_info,
     )
 
     M, B, n = M_INTER_WIDE, B_INTER_WIDE, N_WIDE_CPU
@@ -7764,6 +7823,7 @@ def wide_inter_phase(device, card, sm_count, sm_clock_hz, seed):
         raise AssertionError("the M=64 interaction explain disagrees with its references")
 
     args, dmax = dense_inputs(explainer, X, device)
+    check_slot_table(f"dense inputs M={M}", args)
     got = exact_tree_inter(*args, dmax=dmax)
     same = bool(torch.equal(got, exact_tree_inter(*args, dmax=dmax)))
     err, close = raw_close(got, exact_tree_inter_plain(*args, dmax=dmax))
@@ -7792,9 +7852,9 @@ def wide_inter_phase(device, card, sm_count, sm_clock_hz, seed):
         print(f"the interaction explain at M={M + 1} raises: {e}", flush=True)
     else:
         raise AssertionError("the interaction explain took M=65")
-    print(f"exact_tree_inter tile kernel at M={M}: {tile_kernel_info('exact_tree_inter', M)}",
-          flush=True)
-    k_ms = cuda_time_ms(lambda: exact_tree_inter(*args, dmax=dmax), 5)
+    tile_report("exact_tree_inter", "inter_slot_kernel<u64, true>", M, 1)
+    tile_report("exact_tree_inter", "inter_slot_kernel<unsigned, false>", 32, 3)
+    k_ms = cuda_time_ms(lambda: exact_tree_inter(*args, dmax=dmax), 20)
     p_ms = cuda_time_ms(lambda: exact_tree_inter_plain(*args, dmax=dmax), 1)
     b_ms, b_by, counts = inter_bound_ms(args, sm_count, sm_clock_hz)
     print(f"times on {card}: exact_tree_inter [dense inputs M={M}] B={B} dmax={dmax}: "

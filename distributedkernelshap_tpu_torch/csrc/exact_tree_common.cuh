@@ -7,18 +7,19 @@
 // z_ok bits of the groups, bit m for group m.  Up to 63 groups z_dead rides
 // in bit 63 (kDeadBit); where all 64 bits carry groups (M = 64, kMaxM, the
 // wrapper's MAX_TREE_M, or path slots) z_dead is a byte array of its own,
-// (N, P) (the DB variants below: a byte load per staged row, which the
-// word's free bit saves on the narrower paths).  From 64 groups
-// exact_tree_phi runs by path slot: bit j is the path's slot j, the j-th
-// group, in ascending order, that any instance has on path p, from a
-// (P, 64) int32 slot table the wrapper builds (-1 past the path's last
+// (N, P) (the DB variants below: a byte load per staged row, which the word's
+// free bit saves on the narrower paths).  By path slot (exact_tree_phi from
+// 64 groups, exact_tree_inter from 23) bit j is the path's slot j, the j-th
+// group, in ascending order, that any instance has on path p, from a (P, 64)
+// int32 slot table the slot-table passes below build (-1 past the path's last
 // slot; a path holds at most dmax <= 64 groups), and the instance bits are
-// gathered into slot order the same way.  So the state of a (b, p) is 64
-// bits wide whatever M is.  A tile kernel runs one thread per
-// (instance b, path p) in 256-thread blocks of 8 instances x 32 paths (one
-// path per lane), stages the background through shared memory kNC rows at a
-// time and writes one partial output per 32-path tile; sum_tiles_kernel adds
-// the tiles in a fixed order, so two launches give bit-identical output.
+// gathered into slot order the same way.  So the state of a (b, p) is 64 bits
+// wide whatever M is, and a path's bits stop at its slot count.  A tile
+// kernel runs one thread per (instance b, path p) in 256-thread blocks of 8
+// instances x 32 paths (one path per lane), stages the background through
+// shared memory kNC rows at a time and writes one partial output per 32-path
+// tile; sum_tiles_kernel adds the tiles in a fixed order, so two launches
+// give bit-identical output.
 //
 // Live rows: after a chunk is staged each lane sweeps it once and keeps, as
 // one 64-bit mask in a register, the rows that are alive for its (b, p) and
@@ -30,8 +31,10 @@
 // Weights: the kernels do no division.  The wrapper builds the reciprocal
 // weight tables once per (kind, dmax, table side, device) from the
 // reference's masked-product binomial and passes them in; each kernel stages
-// them in shared memory, indexed [u][v] with row length table_side(M) =
-// min(M, 64) + 1: u and v count bits of one word, so at most 64.
+// them in shared memory (exact_tree_inter by slot reads them through the
+// read-only cache instead: its reads are warp-uniform), indexed [u][v] with
+// row length table_side(M) = min(M, 64) + 1: u and v count bits of one
+// word, so at most 64.
 
 #pragma once
 
@@ -47,6 +50,9 @@ constexpr int kMaxM = 64;                // bits of a group word
 constexpr int kDeadBit = 63;             // z_dead's bit, up to 63 groups
 constexpr int kNC = 64;                  // rows per chunk: one live-mask word
 constexpr size_t kMaxSmem = 232448;      // a block's shared memory after the opt-in
+// the most shared memory a block may take for two blocks an SM (the SM's
+// 233,472 bytes halved, less the 1 KB the card keeps per block)
+constexpr size_t kTwoBlockSmem = 115712;
 static_assert(kTP == 32, "one path per lane: the shuffle reduction spans a warp");
 static_assert(kNC == 64, "the live mask of a chunk is one 64-bit word");
 
@@ -62,7 +68,7 @@ __host__ __device__ constexpr bool dead_bytes(int M) { return M >= kMaxM; }
 // Shared memory every tile kernel starts with: kNC rows x kTP packed words,
 // kNC weights, ntab weight tables of table_side(M)^2 floats and, where
 // dead_bytes(M), kNC x kTP dead flags.
-constexpr size_t stage_bytes(int M, int ntab) {
+__host__ __device__ constexpr size_t stage_bytes(int M, int ntab) {
   return sizeof(u64) * kNC * kTP +
          sizeof(float) * (kNC + (size_t)ntab * table_side(M) * table_side(M)) +
          (dead_bytes(M) ? kNC * kTP : 0);
@@ -135,6 +141,9 @@ __device__ __forceinline__ int stage_chunk(u64* zs, unsigned char* ds, float* ws
 
 __device__ __forceinline__ int popc(unsigned x) { return __popc(x); }
 __device__ __forceinline__ int popc(u64 x) { return __popcll(x); }
+// one past the highest set bit (a path's slot count from its slot mask), 0 for 0
+__device__ __forceinline__ int bit_width(unsigned x) { return 32 - __clz(x); }
+__device__ __forceinline__ int bit_width(u64 x) { return 64 - __clzll(x); }
 
 // Bit n set: staged row n is alive for this lane's (b, p) -- z_dead clear
 // and no x-not group outside z_ok -- and at least need_u of its x-only
@@ -178,6 +187,80 @@ __device__ __forceinline__ void group_bits(const float* __restrict__ x_only,
     if (a[m] > 0.5f) xo |= 1ull << m;
     if (c[m] > 0.5f) xn |= 1ull << m;
   }
+}
+
+// The slot table of the 0/1 x_only/x_not (B,P,M), in two passes over a
+// scratch of slot_table_ints(P, M) int32: first the table, (P, kMaxM) --
+// row p the groups any instance has on path p, ascending, then -1 -- then
+// each path's group count (P; a row keeps its first kMaxM), then one hit
+// byte per (path, group).  Pass 1 (slot_hits_kernel): a thread per (p, m)
+// cell and kSlotRows instances, reading the cell's column of both inputs
+// (neighbouring threads, neighbouring cells: each input float read once,
+// coalesced) and storing 1 where one is set -- every writer stores the
+// same byte, so the result does not depend on their order.  Pass 2
+// (slot_rank_kernel): a warp per path ranks its hits in group order by
+// ballots.
+constexpr int kSlotRows = 32;   // instances a thread of pass 1 reads
+
+__host__ __device__ constexpr long long slot_table_ints(int P, int M) {
+  return (long long)P * (kMaxM + 1) + ((long long)P * M + 3) / 4;
+}
+
+__global__ void slot_hits_kernel(const float* __restrict__ x_only,
+                                 const float* __restrict__ x_not,
+                                 unsigned char* __restrict__ hit, int B, long long PM) {
+  const long long f = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (f >= PM) return;
+  const int b1 = min(B, (int)(blockIdx.y + 1) * kSlotRows);
+  bool h = false;
+  for (int b = blockIdx.y * kSlotRows; b < b1 && !h; b += 8) {
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (b + i < b1)
+        any |= (x_only[(b + i) * PM + f] > 0.5f) | (x_not[(b + i) * PM + f] > 0.5f);
+    h = any;
+  }
+  if (h) hit[f] = 1;
+}
+
+__global__ void slot_rank_kernel(const unsigned char* __restrict__ hit,
+                                 int* __restrict__ slots, int P, int M) {
+  const int p = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (p >= P) return;
+  int* row = slots + (size_t)p * kMaxM;
+  const unsigned char* h = hit + (size_t)p * M;
+  int count = 0;
+  for (int m0 = 0; m0 < M; m0 += 32) {
+    const bool on = m0 + lane < M && h[m0 + lane];
+    const unsigned ballot = __ballot_sync(0xffffffffu, on);
+    const int rank = count + __popc(ballot & ((1u << lane) - 1));
+    if (on && rank < kMaxM) row[rank] = m0 + lane;
+    count += __popc(ballot);
+  }
+  for (int j = count + lane; j < kMaxM; j += 32) row[j] = -1;
+  if (lane == 0) slots[(size_t)P * kMaxM + p] = count;
+}
+
+// The two passes on stream into slots (slot_table_ints(P, M) int32); the
+// cudaError_t of the first step that failed.
+inline int launch_slot_table(const float* x_only, const float* x_not, int* slots, int B,
+                             int P, int M, void* stream) {
+  if (B <= 0 || P <= 0 || M <= 0 || (B + kSlotRows - 1) / kSlotRows > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long PM = (long long)P * M;
+  unsigned char* hit = reinterpret_cast<unsigned char*>(slots + (size_t)P * (kMaxM + 1));
+  int err = (int)cudaMemsetAsync(hit, 0, (size_t)PM, st);
+  if (err) return err;
+  dim3 grid((unsigned)((PM + kThreads - 1) / kThreads), (B + kSlotRows - 1) / kSlotRows);
+  slot_hits_kernel<<<grid, kThreads, 0, st>>>(x_only, x_not, hit, B, PM);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  slot_rank_kernel<<<(P + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(hit, slots,
+                                                                                 P, M);
+  return (int)cudaGetLastError();
 }
 
 // out[i] = sum over path tiles t = 0, 1, ... of partial[t][i], in order.
@@ -228,7 +311,8 @@ inline bool valid_problem(int B, int P, int N, int M, int K, int dmax, bool slot
 // instance (M*K for phi, M*M*K for the pairs).  All pointers are device
 // pointers to contiguous arrays: float32 inputs x_only/x_not (B,P,M), z_ok
 // (N,P,M), z_dead (N,P), leaf_val (P,K), bgw (N,) (normalised), tables (the
-// kernel's weight tables, each table_side(M)^2), slots (P,64) int32 or null
+// kernel's weight tables, each table_side(M)^2), slots (P,64) int32 (from
+// launch_slot_table) or null
 // (by group; required past kMaxM groups); scratch zbits (N,P) 64-bit, zdead
 // (N,P) bytes where dead_bytes(M) (else unused), partial (tiles,B,out_per_b)
 // float32; out (B,out_per_b).

@@ -45,22 +45,28 @@
 // launches on the same inputs give bit-identical phi (the TPU kernel
 // accumulated over a sequential grid axis instead).
 //
-// Width: up to 63 groups the masks are by group, one accumulator register
-// per group.  From 64 groups (any M) the masks are by path slot: a path
-// holds at most dmax <= 64 groups (the reference kernel's own dmax gate),
-// so the wrapper's (P, 64) slot table maps bit j of a path's masks to its
-// j-th group, the pack pass gathers z_ok and the instance bits into slot
-// order, and the same body runs on 64 slot registers.  Its epilogue adds
-// each lane's slots into the warp's row of the partial output, lane 0 to 31
-// in turn (a row is zeroed first; __syncwarp orders the turns), so the sum
-// over a tile's paths still runs in a fixed order and two launches stay
-// bit-identical.  The state of a (b, p) is 64 bits and 64 registers
-// whatever M is; the tables are (min(M, 64) + 1)^2.  dmax > 64 past 64
-// groups raises in the wrapper.  (At M = 64 the slots only drop the groups
-// no instance has on the path: the word's 64 bits carry groups, so z_dead
-// is a byte array there.)  The packing, staging, live masks, tile sum
-// and launch sequence are in exact_tree_common.cuh, shared with
-// exact_tree_inter.cu.
+// Width: up to 63 groups the masks are by group, one accumulator register per
+// group.  From 64 groups (any M) the masks are by path slot: a path holds at
+// most dmax <= 64 groups (the reference kernel's own dmax gate), so the
+// (P, 64) slot table maps bit j of a path's masks to its j-th
+// group, the pack pass gathers z_ok and the instance bits into slot order,
+// and the same body runs on 64 slot registers, looping only to the warp's
+// deepest slot (a tree path holds a few groups, not 64).  Its epilogue
+// gathers the warp's 32 paths into one row of M*K floats, in shared memory
+// where the rows fit two blocks an SM (else in the partial output itself):
+// slot-major, for j up to the warp's deepest slot, the lanes whose slot j
+// holds the same group (__match_any_sync, on the slots' groups staged in
+// shared memory) are summed in lane order by the lowest of them, who adds the
+// sum at that group; then the row is written out coalesced.  The order is
+// fixed, so two launches stay bit-identical, and a step costs one
+// shared-memory add per distinct group (where a lane-by-lane epilogue takes
+// 32 serial turns of dependent read-modify-writes a warp).  The state of a
+// (b, p) is 64 bits and 64 registers whatever M is; the tables are (min(M,
+// 64) + 1)^2.  dmax > 64 past 64 groups raises in the wrapper.  (At M = 64 the
+// slots only drop the groups no instance has on the path: the word's 64 bits
+// carry groups, so z_dead is a byte array there.)  The packing, staging, live
+// masks, tile sum and launch sequence are in exact_tree_common.cuh, shared
+// with exact_tree_inter.cu.
 
 #include "exact_tree_common.cuh"
 
@@ -68,7 +74,20 @@ namespace {
 
 constexpr int kTabs = 2;   // wp_tab, wm_tab, each table_side(M)^2
 
-size_t phi_smem(int M) { return stage_bytes(M, kTabs); }
+// By slot, the epilogue's shared memory: a 32-float exchange a warp, the
+// group of each slot of the block's 32 paths ([slot][path], int), and the
+// warps' rows of M*K floats where they fit two blocks an SM
+__host__ __device__ constexpr size_t slot_scratch_bytes(int M) {
+  return stage_bytes(M, kTabs) + sizeof(float) * kTB * kTP + sizeof(int) * kMaxM * kTP;
+}
+__host__ __device__ constexpr bool row_in_smem(int M, int K) {
+  return slot_scratch_bytes(M) + sizeof(float) * kTB * (size_t)M * K <= kTwoBlockSmem;
+}
+
+size_t phi_smem(int M, int K) {
+  if (!dead_bytes(M)) return stage_bytes(M, kTabs);
+  return slot_scratch_bytes(M) + (row_in_smem(M, K) ? sizeof(float) * kTB * (size_t)M * K : 0);
+}
 
 // Group masks of width MaskT (32 bits while M <= 32), MT group registers;
 // SLOTS: by path slot (M >= 64), MT = 64, the dead flags as bytes.
@@ -87,6 +106,14 @@ phi_tile_kernel(const float* __restrict__ x_only, const float* __restrict__ x_no
   float* tab = ws + kNC;                                 // [kTabs][ts][ts]
   unsigned char* ds = reinterpret_cast<unsigned char*>(tab + kTabs * tn);  // SLOTS: [kNC][kTP]
   stage_tables(tab, tables, kTabs * tn);
+  // by slot: the exchange [kTB][kTP], the slots' groups [kMaxM][kTP], the rows
+  float* xch = reinterpret_cast<float*>(smem_raw + stage_bytes(M, kTabs));
+  int* sg = reinterpret_cast<int*>(xch + kTB * kTP);
+  if (SLOTS)   // ordered before the epilogue by stage_chunk's barriers
+    for (int i = threadIdx.x; i < kMaxM * kTP; i += kThreads) {
+      const int pl = blockIdx.y * kTP + i % kTP;
+      sg[i] = pl < P ? slots[(size_t)pl * kMaxM + i / kTP] : -1;
+    }
 
   const int lane = threadIdx.x % kTP;
   const int b = blockIdx.x * kTB + threadIdx.x / kTP;
@@ -102,6 +129,9 @@ phi_tile_kernel(const float* __restrict__ x_only, const float* __restrict__ x_no
   const float* t_m = t_p + tn;
   // with an x-not group every alive row adds to S_m; without, it needs u > 0
   const int need_u = xn ? 0 : 1;
+  // by slot: one past the warp's deepest slot, where every per-slot loop ends
+  const int jmax = SLOTS ? (int)__reduce_max_sync(0xffffffffu, (unsigned)bit_width(
+                               (MaskT)(xo | xn))) : MT;
 
   float acc[MT];
 #pragma unroll
@@ -120,34 +150,52 @@ phi_tile_kernel(const float* __restrict__ x_only, const float* __restrict__ x_no
       sm += wn * t_m[u * ts];
       const float wp = wn * t_p[u * ts];
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
+      for (int m = 0; m < MT; ++m) {
+        if (SLOTS && m >= jmax) break;
         if (su & (MaskT(1) << m)) acc[m] += wp;
+      }
     }
   }
 
   // d = s_p*x_only - s_m*x_not: +acc on x-only groups, -S_m on x-not groups;
-  // sum d*leaf_val over the warp's 32 paths in a fixed shuffle tree
+  // sum d*leaf_val over the warp's 32 paths in a fixed order
   float* out = partial + ((size_t)blockIdx.y * B + b) * M * K;
   if (SLOTS) {
-    // by slot: the warp's row is zeroed, then each lane in turn adds its
-    // slots' d*leaf_val at their groups (b, so the branch, is warp-uniform)
+    // by slot: the warp's row (b, so the branch, is warp-uniform), zeroed;
+    // per slot j, each group's lanes summed in lane order by the lowest
     if (b >= B) return;
-    for (size_t i = lane; i < (size_t)M * K; i += kTP) out[i] = 0.0f;
-    const int* sl = slots + (size_t)p * kMaxM;
-    for (int q = 0; q < kTP; ++q) {
-      __syncwarp();
-      if (lane != q || !ok) continue;
-      for (int k = 0; k < K; ++k) {
-        const float lv = leaf_val[(size_t)p * K + k];
+    float* wx = xch + (threadIdx.x / kTP) * kTP;
+    float* row = row_in_smem(M, K)
+                     ? reinterpret_cast<float*>(smem_raw + slot_scratch_bytes(M)) +
+                           (size_t)(threadIdx.x / kTP) * M * K
+                     : out;
+    for (size_t i = lane; i < (size_t)M * K; i += kTP) row[i] = 0.0f;
+    const MaskT on = xo | xn;   // 0 past B or P
+    const float lv0 = ok ? leaf_val[(size_t)p * K] : 0.0f;
 #pragma unroll
-        for (int j = 0; j < MT; ++j) {
-          if (xo & (MaskT(1) << j)) out[(size_t)sl[j] * K + k] += acc[j] * lv;
-          else if (xn & (MaskT(1) << j)) out[(size_t)sl[j] * K + k] += -sm * lv;
+    for (int j = 0; j < MT; ++j) {
+      if (j >= jmax) break;
+      const bool has = (on >> j) & 1;
+      const int g = has ? sg[j * kTP + lane] : -1;
+      const float d = (xo >> j) & 1 ? acc[j] : -sm;
+      const unsigned peers = __match_any_sync(0xffffffffu, g);
+      const bool lead = has && lane == __ffs(peers) - 1;
+      for (int k = 0; k < K; ++k) {
+        wx[lane] = has ? d * (k ? leaf_val[(size_t)p * K + k] : lv0) : 0.0f;
+        __syncwarp();
+        if (lead) {
+          float s = 0.0f;
+          for (unsigned m = peers; m; m &= m - 1) s += wx[__ffs(m) - 1];
+          row[(size_t)g * K + k] += s;
         }
+        __syncwarp();
       }
     }
+    if (row != out)
+      for (size_t i = lane; i < (size_t)M * K; i += kTP) out[i] = row[i];
     return;
   }
+  // by group: a shuffle tree per (m, k)
   for (int k = 0; k < K; ++k) {
     const float lv = ok ? leaf_val[(size_t)p * K + k] : 0.0f;
 #pragma unroll
@@ -181,17 +229,28 @@ extern "C" {
 // and takes dmax <= this
 int exact_tree_phi_max_m() { return kMaxM; }
 
+// The slot table the kernel runs by (launch_slot_table,
+// exact_tree_common.cuh) into slots, a scratch of slot_table_ints int32:
+// the (P, 64) table, then each path's group count, then the hit bytes.
+long long exact_tree_phi_slot_table_ints(int P, int M) {
+  return slot_table_ints(P, M);
+}
+int exact_tree_phi_slot_table(const float* x_only, const float* x_not, int* slots,
+                              int B, int P, int M, void* stream) {
+  return launch_slot_table(x_only, x_not, slots, B, P, M, stream);
+}
+
 // number of path tiles = leading dimension of the partial-phi scratch
 int exact_tree_phi_partial_tiles(int P) { return partial_tiles(P); }
 
 // the tile kernel's dynamic shared memory and resident blocks per SM at M
-// groups, or -1 (blocks: minus the cudaError_t)
-long long exact_tree_phi_smem_bytes(int M) {
-  return valid_problem(1, 1, 1, M, 1, 1, dead_bytes(M)) ? (long long)phi_smem(M) : -1;
+// groups and K classes, or -1 (blocks: minus the cudaError_t)
+long long exact_tree_phi_smem_bytes(int M, int K) {
+  return valid_problem(1, 1, 1, M, K, 1, dead_bytes(M)) ? (long long)phi_smem(M, K) : -1;
 }
-int exact_tree_phi_blocks_per_sm(int M) {
-  if (!valid_problem(1, 1, 1, M, 1, 1, dead_bytes(M))) return -(int)cudaErrorInvalidValue;
-  return blocks_per_sm(phi_tile(M), phi_smem(M));
+int exact_tree_phi_blocks_per_sm(int M, int K) {
+  if (!valid_problem(1, 1, 1, M, K, 1, dead_bytes(M))) return -(int)cudaErrorInvalidValue;
+  return blocks_per_sm(phi_tile(M), phi_smem(M, K));
 }
 
 // The arguments of launch_exact (exact_tree_common.cuh): tables is wp_tab,
@@ -203,7 +262,7 @@ int exact_tree_phi_launch(const float* x_only, const float* x_not,
                           const float* tables, const int* slots, void* zbits,
                           void* zdead, float* partial, float* out, int B, int P,
                           int N, int M, int K, int dmax, void* stream) {
-  return launch_exact(phi_tile(M), phi_smem(M), (long long)M * K, x_only, x_not,
+  return launch_exact(phi_tile(M), phi_smem(M, K), (long long)M * K, x_only, x_not,
                       z_ok, z_dead, leaf_val, bgw, tables, dead_bytes(M) ? slots : nullptr,
                       zbits, zdead, partial, out, B, P, N, M, K, dmax, stream);
 }

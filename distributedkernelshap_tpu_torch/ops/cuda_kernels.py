@@ -15,11 +15,11 @@ Shapley-interaction sum of the same inputs (see
 :func:`exact_tree_inter_plain`).  These are all the TPU kernels of the JAX
 package.  Each source ``csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into ``build/kernels/`` at first use (the two exact kernels
-share their packing, staging, live-row masks, tile sum and launch sequence
-through ``csrc/exact_tree_common.cuh``, and read the division-free weight
-tables :func:`build_weight_tables` makes) and bound through a plain C
-interface with ``ctypes`` (nothing here compiles or imports CUDA code when
-the module is imported).
+share their packing, staging, live-row masks, tile sum, slot-table passes
+and launch sequence through ``csrc/exact_tree_common.cuh``, and read the
+division-free weight tables :func:`build_weight_tables` makes) and bound
+through a plain C interface with ``ctypes`` (nothing here compiles or
+imports CUDA code when the module is imported).
 
 A wrapper runs its kernel for CUDA tensors and raises when it cannot —
 there is no fallback.  Only a tensor that lies on the CPU takes the plain
@@ -64,6 +64,9 @@ MAX_TREE_M = 64
 #: background rows the exact kernels stage per chunk, one bit of a lane's
 #: live-row mask each (``kNC`` in ``csrc/exact_tree_common.cuh``)
 EXACT_CHUNK_ROWS = 64
+#: from this many groups exact_tree_inter runs by path slot (``kSlotM`` in
+#: ``csrc/exact_tree_inter.cu``: past one band of 256 group pairs)
+INTER_SLOT_M = 23
 
 _VOID, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: per kernel library: its C symbols as ``name: (argtypes, restype)``, and
@@ -77,22 +80,31 @@ _SYMBOLS = {
     },
     "exact_tree_phi": {
         "exact_tree_phi_launch": ([_VOID] * 12 + [_INT] * 6 + [_VOID], _INT),
+        "exact_tree_phi_slot_table": ([_VOID] * 3 + [_INT] * 3 + [_VOID], _INT),
+        "exact_tree_phi_slot_table_ints": ([_INT] * 2, _LONG),
         "exact_tree_phi_partial_tiles": ([_INT], _INT),
         "exact_tree_phi_max_m": ([], _INT),
-        "exact_tree_phi_smem_bytes": ([_INT], _LONG),
-        "exact_tree_phi_blocks_per_sm": ([_INT], _INT),
+        "exact_tree_phi_smem_bytes": ([_INT, _INT], _LONG),
+        "exact_tree_phi_blocks_per_sm": ([_INT, _INT], _INT),
     },
     "exact_tree_inter": {
         "exact_tree_inter_launch": ([_VOID] * 12 + [_INT] * 6 + [_VOID], _INT),
+        "exact_tree_inter_slot_table": ([_VOID] * 3 + [_INT] * 3 + [_VOID], _INT),
+        "exact_tree_inter_slot_table_ints": ([_INT] * 2, _LONG),
         "exact_tree_inter_partial_tiles": ([_INT], _INT),
         "exact_tree_inter_max_m": ([], _INT),
-        "exact_tree_inter_smem_bytes": ([_INT], _LONG),
-        "exact_tree_inter_blocks_per_sm": ([_INT], _INT),
+        "exact_tree_inter_slot_m": ([], _INT),
+        "exact_tree_inter_smem_bytes": ([_INT, _INT], _LONG),
+        "exact_tree_inter_blocks_per_sm": ([_INT, _INT], _INT),
     },
 }
 _LIMITS = {"fused_linear_ey": ("fused_linear_ey_max_sigmoid_k", MAX_SIGMOID_K),
            "exact_tree_phi": ("exact_tree_phi_max_m", MAX_TREE_M),
            "exact_tree_inter": ("exact_tree_inter_max_m", MAX_TREE_M)}
+#: per exact kernel: the C function giving the width from which it runs by
+#: path slot (and takes the slot table), and the wrapper's constant for it
+_SLOT_M = {"exact_tree_phi": ("exact_tree_phi_max_m", MAX_TREE_M),
+           "exact_tree_inter": ("exact_tree_inter_slot_m", INTER_SLOT_M)}
 
 _ACTIVATION_CODE = {"softmax": 0, "sigmoid": 1}
 _lock = threading.Lock()
@@ -176,9 +188,11 @@ def _library(name: str) -> ctypes.CDLL:
                 fn = getattr(lib, sym)
                 fn.argtypes = argtypes
                 fn.restype = restype
-            limit_fn, limit = _LIMITS[name]
-            if getattr(lib, limit_fn)() != limit:
-                raise RuntimeError(f"csrc/{name}.cu and the wrapper's limit disagree")
+            for limit_fn, limit in (_LIMITS[name],) + ((_SLOT_M[name],) if name in _SLOT_M
+                                                       else ()):
+                if getattr(lib, limit_fn)() != limit:
+                    raise RuntimeError(f"csrc/{name}.cu and the wrapper disagree on "
+                                       f"{limit_fn}")
             _libs[name] = lib
             if name not in _built_here:
                 compile_events().record("cache_hit", time.perf_counter() - t0, name)
@@ -416,10 +430,12 @@ def exact_tree_phi(x_only: torch.Tensor, x_not: torch.Tensor, z_ok: torch.Tensor
     the bound on the conjunction counts.  CUDA tensors launch
     ``csrc/exact_tree_phi.cu`` (building it on first use) and count one in
     ``exact_tree_phi.launches``; the kernel takes any N, P, K and M, and
-    from ``MAX_TREE_M`` groups on runs by path slot (:func:`path_slots`),
+    from ``MAX_TREE_M`` groups on runs by path slot (see :func:`path_slots`),
     where it takes ``dmax`` up to ``MAX_TREE_M`` (the reference kernel's
-    own gate) and raises above it.  Two launches on the same inputs give
-    bit-identical phi.  CPU tensors run the plain version."""
+    own gate) and raises above it (the slot table from :func:`slot_table`'s
+    kernel; past ``MAX_TREE_M`` groups the wrapper reads its largest count
+    back to raise on a path of more groups).  Two launches on the same
+    inputs give bit-identical phi.  CPU tensors run the plain version."""
 
     B, P, N, M, K = _check_phi(x_only, x_not, z_ok, z_dead, leaf_val, bgw, dmax)
     if x_only.device.type == "cpu":
@@ -475,9 +491,12 @@ def _exact_run(wrapper, lib, stream, out_shape, args, dmax: int) -> torch.Tensor
     dm = min(int(dmax), M)
     tables = exact_weight_tables(_TABLE_KIND[name], dm, M, dev)
     # where every bit of the word carries a group, z_dead gets bytes of its
-    # own and exact_tree_phi runs by path slot
+    # own; from _SLOT_M's width the kernel runs by path slot
     wide = M >= MAX_TREE_M
-    slots = path_slots(args[0], args[1]) if wide and name == "exact_tree_phi" else None
+    slots = None
+    if M >= _SLOT_M[name][1]:
+        slots, counts = _slot_table_cuda(lib, name, stream, x_only, args[1])
+        _check_path_groups(counts, M)
     # scratch: the packed background bits (and dead flags), and one partial
     # output per path tile (summed in a fixed order by a second pass)
     zbits = torch.empty((N, P), dtype=torch.int64, device=dev)
@@ -561,17 +580,17 @@ def exact_weight_tables(kind: str, dmax: int, M: int,
         return _tables[key]
 
 
-def tile_kernel_info(name: str, M: int) -> Dict[str, int]:
+def tile_kernel_info(name: str, M: int, K: int = 1) -> Dict[str, int]:
     """What the tile kernel of ``csrc/<name>.cu`` takes on the card at ``M``
-    groups: its dynamic shared memory in bytes and its resident blocks per
-    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Builds the
-    kernel if needed; raises where the card refuses the query."""
+    groups and ``K`` classes: its dynamic shared memory in bytes and its
+    resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
+    Builds the kernel if needed; raises where the card refuses the query."""
 
     lib = _library(name)
-    info = {"smem_bytes": getattr(lib, f"{name}_smem_bytes")(M),
-            "blocks_per_sm": getattr(lib, f"{name}_blocks_per_sm")(M)}
+    info = {"smem_bytes": getattr(lib, f"{name}_smem_bytes")(M, K),
+            "blocks_per_sm": getattr(lib, f"{name}_blocks_per_sm")(M, K)}
     if info["smem_bytes"] < 0 or info["blocks_per_sm"] < 0:
-        raise RuntimeError(f"{name} at M={M}: occupancy query failed {info}")
+        raise RuntimeError(f"{name} at M={M}, K={K}: occupancy query failed {info}")
     return info
 
 
@@ -658,26 +677,80 @@ def _phi_path_terms(x_only, x_not, z_ok, z_dead, bgw, dm: int,
     return s_p * x_only - s_m * x_not
 
 
-def path_slots(x_only: torch.Tensor, x_not: torch.Tensor) -> torch.Tensor:
-    """The slot table :func:`exact_tree_phi` runs by from ``MAX_TREE_M``
-    groups on: ``(P, MAX_TREE_M)`` int32, row ``p`` the groups that any
-    instance has on path ``p`` (x-only or x-not) in ascending order, then
-    -1.  A tree path holds at most ``dmax`` groups; inputs with a path of
-    more than ``MAX_TREE_M`` raise.  Slot ``j`` of a path is bit ``j`` of
-    its packed words in the kernel."""
+def _check_path_groups(counts: torch.Tensor, M: int) -> None:
+    """Raise where a path holds more than ``MAX_TREE_M`` groups (``counts``
+    per path).  Reads the largest count back from the device, so only past
+    ``MAX_TREE_M`` groups: up to that no path can hold more."""
 
-    touched = ((x_only > 0.5) | (x_not > 0.5)).any(0)            # (P, M)
-    P, M = touched.shape
-    most = int(touched.sum(1).max()) if P else 0
-    if most > MAX_TREE_M:
-        raise ValueError(
-            f"a path holds {most} groups, more than the {MAX_TREE_M} slots of "
-            "exact_tree_phi's packed word; explain with ShapConfig(use_kernel=False)")
+    if M > MAX_TREE_M:
+        most = int(counts.max()) if counts.numel() else 0
+        if most > MAX_TREE_M:
+            raise ValueError(
+                f"a path holds {most} groups, more than the {MAX_TREE_M} slots of "
+                "exact_tree_phi's packed word; explain with ShapConfig(use_kernel=False)")
+
+
+def _slot_table_cuda(lib, name: str, stream, x_only, x_not):
+    """``(slots, counts)`` of card tensors from the slot-table passes of the
+    loaded library ``lib`` of ``csrc/<name>.cu``, on ``stream``."""
+
+    B, P, M = x_only.shape
+    buf = torch.empty(getattr(lib, f"{name}_slot_table_ints")(P, M), dtype=torch.int32,
+                      device=x_only.device)
+    err = getattr(lib, f"{name}_slot_table")(x_only.data_ptr(), x_not.data_ptr(),
+                                              buf.data_ptr(), B, P, M, stream)
+    if err:
+        raise RuntimeError(f"{name} slot table failed with CUDA error {err}")
+    return (buf[:P * MAX_TREE_M].view(P, MAX_TREE_M),
+            buf[P * MAX_TREE_M:P * (MAX_TREE_M + 1)])
+
+
+def slot_table(x_only: torch.Tensor, x_not: torch.Tensor):
+    """``(slots, counts)``: the slot table the exact kernels run by (see
+    :func:`path_slots`), ``(P, MAX_TREE_M)`` int32 with no path limit
+    checked, and each path's group count ``(P,)`` int32.  CUDA tensors run
+    the slot-table passes of ``csrc/exact_tree_common.cuh`` (through the
+    ``exact_tree_phi`` library), the ones the wrappers launch; CPU tensors
+    the plain version."""
+
+    if x_only.device.type == "cpu":
+        return _slot_table_plain(x_only, x_not)
+    with torch.cuda.device(x_only.device):
+        return _slot_table_cuda(_library("exact_tree_phi"), "exact_tree_phi",
+                                torch.cuda.current_stream().cuda_stream, x_only, x_not)
+
+
+def _slot_table_plain(x_only: torch.Tensor, x_not: torch.Tensor):
+    """:func:`slot_table` in plain PyTorch, on any device."""
+
+    B, P, M = x_only.shape
+    # any instance on the path: the largest indicator over B, one pass each
+    touched = (torch.maximum(x_only.amax(0), x_not.amax(0)) > 0.5 if B
+               else torch.zeros((P, M), dtype=torch.bool, device=x_only.device))
     idx = torch.arange(M, dtype=torch.int32, device=touched.device)
     order = torch.where(touched, idx, M).sort(dim=1).values[:, :MAX_TREE_M]
     if order.shape[1] < MAX_TREE_M:
         order = torch.cat([order, order.new_full((P, MAX_TREE_M - order.shape[1]), M)], 1)
-    return torch.where(order >= M, -1, order).to(torch.int32).contiguous()
+    table = torch.where(order >= M, -1, order).to(torch.int32).contiguous()
+    return table, touched.sum(1, dtype=torch.int32)
+
+
+def path_slots(x_only: torch.Tensor, x_not: torch.Tensor) -> torch.Tensor:
+    """The slot table the exact kernels run by (:func:`exact_tree_phi` from
+    ``MAX_TREE_M`` groups on, :func:`exact_tree_inter` from
+    ``INTER_SLOT_M``), in plain PyTorch: ``(P, MAX_TREE_M)`` int32, row
+    ``p`` the groups that any instance has on path ``p`` (x-only or x-not)
+    in ascending order, then -1.  A tree path holds at most ``dmax``
+    groups; past ``MAX_TREE_M`` groups inputs with a path of more than that
+    raise (the check reads one count back from the device; up to
+    ``MAX_TREE_M`` groups no path can hold more, and nothing is read back).
+    Slot ``j`` of a path is bit ``j`` of its packed words in the kernel; on
+    the card the wrappers build the same table with a kernel
+    (:func:`slot_table`)."""
+
+    table, counts = _slot_table_plain(x_only, x_not)
+    _check_path_groups(counts, x_only.shape[2])
+    return table
 
 
 def exact_tree_phi_slots_plain(x_only: torch.Tensor, x_not: torch.Tensor,
@@ -719,8 +792,10 @@ def exact_tree_inter(x_only: torch.Tensor, x_not: torch.Tensor, z_ok: torch.Tens
     CUDA tensors launch ``csrc/exact_tree_inter.cu`` (building it on first
     use) and count one in ``exact_tree_inter.launches``; the kernel takes any
     N, P, K and dmax and at most ``MAX_TREE_M`` groups, and above that it
-    raises.  Two launches on the same inputs give bit-identical output.  CPU
-    tensors run the plain version."""
+    raises.  From ``INTER_SLOT_M`` groups it runs by path slot (the slot
+    table from :func:`slot_table`'s kernel; :func:`exact_tree_inter_slots_plain`
+    is that layout in plain PyTorch).  Two launches on the same inputs give
+    bit-identical output.  CPU tensors run the plain version."""
 
     B, P, N, M, K = _check_phi(x_only, x_not, z_ok, z_dead, leaf_val, bgw, dmax)
     if x_only.device.type == "cpu":
@@ -762,10 +837,24 @@ def exact_tree_inter_plain(x_only: torch.Tensor, x_not: torch.Tensor,
     outer loop, so no ``(B, P, M, M)`` tensor is built."""
 
     B, P, N, M, K = _check_phi(x_only, x_not, z_ok, z_dead, leaf_val, bgw, dmax)
-    # steps past M multiply by exactly 1 (u - 1 < M): the clamp is exact
-    dm = min(int(dmax), M)
-    c = chunk or max(1, min(N, (1 << 23) // max(1, B * P)))
     out = torch.zeros((B, M, M, K), dtype=torch.float32, device=x_only.device)
+    # steps past M multiply by exactly 1 (u - 1 < M): the clamp is exact
+    for g, d in _inter_path_terms(x_only, x_not, z_ok, z_dead, bgw, min(int(dmax), M),
+                                  chunk):
+        out[:, g] += torch.einsum("bpm,pk->bmk", d, leaf_val)
+    return out
+
+
+def _inter_path_terms(x_only, x_not, z_ok, z_dead, bgw, dm: int, chunk: Optional[int]):
+    """:func:`exact_tree_inter_plain`'s per-path terms over the last axis of
+    its inputs (groups, or a path's slots), with ``dm`` binomial steps: for
+    each background chunk and each column ``g``, ``(g, d)`` with ``d (B, P,
+    W)`` the chunk's raw pair sums of ``(g, h)`` per path, in the order the
+    plain version adds them."""
+
+    B, P, W = x_only.shape
+    N = z_ok.shape[0]
+    c = chunk or max(1, min(N, (1 << 23) // max(1, B * P)))
     for n0 in range(0, N, c):
         z = z_ok[n0:n0 + c]
         nz = 1.0 - z
@@ -782,12 +871,38 @@ def exact_tree_inter_plain(x_only: torch.Tensor, x_not: torch.Tensor,
         w_vv = torch.where(v > 1.5, base * torch.where(
             u > 0.5, u / (v * (v - 1.0)).clamp(min=1.0),
             1.0 / (v - 1.0).clamp(min=1.0)), 0.0)
-        for g in range(M):
+        for g in range(W):
             ag = x_only[:, None, :, g] * nz[None, :, :, g]    # (B, c, P)
             cg = x_not[:, None, :, g] * z[None, :, :, g]
             w_p = w_uu * ag + w_uv * cg
             w_m = w_vv * cg + w_uv * ag
-            d = (torch.einsum("bnp,npm->bpm", w_p, nz) * x_only
-                 + torch.einsum("bnp,npm->bpm", w_m, z) * x_not)
-            out[:, g] += torch.einsum("bpm,pk->bmk", d, leaf_val)
-    return out
+            yield g, (torch.einsum("bnp,npm->bpm", w_p, nz) * x_only
+                      + torch.einsum("bnp,npm->bpm", w_m, z) * x_not)
+
+
+def exact_tree_inter_slots_plain(x_only: torch.Tensor, x_not: torch.Tensor,
+                                 z_ok: torch.Tensor, z_dead: torch.Tensor,
+                                 leaf_val: torch.Tensor, bgw: torch.Tensor, dmax: int,
+                                 chunk: Optional[int] = None) -> torch.Tensor:
+    """:func:`exact_tree_inter_plain` in the layout the kernel takes from
+    ``INTER_SLOT_M`` groups on: the inputs gathered into each path's slots
+    (:func:`path_slots`), the per-path pair sums taken over slot pairs, and
+    each slot pair's sum times the path's leaf values added back at its
+    group pair.  Equal to the dense plain version up to the order of the
+    last sum."""
+
+    B, P, N, M, K = _check_phi(x_only, x_not, z_ok, z_dead, leaf_val, bgw, dmax)
+    slots = path_slots(x_only, x_not).long()
+    valid = (slots >= 0).to(torch.float32)                       # (P, S)
+    g_of = slots.clamp(min=0)
+
+    def gather(t):
+        return torch.gather(t, 2, g_of[None].expand(t.shape[0], -1, -1)) * valid[None]
+
+    out = torch.zeros((B, M * M, K), dtype=torch.float32, device=x_only.device)
+    for i, d in _inter_path_terms(gather(x_only), gather(x_not), gather(z_ok), z_dead, bgw,
+                                  min(int(dmax), M), chunk):   # d (B, P, S): pairs (i, j)
+        at = (g_of[:, i, None] * M + g_of).reshape(-1)             # (P*S,) group pairs
+        terms = d[..., None] * leaf_val[None, :, None, :]          # (B, P, S, K)
+        out.index_add_(1, at, terms.reshape(B, -1, K))
+    return out.view(B, M, M, K)

@@ -131,7 +131,7 @@ from distributedkernelshap_tpu_torch.ops.treeshap import (
     validate_exact,
 )
 from distributedkernelshap_tpu_torch.parallel.pipeline import resolve_window, run_pipeline
-from distributedkernelshap_tpu_torch.profiling import profiler
+from distributedkernelshap_tpu_torch.profiling import profiler, span
 from distributedkernelshap_tpu_torch.utils import methdispatch, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -209,10 +209,35 @@ def _on_stream(stream: Optional["torch.cuda.Stream"]):
 
 
 def _fingerprint(X: np.ndarray):
-    """Cheap identity for "same instances as the last explain call"."""
+    """Cheap identity for "same instances as the last explain call"; a
+    ``phase.fingerprint`` span (its ``bytes``: X's)."""
 
-    X = np.ascontiguousarray(X)
-    return (X.shape, str(X.dtype), hash(X.tobytes()))
+    with span('phase.fingerprint', bytes=X.nbytes):
+        X = np.ascontiguousarray(X)
+        return (X.shape, str(X.dtype), hash(X.tobytes()))
+
+
+def _fetch_host(**tensors) -> Dict[str, np.ndarray]:
+    """``tensors`` copied to the host as numpy, in order (each copy waits
+    for the device): one ``phase.fetch_transfer`` span (its ``bytes``:
+    the copies')."""
+
+    with span('phase.fetch_transfer') as sp:
+        out = {k: t.cpu().numpy() for k, t in tensors.items()}
+        if sp is not None:
+            sp.annotate(bytes=sum(a.nbytes for a in out.values()))
+    return out
+
+
+def _assemble(results: List[Dict[str, np.ndarray]], keys: Sequence[str]) -> Dict[str, np.ndarray]:
+    """The chunks' ``keys`` joined along the rows: one ``phase.assemble``
+    span (its ``bytes``: the joined arrays')."""
+
+    with span('phase.assemble') as sp:
+        out = {k: np.concatenate([r[k] for r in results], 0) for k in keys}
+        if sp is not None:
+            sp.annotate(bytes=sum(a.nbytes for a in out.values()))
+    return out
 
 
 def _sklearn_linear_model(route: str):
@@ -1468,8 +1493,7 @@ class KernelExplainerEngine:
 
         def finalize() -> Dict[str, np.ndarray]:
             with _on_stream(stream):
-                return {'shap_values': phi[:B].cpu().numpy(),
-                        'raw_prediction': fx[:B].cpu().numpy()}
+                return _fetch_host(shap_values=phi[:B], raw_prediction=fx[:B])
 
         return finalize
 
@@ -1499,18 +1523,18 @@ class KernelExplainerEngine:
         def fetch(handle):
             phi, inter, fx, B, stream = handle
             with _on_stream(stream):
-                return {'shap_values': phi[:B].cpu().numpy(),
-                        'raw_prediction': fx[:B].cpu().numpy(),
-                        'interaction_values': inter[:B].cpu().numpy()}
+                return _fetch_host(shap_values=phi[:B], raw_prediction=fx[:B],
+                                   interaction_values=inter[:B])
 
         with profiler().phase('device_explain'), capture_kernel_paths() as kp:
             results = run_pipeline(chunks, dispatch, fetch,
-                                   window=self._resolve_window(len(chunks)))
+                                   window=self._resolve_window(len(chunks)),
+                                   describe=self._chunk_counters)
         self._note_kernel_paths(kp)
-        inter = np.concatenate([r['interaction_values'] for r in results], 0)  # (B, K, M, M)
+        r = _assemble(results, ('shap_values', 'raw_prediction', 'interaction_values'))
+        inter = r.pop('interaction_values')  # (B, K, M, M)
         self.last_interaction_values = [inter[:, k] for k in range(inter.shape[1])]
-        return {'shap_values': np.concatenate([r['shap_values'] for r in results], 0),
-                'raw_prediction': np.concatenate([r['raw_prediction'] for r in results], 0)}
+        return r
 
     def _exact_explanation(self, chunks: List[np.ndarray], l1_reg,
                            interactions: bool) -> Dict[str, np.ndarray]:
@@ -1542,9 +1566,9 @@ class KernelExplainerEngine:
             return self._exact_inter_explanation(chunks)
         with profiler().phase('device_explain'):
             results = run_pipeline(chunks, self._dispatch_exact, lambda fin: fin(),
-                                   window=self._resolve_window(len(chunks)))
-        return {'shap_values': np.concatenate([r['shap_values'] for r in results], 0),
-                'raw_prediction': np.concatenate([r['raw_prediction'] for r in results], 0)}
+                                   window=self._resolve_window(len(chunks)),
+                                   describe=self._chunk_counters)
+        return _assemble(results, ('shap_values', 'raw_prediction'))
 
     # ------------------------------------------------------------------ #
     # exact tensor-network path (ops/tensor_shap.py)
@@ -1675,6 +1699,13 @@ class KernelExplainerEngine:
         self.last_dispatch_window = resolve_window(
             self.config.dispatch_window, n_items=n_items, device=self.device)
         return self.last_dispatch_window
+
+    def _chunk_counters(self, c: np.ndarray) -> Dict[str, int]:
+        """A chunk's counters on its dispatch spans: its rows and the rows
+        it is padded to (:meth:`_pad_to_bucket`)."""
+
+        B = c.shape[0]
+        return {'rows': B, 'padded_rows': self._bucket(B) if self.config.bucket_batches else B}
 
     def _chunks(self, X: np.ndarray) -> List[np.ndarray]:
         """``X`` split into ``instance_chunk`` rows a chunk (one chunk when
@@ -1943,13 +1974,16 @@ class KernelExplainerEngine:
         args = self._device_args(plan)
         acc = None
         with profiler().phase('device_importance'), capture_kernel_paths() as kp:
-            for c in self._chunks(X):
-                Xp, B = self._pad_to_bucket(c)
-                out = self._fn()(torch.as_tensor(Xp, device=self.device), *args)
-                part = out['shap_values'][:B].abs().sum(0)      # (K, M)
-                acc = part if acc is None else acc + part
+            for i, c in enumerate(self._chunks(X)):
+                with span('phase.dispatch') as sp:
+                    if sp is not None:
+                        sp.annotate(index=i, **self._chunk_counters(c))
+                    Xp, B = self._pad_to_bucket(c)
+                    out = self._fn()(torch.as_tensor(Xp, device=self.device), *args)
+                    part = out['shap_values'][:B].abs().sum(0)      # (K, M)
+                    acc = part if acc is None else acc + part
         self._note_kernel_paths(kp)
-        return acc.cpu().numpy() / X.shape[0]
+        return _fetch_host(importance=acc)['importance'] / X.shape[0]
 
     def get_explanation(self,
                         X: Union[Tuple[int, np.ndarray], np.ndarray],
@@ -2010,13 +2044,12 @@ class KernelExplainerEngine:
                 plan = self._plan(nsamples)
             with profiler().phase('device_explain'):
                 results = run_pipeline(chunks, lambda c: self._dispatch_array(c, plan),
-                                       lambda fin: fin(), window=window)
-            r = {k: np.concatenate([res[k] for res in results], 0)
-                 for k in ('shap_values', 'raw_prediction')}
+                                       lambda fin: fin(), window=window,
+                                       describe=self._chunk_counters)
+            r = _assemble(results, ('shap_values', 'raw_prediction'))
         else:
             results = [self._explain_array(c, nsamples, silent=silent) for c in chunks]
-            r = {k: np.concatenate([res[k] for res in results], 0)
-                 for k in ('shap_values', 'raw_prediction')}
+            r = _assemble(results, ('shap_values', 'raw_prediction'))
         # stash the link-space predictions so build_explanation doesn't need
         # a second predictor pass for the same instances
         self.last_raw_prediction = r['raw_prediction']
@@ -2458,33 +2491,37 @@ class KernelShap(Explainer, FitMixin):
         if self.use_groups and sparse.issparse(X):
             X = X.toarray()
 
-        with profiler().phase('explain'):
-            shap_values = self._explainer.get_explanation(X, **kwargs)
-        self.expected_value = self._explainer.expected_value
-        expected_value = self.expected_value
-        if isinstance(shap_values, np.ndarray):
-            shap_values = [shap_values]
-        if isinstance(expected_value, (float, np.floating)):
-            expected_value = [expected_value]
+        with span('kernel_shap.explain') as root:
+            with profiler().phase('explain'):
+                shap_values = self._explainer.get_explanation(X, **kwargs)
+            self.expected_value = self._explainer.expected_value
+            expected_value = self.expected_value
+            if isinstance(shap_values, np.ndarray):
+                shap_values = [shap_values]
+            if isinstance(expected_value, (float, np.floating)):
+                expected_value = [expected_value]
 
-        explanation = self.build_explanation(
-            X,
-            shap_values,
-            expected_value,
-            summarise_result=summarise_result,
-            cat_vars_start_idx=cat_vars_start_idx,
-            cat_vars_enc_dim=cat_vars_enc_dim,
-        )
-        inter = self._explainer.last_interaction_values
-        if kwargs.get('interactions') and inter is not None:
-            # summarise exactly when the shap values were (the decision
-            # build_explanation took after validation), so rows keep summing
-            # to the shap values
-            if self.summarise_result:
-                inter = [sum_categories(v, cat_vars_start_idx, cat_vars_enc_dim)
-                         for v in inter]
-            explanation.data['raw']['interaction_values'] = inter
-        return explanation
+            explanation = self.build_explanation(
+                X,
+                shap_values,
+                expected_value,
+                summarise_result=summarise_result,
+                cat_vars_start_idx=cat_vars_start_idx,
+                cat_vars_enc_dim=cat_vars_enc_dim,
+            )
+            inter = self._explainer.last_interaction_values
+            if kwargs.get('interactions') and inter is not None:
+                # summarise exactly when the shap values were (the decision
+                # build_explanation took after validation), so rows keep summing
+                # to the shap values
+                if self.summarise_result:
+                    inter = [sum_categories(v, cat_vars_start_idx, cat_vars_enc_dim)
+                             for v in inter]
+                explanation.data['raw']['interaction_values'] = inter
+            raw = getattr(self._explainer, 'last_raw_prediction', None)
+            if root is not None and raw is not None:
+                root.annotate(rows=len(raw))
+            return explanation
 
     def rank_features(self, X: Any, nsamples: Union[str, int, None] = None) -> Dict:
         """Global feature ranking over ``X`` without bringing phi back:
@@ -2501,10 +2538,13 @@ class KernelShap(Explainer, FitMixin):
             X = np.atleast_2d(np.asarray(X.values))
         elif sparse.issparse(X):
             X = X.toarray()
-        with profiler().phase('rank_features'):
-            imp = self._explainer.get_importance(X, nsamples=nsamples)
-        return ranking_from_importance(
-            imp, _resolve_feature_names(self.feature_names, imp.shape[1]))
+        with span('kernel_shap.rank_features') as root:
+            if root is not None:
+                root.annotate(rows=int(np.shape(X)[0]))
+            with profiler().phase('rank_features'):
+                imp = self._explainer.get_importance(X, nsamples=nsamples)
+            return ranking_from_importance(
+                imp, _resolve_feature_names(self.feature_names, imp.shape[1]))
 
     @property
     def kernel_path(self) -> Dict[str, Any]:
@@ -2530,8 +2570,13 @@ class KernelShap(Explainer, FitMixin):
                           shap_values: List[np.ndarray],
                           expected_value: List[float],
                           **kwargs) -> Explanation:
-        """Assemble the Explanation payload (reference kernel_shap.py:900-980)."""
+        """Assemble the Explanation payload (reference kernel_shap.py:900-980):
+        one ``phase.build_explanation`` span."""
 
+        with span('phase.build_explanation'):
+            return self._build_explanation(X, shap_values, expected_value, **kwargs)
+
+    def _build_explanation(self, X, shap_values, expected_value, **kwargs) -> Explanation:
         cat_vars_start_idx = kwargs.get('cat_vars_start_idx', ())
         cat_vars_enc_dim = kwargs.get('cat_vars_enc_dim', ())
         summarise_result = kwargs.get('summarise_result', False)

@@ -10,8 +10,10 @@ answer "where did request X spend its 400 ms" across the client retry /
 proxy hedge / replica admission→queue→device→finalize path.  This module
 is the substrate: spans are plain records (name, trace id, span id,
 parent id, wall-clock start, duration, attributes) collected in a bounded
-in-process ring buffer, exported as JSONL, and convertible to the
-Chrome/Perfetto ``trace_event`` format for flamegraph viewing.
+in-process ring buffer and exported as JSONL.  The engine's own spans
+(``profiling.span``) also open ``torch.profiler`` ranges of the same name
+whenever a profiler records, so a profiler's Chrome trace carries them
+beside the device's records.
 
 **Context propagation** is W3C-traceparent-shaped over one header::
 
@@ -26,9 +28,15 @@ in one trace shares the trace id; JSONL consumers follow a request
 end-to-end by filtering on it.
 
 **Time base**: span ``ts`` is epoch seconds (comparable across the
-client/proxy/replica processes of one host), durations are measured on
-the monotonic clock.  Cross-host skew is the operator's problem, as with
-any distributed tracer.
+client/proxy/replica processes of one host).  A span timed on its own
+thread (:meth:`Tracer.begin` / :meth:`Tracer.end`, :meth:`Tracer.span`)
+reads ``time.time_ns()`` at both ends: ``CLOCK_REALTIME``, the clock of
+``torch.profiler``'s host and device records, so a span lines up with
+them.  An interval measured elsewhere on the monotonic clock
+(:meth:`Tracer.record_mono`, the serving path's queue and admission
+times) is shifted to epoch seconds by one offset fixed at import.
+Cross-host skew is the operator's problem, as with any distributed
+tracer.
 
 **Cost when disabled** (the default): one attribute read per guard —
 every producer checks ``tracer().enabled`` before building anything.
@@ -118,7 +126,7 @@ def header_get(headers, name: str = TRACE_HEADER) -> Optional[str]:
 
 class Span:
     __slots__ = ("name", "trace_id", "span_id", "parent_id", "ts",
-                 "duration_s", "attrs", "proc", "thread", "_t0_mono")
+                 "duration_s", "attrs", "proc", "thread", "_t0_ns")
 
     def __init__(self, name: str, trace_id: str, span_id: str,
                  parent_id: Optional[str], ts: float, duration_s: float,
@@ -133,7 +141,7 @@ class Span:
         self.attrs = attrs or {}
         self.proc = proc
         self.thread = thread
-        self._t0_mono: Optional[float] = None
+        self._t0_ns: Optional[int] = None
 
     @property
     def context(self) -> SpanContext:
@@ -344,7 +352,7 @@ class Tracer:
               parent: Union[SpanContext, Span, None] = None,
               **attrs) -> Span:
         """Start a span now; finish it with :meth:`end` (possibly from
-        another call path on the same thread).  ``parent=None`` adopts
+        another call path or another thread).  ``parent=None`` adopts
         the thread's current context, else mints a new trace."""
 
         if isinstance(parent, Span):
@@ -353,17 +361,17 @@ class Tracer:
             parent = current_context()
         trace_id = parent.trace_id if parent else new_trace_id()
         span = Span(name, trace_id, new_span_id(),
-                    parent.span_id if parent else None,
-                    mono_to_epoch(time.monotonic()), 0.0, attrs=attrs,
+                    parent.span_id if parent else None, 0.0, 0.0, attrs=attrs,
                     proc=self.proc, thread=threading.get_ident())
-        span._t0_mono = time.monotonic()
+        span._t0_ns = time.time_ns()
+        span.ts = span._t0_ns * 1e-9
         return span
 
     def end(self, span: Optional[Span], **attrs) -> None:
         if span is None:
             return
-        t0 = span._t0_mono if span._t0_mono is not None else None
-        span.duration_s = (time.monotonic() - t0) if t0 is not None else 0.0
+        t0 = span._t0_ns
+        span.duration_s = (time.time_ns() - t0) * 1e-9 if t0 is not None else 0.0
         if attrs:
             span.attrs.update(attrs)
         self._append(span)
@@ -422,6 +430,14 @@ class Tracer:
             self._buf.clear()
             self.recorded_total = 0
 
+    def resize(self, capacity: int) -> None:
+        """Bound the ring at ``capacity`` spans from now on, keeping the
+        newest of those it holds."""
+
+        with self._lock:
+            self.capacity = int(capacity)
+            self._buf = deque(self._buf, maxlen=self.capacity)
+
     def export_jsonl(self, path: str) -> int:
         """Write the ring's spans as JSON lines; returns the count."""
 
@@ -442,91 +458,6 @@ def read_jsonl(path: str) -> List[Span]:
             if line:
                 spans.append(Span.from_dict(json.loads(line)))
     return spans
-
-
-# --------------------------------------------------------------------- #
-# Chrome / Perfetto trace_event conversion
-# --------------------------------------------------------------------- #
-
-
-def chrome_trace(spans: List[Span]) -> Dict:
-    """Convert spans to the Chrome ``trace_event`` JSON object format
-    (loadable in Perfetto / chrome://tracing).  Spans become complete
-    ('X') events; processes get metadata naming events.  All span
-    identity (trace/span/parent ids, attrs) rides in ``args`` so
-    :func:`from_chrome_trace` can round-trip losslessly."""
-
-    procs: Dict[str, int] = {}
-    events = []
-    for span in spans:
-        pid = procs.setdefault(span.proc or "proc", len(procs) + 1)
-        events.append({
-            "ph": "X",
-            "name": span.name,
-            "cat": "dks",
-            "ts": round(span.ts * 1e6, 3),
-            "dur": round(span.duration_s * 1e6, 3),
-            "pid": pid,
-            "tid": span.thread or 1,
-            "args": {"trace_id": span.trace_id, "span_id": span.span_id,
-                     "parent_id": span.parent_id, **span.attrs},
-        })
-    meta = [{"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
-             "args": {"name": name}} for name, pid in procs.items()]
-    return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
-
-
-def write_chrome_trace(spans: List[Span], path: str) -> int:
-    directory = os.path.dirname(os.path.abspath(path))
-    os.makedirs(directory, exist_ok=True)
-    doc = chrome_trace(spans)
-    with open(path, "w", encoding="utf-8") as fh:
-        json.dump(doc, fh)
-    return sum(1 for e in doc["traceEvents"] if e["ph"] == "X")
-
-
-def from_chrome_trace(doc: Dict) -> List[Span]:
-    """Inverse of :func:`chrome_trace` (round-trip check in the tests and
-    the bench's ``--trace-out`` converter)."""
-
-    proc_names = {e["pid"]: e["args"]["name"]
-                  for e in doc.get("traceEvents", [])
-                  if e.get("ph") == "M" and e.get("name") == "process_name"}
-    spans = []
-    for e in doc.get("traceEvents", []):
-        if e.get("ph") != "X":
-            continue
-        args = dict(e.get("args") or {})
-        spans.append(Span(
-            e["name"], args.pop("trace_id"), args.pop("span_id"),
-            args.pop("parent_id", None), e["ts"] / 1e6, e["dur"] / 1e6,
-            attrs=args, proc=proc_names.get(e["pid"], str(e["pid"])),
-            thread=int(e.get("tid", 0))))
-    return spans
-
-
-def read_chrome_trace(path: str) -> List[Span]:
-    with open(path, "r", encoding="utf-8") as fh:
-        return from_chrome_trace(json.load(fh))
-
-
-def phase_breakdown(spans: List[Span]) -> Dict[str, Dict[str, float]]:
-    """Aggregate spans by name: the per-phase breakdown the benchmarks
-    print with ``--trace-out`` (count / total / mean / max seconds)."""
-
-    out: Dict[str, Dict[str, float]] = {}
-    for span in spans:
-        st = out.setdefault(span.name, {"count": 0, "total_s": 0.0,
-                                        "max_s": 0.0})
-        st["count"] += 1
-        st["total_s"] += span.duration_s
-        st["max_s"] = max(st["max_s"], span.duration_s)
-    for st in out.values():
-        st["mean_s"] = st["total_s"] / st["count"]
-        st["total_s"] = round(st["total_s"], 6)
-        st["mean_s"] = round(st["mean_s"], 6)
-        st["max_s"] = round(st["max_s"], 6)
-    return out
 
 
 _default = Tracer()

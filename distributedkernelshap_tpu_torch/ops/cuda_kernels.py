@@ -155,22 +155,23 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = {}
-    for name, path in todo.items():
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT, text=True))
     failed = []
-    for name, (tmp, proc) in procs.items():
-        log = proc.communicate()[0]
-        path = todo[name]
-        path.with_name(path.name + ".log").write_text(log)
-        if proc.returncode:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, path)
-            _built_here.add(name)
-            compile_events().record("fresh", time.perf_counter() - t0, name)
+    with compile_events().span("fresh", ",".join(todo)):
+        for name, path in todo.items():
+            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True))
+        for name, (tmp, proc) in procs.items():
+            log = proc.communicate()[0]
+            path = todo[name]
+            path.with_name(path.name + ".log").write_text(log)
+            if proc.returncode:
+                failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, path)
+                _built_here.add(name)
+                compile_events().record("fresh", time.perf_counter() - t0, name)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return out
@@ -183,7 +184,9 @@ def _library(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             t0 = time.perf_counter()
-            lib = ctypes.CDLL(str(build([name])[name]))
+            path = build([name])[name]
+            with compile_events().span("fresh" if name in _built_here else "cache_hit", name):
+                lib = ctypes.CDLL(str(path))
             for sym, (argtypes, restype) in _SYMBOLS[name].items():
                 fn = getattr(lib, sym)
                 fn.argtypes = argtypes

@@ -44,6 +44,7 @@ from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
     fused_linear_ey_plain,
 )
 from distributedkernelshap_tpu_torch.ops.links import convert_to_link
+from distributedkernelshap_tpu_torch.profiling import span
 
 # ---------------------------------------------------------------------- #
 # Kernel-path recording: every result must say which evaluation route ran.
@@ -200,10 +201,14 @@ def pack_transfer(wide, narrow, transfer_dtype):
 
 def fetch_transfer(packed: torch.Tensor) -> np.ndarray:
     """The one device-to-host copy of a :func:`pack_transfer` result (it
-    waits for the device); 16-bit words come back as ``np.uint16``, the
-    reference's host dtype."""
+    waits for the device), a ``phase.fetch_transfer`` span (its
+    ``bytes``); 16-bit words come back as ``np.uint16``, the reference's
+    host dtype."""
 
-    host = packed.cpu().numpy()
+    with span("phase.fetch_transfer") as sp:
+        host = packed.cpu().numpy()
+        if sp is not None:
+            sp.annotate(bytes=host.nbytes)
     return host.view(np.uint16) if host.dtype == np.int16 else host
 
 
@@ -212,20 +217,22 @@ def unpack_transfer(flat: np.ndarray, n_wide: int, transfer_dtype) -> tuple:
     ``ops/explain.py:211-228``): ``(wide_f32, narrow_f32)`` 1-D arrays from
     the fetched copy ``flat``, whose wide segment has ``n_wide`` elements.
     bfloat16 is widened exactly by moving its bits into the top half of a
-    float32 (numpy has no bfloat16)."""
+    float32 (numpy has no bfloat16).  A ``phase.unpack_transfer`` span (its
+    ``elements``: the copy's)."""
 
     flat = np.asarray(flat)
-    if flat.dtype != np.uint16:
-        flat = flat.astype(np.float32, copy=False)
-        return flat[:n_wide], flat[n_wide:]
-    if str(transfer_dtype) == "bfloat16":
-        wide = (flat[:n_wide].astype(np.uint32) << 16).view(np.float32)
-    else:
-        wide = flat[:n_wide].view(np.dtype(transfer_dtype)).astype(np.float32)
-    # .copy(): the tail's byte offset (2*n_wide) need not be 4-aligned, and
-    # numpy refuses misaligned views; the tail is K + B*K floats
-    narrow = flat[n_wide:].copy().view(np.float32)
-    return wide, narrow
+    with span("phase.unpack_transfer", elements=flat.size):
+        if flat.dtype != np.uint16:
+            flat = flat.astype(np.float32, copy=False)
+            return flat[:n_wide], flat[n_wide:]
+        if str(transfer_dtype) == "bfloat16":
+            wide = (flat[:n_wide].astype(np.uint32) << 16).view(np.float32)
+        else:
+            wide = flat[:n_wide].view(np.dtype(transfer_dtype)).astype(np.float32)
+        # .copy(): the tail's byte offset (2*n_wide) need not be 4-aligned,
+        # and numpy refuses misaligned views; the tail is K + B*K floats
+        narrow = flat[n_wide:].copy().view(np.float32)
+        return wide, narrow
 
 
 def groups_to_matrix(groups: Optional[Sequence[Sequence[int]]], n_columns: int) -> np.ndarray:

@@ -40,6 +40,7 @@ from distributedkernelshap_tpu_torch.parallel.mesh import (
     process_count,
     process_index,
 )
+from distributedkernelshap_tpu_torch.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -172,7 +173,8 @@ def run_pipeline(items: Iterable[Any],
                  fetch: Callable[[Any], Any],
                  window: int,
                  threaded: bool = True,
-                 journal=None) -> List[Any]:
+                 journal=None,
+                 describe: Optional[Callable[[Any], Dict[str, Any]]] = None) -> List[Any]:
     """``[fetch(dispatch(item)) for item in items]`` with bounded overlap.
 
     ``dispatch`` runs on the calling thread, in order (it may populate the
@@ -192,6 +194,15 @@ def run_pipeline(items: Iterable[Any],
     K-th item's work — the worst case a resume must absorb.  A journaled
     fetch must return a sequence of arrays (the journal's record).
 
+    While tracing is live (``profiling.span``) each item's dispatch is a
+    ``phase.dispatch`` span and the calling thread's waits for a window
+    slot or for outstanding fetches are ``phase.pipeline_wait`` spans; with
+    the tracer on, each item's dispatch→fetch interval is also a
+    ``pool.shard`` span (restored items tagged as such), and the fetch
+    threads adopt it as their context, so a fetch's own spans parent to
+    it.  ``describe(item)`` gives the dispatch and shard spans' counters
+    (e.g. rows and padded rows); the item's index is always one.
+
     A fetch/dispatch exception propagates to the caller after in-flight
     work drains (the executor joins on exit), and a failed fetch stops
     further dispatches.
@@ -210,18 +221,24 @@ def run_pipeline(items: Iterable[Any],
 
         injector = env_injector()
 
-    # per-item spans: journaled loops are batch runs (each item's
-    # dispatch→fetch interval, restored items tagged as such); a loop
-    # running under a request's adopted context parents its items to it
     tr = _tracing.tracer()
-    trace_parent = _tracing.current_context() if tr.enabled else None
-    traced = tr.enabled and (journal is not None or trace_parent is not None)
 
-    def finish(index, handle, t_disp):
-        result = fetch(handle)
-        if traced:
-            tr.record_mono("pool.shard", t_disp, time.monotonic(),
-                           parent=trace_parent, index=index)
+    def counters(index, item):
+        return dict(describe(item) if describe is not None else {}, index=index)
+
+    def start(index, item):
+        """Dispatch ``item``: ``(handle, shard span or None)``."""
+
+        attrs = counters(index, item) if tr.enabled else {}
+        shard = tr.begin("pool.shard", **attrs) if tr.enabled else None
+        with span("phase.dispatch", **attrs):
+            handle = dispatch(item)
+        return handle, shard
+
+    def finish(index, handle, shard):
+        with _tracing.use_context(shard.context if shard is not None else None):
+            result = fetch(handle)
+        tr.end(shard)
         if injector is not None:
             injector.fire("pool.shard")
         if journal is not None:
@@ -231,11 +248,9 @@ def run_pipeline(items: Iterable[Any],
     if journal is not None:
         restored = {i: journal.get(i) for i in range(len(items))}
         restored = {i: r for i, r in restored.items() if r is not None}
-        if traced and restored:
-            now = time.monotonic()
+        if tr.enabled:
             for i in restored:
-                tr.record_mono("pool.shard", now, now, parent=trace_parent,
-                               index=i, restored=True)
+                tr.end(tr.begin("pool.shard", index=i, restored=True))
     else:
         restored = {}
 
@@ -246,14 +261,15 @@ def run_pipeline(items: Iterable[Any],
             if i in restored:
                 results[i] = restored[i]
                 continue
-            t_disp = time.monotonic()
-            pending.append((i, dispatch(it), t_disp))
+            pending.append((i, *start(i, it)))
             if len(pending) >= window:
-                j, handle, t_disp = pending.popleft()
-                results[j] = finish(j, handle, t_disp)
+                j, handle, shard = pending.popleft()
+                with span("phase.pipeline_wait"):
+                    results[j] = finish(j, handle, shard)
         while pending:
-            j, handle, t_disp = pending.popleft()
-            results[j] = finish(j, handle, t_disp)
+            j, handle, shard = pending.popleft()
+            with span("phase.pipeline_wait"):
+                results[j] = finish(j, handle, shard)
         return results
 
     sem = threading.BoundedSemaphore(window)
@@ -265,15 +281,15 @@ def run_pipeline(items: Iterable[Any],
             if i in restored:
                 results[i] = restored[i]
                 continue
-            sem.acquire()  # bounds dispatched-but-unfetched items
+            with span("phase.pipeline_wait"):
+                sem.acquire()  # bounds dispatched-but-unfetched items
             if failed.is_set():
                 break  # burn no device work after a fatal fetch error
-            t_disp = time.monotonic()
-            handle = dispatch(it)
+            handle, shard = start(i, it)
 
-            def _fetch(i=i, handle=handle, t_disp=t_disp):
+            def _fetch(i=i, handle=handle, shard=shard):
                 try:
-                    results[i] = finish(i, handle, t_disp)
+                    results[i] = finish(i, handle, shard)
                 except BaseException:
                     failed.set()
                     raise
@@ -281,6 +297,7 @@ def run_pipeline(items: Iterable[Any],
                     sem.release()
 
             futures.append(pool.submit(_fetch))
-        for f in futures:
-            f.result()
+        with span("phase.pipeline_wait"):
+            for f in futures:
+                f.result()
         return results

@@ -1,25 +1,36 @@
-"""Per-phase timers and a device trace hook of the PyTorch port.
+"""Per-phase timers, boundary spans and a device trace hook of the PyTorch
+port.
 
 Port of ``distributedkernelshap_tpu/profiling.py``: named per-phase timers
 (coalition plan, device explain, host eval, solve, plan constants, ...)
 that the engine wraps around its stages, and a ``torch.profiler`` trace
 hook that writes a Chrome trace of host and device activity.
 
-Enable with ``DKS_PROFILE=1`` (or ``profiler().enable()``).  Memory is
-bounded: per-phase ``count`` and ``total_s`` are exact accumulators, while
-the raw samples live in a rolling window of the most recent
-:data:`DEFAULT_WINDOW` durations, enough for the windowed p50/p99 of
-``summary()``.
+Enable the timers with ``DKS_PROFILE=1`` (or ``profiler().enable()``).
+Memory is bounded: per-phase ``count`` and ``total_s`` are exact
+accumulators, while the raw samples live in a rolling window of the most
+recent :data:`DEFAULT_WINDOW` durations, enough for the windowed p50/p99
+of ``summary()``.
 
-When request tracing is active (``DKS_TRACE=1``) and the current thread
-carries a span context, each phase is also recorded as a ``phase.<name>``
-child span of that context (``observability/tracing.py``).
+:func:`span` is the port's one boundary primitive.  It is live while the
+process tracer is enabled (``DKS_TRACE=1`` or ``tracer().enable()``) or a
+``torch.profiler`` records on the calling thread; a live span stamps its
+ends on ``time.time_ns()`` (the profiler's clock), appends a span to the
+tracer's ring (parented to the thread's current context, which it becomes
+for its body) and, while a profiler records, opens a profiler range of
+the same name, so a profiler's trace names the host's time between device
+records.  The range is a function-scope one (``_RecordFunctionFast``),
+not ``record_function``'s user annotation: the profiler copies a user
+annotation onto the device's rows over the kernels launched inside it,
+where a reader of device records takes it for device work, and it costs
+~15 times as much to open.  Off, a span costs the ``with`` statement, an
+attribute read and one flag check.  Each :meth:`Profiler.phase` is also
+a ``phase.<name>`` span.
 
-PyTorch launches CUDA work asynchronously, so without a sync a phase's time
-lands in whichever later phase first waits for the device.
-``phase(sync=True)`` waits for the device at the phase's end
-(``torch.cuda.synchronize``) where the work is on CUDA; a device error that
-surfaces there propagates.
+PyTorch launches CUDA work asynchronously: a span or phase ends when the
+host leaves it, and device work it queued lands in whichever later span
+first waits for the device (a copy to the host, a synchronize).  The
+profiler's device records, on the same clock, say when the device ran it.
 """
 
 import contextlib
@@ -30,9 +41,11 @@ import tempfile
 import threading
 import time
 from collections import deque
-from typing import Dict, Optional, Union
+from typing import Dict, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast as _range
+from torch.autograd import _profiler_enabled
 
 import distributedkernelshap_tpu_torch.observability.tracing as _tracing
 
@@ -59,19 +72,29 @@ def _percentile(ordered, q: float) -> float:
     return ordered[rank - 1]
 
 
-def _sync(device: Optional[Union[str, torch.device]]) -> None:
-    """Wait for outstanding work on ``device``.  ``None`` means the current
-    CUDA device when CUDA has been initialised in this process (no work can
-    be on a card before that); a CPU device has nothing to wait for.  Errors
-    propagate."""
+@contextlib.contextmanager
+def span(name: str, **attrs):
+    """A boundary span named ``name`` around the block (see the module's
+    docstring); yields the ring's :class:`~distributedkernelshap_tpu_torch.
+    observability.tracing.Span` (annotate it with counters known only at
+    the end) or ``None`` while the tracer is off."""
 
-    if device is None:
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
+    tracer = _tracing.tracer()
+    ring, recording = tracer.enabled, _profiler_enabled()
+    if not (ring or recording):
+        yield None
         return
-    device = torch.device(device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    sp = tracer.begin(name, **attrs) if ring else None
+    rf = _range(name) if recording else None
+    if rf is not None:
+        rf.__enter__()
+    try:
+        with _tracing.use_context(sp.context if sp is not None else None):
+            yield sp
+    finally:
+        if rf is not None:
+            rf.__exit__(None, None, None)
+        tracer.end(sp)
 
 
 class Profiler:
@@ -98,31 +121,18 @@ class Profiler:
         return self
 
     @contextlib.contextmanager
-    def phase(self, name: str, sync: bool = False,
-              device: Optional[Union[str, torch.device]] = None):
-        """Time a named phase.  ``sync=True`` waits for outstanding device
-        work on ``device`` (default: the current CUDA device, where CUDA is
-        initialised) before reading the clock; on the CPU it waits for
-        nothing.
+    def phase(self, name: str):
+        """Time a named phase while the profiler is enabled, and open a
+        ``phase.<name>`` :func:`span` around it (live or not, independently
+        of the profiler)."""
 
-        When the process tracer is enabled and this thread carries a span
-        context, the phase is also recorded as a ``phase.<name>`` child
-        span, even with the profiler itself disabled."""
-
-        tracer = _tracing.tracer()
-        trace_parent = (_tracing.current_context() if tracer.enabled
-                        else None)
-        if not self.enabled and trace_parent is None:
-            yield
-            return
-        t0 = time.perf_counter()
+        t0 = time.perf_counter() if self.enabled else None
         try:
-            yield
+            with span("phase." + name):
+                yield
         finally:
-            if sync:
-                _sync(device)
-            dt = time.perf_counter() - t0
-            if self.enabled:
+            if t0 is not None:
+                dt = time.perf_counter() - t0
                 with self._lock:
                     st = self._phases.get(name)
                     if st is None:
@@ -130,10 +140,6 @@ class Profiler:
                     st.count += 1
                     st.total_s += dt
                     st.window.append(dt)
-            if trace_parent is not None:
-                t1_mono = time.monotonic()
-                tracer.record_mono(f"phase.{name}", t1_mono - dt, t1_mono,
-                                   parent=trace_parent)
 
     @contextlib.contextmanager
     def trace(self, logdir: Optional[str] = None):

@@ -20,15 +20,14 @@ flags, so a library on disk is its own persistent cache entry.
   build directory (the seconds are the load's).  Each event is attributed
   to the caller-declared *shape signature* that is ambient on the loading
   thread (``with compile_events().signature("rows=64"): ...``), exposed
-  as ``dks_compile_total`` / ``dks_compile_seconds_total`` and recorded
-  as a ``compile.backend`` trace span, with the reference's families,
-  labels and span name.
+  as ``dks_compile_total`` / ``dks_compile_seconds_total``; the build or
+  load itself runs in a ``compile.backend`` span (:meth:`CompileAccounting.
+  span`), with the reference's families, labels and span name.
 """
 
 import logging
 import os
 import threading
-import time
 from contextlib import contextmanager
 from typing import Dict, Optional
 
@@ -153,26 +152,17 @@ class CompileAccounting:
             self._total_s += float(seconds)
             if artefact:
                 self._artefacts[artefact] = kind
-        self._record_span(kind, sig, seconds, artefact)
 
-    def _record_span(self, kind: str, sig: str, duration: float,
-                     artefact: str) -> None:
-        """A ``compile.backend`` trace span for the event, parented to the
-        ambient request/warmup context (builds and loads run synchronously
-        on the calling thread, so the contextvar is the right parent)."""
+    def span(self, kind: str, artefact: str):
+        """A ``compile.backend`` boundary span (``profiling.span``) around
+        a build or load of ``artefact`` on the calling thread, with its
+        ``kind`` and the thread's ambient signature: on a profiler's trace
+        a build inside the window shows as such."""
 
-        try:
-            from distributedkernelshap_tpu_torch.observability import tracing
+        from distributedkernelshap_tpu_torch.profiling import span
 
-            tr = tracing.tracer()
-            if not tr.enabled:
-                return
-            end = time.monotonic()
-            tr.record_mono("compile.backend", end - duration, end,
-                           parent=tracing.current_context(),
-                           kind=kind, signature=sig, artefact=artefact)
-        except Exception:  # tracing must never break a build
-            logger.debug("compile span recording failed", exc_info=True)
+        sig = getattr(self._local, "signature", None) or "_unattributed"
+        return span("compile.backend", kind=kind, signature=sig, artefact=artefact)
 
     def artefacts(self) -> Dict[str, str]:
         """``{artefact: kind}`` of every artefact this process recorded."""

@@ -77,13 +77,14 @@ def get_lib():
         t0 = time.perf_counter()
         path = library_path()
         kind = "cache_hit" if path.exists() else "fresh"
-        if kind == "fresh" and not _build(path):
-            return None
-        try:
-            lib = ctypes.CDLL(str(path))
-        except OSError as e:
-            logger.info("native runtime load failed (%s); using the numpy route", e)
-            return None
+        with compile_events().span(kind, "libdksruntime"):
+            if kind == "fresh" and not _build(path):
+                return None
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                logger.info("native runtime load failed (%s); using the numpy route", e)
+                return None
         f32p = np.ctypeslib.ndpointer(dtype=np.float32, flags="C_CONTIGUOUS")
         lib.dks_masked_fill.argtypes = [f32p, f32p, f32p, f32p] + [ctypes.c_int64] * 4
         lib.dks_masked_fill.restype = None

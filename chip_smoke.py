@@ -675,7 +675,7 @@ EY_ADVERSARIAL = ("large logits", "spread past the guard", "cancelling")
 #: classes that disagree so far that the factored D underflows
 EY_SOFTMAX_ADVERSARIAL = EY_ADVERSARIAL + ("top classes apart",)
 #: general-softmax class counts phase 3 gives each adversarial kind
-EY_SOFTMAX_ADVERSARIAL_KS = (3, 7, 33, 100)
+EY_SOFTMAX_ADVERSARIAL_KS = (3, 7, 16, 33, 100)
 
 
 def _quantised(a):
@@ -2239,7 +2239,14 @@ def compare_kernel(seed, device):
     chunk), with the guard's split of each sigmoid-form case; the general
     softmax's factored kernel on every adversarial kind (top classes apart
     too) at ``EY_SOFTMAX_ADVERSARIAL_KS`` classes, with the (b, s, n)
-    triples its guard sent to the in-kernel exact route."""
+    triples its guard sent to the in-kernel exact route; the library's
+    route for each K (the small-K route up to ``ey_regs_max_k``, the
+    factored kernel past it, the sigmoid form at K = 2), the small-K
+    route's shapes (one class, one and two float4s of v, classes past K
+    zero, several background chunks, XWg staged in slices at 48 groups),
+    two launches of it bit-identical, and what it launches."""
+
+    import torch
 
     from distributedkernelshap_tpu_torch.ops import cuda_kernels
     from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
@@ -2250,6 +2257,21 @@ def compare_kernel(seed, device):
 
     rng = np.random.default_rng(seed)
     headline_mask = coalition_plan_mask()
+    small = cuda_kernels.ey_regs_max_k()
+    for K in (1, 3, 7, 8, small):
+        info = ey_launch_info(COVERTYPE_CHUNK, len(headline_mask), N_BACKGROUND,
+                              len(COVERTYPE_WIDTHS), K)
+        print(f"small-K route launch at B={COVERTYPE_CHUNK} S={len(headline_mask)} "
+              f"N={N_BACKGROUND} M={len(COVERTYPE_WIDTHS)} K={K}: {info}", flush=True)
+        if info["route"] != "regs" or info["local_bytes"]:
+            raise AssertionError(f"the small-K route at K={K}: {info}")
+    routes = {K: cuda_kernels.ey_route(K) for K in (*range(1, small + 2), 32, 100)}
+    want = {K: "sigmoid" if K == 2 else "regs" if K <= small else "factored" for K in routes}
+    print(f"fused_linear_ey routes (softmax): {routes}; sigmoid K=1, 7: "
+          f"{cuda_kernels.ey_route(1, 'sigmoid')}, {cuda_kernels.ey_route(7, 'sigmoid')}",
+          flush=True)
+    if routes != want or {cuda_kernels.ey_route(K, "sigmoid") for K in (1, 7)} != {"sigmoid"}:
+        raise AssertionError(f"fused_linear_ey's routes {routes}, want {want}")
     cases = [
         ("headline binary softmax", 2560, 2072, 100, 12, 2, "softmax", headline_mask),
         ("general softmax K=7", 512, 1024, 100, 12, 7, "softmax", None),
@@ -2258,6 +2280,16 @@ def compare_kernel(seed, device):
         ("ragged edges binary", 33, 700, 9, 7, 2, "softmax", None),
         ("ragged edges K=7", 33, 700, 9, 7, 7, "softmax", None),
         ("wide K=32 softmax", 40, 300, 20, 12, 32, "softmax", None),
+        # the small-K route: one class, one and two float4s of v, classes
+        # past K zero, background rows past a chunk, XWg in slices
+        ("small-K route K=1", 512, 1024, 100, 12, 1, "softmax", None),
+        ("small-K route K=8", 512, 1024, 100, 12, 8, "softmax", None),
+        ("small-K route K=11", 300, 700, 100, 12, 11, "softmax", None),
+        (f"small-K route K={small}, ragged edges", 33, 700, 9, 7, small, "softmax", None),
+        ("small-K route K=3, N above one chunk", 100, 200, 300, 12, 3, "softmax", None),
+        ("small-K route K=7, N above one chunk", 100, 200, 300, 12, 7, "softmax", None),
+        ("small-K route K=7 M=48", 256, 600, 100, 48, 7, "softmax", None),
+        (f"small-K route K={small} M=48", 128, 600, 100, 48, small, "softmax", None),
         ("N above one chunk, binary", 256, 1024, 300, 12, 2, "softmax", None),
         ("N above one chunk, sigmoid K=1", 256, 1024, 300, 12, 1, "sigmoid", None),
         # groups in several staged slices of 16 (ungrouped Adult: M = 48)
@@ -2300,6 +2332,9 @@ def compare_kernel(seed, device):
         ref = fused_linear_ey_plain(*args, act)
         err = float((got - ref).abs().max())
         finite = bool(got.isfinite().all())
+        if act == "softmax" and K != 2 and K <= small \
+                and not bool(torch.equal(got, fused_linear_ey(*args, act))):
+            raise AssertionError(f"two launches of the small-K route differ at {name}")
         guard = ""
         if act == "sigmoid" or K == 2:
             st = ey_guard_stats(args, act, ey_launch_info(B, S, N, M, K, act)["chunk_rows"])
@@ -2310,8 +2345,9 @@ def compare_kernel(seed, device):
             st = softmax_guard_stats(args)
             guard = (f"; guard: {st['exact_route']} of {st['triples']} (b, s, n) on the "
                      f"in-kernel exact route")
-        print(f"kernel vs plain [{name}] B={B} S={S} N={N} M={M} K={K}: "
-              f"max_abs_diff={err:.3e} (tol {EY_ATOL:g}){guard}", flush=True)
+        print(f"kernel vs plain [{name}] B={B} S={S} N={N} M={M} K={K} "
+              f"({cuda_kernels.ey_route(K, act)}): max_abs_diff={err:.3e} (tol {EY_ATOL:g})"
+              f"{guard}", flush=True)
         if not finite or not err <= EY_ATOL:
             raise AssertionError(f"fused_linear_ey disagrees with its plain version "
                                  f"at {name}: {err} (finite={finite})")
@@ -2852,7 +2888,7 @@ def tile_name(function: str) -> str:
 
     import re
 
-    m = re.search(r"\d+([a-z_]+_kernel)(I((?:j|y|Li\d+E|Lb[01]E)+)E)?", function)
+    m = re.search(r"\d+([a-z_]+_kernel[a-z_]*)(I((?:j|y|Li\d+E|Lb[01]E)+)E)?", function)
     if not m:
         return function
     if not m.group(2):
@@ -7422,8 +7458,10 @@ def ey_timing(args, sm_count, sm_clock_hz, reps=3):
 def general_softmax_report(label, args, kernel_ms, bound_ms, bound_by, sm_count,
                            sm_clock_hz, card):
     """Print what a general-softmax ``fused_linear_ey`` call launches
-    (``ey_launch_info`` of ``softmax_factored_kernel``: blocks, registers,
-    local memory, shared memory, resident blocks per SM), the kernel's time
+    (``ey_launch_info`` of the kernel its route takes,
+    ``softmax_factored_kernel_regs`` up to ``ey_regs_max_k`` classes, else
+    ``softmax_factored_kernel``: blocks, registers, local memory, which must
+    be 0, shared memory, resident blocks per SM), the kernel's time
     against its bound (the factored count) and against the earlier count
     (``design="unfactored"``: K exps and a reciprocal per activation), with
     the share of each.  Returns the earlier count in ms."""
@@ -7434,9 +7472,13 @@ def general_softmax_report(label, args, kernel_ms, bound_ms, bound_by, sm_count,
     B, M, K = XWg.shape
     S, N = mask.shape[0], bgWg.shape[0]
     info = ey_launch_info(B, S, N, M, K, "softmax")
+    kernel = {"regs": "softmax_factored_kernel_regs"}.get(info["route"],
+                                                           "softmax_factored_kernel")
     old_ms, old_by = ey_bound_ms(B, S, N, M, K, "softmax", sm_count, sm_clock_hz,
                                  design="unfactored")
-    print(f"{label}: softmax_factored_kernel (after softmax_v_kernel) at B={B} S={S} N={N} "
+    if info["local_bytes"]:
+        raise AssertionError(f"{kernel} spills at K={K}: {info}")
+    print(f"{label}: {kernel} (after softmax_v_kernel) at B={B} S={S} N={N} "
           f"M={M} K={K} on {card}: launch {info} ({info['local_bytes']} B local memory a "
           f"thread); kernel {kernel_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
           f"factored: B·S·N reciprocals, K·(B·S + S·N) exps, 2·K·B·S·N FFMAs) "
@@ -7464,20 +7506,24 @@ def classes_phase(X, bg, device, card, sm_count, sm_clock_hz, seed):
     est = MultinomialLogisticRegression(rng, K, X.shape[1], scale=0.3)
     explainer = classes_explainer(est, bg, device, ADULT_GROUP_NAMES, adult_groups())
     fused_linear_ey.launches = 0
+    fused_linear_ey.route_launches = dict.fromkeys(fused_linear_ey.route_launches, 0)
     with recorded_ey_calls() as calls:
         t0 = time.perf_counter()
         expl = explainer.explain(X, silent=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches, path = fused_linear_ey.launches, explainer.kernel_path
+    routes = dict(fused_linear_ey.route_launches)
     a = calls[0][0] if calls else None
     print(f"classes: {K}-class LR, B={B} M={M}: launches fused_linear_ey={launches} "
-          f"(want 1), kernel_path={path}, the call: XWg {tuple(a[0].shape)}, mask "
-          f"{tuple(a[4].shape)}, {a[5]}, ey {(B, a[4].shape[0], K)} float32 = "
-          f"{4 * B * a[4].shape[0] * K / 1e9:.2f} GB; first explain wall {wall:.3f} s on "
-          f"{card}", flush=True)
-    if launches != 1 or len(calls) != 1 or path.get("ey") != "cuda":
-        raise AssertionError("the 100-class explain did not launch fused_linear_ey once")
+          f"(want 1; by route {routes}), kernel_path={path}, the call: XWg "
+          f"{tuple(a[0].shape)}, mask {tuple(a[4].shape)}, {a[5]}, ey "
+          f"{(B, a[4].shape[0], K)} float32 = {4 * B * a[4].shape[0] * K / 1e9:.2f} GB; "
+          f"first explain wall {wall:.3f} s on {card}", flush=True)
+    if launches != 1 or len(calls) != 1 or path.get("ey") != "cuda" \
+            or routes["factored"] != 1:
+        raise AssertionError("the 100-class explain did not launch fused_linear_ey's "
+                             "factored kernel once")
     phi, add_err = check_explanation(expl, B, K, M)
     raw = np.asarray(expl.data["raw"]["raw_prediction"])
     tol = logit_tol(raw)[:, :, None]
@@ -7554,24 +7600,27 @@ def covertype_phase(device, card, sm_count, sm_clock_hz, seed):
                                   transfer_dtype="float16")
     n_chunks = -(-X.shape[0] // C)
     fused_linear_ey.launches = 0
+    fused_linear_ey.route_launches = dict.fromkeys(fused_linear_ey.route_launches, 0)
     with recorded_ey_calls() as calls:
         t0 = time.perf_counter()
         expl = explainer.explain(X, silent=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches, path = fused_linear_ey.launches, explainer.kernel_path
+    routes = dict(fused_linear_ey.route_launches)
     for i, (a, _) in enumerate(calls):
         print(f"covertype call {i}: fused_linear_ey XWg {tuple(a[0].shape)} bgWg "
               f"{tuple(a[1].shape)} mask {tuple(a[4].shape)} {a[5]}: ey "
               f"({a[0].shape[0]}, {a[4].shape[0]}, {K}) float32 = "
               f"{4 * a[0].shape[0] * a[4].shape[0] * K / 1e9:.2f} GB", flush=True)
     print(f"covertype: {X.shape[0]} rows, D={X.shape[1]} in M={M} groups, K={K}: launches "
-          f"fused_linear_ey={launches} (want {n_chunks}, one per {C}-row instance chunk), "
-          f"kernel_path={path}; wall {wall:.3f} s, {X.shape[0] / wall:.0f} rows/s on {card}",
-          flush=True)
-    if launches != n_chunks or len(calls) != n_chunks or path.get("ey") != "cuda":
-        raise AssertionError("the Covertype explain did not launch fused_linear_ey once "
-                             "per instance chunk")
+          f"fused_linear_ey={launches} (want {n_chunks}, one per {C}-row instance chunk; by "
+          f"route {routes}), kernel_path={path}; wall {wall:.3f} s, "
+          f"{X.shape[0] / wall:.0f} rows/s on {card}", flush=True)
+    if launches != n_chunks or len(calls) != n_chunks or path.get("ey") != "cuda" \
+            or routes["regs"] != n_chunks:
+        raise AssertionError("the Covertype explain did not launch fused_linear_ey's "
+                             "small-K route once per instance chunk")
     phi16 = np.stack(expl.shap_values, 1)
     if phi16.shape != (X.shape[0], K, M) or not np.isfinite(phi16).all():
         raise AssertionError(f"bad Covertype shap values: shape {phi16.shape}")
@@ -7581,17 +7630,20 @@ def covertype_phase(device, card, sm_count, sm_clock_hz, seed):
     d16 = np.abs(phi16[:C] - phi32)
     f16_ok = bool((d16 <= F16_ATOL + F16_RTOL * np.abs(phi32)).all())
     fused_linear_ey.launches = 0
+    fused_linear_ey.route_launches = dict.fromkeys(fused_linear_ey.route_launches, 0)
     t0 = time.perf_counter()
     ranked = explainer.rank_features(X)
     torch.cuda.synchronize()
     t_rank = time.perf_counter() - t0
     rank_launches = fused_linear_ey.launches
+    rank_routes = dict(fused_linear_ey.route_launches)
     top = ranked["aggregated"]["names"][0]
     print(f"covertype: first chunk in float32 additivity={add32:.3e} (< {ADDITIVITY:g}); "
           f"float16 phi vs float32 max {d16.max():.3e} within atol {F16_ATOL:g} / rtol "
           f"{F16_RTOL:g}: {f16_ok}; rank_features over all rows {t_rank:.3f} s on {card}, "
-          f"launches fused_linear_ey={rank_launches}, top feature {top!r}", flush=True)
-    if not f16_ok or rank_launches < 1:
+          f"launches fused_linear_ey={rank_launches} (by route {rank_routes}), top feature "
+          f"{top!r}", flush=True)
+    if not f16_ok or rank_launches < 1 or rank_routes["regs"] != rank_launches:
         raise AssertionError("the Covertype float16 phi or the ranking failed")
     a = calls[0][0]
     sub = (a[0][:2048].contiguous(),) + tuple(a[1:])

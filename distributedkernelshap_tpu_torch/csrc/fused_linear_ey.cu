@@ -75,9 +75,11 @@
 // two full waves of 528.  Sigmoid takes any K up to the grid's z limit
 // (kMaxGridZ = 65535 classes), one class a block.
 //
-// The general-K softmax (every softmax K but 2, K = 1 included) is one
-// factored kernel, softmax_factored_kernel, after a prologue launch,
-// softmax_v_kernel, in the same call.  Its logit p1[b,s,k] - t'[k,n,s] is a
+// The general-K softmax (every softmax K but 2, K = 1 included) runs
+// factored: a prologue launch, softmax_v_kernel, then in the same call
+// softmax_factored_kernel past kRegsMaxK = 16 classes, and up to it the
+// small-K route, softmax_factored_kernel_regs (further down).  The route is
+// chosen by K alone (fused_linear_ey_route).  Its logit p1[b,s,k] - t'[k,n,s] is a
 // sum of an instance term and a background term, so the exponential
 // factors.  With the shifts alpha[b,s] = max_k p1 and gamma[s,n] =
 // max_k -t',
@@ -163,10 +165,54 @@
 // group sums of p1 from global memory where XWg is not resident (M loads an
 // element), the loads and stores of r and the partial sums, a handful of
 // barriers per coalition with 16 warps an SM to hide them (PERF.md).
+//
+// The small-K route (softmax_factored_kernel_regs<KT>, 1 <= K <= kRegsMaxK,
+// K != 2) runs the same arithmetic after the same prologue, with everything
+// of a (b, s) in registers: KT = K up to 8, past it 12 or 16 with the
+// classes past K zero.  A block of 8 warps takes TBR = 128 rows (64 past
+// K = 8) and up to kRMaxGPB groups of 8 coalitions, one coalition a warp,
+// so a lane owns R = 4 (2) neighbouring rows of its warp's coalition and
+// holds u[R][KT] and the output sums acc[R][KT].  Per background row the
+// warp reads v and w as broadcasts from shared memory (two float4s and a
+// float at K <= 8, shared by the R rows) and a lane does, per row, K FFMAs
+// for D, one rcp.approx.ftz, one multiply by w and K FFMAs into acc: no pass
+// 2, no r in shared memory, no barrier inside a coalition.  The block's
+// barriers are where it stages v, per group of coalitions and chunk of
+// 1024 / KP background rows, with cp.async into one of two buffers while
+// the other is read (one buffer, and a barrier more, where two do not fit
+// beside the rows' XWg).  p1 comes from the rows' XWg, staged once a block
+// into shared memory transposed (44 KB at a Covertype chunk), or, where it
+// does not fit beside one buffer, MS groups at a time at each group of
+// coalitions.  A warp puts its outputs into its own region of the stage
+// buffer, and the block writes each row's outputs of the group's
+// coalitions, neighbours in out, with neighbouring threads.
+//
+// What bounds the route: issue slots, 2K + 2 a (b, s, n) in the loop.  At a
+// Covertype chunk (B = 65536, S = 2072, N = 100, K = 7) those 16 slots take
+// ~6.5 ms on 132 SMs x 4 schedulers at 1980 MHz, the B S N reciprocals on
+// the MUFU ~3.3 ms beside them; the kernel takes ~13.9 ms (PERF.md): p1 and
+// u (~10% of the slots), the staging, the guard's check and the output
+// flush, with 16 warps an SM (128 registers, two blocks) to hide the
+// reciprocal's latency.  The guard is the factored kernel's, checked once a
+// chunk for a warp: where u has no NaN and every v of the chunk is at least
+// kTau, every D is at least v of the row's top class (u = 1 there, and
+// rounding is monotone), so the loop runs unguarded; otherwise r is 0 and a
+// flag bit is set for each D below kTau or NaN, and once the outputs are
+// formed the lane adds each flagged row's exact contributions in background
+// order, D recomputed from v in global memory (the same bits).  No atomics:
+// two launches are bit-identical.  The sum over n runs in background order,
+// one chain a (b, s, k), so results differ from the factored kernel's in
+// rounding only.  The threshold kRegsMaxK = 16 comes from a same-call A/B
+// against the factored kernel (PERF.md: the route wins 2.1-3.0x from K = 3
+// to 16); past 16 classes u and acc would not fit 128 registers at two rows
+// a lane, and the factored kernel's class tiles in shared memory serve K >
+// 16 (K = 32, the 100-class LR) as before.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -204,6 +250,15 @@ constexpr int kFMaxSPB = 16;                // coalitions a block, at most
 constexpr float kTau = 0x1p-100f;           // least D the factored route takes
 constexpr int kFMaxSmem = 227 * 1024;       // a block's shared memory on sm_90
 constexpr int kFTwoBlocks = 228 * 1024 / 2 - 1024;  // two blocks' share of an SM
+
+// the small-K route (softmax_factored_kernel_regs)
+constexpr int kRegsMaxK = 16;               // K_small: the most classes it takes
+constexpr int kRWarps = kThreads / 32;      // coalitions a group: one a warp
+constexpr int kRChunk = 1024;               // floats of a coalition's staged v chunk
+constexpr int kRRegion = kRChunk + 8;       // a warp's region of a stage: a chunk
+                                            // and 8 floats that spread the output
+                                            // flush over the banks
+constexpr int kRMaxGPB = 16;                // groups of coalitions a block, at most
 
 static_assert(kSigmoidChunkRows >= 1, "one sigmoid-form background row must fit");
 static_assert(kTS * 4 == kThreads, "the shift reduction gives four lanes a coalition");
@@ -267,6 +322,31 @@ softmax_v_kernel(const float* __restrict__ bgWg, const float* __restrict__ bgW,
   float* dst = v + w * K;
   for (int k = lane; k < K; k += 32)
     dst[k] = finite ? expf(-background_logit(bgWg, bgW, mk, n, k, M, K) - g) : 0.0f;
+}
+
+// The exact route of the general softmax for one (b, s, n): adds
+// bgw[n] / Z * exp(x_k - m) to o[k os] for k = k0, k0 + dk, ... below K, with
+// x = p1 - t' recomputed from the inputs (xr the row's M x K logits, mk the
+// coalition's mask row), m = max_k x and Z = sum_k exp(x_k - m): the
+// reference's max-subtracted exponentials, accurate expf, an IEEE division.
+__device__ __forceinline__ void softmax_exact_add(const float* xr, const float* __restrict__ mk,
+                                                  const float* __restrict__ bgWg,
+                                                  const float* __restrict__ bgW,
+                                                  const float* __restrict__ bgw, int n, int M,
+                                                  int K, float* o, int os, int k0,
+                                                  int dk) {
+  float m = -INFINITY;
+  for (int k = 0; k < K; ++k)
+    m = fmaxf(m, group_sum(xr + k, mk, M, K) - background_logit(bgWg, bgW, mk, n, k, M, K));
+  float z = 0.0f;
+  for (int k = 0; k < K; ++k)
+    z += expf(group_sum(xr + k, mk, M, K) - background_logit(bgWg, bgW, mk, n, k, M, K) - m);
+  const float c = bgw[n] / z;
+  for (int k = k0; k < K; k += dk)
+    o[k * os] = fmaf(c,
+                     expf(group_sum(xr + k, mk, M, K) -
+                          background_logit(bgWg, bgW, mk, n, k, M, K) - m),
+                     o[k * os]);
 }
 
 // One float from global into shared memory, asynchronously (cp.async),
@@ -510,26 +590,300 @@ softmax_factored_kernel(const float* __restrict__ XWg, const float* __restrict__
           float* o = out + ((size_t)b * S + s) * K;
           for (int nl = 0; nl < np; ++nl) {
             if (!((xb[2 * nl + row / 32] >> (row % 32)) & 1u)) continue;
-            const int n = p0 + nl;
-            float m = -INFINITY;
-            for (int k = 0; k < K; ++k)
-              m = fmaxf(m, group_sum(xr + k, mk, M, K) -
-                               background_logit(bgWg, bgW, mk, n, k, M, K));
-            float z = 0.0f;
-            for (int k = 0; k < K; ++k)
-              z += expf(group_sum(xr + k, mk, M, K) -
-                        background_logit(bgWg, bgW, mk, n, k, M, K) - m);
-            const float c = bgw[n] / z;
-            for (int k = q; k < K; k += 4)
-              o[k] = fmaf(c,
-                          expf(group_sum(xr + k, mk, M, K) -
-                               background_logit(bgWg, bgW, mk, n, k, M, K) - m),
-                          o[k]);
+            softmax_exact_add(xr, mk, bgWg, bgW, bgw, p0 + nl, M, K, o, 1, q, 4);
           }
         }
       }
     }
   }
+}
+
+// The small-K route's shapes for KT classes: v's row stride in shared
+// memory (4, 8 or 16 floats), rows a thread, background rows a staged chunk.
+__host__ __device__ constexpr int regs_stride(int kt) {
+  return kt <= 4 ? 4 : (kt <= 8 ? 8 : 16);
+}
+__host__ __device__ constexpr int regs_rows(int kt) { return kt <= 8 ? 4 : 2; }
+__host__ __device__ constexpr int regs_chunk_rows(int kt) {
+  return kRChunk / regs_stride(kt);
+}
+
+// D = sum_k u v in class order (u, v >= 0: the first product rounds as an
+// fmaf onto 0 does)
+template <int KT>
+__device__ __forceinline__ float regs_dot(const float (&u)[KT], const float (&v)[KT]) {
+  float d = u[0] * v[0];
+#pragma unroll
+  for (int k = 1; k < KT; ++k) d = fmaf(u[k], v[k], d);
+  return d;
+}
+
+// One staged chunk of background rows for the thread's R rows of its warp's
+// coalition: per background row, D, r = w rcp(D) and the output sums.
+// GUARD: r = 0 and the row's flag bit where D < kTau or D is NaN; without
+// it the caller has shown that every D of the chunk is at least kTau.
+template <int KT, int R, bool GUARD>
+__device__ __forceinline__ void regs_chunk(const float* vb, const float* wb, int nc,
+                                           const float (&u)[R][KT], float (&acc)[R][KT],
+                                           unsigned& flag) {
+  constexpr int KP = regs_stride(KT);
+#pragma unroll 2
+  for (int n = 0; n < nc; ++n) {
+    float vv[KT];
+#pragma unroll
+    for (int q = 0; q < (KT + 3) / 4; ++q) {
+      const float4 x = *reinterpret_cast<const float4*>(vb + n * KP + 4 * q);
+      const float xx[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (4 * q + c < KT) vv[4 * q + c] = xx[c];
+    }
+    const float wn = wb[n];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float d = regs_dot<KT>(u[i], vv);
+      float r;
+      if (GUARD) {
+        r = 0.0f;
+        if (d >= kTau) {  // NaN fails the comparison
+          r = wn * rcp_approx(d);
+        } else {
+          flag |= 1u << i;
+        }
+      } else {
+        r = wn * rcp_approx(d);
+      }
+#pragma unroll
+      for (int k = 0; k < KT; ++k) acc[i][k] = fmaf(r, vv[k], acc[i][k]);
+    }
+  }
+}
+
+// The general softmax at small K (1 <= K <= kRegsMaxK, K != 2), factored as
+// softmax_factored_kernel is, with everything of a (b, s) in registers.
+// KT classes at compile time: K itself up to 8, else K rounded up to 12 or
+// 16 with classes K..KT-1 zero.  A block of kRWarps warps takes TBR = 32 R
+// rows and GPB groups of kRWarps coalitions, one coalition a warp; each
+// thread owns R consecutive rows, so v is a warp-uniform broadcast.  See the
+// head comment.
+template <int KT>
+__global__ void __launch_bounds__(kThreads, 2)
+softmax_factored_kernel_regs(const float* __restrict__ XWg, const float* __restrict__ bgWg,
+                             const float* __restrict__ bgW, const float* __restrict__ bgw,
+                             const float* __restrict__ mask, const float* __restrict__ v,
+                             float* __restrict__ out, int B, int S, int N, int M, int K,
+                             int GPB, int nbuf, int MS) {
+  constexpr int KP = regs_stride(KT), R = regs_rows(KT), TBR = 32 * R, XS = TBR + 4;
+  constexpr int NCH = regs_chunk_rows(KT);
+  constexpr bool kExact = KT <= 8;              // K == KT
+  static_assert(KT * TBR <= kRChunk && R * KT % 4 == 0,
+                "a warp's outputs fit its region of a stage, a lane's as float4s");
+  const int Kr = kExact ? KT : K;               // K, a constant where it is KT
+  const int MK = M * Kr;
+  extern __shared__ float4 smem4[];
+  // [nbuf][kRWarps][kRRegion]: per stage buffer and warp, v of its
+  // coalition's chunk ([NCH][KP]); once the warp's last chunk is done, its
+  // outputs ([TBR][KT])
+  float* vs = reinterpret_cast<float*>(smem4);
+  float* ws = vs + nbuf * kRWarps * kRRegion;   // [nbuf][NCH]: the chunk's weights
+  float* xs = ws + nbuf * NCH;                  // [MS K][XS]: the rows' XWg, MS
+                                                // groups at a time (all M: once)
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // row tiles fast, so a group of coalitions' v stays in L2 across them
+  const int nbt = (B + TBR - 1) / TBR;
+  const int b0 = (blockIdx.x % nbt) * TBR;
+  const int s_lo = (blockIdx.x / nbt) * GPB * kRWarps;
+  const int ng = min(GPB, (S - s_lo + kRWarps - 1) / kRWarps);
+  const int nch = (N + NCH - 1) / NCH, T = ng * nch;
+  const int r0 = b0 + R * lane;                 // the thread's first row
+
+  // groups [m0, m0 + mc) of the rows' XWg into xs, transposed (a lane's R
+  // rows neighbours), read coalesced; rows past B repeat row B-1 and are
+  // never written
+  auto stage_x = [&](int m0, int mc) {
+    const int w = mc * Kr;
+    for (int idx = tid; idx < TBR * w; idx += kThreads) {
+      const int row = idx / w, j = idx - row * w;
+      cp_async_f32(xs + j * XS + row, XWg + (size_t)min(b0 + row, B - 1) * MK + m0 * Kr + j,
+                   true);
+    }
+  };
+  if (MS >= M) stage_x(0, M);
+  // stage t: v of group t / nch's coalitions and background chunk t % nch
+  // (classes K..KT-1 zero), and the chunk's weights, into buffer t % nbuf
+  auto stage = [&](int t) {
+    const int s0 = s_lo + (t / nch) * kRWarps, n0 = (t % nch) * NCH, nc = min(NCH, N - n0);
+    float* dst = vs + (t & (nbuf - 1)) * kRWarps * kRRegion;
+    for (int c = 0; c < kRWarps && s0 + c < S; ++c) {
+      const float* src = v + ((size_t)(s0 + c) * N + n0) * Kr;
+      for (int j = tid; j < nc * KT; j += kThreads) {
+        const int n = j / KT, k = j - n * KT;
+        cp_async_f32(dst + c * kRRegion + n * KP + k, src + n * Kr + min(k, Kr - 1), k < Kr);
+      }
+    }
+    for (int n = tid; n < nc; n += kThreads)
+      cp_async_f32(ws + (t & (nbuf - 1)) * NCH + n, bgw + n0 + n, true);
+  };
+  // the outputs of stage t's group, from each warp's region into out: a
+  // row's K outputs of the group's coalitions are neighbours in out, so
+  // neighbouring threads write neighbouring floats of a row
+  auto flush = [&](int t) {
+    const int s0 = s_lo + (t / nch) * kRWarps, ncs = min(kRWarps, S - s0);
+    const int width = kRWarps * Kr;
+    const float* src = vs + (t & (nbuf - 1)) * kRWarps * kRRegion;
+    for (int f = tid; f < TBR * width; f += kThreads) {
+      const int row = f / width, e = f - row * width, c = e / Kr;
+      if (b0 + row < B && c < ncs)
+        out[((size_t)(b0 + row) * S + s0) * Kr + e] = src[c * kRRegion + row * KT + e - c * Kr];
+    }
+  };
+  stage(0);
+
+  float u[R][KT], acc[R][KT];
+  unsigned flag = 0u;
+  bool bad = false;
+  for (int t = 0; t < T; ++t) {
+    cp_async_wait();
+    __syncthreads();  // stage t is in; with two buffers, stage t - 1 is done
+    if (nbuf == 2) {
+      if (t > 0 && t % nch == 0) {  // stage t - 1 ended a group: its outputs out
+        flush(t - 1);
+        __syncthreads();
+      }
+      if (t + 1 < T) stage(t + 1);  // overlaps this stage's arithmetic
+    }
+    const int c = t % nch, n0 = c * NCH, nc = min(NCH, N - n0);
+    const int s = s_lo + (t / nch) * kRWarps + warp;
+    const float* mk = mask + (size_t)min(s, S - 1) * M;
+    if (c == 0) {
+      // p1 of the thread's rows, one fmaf chain over the groups in order
+      // (as group_sum), the rows' XWg staged MS groups at a time where all
+      // of it does not stay; then alpha = max_k p1 and u = exp(p1 - alpha)
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int k = 0; k < KT; ++k) u[i][k] = 0.0f;
+      for (int m0 = 0; m0 < M; m0 += MS) {
+        const int mc = min(MS, M - m0);
+        if (MS < M) {
+          __syncthreads();  // the previous slice is consumed
+          stage_x(m0, mc);
+          cp_async_wait();
+          __syncthreads();
+        }
+#pragma unroll 1
+        for (int m = m0; s < S && m < m0 + mc; ++m) {
+          const float mv = mk[m];
+#pragma unroll
+          for (int k = 0; k < KT; ++k) {
+            if (k >= Kr) continue;
+            const float* xp = xs + ((m - m0) * Kr + k) * XS + R * lane;
+            float x[R];
+            if constexpr (R == 4) {
+              const float4 x4 = *reinterpret_cast<const float4*>(xp);
+              x[0] = x4.x, x[1] = x4.y, x[2] = x4.z, x[3] = x4.w;
+            } else {
+              const float2 x2 = *reinterpret_cast<const float2*>(xp);
+              x[0] = x2.x, x[1] = x2.y;
+            }
+#pragma unroll
+            for (int i = 0; i < R; ++i) u[i][k] = fmaf(mv, x[i], u[i][k]);
+          }
+        }
+      }
+      bad = false;
+      flag = 0u;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        float a = -INFINITY;
+#pragma unroll
+        for (int k = 0; k < KT; ++k)
+          if (k < Kr) a = fmaxf(a, u[i][k]);
+#pragma unroll
+        for (int k = 0; k < KT; ++k) {
+          u[i][k] = k < Kr ? expf(u[i][k] - a) : 0.0f;
+          bad = bad || isnan(u[i][k]);
+          acc[i][k] = 0.0f;
+        }
+      }
+    }
+    float* vb = vs + ((t & (nbuf - 1)) * kRWarps + warp) * kRRegion;
+    const float* wb = ws + (t & (nbuf - 1)) * NCH;
+    if (s < S) {
+      // the guard, once a chunk for the warp: u has no NaN and every v of
+      // the chunk is at least kTau, so every D >= v of the row's top class
+      // >= kTau and the loop runs unguarded
+      float vmin = 1.0f;
+#pragma unroll 1
+      for (int n = lane; n < nc; n += 32)
+#pragma unroll
+        for (int q = 0; q < (KT + 3) / 4; ++q) {
+          const float4 x = *reinterpret_cast<const float4*>(vb + n * KP + 4 * q);
+          const float xx[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (4 * q + e < Kr) vmin = fminf(vmin, xx[e]);
+        }
+#pragma unroll
+      for (int o = 16; o; o >>= 1) vmin = fminf(vmin, __shfl_xor_sync(0xffffffffu, vmin, o));
+      if (!__any_sync(0xffffffffu, bad) && vmin >= kTau)
+        regs_chunk<KT, R, false>(vb, wb, nc, u, acc, flag);
+      else
+        regs_chunk<KT, R, true>(vb, wb, nc, u, acc, flag);
+    }
+    if (s < S && c == nch - 1) {
+      // the coalition's outputs into the warp's region (its v is consumed),
+      // a lane's R rows as R KT neighbouring floats, then the exact route of
+      // each flagged row there: D recomputed from v in global memory (the
+      // same bits), in background order
+      __syncwarp();
+      float* ob = vb + R * KT * lane;
+#pragma unroll
+      for (int e = 0; e < R * KT; e += 4)
+        *reinterpret_cast<float4*>(ob + e) =
+            make_float4(u[e / KT][e % KT] * acc[e / KT][e % KT],
+                        u[(e + 1) / KT][(e + 1) % KT] * acc[(e + 1) / KT][(e + 1) % KT],
+                        u[(e + 2) / KT][(e + 2) % KT] * acc[(e + 2) / KT][(e + 2) % KT],
+                        u[(e + 3) / KT][(e + 3) % KT] * acc[(e + 3) / KT][(e + 3) % KT]);
+#pragma unroll 1
+      for (int i = 0; i < R; ++i) {
+        if (!((flag >> i) & 1u) || r0 + i >= B) continue;
+        // one copy of the cold path for every row: the row's u by selects
+        // (no local memory), its addresses formed here (hoisted out of the
+        // loop over t they would hold registers all along)
+        float ui[KT];
+#pragma unroll
+        for (int k = 0; k < KT; ++k) {
+          ui[k] = u[0][k];
+#pragma unroll
+          for (int j = 1; j < R; ++j) ui[k] = i == j ? u[j][k] : ui[k];
+        }
+        int row = r0 + i;
+        asm volatile("" : "+r"(row));
+        const float* xr = XWg + (size_t)row * MK;
+#pragma unroll 1
+        for (int n = 0; n < N; ++n) {
+          const float* vr = v + ((size_t)s * N + n) * Kr;
+          float vv[KT];
+#pragma unroll
+          for (int k = 0; k < KT; ++k) vv[k] = k < Kr ? vr[k] : 0.0f;
+          if (!(regs_dot<KT>(ui, vv) >= kTau))
+            softmax_exact_add(xr, mk, bgWg, bgW, bgw, n, M, Kr, ob + i * KT, 1, 0, 1);
+        }
+      }
+    }
+    if (nbuf == 1 && t + 1 < T) {
+      __syncthreads();  // every warp is done with the one buffer
+      if ((t + 1) % nch == 0) {  // stage t ended a group: its outputs out
+        flush(t);
+        __syncthreads();
+      }
+      stage(t + 1);
+    }
+  }
+  __syncthreads();
+  flush(T - 1);
 }
 
 // the logit of the block's class in a row of K: binary softmax takes the
@@ -749,7 +1103,71 @@ FactoredPlan factored_plan(int B, int S, int N, int M, int K) {
           ((long long)S * N * 32 + kThreads - 1) / kThreads};
 }
 
+typedef void (*RegsKernel)(const float*, const float*, const float*, const float*,
+                           const float*, const float*, float*, int, int, int, int, int, int,
+                           int, int);
+
+// the small-K kernel for K classes (1 <= K <= kRegsMaxK, K != 2)
+RegsKernel regs_kernel(int K) {
+  switch (K <= 8 ? K : (K <= 12 ? 12 : 16)) {
+    case 1: return softmax_factored_kernel_regs<1>;
+    case 3: return softmax_factored_kernel_regs<3>;
+    case 4: return softmax_factored_kernel_regs<4>;
+    case 5: return softmax_factored_kernel_regs<5>;
+    case 6: return softmax_factored_kernel_regs<6>;
+    case 7: return softmax_factored_kernel_regs<7>;
+    case 8: return softmax_factored_kernel_regs<8>;
+    case 12: return softmax_factored_kernel_regs<12>;
+    case 16: return softmax_factored_kernel_regs<16>;
+    default: return nullptr;
+  }
+}
+
+// What one small-K call launches: the kernel, its blocks, groups of
+// coalitions a block, stage buffers, groups of the rows' XWg in shared
+// memory at a time, the dynamic shared memory, background rows a chunk; the
+// prologue's blocks.
+struct RegsPlan {
+  RegsKernel fn;
+  long long blocks;
+  int gpb;
+  int nbuf;
+  int ms;
+  size_t smem;
+  int chunk_rows;
+  long long v_blocks;
+};
+
+RegsPlan regs_plan(int B, int S, int N, int M, int K) {
+  const int kt = K <= 8 ? K : (K <= 12 ? 12 : 16), tbr = 32 * regs_rows(kt);
+  const int nch = regs_chunk_rows(kt);
+  const size_t one = sizeof(float) * (kRWarps * kRRegion + (size_t)nch);
+  // the rows' XWg resident where that keeps two blocks an SM, beside two
+  // stage buffers or else one; past that as many groups as fit beside one
+  const size_t group = sizeof(float) * (size_t)K * (tbr + 4), fit = kFTwoBlocks;
+  const int nbuf = 2 * one + M * group <= fit ? 2 : 1;
+  const int ms = (int)std::max<size_t>(1, std::min<size_t>(M, (fit - nbuf * one) / group));
+  // groups a block: up to kRMaxGPB while the grid keeps 8 waves
+  const long long nbt = (B + tbr - 1) / tbr, groups = (S + kRWarps - 1) / kRWarps;
+  const long long waves = 8LL * 2 * sm_count();
+  int gpb = kRMaxGPB;
+  while (gpb > 1 && nbt * ((groups + gpb - 1) / gpb) < waves) gpb /= 2;
+  return {regs_kernel(K), nbt * ((groups + gpb - 1) / gpb), gpb, nbuf, ms,
+          nbuf * one + ms * group, nch, ((long long)S * N * 32 + kThreads - 1) / kThreads};
+}
+
 bool general_softmax(int K, int activation) { return activation == 0 && K != 2; }
+
+// The kernel a call takes: the sigmoid form (sigmoid, and softmax at K = 2),
+// the small-K route (softmax at K <= kRegsMaxK) or the factored kernel
+// (softmax past it); -1 for a K or activation no route takes.
+enum Route { kRouteSigmoid = 0, kRouteFactored = 1, kRouteRegs = 2 };
+
+int route(int K, int activation) {
+  if (K <= 0 || (activation != 0 && activation != 1)) return -1;
+  if (!general_softmax(K, activation)) return kRouteSigmoid;
+  return K <= kRegsMaxK ? kRouteRegs : kRouteFactored;
+}
 
 // activation: 0 = softmax, 1 = sigmoid
 bool valid(int B, int S, int N, int M, int K, int activation) {
@@ -757,6 +1175,10 @@ bool valid(int B, int S, int N, int M, int K, int activation) {
   if (activation == 1) return K <= kMaxGridZ;
   if (activation != 0) return false;
   if (K == 2) return true;
+  if (route(K, activation) == kRouteRegs) {
+    const RegsPlan p = regs_plan(B, S, N, M, K);
+    return p.blocks <= INT_MAX && p.v_blocks <= INT_MAX && p.smem <= (size_t)kFMaxSmem;
+  }
   const FactoredPlan f = factored_plan(B, S, N, M, K);
   return f.blocks <= INT_MAX && f.v_blocks <= INT_MAX && f.smem <= (size_t)kFMaxSmem;
 }
@@ -768,6 +1190,12 @@ extern "C" {
 // the most classes the sigmoid branch takes (one class a block on the
 // grid's z axis); softmax takes any K
 int fused_linear_ey_max_sigmoid_k() { return kMaxGridZ; }
+
+// the route a call with K classes and this activation takes: 0 the sigmoid
+// form (sigmoid_kernel), 1 the factored general softmax
+// (softmax_factored_kernel), 2 the small-K route
+// (softmax_factored_kernel_regs); -1 where none does
+int fused_linear_ey_route(int K, int activation) { return route(K, activation); }
 
 // floats of device scratch a call at these sizes needs (the general
 // softmax's v, S N K floats; 0 otherwise)
@@ -790,6 +1218,19 @@ int fused_linear_ey_launch(const float* XWg, const float* bgWg, const float* bgW
                                            p.nc);
     return (int)cudaGetLastError();
   }
+  if (route(K, activation) == kRouteRegs) {
+    const RegsPlan p = regs_plan(B, S, N, M, K);
+    softmax_v_kernel<<<(unsigned)p.v_blocks, kThreads, 0, st>>>(bgWg, bgW, mask, scratch, S,
+                                                                 N, M, K);
+    int err = (int)cudaGetLastError();
+    if (err) return err;
+    err = (int)cudaFuncSetAttribute(p.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)p.smem);
+    if (err) return err;
+    p.fn<<<(unsigned)p.blocks, kThreads, p.smem, st>>>(XWg, bgWg, bgW, bgw, mask, scratch, out,
+                                                       B, S, N, M, K, p.gpb, p.nbuf, p.ms);
+    return (int)cudaGetLastError();
+  }
   const FactoredPlan f = factored_plan(B, S, N, M, K);
   softmax_v_kernel<<<(unsigned)f.v_blocks, kThreads, 0, st>>>(bgWg, bgW, mask, scratch, S,
                                                                N, M, K);
@@ -808,8 +1249,9 @@ int fused_linear_ey_launch(const float* XWg, const float* bgWg, const float* bgW
 // blocks, threads a block, dynamic shared memory bytes, resident blocks per
 // SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers a thread
 // and local memory bytes a thread (cudaFuncGetAttributes), background rows
-// per staged chunk, coalitions a block; of softmax_factored_kernel for the
-// general softmax.  Returns the cudaError_t of the first query that failed.
+// per staged chunk, coalitions a block; of the kernel the call's route
+// launches (fused_linear_ey_route), its prologue not counted.  Returns the
+// cudaError_t of the first query that failed.
 int fused_linear_ey_launch_info(int B, int S, int N, int M, int K, int activation,
                                 int* info) {
   if (!valid(B, S, N, M, K, activation)) return (int)cudaErrorInvalidValue;
@@ -817,7 +1259,17 @@ int fused_linear_ey_launch_info(int B, int S, int N, int M, int K, int activatio
   long long blocks;
   size_t smem;
   int nc, coalitions;
-  if (general_softmax(K, activation)) {
+  if (route(K, activation) == kRouteRegs) {
+    const RegsPlan p = regs_plan(B, S, N, M, K);
+    fn = reinterpret_cast<const void*>(p.fn);
+    blocks = p.blocks;
+    smem = p.smem;
+    nc = N < p.chunk_rows ? N : p.chunk_rows;
+    coalitions = p.gpb * kRWarps;
+    const int err = (int)cudaFuncSetAttribute(p.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              (int)smem);
+    if (err) return err;
+  } else if (general_softmax(K, activation)) {
     const FactoredPlan f = factored_plan(B, S, N, M, K);
     fn = reinterpret_cast<const void*>(softmax_factored_kernel);
     blocks = f.blocks;

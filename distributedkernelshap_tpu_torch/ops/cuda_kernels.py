@@ -77,6 +77,7 @@ _SYMBOLS = {
         "fused_linear_ey_scratch_floats": ([_INT] * 4, _LONG),
         "fused_linear_ey_max_sigmoid_k": ([], _INT),
         "fused_linear_ey_launch_info": ([_INT] * 6 + [_VOID], _INT),
+        "fused_linear_ey_route": ([_INT] * 2, _INT),
     },
     "exact_tree_phi": {
         "exact_tree_phi_launch": ([_VOID] * 12 + [_INT] * 6 + [_VOID], _INT),
@@ -107,6 +108,10 @@ _SLOT_M = {"exact_tree_phi": ("exact_tree_phi_max_m", MAX_TREE_M),
            "exact_tree_inter": ("exact_tree_inter_slot_m", INTER_SLOT_M)}
 
 _ACTIVATION_CODE = {"softmax": 0, "sigmoid": 1}
+#: ``fused_linear_ey``'s routes, by the code ``fused_linear_ey_route`` gives:
+#: the sigmoid form (sigmoid, and softmax at K = 2), the factored general
+#: softmax, and its small-K route with everything of a (b, s) in registers
+EY_ROUTES = ("sigmoid", "factored", "regs")
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: kernels whose library this process compiled (their load is no cache hit)
@@ -246,11 +251,14 @@ def fused_linear_ey(XWg: torch.Tensor, bgWg: torch.Tensor, bgW: torch.Tensor,
     contiguous float32 on one device.  Returns ``ey (B, S, K)``.
 
     CUDA tensors launch ``csrc/fused_linear_ey.cu`` (building it on first
-    use) and count one in ``fused_linear_ey.launches``; a failed build or
-    launch raises.  The kernel takes any K for softmax (every K but 2
-    through its factored general-softmax kernel, with ``S·N·K`` floats of
-    scratch) and up to ``MAX_SIGMOID_K`` for sigmoid, and raises above
-    that.  CPU tensors run :func:`fused_linear_ey_plain`."""
+    use) and count one in ``fused_linear_ey.launches`` and one under the
+    route the library took (:func:`ey_route`) in
+    ``fused_linear_ey.route_launches``; a failed build or launch raises.
+    The kernel takes any K for softmax (every K but 2 through its factored
+    general softmax, with ``S·N·K`` floats of scratch: the small-K route up
+    to the library's threshold, the class-tiled kernel past it) and up to
+    ``MAX_SIGMOID_K`` for sigmoid, and raises above that.  CPU tensors run
+    :func:`fused_linear_ey_plain`."""
 
     B, S, N, M, K = _check(XWg, bgWg, bgW, bgw, mask, activation)
     if XWg.device.type == "cpu":
@@ -264,6 +272,7 @@ def fused_linear_ey(XWg: torch.Tensor, bgWg: torch.Tensor, bgW: torch.Tensor,
 
 
 fused_linear_ey.launches = 0
+fused_linear_ey.route_launches = dict.fromkeys(EY_ROUTES, 0)
 
 
 def _ey_launch(XWg, bgWg, bgW, bgw, mask, code: int) -> torch.Tensor:
@@ -291,8 +300,27 @@ def _ey_launch(XWg, bgWg, bgW, bgw, mask, code: int) -> torch.Tensor:
             B, S, N, M, K, code, stream)
     if err:
         raise RuntimeError(f"fused_linear_ey launch failed with CUDA error {err}")
-    fused_linear_ey.launches += 1
+    _count_ey_launch(lib, K, code)
     return out
+
+
+def _count_ey_launch(lib, K: int, code: int) -> None:
+    """Count one :func:`fused_linear_ey` launch, and one under the route the
+    library ``lib`` took for ``K`` classes and activation ``code``."""
+
+    fused_linear_ey.launches += 1
+    fused_linear_ey.route_launches[EY_ROUTES[lib.fused_linear_ey_route(K, code)]] += 1
+
+
+def ey_route(K: int, activation: str = "softmax") -> str:
+    """The route a :func:`fused_linear_ey` launch with ``K`` classes takes on
+    the card, as the library chooses it (``fused_linear_ey_route``): one of
+    ``EY_ROUTES``.  Builds the kernel if needed."""
+
+    code = _library("fused_linear_ey").fused_linear_ey_route(K, _ACTIVATION_CODE[activation])
+    if code < 0:
+        raise ValueError(f"no fused_linear_ey route takes K={K} {activation}")
+    return EY_ROUTES[code]
 
 
 def ey_launch_info(B: int, S: int, N: int, M: int, K: int,
@@ -301,10 +329,11 @@ def ey_launch_info(B: int, S: int, N: int, M: int, K: int,
     card: ``blocks``, ``threads`` a block, dynamic ``smem_bytes``, resident
     ``blocks_per_sm`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
     ``registers`` and ``local_bytes`` a thread (``cudaFuncGetAttributes``),
-    background ``chunk_rows`` a staged chunk and ``coalitions`` a block; for
-    softmax at K != 2, of
-    the factored kernel (``softmax_factored_kernel``; its prologue,
-    ``softmax_v_kernel``, is not counted).  Builds the kernel if needed;
+    background ``chunk_rows`` a staged chunk and ``coalitions`` a block, of
+    the kernel the shape's ``route`` (:func:`ey_route`) launches: the
+    small-K ``softmax_factored_kernel_regs`` or ``softmax_factored_kernel``
+    for softmax at K != 2 (their prologue, ``softmax_v_kernel``, not
+    counted), ``sigmoid_kernel`` otherwise.  Builds the kernel if needed;
     raises where the card refuses the query."""
 
     lib = _library("fused_linear_ey")
@@ -315,7 +344,7 @@ def ey_launch_info(B: int, S: int, N: int, M: int, K: int,
         raise RuntimeError(f"fused_linear_ey launch info failed with CUDA error {err}")
     keys = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "registers",
             "local_bytes", "chunk_rows", "coalitions")
-    return dict(zip(keys, info))
+    return {**dict(zip(keys, info)), "route": ey_route(K, activation)}
 
 
 def _ey_source_float(name: str) -> float:
@@ -337,6 +366,18 @@ def ey_guard_constants() -> Dict[str, float]:
     (``kClamp``).  Readable without a card."""
 
     return {"spread": _ey_source_float("kSpread"), "clamp": _ey_source_float("kClamp")}
+
+
+def ey_regs_max_k() -> int:
+    """The most classes ``fused_linear_ey``'s small-K route takes, read from
+    its source (``kRegsMaxK``; the library's ``fused_linear_ey_route``
+    decides), for the tests.  Readable without a card."""
+
+    src = (CSRC_DIR / "fused_linear_ey.cu").read_text()
+    m = re.search(r"constexpr int kRegsMaxK = (\d+);", src)
+    if not m:
+        raise RuntimeError("csrc/fused_linear_ey.cu defines no kRegsMaxK")
+    return int(m.group(1))
 
 
 def ey_softmax_tau() -> float:

@@ -18,10 +18,12 @@ through their C interface.
   compare kernels, not host issue), at the headline inputs of
   ``chip_smoke.py`` (binary softmax, B = 2560, S = 2072 coalitions of the
   Adult plan, N = 100, M = 12, K = 2), at sigmoid K = 2, 7 (B = 512, S =
-  1024) and 32 (B = 128, S = 512), at general softmax K = 3, 7 and 32 (B =
-  512, S = 1024), at K = 100 at the headline shape and at one Covertype
-  chunk (B = 65536, K = 7, S = 2072; both at a tenth of the reps), N =
-  100, M = 12; the outputs must agree within 1e-5.
+  1024) and 32 (B = 128, S = 512), at general softmax K = 3, 7, 8, the
+  small-K route's last K and the first past it (read from this checkout's
+  ``fused_linear_ey_route``) and 32 (B = 512, S = 1024), at K = 100 at the
+  headline shape, at one Covertype chunk (B = 65536, K = 7, S = 2072; both
+  at a tenth of the reps) and at K = 7 over 48 groups (B = 8192, S =
+  2048), N = 100, M = 12 elsewhere; the outputs must agree within 1e-5.
 - ``--kernel exact``: ``csrc/exact_tree_phi.cu`` and
   ``csrc/exact_tree_inter.cu`` through the C interface of the base's
   sources, read from them: the one before the weight tables moved to the
@@ -224,17 +226,19 @@ def ey_cases(base, seed, device):
     rng = np.random.default_rng(seed)
     M, N = len(cs.ADULT_WIDTHS), cs.N_BACKGROUND
     mask = cs.coalition_plan_mask()
+    # the small-K route's last K, from this checkout's library
+    small = max(K for K in range(1, 257) if mine.fused_linear_ey_route(K, 0) == 2)
     specs = [("headline binary softmax", "softmax", cs.B_HEADLINE, len(mask), 2, mask, 1),
-             ("sigmoid K=2", "sigmoid", 512, 1024, 2, None, 1),
-             ("general softmax K=3", "softmax", 512, 1024, 3, None, 1),
-             ("general softmax K=7", "softmax", 512, 1024, 7, None, 1),
-             ("general softmax K=32", "softmax", 512, 1024, 32, None, 1),
-             ("general softmax K=100, headline shape", "softmax", cs.B_HEADLINE, len(mask),
-              100, mask, 10),
-             ("general softmax K=7, Covertype chunk", "softmax", cs.COVERTYPE_CHUNK, len(mask),
-              cs.COVERTYPE_CLASSES, mask, 10),
-             ("sigmoid K=7", "sigmoid", 512, 1024, 7, None, 1),
-             ("sigmoid K=32", "sigmoid", 128, 512, 32, None, 1)]
+             ("sigmoid K=2", "sigmoid", 512, 1024, 2, None, 1)]
+    specs += [(f"general softmax K={K}", "softmax", 512, 1024, K, None, 1)
+              for K in sorted({3, 7, 8, small, small + 1, 32})]
+    specs += [("general softmax K=100, headline shape", "softmax", cs.B_HEADLINE, len(mask),
+               100, mask, 10),
+              ("general softmax K=7, Covertype chunk", "softmax", cs.COVERTYPE_CHUNK,
+               len(mask), cs.COVERTYPE_CLASSES, mask, 10),
+              ("general softmax K=7, M=48", "softmax", 8192, 2048, 7, None, 10),
+              ("sigmoid K=7", "sigmoid", 512, 1024, 7, None, 1),
+              ("sigmoid K=32", "sigmoid", 128, 512, 32, None, 1)]
 
     def agree(got, ref):
         diff = float((got - ref).abs().max())
@@ -242,7 +246,7 @@ def ey_cases(base, seed, device):
 
     cases = []
     for label, act, B, S, K, m, div in specs:
-        kargs = cs.group_space_inputs(rng, B, S, N, M, K, device, m)
+        kargs = cs.group_space_inputs(rng, B, S, N, 48 if "M=48" in label else M, K, device, m)
         cases.append((label, [B, S, N, M, K], ey_launcher(base["fused_linear_ey"], kargs, act),
                       ey_launcher(mine, kargs, act), agree, div))
     return cases

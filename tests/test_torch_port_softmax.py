@@ -58,6 +58,54 @@ def class_groups(K):
     return cg
 
 
+def _factored_terms(XWg, bgWg, bgW, bgw, mask, tau):
+    """What both general-softmax kernels form before their sums, in float32:
+    ``p1 (B, S, K)``, ``t' (S, N, K)``, the normalised weights ``w``, ``u``,
+    the prologue's ``v`` (a row of zeros where a t' is not finite), ``D`` in
+    class order, whether each (b, s, n) is factored (D at least ``tau``) and
+    ``r = w · rcp.approx.ftz(D)`` there (0 on the exact route)."""
+
+    B, M, K = XWg.shape
+    N, S = bgWg.shape[0], mask.shape[0]
+    w = (bgw / bgw.sum(dtype=F32)).astype(F32)
+    p1 = _group_sum(mask, XWg.transpose(0, 2, 1).reshape(B * K, M))
+    p1 = p1.reshape(S, B, K).transpose(1, 0, 2)                         # (B, S, K)
+    tp = _group_sum(mask, bgWg.transpose(0, 2, 1).reshape(N * K, M))
+    tp = (tp.reshape(S, N, K) - bgW[None]).astype(F32)                 # (S, N, K)
+    gamma = np.fmax.reduce(-tp, axis=-1)
+    v = np.exp((-tp - gamma[..., None]).astype(F32)).astype(F32)
+    v[~np.isfinite(tp).all(-1)] = 0.0
+    alpha = np.fmax.reduce(p1, axis=-1)
+    u = np.exp((p1 - alpha[..., None]).astype(F32)).astype(F32)
+    D = np.zeros((B, S, N), F32)
+    for k in range(K):
+        D = _fma(u[:, :, None, k], v[None, :, :, k], D)
+    factored = D >= F32(tau)
+    rcp = (1.0 / np.where(D < FLT_MIN, 0.0, D.astype(np.float64))).astype(F32)
+    r = np.where(factored, (w * rcp).astype(F32), F32(0.0))
+    return p1, tp, w, u, v, D, factored, r
+
+
+def _exact_route(out, p1, tp, w, factored, ns):
+    """The in-kernel exact route of background rows ``ns``, in that order:
+    each flagged (b, s, n) adds ``w / Z · exp(x − m)`` to ``out``."""
+
+    K = p1.shape[-1]
+    for n in ns:
+        ex = ~factored[:, :, n]
+        if not ex.any():
+            continue
+        x = (p1 - tp[None, :, n, :]).astype(F32)
+        m = np.fmax.reduce(x, axis=-1)
+        z = np.zeros(x.shape[:2], F32)
+        for k in range(K):
+            z = (z + np.exp((x[..., k] - m).astype(F32))).astype(F32)
+        c = (w[n] / z).astype(F32)
+        e = np.exp((x - m[..., None]).astype(F32)).astype(F32)
+        out = np.where(ex[..., None], _fma(c[..., None], e, out), out)
+    return out
+
+
 def emulate_softmax(XWg, bgWg, bgW, bgw, mask, tau=TAU, nr=None):
     """The factored kernel's arithmetic in float32 numpy, ``nr`` background
     rows a pass (default: the kernel's, up to 256).  Returns ``(ey (B, S,
@@ -65,54 +113,43 @@ def emulate_softmax(XWg, bgWg, bgW, bgw, mask, tau=TAU, nr=None):
     route."""
 
     B, M, K = XWg.shape
-    N, S = bgWg.shape[0], mask.shape[0]
+    N = bgWg.shape[0]
     ng = 16 // class_groups(K)
     nr = nr or min(N, 256)
-    w = (bgw / bgw.sum(dtype=F32)).astype(F32)
     with np.errstate(over="ignore", under="ignore", invalid="ignore", divide="ignore"):
-        p1 = _group_sum(mask, XWg.transpose(0, 2, 1).reshape(B * K, M))
-        p1 = p1.reshape(S, B, K).transpose(1, 0, 2)                     # (B, S, K)
-        tp = _group_sum(mask, bgWg.transpose(0, 2, 1).reshape(N * K, M))
-        tp = (tp.reshape(S, N, K) - bgW[None]).astype(F32)             # (S, N, K)
-        # the prologue: v, a row of zeros where a t' is not finite
-        gamma = np.fmax.reduce(-tp, axis=-1)
-        v = np.exp((-tp - gamma[..., None]).astype(F32)).astype(F32)
-        v[~np.isfinite(tp).all(-1)] = 0.0
-        alpha = np.fmax.reduce(p1, axis=-1)
-        u = np.exp((p1 - alpha[..., None]).astype(F32)).astype(F32)
         # pass 1: D in class order, then r = w · rcp.approx.ftz(D) or the flag
-        D = np.zeros((B, S, N), F32)
-        for k in range(K):
-            D = _fma(u[:, :, None, k], v[None, :, :, k], D)
-        factored = D >= F32(tau)
-        rcp = (1.0 / np.where(D < FLT_MIN, 0.0, D.astype(np.float64))).astype(F32)
-        r = np.where(factored, (w * rcp).astype(F32), F32(0.0))
-        out = np.zeros((B, S, K), F32)
+        p1, tp, w, u, v, D, factored, r = _factored_terms(XWg, bgWg, bgW, bgw, mask, tau)
+        out = np.zeros(u.shape, F32)
         for p0 in range(0, N, nr):
             pend = min(N, p0 + nr)
             # pass 2: background groups n = g mod ng, added in group order,
             # times u, written (added on later passes)
-            o = np.zeros((B, S, K), F32)
+            o = np.zeros(u.shape, F32)
             for g in range(ng):
-                acc = np.zeros((B, S, K), F32)
+                acc = np.zeros(u.shape, F32)
                 for n in range(p0 + g, pend, ng):
                     acc = _fma(r[:, :, n:n + 1], v[None, :, n, :], acc)
                 o = (o + acc).astype(F32)
             o = (o * u).astype(F32)
             out = o if p0 == 0 else (out + o).astype(F32)
             # the exact route of the pass, in background order
-            for n in range(p0, pend):
-                ex = ~factored[:, :, n]
-                if not ex.any():
-                    continue
-                x = (p1 - tp[None, :, n, :]).astype(F32)
-                m = np.fmax.reduce(x, axis=-1)
-                z = np.zeros((B, S), F32)
-                for k in range(K):
-                    z = (z + np.exp((x[..., k] - m).astype(F32))).astype(F32)
-                c = (w[n] / z).astype(F32)
-                e = np.exp((x - m[..., None]).astype(F32)).astype(F32)
-                out = np.where(ex[..., None], _fma(c[..., None], e, out), out)
+            out = _exact_route(out, p1, tp, w, factored, range(p0, pend))
+    return out, {"triples": D.size, "exact_route": int((~factored).sum())}
+
+
+def emulate_softmax_regs(XWg, bgWg, bgW, bgw, mask, tau=TAU):
+    """The small-K route's arithmetic (``softmax_factored_kernel_regs``) in
+    float32 numpy: the same u, v, D and r, the output sums one fmaf chain a
+    (b, s, k) over every background row in order, ``ey = u · acc``, then
+    the exact route in background order.  Returns ``(ey, stats)``."""
+
+    N = bgWg.shape[0]
+    with np.errstate(over="ignore", under="ignore", invalid="ignore", divide="ignore"):
+        p1, tp, w, u, v, D, factored, r = _factored_terms(XWg, bgWg, bgW, bgw, mask, tau)
+        acc = np.zeros(u.shape, F32)
+        for n in range(N):
+            acc = _fma(r[:, :, n:n + 1], v[None, :, n, :], acc)
+        out = _exact_route((u * acc).astype(F32), p1, tp, w, factored, range(N))
     return out, {"triples": D.size, "exact_route": int((~factored).sum())}
 
 
@@ -259,14 +296,17 @@ def test_kernel_ab_reads_the_parents_ey_interface():
 
 def test_one_kernel_function_serves_the_general_softmax():
     """The source's kernel functions: the sigmoid form's template, the
-    general softmax's factored kernel and its prologue, and nothing of the
-    register and class-tiled softmax kernels it replaced."""
+    general softmax's factored kernel, its small-K route (a template over
+    the class count, named so that the benchmark's ``softmax_factored_kernel``
+    prefix reads it) and their one prologue, and nothing of the register and
+    class-tiled softmax kernels PR 20 replaced."""
 
     src = (tck.CSRC_DIR / "fused_linear_ey.cu").read_text()
     assert "softmax_kernel<" not in src and "softmax_tiled_kernel" not in src
     assert "kRegisterK" not in src
-    assert src.count("__global__") == 3
-    for name in ("softmax_factored_kernel(", "softmax_v_kernel(", "sigmoid_kernel("):
+    assert src.count("__global__") == 4
+    for name in ("softmax_factored_kernel(", "softmax_factored_kernel_regs(",
+                 "softmax_v_kernel(", "sigmoid_kernel("):
         assert name in src
     assert not hasattr(tck, "REGISTER_K") and not hasattr(tck, "fused_linear_ey_tiled")
 
@@ -296,3 +336,107 @@ def test_kernel_ab_launcher_keeps_its_inputs_alive(monkeypatch):
     out = launch()
     assert out.shape == (4, 8, 5) and len(calls) == 1 and len(calls[0]) == 14
     assert calls[0][0] == refs[0]().data_ptr() and calls[0][4] == refs[4]().data_ptr()
+
+
+#: the class counts of the small-K route the tests take: 1, 3, 7 and 8 (one
+#: and two float4s of v), and the route's last (classes past K zero)
+SMALL_KS = (1, 3, 7, 8, tck.ey_regs_max_k())
+
+
+@pytest.mark.parametrize("K", SMALL_KS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_small_k_route_emulation_matches_plain(kind, K):
+    """The small-K route's order (one chain a (b, s, k) over the background
+    rows) at the Pallas CPU tests' shapes, within the kernel's 1e-5 bar; its
+    guard splits the triples as the factored kernel's does."""
+
+    args = _inputs(kind, 8, 64, 9, 5, K, seed=50 + K)
+    ref = _plain(args)
+    got, stats = emulate_softmax_regs(*args)
+    assert got.shape == (8, 64, K) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=cs.EY_ATOL)
+    assert stats == emulate_softmax(*args)[1]
+    assert cs.softmax_guard_stats([torch.as_tensor(a) for a in args]) == stats
+
+
+@pytest.mark.parametrize("K", SMALL_KS)
+@pytest.mark.parametrize("kind", ("random", "top classes apart"))
+def test_small_k_route_emulation_matches_pallas_interpret(kind, K):
+    """Against the JAX package's kernel in interpret mode, at its tests'
+    shapes."""
+
+    args = _inputs(kind, 8, 64, 9, 5, K, seed=60 + K)
+    ref = np.asarray(pallas_ey(*(jnp.asarray(a) for a in args), "softmax", interpret=True))
+    got, _ = emulate_softmax_regs(*args)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=cs.EY_ATOL)
+
+
+@pytest.mark.parametrize("K", (3, 7, tck.ey_regs_max_k()))
+def test_small_k_route_splits_at_its_guard(K):
+    """Twelve groups and 130 background rows (past a chunk of 128 at K <= 8)
+    whose top classes disagree: without the guard some D is 0 in float32 and
+    the route misses the plain version; with it the triples below ``kTau``
+    take the exact route and the 1e-5 bar holds."""
+
+    args = _inputs("top classes apart", 12, 48, 130, 12, K, seed=70 + K)
+    ref = _plain(args)
+    got, stats = emulate_softmax_regs(*args, tau=0.0)
+    assert stats["exact_route"] == 0
+    assert not np.allclose(got, ref, rtol=0, atol=cs.EY_ATOL)
+    got, stats = emulate_softmax_regs(*args)
+    assert 0 < stats["exact_route"] < stats["triples"]
+    np.testing.assert_allclose(got, ref, rtol=0, atol=cs.EY_ATOL)
+
+
+def test_small_k_route_takes_non_finite_rows_exactly():
+    """A background row with a logit of -inf (its v a row of zeros) and an
+    instance row with a NaN one (a NaN u) take the exact route, which gives
+    the plain version's values and its NaNs."""
+
+    args = _inputs("random", 6, 32, 9, 5, 7, seed=7)
+    args[2][3, 2] = -np.inf
+    args[0][1, 0, 4] = np.nan
+    ref = _plain(args)
+    got, stats = emulate_softmax_regs(*args)
+    assert stats["exact_route"] > 0
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    keep = ~np.isnan(ref)
+    np.testing.assert_allclose(got[keep], ref[keep], rtol=0, atol=cs.EY_ATOL)
+
+
+def test_small_k_route_threshold_from_the_source():
+    """``kRegsMaxK`` as the source defines it, and the route the source's
+    ``route`` gives around it: the wrapper asks the library, never this."""
+
+    src = (tck.CSRC_DIR / "fused_linear_ey.cu").read_text()
+    assert tck.ey_regs_max_k() == 16
+    assert "return K <= kRegsMaxK ? kRouteRegs : kRouteFactored;" in src
+    assert tck.EY_ROUTES == ("sigmoid", "factored", "regs")
+
+
+@pytest.mark.parametrize("code,route", [(0, "sigmoid"), (1, "factored"), (2, "regs")])
+def test_route_launches_count_the_librarys_route(monkeypatch, code, route):
+    """Each launch counts once in ``fused_linear_ey.launches`` and once under
+    the route the library reports for its K and activation, and
+    ``ey_route`` names what the library reports; a K no route takes
+    raises."""
+
+    from types import SimpleNamespace
+
+    asked = []
+
+    def route_of(K, act):
+        asked.append((K, act))
+        return code if K > 0 else -1
+
+    lib = SimpleNamespace(fused_linear_ey_route=route_of)
+    monkeypatch.setattr(tck.fused_linear_ey, "launches", 0)
+    monkeypatch.setattr(tck.fused_linear_ey, "route_launches", dict.fromkeys(tck.EY_ROUTES, 0))
+    monkeypatch.setattr(tck, "_library", lambda name: lib)
+    tck._count_ey_launch(lib, 7, 0)
+    tck._count_ey_launch(lib, 7, 0)
+    assert tck.fused_linear_ey.launches == 2
+    assert tck.fused_linear_ey.route_launches == {r: 2 * (r == route) for r in tck.EY_ROUTES}
+    assert tck.ey_route(5, "sigmoid") == route and asked[-1] == (5, 1)
+    with pytest.raises(ValueError):
+        tck.ey_route(0)

@@ -62,7 +62,12 @@ Phases (each raises on failure, so the script exits non-zero):
    launch counts set to 0 just before and read just after; the answer must be
    additive (< 1e-3, the gate of bench.py), agree with the same explain
    through the kernel's plain version on the card, and with the port on the
-   CPU on the first rows;
+   CPU on the first rows; its one launch writes the least squares' operand
+   (``epilogue_launches``), and phi is bit-identical to the same explain
+   with the link and the operand left to torch ops (``torch_link_route``),
+   the operand to those ops on the kernel's own ``ey`` (or, where the
+   card's ``logf`` is not torch's, the largest gap is printed and held to
+   1e-3, ROADMAP C.9);
 5. times: explain wall (one warm-up, median of 3), kernel and plain version
    by CUDA events at the headline shape, and the kernel's bound (half a
    reciprocal per activation, two sharing one) beside the floor of its own
@@ -214,7 +219,7 @@ Phases (each raises on failure, so the script exits non-zero):
 26. singular Gram: NaN phi without raising from an indefinite Gram and
    from an all-zero-weight plan; each linear-algebra call of the solve
    timed behind ~2 ms of queued device work, with its reported syncs;
-27. the headline explain's WLS host time (``_wls_solve`` wrapped in a host
+27. the headline explain's WLS host time (``_wls_solve_operand`` wrapped in a host
    clock) over 5 explains, beside the wall;
 28. fixture: ``tests/fixtures/adult_parity.npz`` (the JAX package's answers
    on the Adult-schema synthetic rows, made by
@@ -410,7 +415,8 @@ Phases (each raises on failure, so the script exits non-zero):
    launch (the factored kernel); additive (< 1e-3), phi within 1e-3 +
    16 p-ulps of the plain route on the card and of the CPU port on the
    first 8 rows; the kernel against its plain version on the call's own
-   arguments; explain wall, kernel, plain, the factored bound beside the
+   arguments; the launch's epilogue and phi against the torch-link route,
+   as phase 4's; explain wall, kernel, plain, the factored bound beside the
    earlier count, the kernel's launch info (registers, local memory,
    shared memory, blocks per SM);
 51. Covertype (the JAX package's configuration 5, ``benchmarks/configs.py:
@@ -418,10 +424,12 @@ Phases (each raises on failure, so the script exits non-zero):
    numeric, wilderness 4, soil 40), a 7-class LR, all 581,012 rows with
    ``EngineConfig(instance_chunk=65536)`` and ``transfer_dtype='float16'``,
    counted (one launch per instance chunk, each call printed), then
-   ``rank_features``; the first chunk in float32 additive (< 1e-3) and the
-   float16 phi within atol 1e-3 / rtol 2e-3 of it; wall, rows/s, the top
-   feature, kernel, plain, the factored bound beside the earlier count,
-   the kernel's launch info;
+   ``rank_features``, each with one epilogue a chunk (9); the first chunk in
+   float32 additive (< 1e-3), bit-identical to the torch-link route as
+   phase 4's, and the float16 phi within atol 1e-3 / rtol 2e-3 of it; the
+   launch at a Covertype chunk must stay at 128 registers, 0 B local and 2
+   blocks an SM; wall, rows/s, the top feature, kernel, plain, the
+   factored bound beside the earlier count, the kernel's launch info;
 52. exact TreeSHAP past 63 groups: a GBT grown as phase 6's over 100
    ungrouped columns explained with ``nsamples='exact'`` at B = 256, N =
    100, and one over 300 columns at B = 64, each counted (one launch a
@@ -2258,12 +2266,15 @@ def compare_kernel(seed, device):
     headline_mask = coalition_plan_mask()
     small = cuda_kernels.ey_regs_max_k()
     for K in (1, 3, 7, 8, small):
-        info = ey_launch_info(COVERTYPE_CHUNK, len(headline_mask), N_BACKGROUND,
-                              len(COVERTYPE_WIDTHS), K)
-        print(f"small-K route launch at B={COVERTYPE_CHUNK} S={len(headline_mask)} "
-              f"N={N_BACKGROUND} M={len(COVERTYPE_WIDTHS)} K={K}: {info}", flush=True)
-        if info["route"] != "regs" or info["local_bytes"]:
-            raise AssertionError(f"the small-K route at K={K}: {info}")
+        # the raw route, and its own build that writes the operand
+        for link in (None, "logit"):
+            info = ey_launch_info(COVERTYPE_CHUNK, len(headline_mask), N_BACKGROUND,
+                                  len(COVERTYPE_WIDTHS), K, link=link)
+            print(f"small-K route launch at B={COVERTYPE_CHUNK} S={len(headline_mask)} "
+                  f"N={N_BACKGROUND} M={len(COVERTYPE_WIDTHS)} K={K}, epilogue {link}: {info}",
+                  flush=True)
+            if info["route"] != "regs" or info["local_bytes"]:
+                raise AssertionError(f"the small-K route at K={K}, epilogue {link}: {info}")
     routes = {K: cuda_kernels.ey_route(K) for K in (*range(1, small + 2), 32, 100)}
     want = {K: "sigmoid" if K == 2 else "regs" if K <= small else "factored" for K in routes}
     print(f"fused_linear_ey routes (softmax): {routes}; sigmoid K=1, 7: "
@@ -4844,14 +4855,14 @@ def singular_gram_phase(device):
 
 def wls_host_phase(explainer, X, card):
     """Phase 27: the headline explain's WLS host time with the NaN-safe
-    factor: ``ops.explain._wls_solve`` wrapped in a host clock (no sync of
+    factor: ``ops.explain._wls_solve_operand`` wrapped in a host clock (no sync of
     its own) over 5 explains at B = 2560, beside the explain wall (phase 26
     says which of its calls, if any, wait for the device)."""
 
     import torch
     from distributedkernelshap_tpu_torch.ops import explain as ops_explain
 
-    real, spans = ops_explain._wls_solve, []
+    real, spans = ops_explain._wls_solve_operand, []
 
     def timed(*a, **k):
         t0 = time.perf_counter()
@@ -4859,11 +4870,11 @@ def wls_host_phase(explainer, X, card):
         spans.append(1e3 * (time.perf_counter() - t0))
         return out
 
-    ops_explain._wls_solve = timed
+    ops_explain._wls_solve_operand = timed
     try:
         wall, runs = median_wall_ms(lambda: explainer.explain(X, silent=True), 5)
     finally:
-        ops_explain._wls_solve = real
+        ops_explain._wls_solve_operand = real
     torch.cuda.synchronize()
     print(f"headline WLS host time with the NaN-safe factor: median "
           f"{statistics.median(spans):.4f} ms over {len(spans)} explains (spans "
@@ -5264,12 +5275,79 @@ def kernel_vs_plain_on(calls) -> float:
     )
 
     worst = 0.0
-    for a, k in calls:
-        worst = max(worst, float((fused_linear_ey(*a, **k)
-                                  - fused_linear_ey_plain(*a, **k)).abs().max()))
+    for a, _ in calls:
+        worst = max(worst, float((fused_linear_ey(*a) - fused_linear_ey_plain(*a)).abs().max()))
     if not worst <= EY_ATOL:
         raise AssertionError(f"fused_linear_ey vs plain {worst:.3e} on a new path's inputs")
     return worst
+
+
+@contextlib.contextmanager
+def torch_link_route():
+    """Inside the block the explain path leaves the link and the least
+    squares' operand to torch ops on the kernel's raw ``ey``, as it did
+    before the kernel's epilogue (``ops.explain.kernel_writes_operand``
+    held false)."""
+
+    from distributedkernelshap_tpu_torch.ops import explain as explain_mod
+
+    gate = explain_mod.kernel_writes_operand
+    explain_mod.kernel_writes_operand = lambda *a: False
+    try:
+        yield
+    finally:
+        explain_mod.kernel_writes_operand = gate
+
+
+def epilogue_gap_on(calls) -> float:
+    """Each recorded ``fused_linear_ey`` call that wrote the operand, again,
+    against ``ey_epilogue_plain`` (the torch ops) on the same launch's raw
+    ``ey``: the largest gap, 0 where the card's ``logf`` is torch's, held to
+    ``PHI_ATOL`` (ROADMAP C.9's floor) otherwise."""
+
+    from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+        ey_epilogue_plain,
+        fused_linear_ey,
+    )
+
+    worst = 0.0
+    for a, k in calls:
+        if k.get("link") is None:
+            continue
+        ref = ey_epilogue_plain(fused_linear_ey(*a), a[4], k["link"], k["expected_value"],
+                                k["fx_minus_e"])
+        got = fused_linear_ey(*a, **k)
+        worst = max(worst, float((got - ref).abs().max()))
+        del ref, got
+    if not worst <= PHI_ATOL:
+        raise AssertionError(f"fused_linear_ey's epilogue vs the torch ops {worst:.3e}")
+    return worst
+
+
+def epilogue_check(label, explain, calls, phi, card):
+    """Phi of the epilogue route (``phi``, from the recorded ``calls``)
+    against ``explain()`` on the torch-link route, and the epilogue against
+    the torch ops on the kernel's ``ey``: printed; phi must be
+    bit-identical, or where the epilogue's gap is not 0 (the card's
+    ``logf``), within ``PHI_ATOL`` (ROADMAP C.9's floor).  Returns the
+    epilogue's gap."""
+
+    import torch
+
+    gap = epilogue_gap_on(calls)
+    with torch_link_route():
+        ref = explain()
+    torch.cuda.synchronize()
+    same = bool(np.array_equal(phi, ref))
+    d = float(np.abs(phi - ref).max())
+    print(f"{label}: epilogue on {sum(k.get('link') is not None for _, k in calls)} of "
+          f"{len(calls)} launches; phi vs the torch-link route bit-identical {same} (max "
+          f"{d:.3e}); the operand vs the torch ops on the kernel's ey {gap:.3e} on {card}",
+          flush=True)
+    if not same and (gap == 0.0 or not d <= PHI_ATOL):
+        raise AssertionError(f"{label}: phi of the epilogue route differs from the torch-link "
+                             f"route ({d:.3e}, the epilogue's gap {gap:.3e})")
+    return gap
 
 
 def logit_tol(raw):
@@ -7387,8 +7465,9 @@ def ey_timing(args, sm_count, sm_clock_hz, reps=3):
 
 
 def general_softmax_report(label, args, kernel_ms, bound_ms, bound_by, sm_count,
-                           sm_clock_hz, card):
-    """Print what a general-softmax ``fused_linear_ey`` call launches
+                           sm_clock_hz, card, link=None):
+    """Print what a general-softmax ``fused_linear_ey`` call launches, with
+    the epilogue of ``link`` if any
     (``ey_launch_info`` of the kernel its route takes,
     ``softmax_factored_kernel_regs`` up to ``ey_regs_max_k`` classes, else
     ``softmax_factored_kernel``: blocks, registers, local memory, which must
@@ -7402,7 +7481,7 @@ def general_softmax_report(label, args, kernel_ms, bound_ms, bound_by, sm_count,
     XWg, bgWg, _, _, mask = args[:5]
     B, M, K = XWg.shape
     S, N = mask.shape[0], bgWg.shape[0]
-    info = ey_launch_info(B, S, N, M, K, "softmax")
+    info = ey_launch_info(B, S, N, M, K, "softmax", link)
     kernel = {"regs": "softmax_factored_kernel_regs"}.get(info["route"],
                                                            "softmax_factored_kernel")
     old_ms, old_by = ey_bound_ms(B, S, N, M, K, "softmax", sm_count, sm_clock_hz,
@@ -7410,8 +7489,8 @@ def general_softmax_report(label, args, kernel_ms, bound_ms, bound_by, sm_count,
     if info["local_bytes"]:
         raise AssertionError(f"{kernel} spills at K={K}: {info}")
     print(f"{label}: {kernel} (after softmax_v_kernel) at B={B} S={S} N={N} "
-          f"M={M} K={K} on {card}: launch {info} ({info['local_bytes']} B local memory a "
-          f"thread); kernel {kernel_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"M={M} K={K}, epilogue {link}, on {card}: launch {info} "
+          f"({info['local_bytes']} B local memory a thread); kernel {kernel_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
           f"factored: B·S·N reciprocals, K·(B·S + S·N) exps, 2·K·B·S·N FFMAs) "
           f"{100 * bound_ms / kernel_ms:.1f}% of it; the earlier count {old_ms:.4f} ms "
           f"({old_by}: an exp per (b, s, n, k), a reciprocal per (b, s, n)) "
@@ -7436,7 +7515,7 @@ def classes_phase(X, bg, device, card, sm_count, sm_clock_hz, seed):
     B, K, M = X.shape[0], N_CLASSES_WIDE, len(ADULT_WIDTHS)
     est = MultinomialLogisticRegression(rng, K, X.shape[1], scale=0.3)
     explainer = classes_explainer(est, bg, device, ADULT_GROUP_NAMES, adult_groups())
-    fused_linear_ey.launches = 0
+    fused_linear_ey.launches = fused_linear_ey.epilogue_launches = 0
     fused_linear_ey.route_launches = dict.fromkeys(fused_linear_ey.route_launches, 0)
     with recorded_ey_calls() as calls:
         t0 = time.perf_counter()
@@ -7444,18 +7523,21 @@ def classes_phase(X, bg, device, card, sm_count, sm_clock_hz, seed):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches, path = fused_linear_ey.launches, explainer.kernel_path
-    routes = dict(fused_linear_ey.route_launches)
+    routes, epilogues = dict(fused_linear_ey.route_launches), fused_linear_ey.epilogue_launches
     a = calls[0][0] if calls else None
     print(f"classes: {K}-class LR, B={B} M={M}: launches fused_linear_ey={launches} "
-          f"(want 1; by route {routes}), kernel_path={path}, the call: XWg "
+          f"(want 1; by route {routes}; epilogue {epilogues}), kernel_path={path}, the "
+          f"call: XWg "
           f"{tuple(a[0].shape)}, mask {tuple(a[4].shape)}, {a[5]}, ey "
           f"{(B, a[4].shape[0], K)} float32 = {4 * B * a[4].shape[0] * K / 1e9:.2f} GB; "
           f"first explain wall {wall:.3f} s on {card}", flush=True)
     if launches != 1 or len(calls) != 1 or path.get("ey") != "cuda" \
-            or routes["factored"] != 1:
+            or routes["factored"] != 1 or epilogues != 1:
         raise AssertionError("the 100-class explain did not launch fused_linear_ey's "
-                             "factored kernel once")
+                             "factored kernel once, with its epilogue")
     phi, add_err = check_explanation(expl, B, K, M)
+    epilogue_check("classes", lambda: check_explanation(explainer.explain(X, silent=True),
+                                                        B, K, M)[0], calls, phi, card)
     raw = np.asarray(expl.data["raw"]["raw_prediction"])
     tol = logit_tol(raw)[:, :, None]
     plain = classes_explainer(est, bg, device, ADULT_GROUP_NAMES, adult_groups(),
@@ -7479,7 +7561,7 @@ def classes_phase(X, bg, device, card, sm_count, sm_clock_hz, seed):
           f"M={M} K={K}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; library_ms "
           f"null", flush=True)
     old_ms = general_softmax_report(f"classes K={K}", a, kernel_ms, bound_ms, bound_by,
-                                    sm_count, sm_clock_hz, card)
+                                    sm_count, sm_clock_hz, card, link="logit")
     return {"launches": launches, "max_abs_err": ey_err, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_ms_unfactored": old_ms}
@@ -7518,6 +7600,7 @@ def covertype_phase(device, card, sm_count, sm_clock_hz, seed):
 
     import torch
     from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+        ey_launch_info,
         fused_linear_ey,
         fused_linear_ey_plain,
     )
@@ -7530,7 +7613,7 @@ def covertype_phase(device, card, sm_count, sm_clock_hz, seed):
                                   covertype_groups(), instance_chunk=C,
                                   transfer_dtype="float16")
     n_chunks = -(-X.shape[0] // C)
-    fused_linear_ey.launches = 0
+    fused_linear_ey.launches = fused_linear_ey.epilogue_launches = 0
     fused_linear_ey.route_launches = dict.fromkeys(fused_linear_ey.route_launches, 0)
     with recorded_ey_calls() as calls:
         t0 = time.perf_counter()
@@ -7538,7 +7621,7 @@ def covertype_phase(device, card, sm_count, sm_clock_hz, seed):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches, path = fused_linear_ey.launches, explainer.kernel_path
-    routes = dict(fused_linear_ey.route_launches)
+    routes, epilogues = dict(fused_linear_ey.route_launches), fused_linear_ey.epilogue_launches
     for i, (a, _) in enumerate(calls):
         print(f"covertype call {i}: fused_linear_ey XWg {tuple(a[0].shape)} bgWg "
               f"{tuple(a[1].shape)} mask {tuple(a[4].shape)} {a[5]}: ey "
@@ -7546,35 +7629,38 @@ def covertype_phase(device, card, sm_count, sm_clock_hz, seed):
               f"{4 * a[0].shape[0] * a[4].shape[0] * K / 1e9:.2f} GB", flush=True)
     print(f"covertype: {X.shape[0]} rows, D={X.shape[1]} in M={M} groups, K={K}: launches "
           f"fused_linear_ey={launches} (want {n_chunks}, one per {C}-row instance chunk; by "
-          f"route {routes}), kernel_path={path}; wall {wall:.3f} s, "
-          f"{X.shape[0] / wall:.0f} rows/s on {card}", flush=True)
+          f"route {routes}; epilogue_launches {epilogues}), kernel_path={path}; wall "
+          f"{wall:.3f} s, {X.shape[0] / wall:.0f} rows/s on {card}", flush=True)
     if launches != n_chunks or len(calls) != n_chunks or path.get("ey") != "cuda" \
-            or routes["regs"] != n_chunks:
+            or routes["regs"] != n_chunks or epilogues != n_chunks:
         raise AssertionError("the Covertype explain did not launch fused_linear_ey's "
-                             "small-K route once per instance chunk")
+                             "small-K route, with its epilogue, once per instance chunk")
     phi16 = np.stack(expl.shap_values, 1)
     if phi16.shape != (X.shape[0], K, M) or not np.isfinite(phi16).all():
         raise AssertionError(f"bad Covertype shap values: shape {phi16.shape}")
     exact32 = classes_explainer(est, X[:N_BACKGROUND], device, COVERTYPE_NAMES,
                                 covertype_groups(), instance_chunk=C)
     phi32, add32 = check_explanation(exact32.explain(X[:C], silent=True), C, K, M)
+    epilogue_check("covertype first chunk", lambda: check_explanation(
+        exact32.explain(X[:C], silent=True), C, K, M)[0], calls[:1], phi32, card)
     d16 = np.abs(phi16[:C] - phi32)
     f16_ok = bool((d16 <= F16_ATOL + F16_RTOL * np.abs(phi32)).all())
-    fused_linear_ey.launches = 0
+    fused_linear_ey.launches = fused_linear_ey.epilogue_launches = 0
     fused_linear_ey.route_launches = dict.fromkeys(fused_linear_ey.route_launches, 0)
     t0 = time.perf_counter()
     ranked = explainer.rank_features(X)
     torch.cuda.synchronize()
     t_rank = time.perf_counter() - t0
-    rank_launches = fused_linear_ey.launches
+    rank_launches, rank_epilogues = fused_linear_ey.launches, fused_linear_ey.epilogue_launches
     rank_routes = dict(fused_linear_ey.route_launches)
     top = ranked["aggregated"]["names"][0]
     print(f"covertype: first chunk in float32 additivity={add32:.3e} (< {ADDITIVITY:g}); "
           f"float16 phi vs float32 max {d16.max():.3e} within atol {F16_ATOL:g} / rtol "
           f"{F16_RTOL:g}: {f16_ok}; rank_features over all rows {t_rank:.3f} s on {card}, "
-          f"launches fused_linear_ey={rank_launches} (by route {rank_routes}), top feature "
-          f"{top!r}", flush=True)
-    if not f16_ok or rank_launches < 1 or rank_routes["regs"] != rank_launches:
+          f"launches fused_linear_ey={rank_launches} (by route {rank_routes}; epilogue "
+          f"{rank_epilogues}), top feature {top!r}", flush=True)
+    if not f16_ok or rank_launches < 1 or rank_routes["regs"] != rank_launches \
+            or rank_epilogues != rank_launches:
         raise AssertionError("the Covertype float16 phi or the ranking failed")
     a = calls[0][0]
     sub = (a[0][:2048].contiguous(),) + tuple(a[1:])
@@ -7587,7 +7673,14 @@ def covertype_phase(device, card, sm_count, sm_clock_hz, seed):
           f"plain {plain_ms:.4f} ms; kernel vs plain on the first 2048 rows {ey_err:.3e}; "
           f"library_ms null", flush=True)
     old_ms = general_softmax_report("Covertype chunk", a, kernel_ms, bound_ms, bound_by,
-                                    sm_count, sm_clock_hz, card)
+                                    sm_count, sm_clock_hz, card, link="logit")
+    info = ey_launch_info(C, a[4].shape[0], a[1].shape[0], M, K, link="logit")
+    if (info["registers"], info["local_bytes"], info["blocks_per_sm"]) != (128, 0, 2):
+        raise AssertionError(f"the Covertype chunk's launch moved off 128 registers, 0 B "
+                             f"local, 2 blocks an SM: {info}")
+    epi_ms = cuda_time_ms(lambda: fused_linear_ey(*a, **calls[0][1]), 3)
+    print(f"times on {card}: Covertype fused_linear_ey with the logit epilogue {epi_ms:.4f} ms "
+          f"(raw ey {kernel_ms:.4f} ms, +{100 * (epi_ms / kernel_ms - 1):.1f}%)", flush=True)
     return {"launches": launches, "max_abs_err": ey_err, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_ms_unfactored": old_ms, "wall_s": wall, "rows_per_s": X.shape[0] / wall,
@@ -7888,14 +7981,21 @@ def main() -> int:
     # 4. main path, counted
     X, bg, est = adult_task(args.seed)
     cuda_kernels.fused_linear_ey.launches = 0
-    explainer, expl = explain_headline(X, bg, est, device)
-    torch.cuda.synchronize()
+    cuda_kernels.fused_linear_ey.epilogue_launches = 0
+    with recorded_ey_calls() as calls:
+        explainer, expl = explain_headline(X, bg, est, device)
+        torch.cuda.synchronize()
     launches = cuda_kernels.fused_linear_ey.launches
+    epilogues = cuda_kernels.fused_linear_ey.epilogue_launches
     path = explainer.kernel_path
-    print(f"main path: launches fused_linear_ey={launches}, kernel_path={path}", flush=True)
-    if launches < 1 or path.get("ey") != "cuda":
-        raise AssertionError("the headline explain did not go through fused_linear_ey")
+    print(f"main path: launches fused_linear_ey={launches} (epilogue_launches={epilogues}), "
+          f"kernel_path={path}", flush=True)
+    if launches < 1 or epilogues != launches or path.get("ey") != "cuda":
+        raise AssertionError("the headline explain did not go through fused_linear_ey's "
+                             "epilogue")
     phi, add_err = check_explanation(expl, B_HEADLINE)
+    epilogue_check("main path", lambda: check_explanation(
+        explain_headline(X, bg, est, device)[1], B_HEADLINE)[0], calls, phi, card)
     _, expl_plain = explain_headline(X, bg, est, device, use_kernel=False)
     phi_plain, _ = check_explanation(expl_plain, B_HEADLINE)
     d_route = float(np.abs(phi - phi_plain).max())

@@ -41,9 +41,11 @@ from distributedkernelshap_tpu_torch.ops.explain import (
     _ey_generic,
     _ey_linear,
     _use_masked_ey,
+    normal_rhs,
     record_kernel_path,
     resolve_use_kernel,
     solve_from_normal,
+    wls_operand,
 )
 from distributedkernelshap_tpu_torch.ops.links import convert_to_link
 
@@ -100,10 +102,7 @@ def _unit_normal_equations(mask, ey_adj, fx_minus_e):
     zl = mask[:, -1]
     Zt = mask[:, :-1] - zl[:, None]
     A = Zt.T @ Zt
-    rhs = torch.einsum(
-        "sm,bsk->bkm", Zt,
-        ey_adj - zl[None, :, None] * fx_minus_e[:, None, :])
-    return A, rhs
+    return A, normal_rhs(Zt, wls_operand(ey_adj, zl, fx_minus_e))
 
 
 def build_anytime_consts_fn(predictor, config, link: str) -> Callable:
@@ -214,10 +213,8 @@ def build_round_fn(predictor, config, link: str, ridge: float,
                 ey_e = ey_fn(X, consts["bg"], consts["bgw_n"],
                              consts["enum_mask"], consts["G"])
                 ey_adj_e = link_fn(ey_e) - e_val[None, None, :]
-                rhs_enum = torch.einsum(
-                    "sm,bsk->bkm", consts["Aw_enum"],
-                    ey_adj_e - consts["zl_enum"][None, :, None]
-                    * fx_minus_e[:, None, :])
+                rhs_enum = normal_rhs(consts["Aw_enum"],
+                                      wls_operand(ey_adj_e, consts["zl_enum"], fx_minus_e))
             else:
                 rhs_enum = X.new_zeros((B, K, M - 1))
             zero_A = X.new_zeros((M - 1, M - 1))

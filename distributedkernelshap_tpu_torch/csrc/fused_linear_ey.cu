@@ -207,6 +207,33 @@
 // to 16); past 16 classes u and acc would not fit 128 registers at two rows
 // a lane, and the factored kernel's class tiles in shared memory serve K >
 // 16 (K = 32, the 100-class LR) as before.
+//
+// The epilogue.  Every route can write, in place of ey, the right-hand
+// operand of the weighted least squares that follows it:
+//
+//   out[b,s,k] = link(ey[b,s,k]) - E[k] - zl[s] * fxme[b,k],  zl[s] = mask[s,M-1]
+//
+// with E the expected value in link space and fxme = f(x) - E (the link
+// code kLinkNone writes ey itself).  It is applied where an element is
+// final: in the small-K route in registers, as a lane forms its rows'
+// outputs at a coalition's end (R KT independent chains; a row the guard
+// flagged takes it in the warp's region after its exact route), in the
+// sigmoid form by each thread on its own outputs after the last background
+// chunk's store (inside that store's unrolled loop the R sums would
+// spill), and in the factored kernel at pass 2's store of the last pass
+// where no (b, s, n) of it took the exact route, else by each lane on its
+// own elements after that route.  What it costs a Covertype chunk: ~14%
+// (PERF.md), for the B S K logf and IEEE divisions and the coalition-major
+// store below.  wls_operand
+// does the arithmetic of the torch ops it replaces, op for op, so the
+// operand is theirs bit for bit: the logit link's clamp to [1e-7, 1 - 1e-7]
+// by comparisons (NaN stays NaN, as torch.clamp leaves it), its bounds the
+// float nearest the double each is, 1 - p, an IEEE division and an accurate
+// logf (no fast-math intrinsic), then the two subtractions, with explicit
+// roundings so that no contraction into an FMA moves a bit.  The small-K
+// route writes the operand coalition-major, out[s,b,k] at (s B + b) K + k:
+// the layout in which the contraction that follows it ("sm,bsk->bkm", a
+// bmm over (S, B K)) reads it, so no transposing copy of it is made.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -260,14 +287,47 @@ constexpr int kRRegion = kRChunk + 8;       // a warp's region of a stage: a chu
                                             // flush over the banks
 constexpr int kRMaxGPB = 16;                // groups of coalitions a block, at most
 
+// the epilogue's link codes (fused_linear_ey_launch's link) and the logit
+// link's clamp, each bound the float nearest the double ops/links.py has
+constexpr int kLinkNone = 0, kLinkIdentity = 1, kLinkLogit = 2;
+constexpr float kLogitLo = static_cast<float>(1e-7);
+constexpr float kLogitHi = static_cast<float>(1.0 - 1e-7);
+
 static_assert(kSigmoidChunkRows >= 1, "one sigmoid-form background row must fit");
 static_assert(kTS * 4 == kThreads, "the shift reduction gives four lanes a coalition");
 static_assert(kFGroups * kFGroups == kThreads && kFTB == 4 * kFGroups,
               "the factored passes give each thread 4 of the block's rows");
 static_assert(kFTB * 4 == kThreads, "alpha and the exact route take four lanes a row");
 
+// What a call writes in place of ey: the link code, E (K,) and fxme (B, K)
+// (both unread under kLinkNone).
+struct Epilogue {
+  int link;
+  const float* ev;
+  const float* fxme;
+};
+
 typedef void (*EyKernel)(const float*, const float*, const float*, const float*,
-                         const float*, float*, int, int, int, int, int, int);
+                         const float*, float*, Epilogue, int, int, int, int, int, int);
+
+// link(p) - e - zl * fxme, in the torch ops' order and roundings (see the
+// head comment)
+__device__ __forceinline__ float wls_operand(float p, int link, float e, float zl, float fxme) {
+  if (link == kLinkLogit) {
+    p = p < kLogitLo ? kLogitLo : (p > kLogitHi ? kLogitHi : p);  // NaN stays NaN
+    p = logf(__fdiv_rn(p, __fsub_rn(1.0f, p)));
+  }
+  return __fsub_rn(__fsub_rn(p, e), __fmul_rn(zl, fxme));
+}
+
+// the value stored at out[b,s,k] for the raw ey y: y itself, or its operand
+__device__ __forceinline__ float store_value(const Epilogue& ep, float y,
+                                             const float* __restrict__ mask, int b, int s,
+                                             int k, int M, int K) {
+  if (ep.link == kLinkNone) return y;
+  return wls_operand(y, ep.link, ep.ev[k], mask[(size_t)s * M + M - 1],
+                     ep.fxme[(size_t)b * K + k]);
+}
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -370,8 +430,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 softmax_factored_kernel(const float* __restrict__ XWg, const float* __restrict__ bgWg,
                         const float* __restrict__ bgW, const float* __restrict__ bgw,
                         const float* __restrict__ mask, const float* __restrict__ v,
-                        float* __restrict__ out, int B, int S, int N, int M, int K,
-                        int CG, int NR, int SPB, int ures, int xres) {
+                        float* __restrict__ out, Epilogue ep, int B, int S, int N, int M,
+                        int K, int CG, int NR, int SPB, int ures, int xres) {
   const int KC = 4 * CG, NG = kFGroups / CG, KCS = KC + 4;
   const int nt = (K + KC - 1) / KC;             // class tiles
   const int US = ures ? nt * KC + 4 : KCS;      // row stride of u
@@ -468,6 +528,7 @@ softmax_factored_kernel(const float* __restrict__ XWg, const float* __restrict__
 
     for (int p0 = 0; p0 < N; p0 += NR) {
       const int np = min(NR, N - p0);
+      const bool last = p0 + np == N;  // the pass that writes the outputs last
       __syncthreads();  // the previous pass is done with rs and xb (and u written)
       for (int i = tid; i < 2 * np; i += kThreads) xb[i] = 0u;
       if (tid == 0) *xany = 0u;
@@ -575,13 +636,16 @@ softmax_factored_kernel(const float* __restrict__ XWg, const float* __restrict__
             for (int gg = 0; gg < NG; ++gg) o += red[(gg * kFTB + row) * KC + kk];
             o *= us[row * US + (ures ? k0 : 0) + kk];
             float* dst = out + ((size_t)b * S + s) * K + k;
-            *dst = p0 == 0 ? o : *dst + o;
+            o = p0 == 0 ? o : *dst + o;
+            // with an exact route still to add, the epilogue waits for it
+            *dst = last && !exact ? store_value(ep, o, mask, b, s, k, M, K) : o;
           }
         }
       }
 
       // the exact route, after every output of the pass is written: per
-      // flagged (row, background row), in background order, four lanes a row
+      // flagged (row, background row), in background order, four lanes a row;
+      // on the last pass each lane then stores its own elements' operand
       if (exact) {
         __syncthreads();
         const int row = tid / 4, q = tid % 4, b = b0 + row;
@@ -592,6 +656,8 @@ softmax_factored_kernel(const float* __restrict__ XWg, const float* __restrict__
             if (!((xb[2 * nl + row / 32] >> (row % 32)) & 1u)) continue;
             softmax_exact_add(xr, mk, bgWg, bgW, bgw, p0 + nl, M, K, o, 1, q, 4);
           }
+          if (last && ep.link != kLinkNone)
+            for (int k = q; k < K; k += 4) o[k] = store_value(ep, o[k], mask, b, s, k, M, K);
         }
       }
     }
@@ -664,15 +730,17 @@ __device__ __forceinline__ void regs_chunk(const float* vb, const float* wb, int
 // KT classes at compile time: K itself up to 8, else K rounded up to 12 or
 // 16 with classes K..KT-1 zero.  A block of kRWarps warps takes TBR = 32 R
 // rows and GPB groups of kRWarps coalitions, one coalition a warp; each
-// thread owns R consecutive rows, so v is a warp-uniform broadcast.  See the
-// head comment.
-template <int KT>
+// thread owns R consecutive rows, so v is a warp-uniform broadcast.  EPI:
+// the epilogue's code and the coalition-major store, compiled only into the
+// launches that write the operand (with them, the raw route's build spilled
+// at KT = 8 and 16).  See the head comment.
+template <int KT, bool EPI>
 __global__ void __launch_bounds__(kThreads, 2)
 softmax_factored_kernel_regs(const float* __restrict__ XWg, const float* __restrict__ bgWg,
                              const float* __restrict__ bgW, const float* __restrict__ bgw,
                              const float* __restrict__ mask, const float* __restrict__ v,
-                             float* __restrict__ out, int B, int S, int N, int M, int K,
-                             int GPB, int nbuf, int MS) {
+                             float* __restrict__ out, Epilogue ep, int B, int S, int N,
+                             int M, int K, int GPB, int nbuf, int MS) {
   constexpr int KP = regs_stride(KT), R = regs_rows(KT), TBR = 32 * R, XS = TBR + 4;
   constexpr int NCH = regs_chunk_rows(KT);
   constexpr bool kExact = KT <= 8;              // K == KT
@@ -727,15 +795,27 @@ softmax_factored_kernel_regs(const float* __restrict__ XWg, const float* __restr
   };
   // the outputs of stage t's group, from each warp's region into out: a
   // row's K outputs of the group's coalitions are neighbours in out, so
-  // neighbouring threads write neighbouring floats of a row
+  // neighbouring threads write neighbouring floats of a row; with EPI out is
+  // coalition-major, (S, B, K), and a coalition's TBR K outputs are the
+  // neighbours
   auto flush = [&](int t) {
     const int s0 = s_lo + (t / nch) * kRWarps, ncs = min(kRWarps, S - s0);
-    const int width = kRWarps * Kr;
     const float* src = vs + (t & (nbuf - 1)) * kRWarps * kRRegion;
-    for (int f = tid; f < TBR * width; f += kThreads) {
-      const int row = f / width, e = f - row * width, c = e / Kr;
-      if (b0 + row < B && c < ncs)
-        out[((size_t)(b0 + row) * S + s0) * Kr + e] = src[c * kRRegion + row * KT + e - c * Kr];
+    if constexpr (EPI) {
+      const int n = min(TBR, B - b0) * Kr;  // the coalition's floats of the block's rows
+#pragma unroll 1
+      for (int c = 0; c < ncs; ++c) {
+        float* dst = out + ((size_t)(s0 + c) * B + b0) * Kr;
+        const float* sc = src + c * kRRegion;
+        for (int e = tid; e < n; e += kThreads) dst[e] = sc[e + e / Kr * (KT - Kr)];
+      }
+    } else {
+      const int width = kRWarps * Kr;
+      for (int f = tid; f < TBR * width; f += kThreads) {
+        const int row = f / width, e = f - row * width, c = e / Kr;
+        if (b0 + row < B && c < ncs)
+          out[((size_t)(b0 + row) * S + s0) * Kr + e] = src[c * kRRegion + row * KT + e - c * Kr];
+      }
     }
   };
   stage(0);
@@ -833,19 +913,43 @@ softmax_factored_kernel_regs(const float* __restrict__ XWg, const float* __restr
         regs_chunk<KT, R, true>(vb, wb, nc, u, acc, flag);
     }
     if (s < S && c == nch - 1) {
-      // the coalition's outputs into the warp's region (its v is consumed),
-      // a lane's R rows as R KT neighbouring floats, then the exact route of
-      // each flagged row there: D recomputed from v in global memory (the
-      // same bits), in background order
+      // the coalition's outputs, with the epilogue in registers (R KT
+      // independent chains a lane) for every row no flag holds back, into
+      // the warp's region (its v is consumed), a lane's R rows as R KT
+      // neighbouring floats; then the exact route of each flagged row there:
+      // D recomputed from v in global memory (the same bits), in background
+      // order, and that row's epilogue after it
       __syncwarp();
       float* ob = vb + R * KT * lane;
 #pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int k = 0; k < KT; ++k) acc[i][k] = u[i][k] * acc[i][k];
+      if constexpr (EPI) {
+        // E in registers up to 7 classes; past them read at each use,
+        // through the read-only path (in registers they made the build spill)
+        constexpr bool kHeld = KT <= 7;
+        const float zl = mk[M - 1];
+        float e[KT];
+#pragma unroll
+        for (int k = 0; k < KT; ++k) e[k] = kHeld && k < Kr ? ep.ev[k] : 0.0f;
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          // rows past B read row B-1's f(x) - E and are never written
+          const float* fr = ep.fxme + (size_t)min(r0 + i, B - 1) * Kr;
+          const bool held = (flag >> i) & 1u;
+#pragma unroll
+          for (int k = 0; k < KT; ++k)
+            if (k < Kr && !held)
+              acc[i][k] = wls_operand(acc[i][k], ep.link, kHeld ? e[k] : __ldg(ep.ev + k), zl,
+                                      kHeld ? fr[k] : __ldg(fr + k));
+        }
+      }
+#pragma unroll
       for (int e = 0; e < R * KT; e += 4)
         *reinterpret_cast<float4*>(ob + e) =
-            make_float4(u[e / KT][e % KT] * acc[e / KT][e % KT],
-                        u[(e + 1) / KT][(e + 1) % KT] * acc[(e + 1) / KT][(e + 1) % KT],
-                        u[(e + 2) / KT][(e + 2) % KT] * acc[(e + 2) / KT][(e + 2) % KT],
-                        u[(e + 3) / KT][(e + 3) % KT] * acc[(e + 3) / KT][(e + 3) % KT]);
+            make_float4(acc[e / KT][e % KT], acc[(e + 1) / KT][(e + 1) % KT],
+                        acc[(e + 2) / KT][(e + 2) % KT], acc[(e + 3) / KT][(e + 3) % KT]);
 #pragma unroll 1
       for (int i = 0; i < R; ++i) {
         if (!((flag >> i) & 1u) || r0 + i >= B) continue;
@@ -871,6 +975,9 @@ softmax_factored_kernel_regs(const float* __restrict__ XWg, const float* __restr
           if (!(regs_dot<KT>(ui, vv) >= kTau))
             softmax_exact_add(xr, mk, bgWg, bgW, bgw, n, M, Kr, ob + i * KT, 1, 0, 1);
         }
+        if constexpr (EPI)
+          for (int k = 0; k < Kr; ++k)
+            ob[i * KT + k] = store_value(ep, ob[i * KT + k], mask, row, s, k, M, Kr);
       }
     }
     if (nbuf == 1 && t + 1 < T) {
@@ -899,7 +1006,7 @@ template <bool BINARY>
 __global__ void __launch_bounds__(kThreads, kSigmoidBlocks)
 sigmoid_kernel(const float* __restrict__ XWg, const float* __restrict__ bgWg,
                const float* __restrict__ bgW, const float* __restrict__ bgw,
-               const float* __restrict__ mask, float* __restrict__ out,
+               const float* __restrict__ mask, float* __restrict__ out, Epilogue ep,
                int B, int S, int N, int M, int K, int NC) {
   constexpr int R = kSigmoidRows;
   constexpr int TB = kTBY * R;
@@ -1036,6 +1143,18 @@ sigmoid_kernel(const float* __restrict__ XWg, const float* __restrict__ bgWg,
         o[k] = n0 == 0 ? acc[r] : o[k] + acc[r];
       }
     }
+    // after the last chunk, the thread's own outputs back as the operand,
+    // one row at a time: inside the loop above its R sums would spill
+    if (ep.link != kLinkNone && n0 + nc == N) {
+      o = out + ((size_t)(b0 + ty) * S + s) * K;
+#pragma unroll 1
+      for (int r = 0; r < R; ++r, o += (size_t)kTBY * S * K) {
+        const int b = b0 + ty + r * kTBY;
+        if (b >= B) break;
+        for (int kk = BINARY ? 0 : k; kk <= (BINARY ? 1 : k); ++kk)
+          o[kk] = store_value(ep, o[kk], mask, b, s, kk, M, K);
+      }
+    }
   }
 }
 
@@ -1104,29 +1223,35 @@ FactoredPlan factored_plan(int B, int S, int N, int M, int K) {
 }
 
 typedef void (*RegsKernel)(const float*, const float*, const float*, const float*,
-                           const float*, const float*, float*, int, int, int, int, int, int,
-                           int, int);
+                           const float*, const float*, float*, Epilogue, int, int, int, int,
+                           int, int, int, int);
 
-// the small-K kernel for K classes (1 <= K <= kRegsMaxK, K != 2)
-RegsKernel regs_kernel(int K) {
+template <int KT>
+RegsKernel regs_fn(bool epi) {
+  return epi ? softmax_factored_kernel_regs<KT, true> : softmax_factored_kernel_regs<KT, false>;
+}
+
+// the small-K kernel for K classes (1 <= K <= kRegsMaxK, K != 2), with the
+// epilogue's code where epi
+RegsKernel regs_kernel(int K, bool epi) {
   switch (K <= 8 ? K : (K <= 12 ? 12 : 16)) {
-    case 1: return softmax_factored_kernel_regs<1>;
-    case 3: return softmax_factored_kernel_regs<3>;
-    case 4: return softmax_factored_kernel_regs<4>;
-    case 5: return softmax_factored_kernel_regs<5>;
-    case 6: return softmax_factored_kernel_regs<6>;
-    case 7: return softmax_factored_kernel_regs<7>;
-    case 8: return softmax_factored_kernel_regs<8>;
-    case 12: return softmax_factored_kernel_regs<12>;
-    case 16: return softmax_factored_kernel_regs<16>;
+    case 1: return regs_fn<1>(epi);
+    case 3: return regs_fn<3>(epi);
+    case 4: return regs_fn<4>(epi);
+    case 5: return regs_fn<5>(epi);
+    case 6: return regs_fn<6>(epi);
+    case 7: return regs_fn<7>(epi);
+    case 8: return regs_fn<8>(epi);
+    case 12: return regs_fn<12>(epi);
+    case 16: return regs_fn<16>(epi);
     default: return nullptr;
   }
 }
 
-// What one small-K call launches: the kernel, its blocks, groups of
-// coalitions a block, stage buffers, groups of the rows' XWg in shared
-// memory at a time, the dynamic shared memory, background rows a chunk; the
-// prologue's blocks.
+// What one small-K call launches (with the epilogue's code where epi): the
+// kernel, its blocks, groups of coalitions a block, stage buffers, groups of
+// the rows' XWg in shared memory at a time, the dynamic shared memory,
+// background rows a chunk; the prologue's blocks.
 struct RegsPlan {
   RegsKernel fn;
   long long blocks;
@@ -1138,7 +1263,7 @@ struct RegsPlan {
   long long v_blocks;
 };
 
-RegsPlan regs_plan(int B, int S, int N, int M, int K) {
+RegsPlan regs_plan(int B, int S, int N, int M, int K, bool epi) {
   const int kt = K <= 8 ? K : (K <= 12 ? 12 : 16), tbr = 32 * regs_rows(kt);
   const int nch = regs_chunk_rows(kt);
   const size_t one = sizeof(float) * (kRWarps * kRRegion + (size_t)nch);
@@ -1152,7 +1277,7 @@ RegsPlan regs_plan(int B, int S, int N, int M, int K) {
   const long long waves = 8LL * 2 * sm_count();
   int gpb = kRMaxGPB;
   while (gpb > 1 && nbt * ((groups + gpb - 1) / gpb) < waves) gpb /= 2;
-  return {regs_kernel(K), nbt * ((groups + gpb - 1) / gpb), gpb, nbuf, ms,
+  return {regs_kernel(K, epi), nbt * ((groups + gpb - 1) / gpb), gpb, nbuf, ms,
           nbuf * one + ms * group, nch, ((long long)S * N * 32 + kThreads - 1) / kThreads};
 }
 
@@ -1176,7 +1301,7 @@ bool valid(int B, int S, int N, int M, int K, int activation) {
   if (activation != 0) return false;
   if (K == 2) return true;
   if (route(K, activation) == kRouteRegs) {
-    const RegsPlan p = regs_plan(B, S, N, M, K);
+    const RegsPlan p = regs_plan(B, S, N, M, K, false);
     return p.blocks <= INT_MAX && p.v_blocks <= INT_MAX && p.smem <= (size_t)kFMaxSmem;
   }
   const FactoredPlan f = factored_plan(B, S, N, M, K);
@@ -1203,23 +1328,32 @@ long long fused_linear_ey_scratch_floats(int S, int N, int K, int activation) {
   return general_softmax(K, activation) ? (long long)S * N * K : 0;
 }
 
-// activation: 0 = softmax, 1 = sigmoid.  All pointers are device pointers to
-// contiguous float32 arrays; bgw must sum to 1 for binary softmax; scratch
-// holds fused_linear_ey_scratch_floats(S, N, K, activation) floats.
-// Returns the cudaError_t of the first failed call (0 on success).
+// activation: 0 = softmax, 1 = sigmoid; link: the epilogue, 0 = none (out
+// is ey), 1 = identity, 2 = logit (out is link(ey) - ev[k] - mask[s, M-1] *
+// fxme[b, k], the weighted least squares' right-hand operand, laid out
+// (S, B, K) on the small-K route and (B, S, K) elsewhere; see the head
+// comment).  All pointers are device pointers to contiguous float32 arrays:
+// ev (K,) and fxme (B, K), read only with a link; bgw must sum to 1 for
+// binary softmax; scratch holds fused_linear_ey_scratch_floats(S, N, K,
+// activation) floats.  Returns the cudaError_t of the first failed call (0
+// on success).
 int fused_linear_ey_launch(const float* XWg, const float* bgWg, const float* bgW,
                            const float* bgw, const float* mask, float* out, float* scratch,
-                           int B, int S, int N, int M, int K, int activation, void* stream) {
+                           const float* ev, const float* fxme, int B, int S, int N, int M,
+                           int K, int activation, int link, void* stream) {
   if (!valid(B, S, N, M, K, activation)) return (int)cudaErrorInvalidValue;
+  const bool known = link == kLinkNone || link == kLinkIdentity || link == kLinkLogit;
+  if (!known || (link != kLinkNone && (!ev || !fxme))) return (int)cudaErrorInvalidValue;
+  const Epilogue ep = {link, ev, fxme};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!general_softmax(K, activation)) {
     const Plan p = sigmoid_plan(K == 2 && activation == 0, B, S, N, K);
-    p.fn<<<p.grid, kThreads, p.smem, st>>>(XWg, bgWg, bgW, bgw, mask, out, B, S, N, M, K,
-                                           p.nc);
+    p.fn<<<p.grid, kThreads, p.smem, st>>>(XWg, bgWg, bgW, bgw, mask, out, ep, B, S, N, M,
+                                           K, p.nc);
     return (int)cudaGetLastError();
   }
   if (route(K, activation) == kRouteRegs) {
-    const RegsPlan p = regs_plan(B, S, N, M, K);
+    const RegsPlan p = regs_plan(B, S, N, M, K, link != kLinkNone);
     softmax_v_kernel<<<(unsigned)p.v_blocks, kThreads, 0, st>>>(bgWg, bgW, mask, scratch, S,
                                                                  N, M, K);
     int err = (int)cudaGetLastError();
@@ -1228,7 +1362,7 @@ int fused_linear_ey_launch(const float* XWg, const float* bgWg, const float* bgW
                                     (int)p.smem);
     if (err) return err;
     p.fn<<<(unsigned)p.blocks, kThreads, p.smem, st>>>(XWg, bgWg, bgW, bgw, mask, scratch, out,
-                                                       B, S, N, M, K, p.gpb, p.nbuf, p.ms);
+                                                       ep, B, S, N, M, K, p.gpb, p.nbuf, p.ms);
     return (int)cudaGetLastError();
   }
   const FactoredPlan f = factored_plan(B, S, N, M, K);
@@ -1240,19 +1374,20 @@ int fused_linear_ey_launch(const float* XWg, const float* bgWg, const float* bgW
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)f.smem);
   if (err) return err;
   softmax_factored_kernel<<<(unsigned)f.blocks, kThreads, f.smem, st>>>(
-      XWg, bgWg, bgW, bgw, mask, scratch, out, B, S, N, M, K, f.cg, f.nr, f.spb, f.ures,
+      XWg, bgWg, bgW, bgw, mask, scratch, out, ep, B, S, N, M, K, f.cg, f.nr, f.spb, f.ures,
       f.xres);
   return (int)cudaGetLastError();
 }
 
-// What a call at (B, S, N, M, K, activation) launches, into info[0..7]:
-// blocks, threads a block, dynamic shared memory bytes, resident blocks per
-// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers a thread
-// and local memory bytes a thread (cudaFuncGetAttributes), background rows
-// per staged chunk, coalitions a block; of the kernel the call's route
-// launches (fused_linear_ey_route), its prologue not counted.  Returns the
+// What a call at (B, S, N, M, K, activation) with the epilogue's link
+// launches, into info[0..7]: blocks, threads a block, dynamic shared memory
+// bytes, resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers a thread and
+// local memory bytes a thread (cudaFuncGetAttributes), background rows per
+// staged chunk, coalitions a block; of the kernel the call's route launches
+// (fused_linear_ey_route), its prologue not counted.  Returns the
 // cudaError_t of the first query that failed.
-int fused_linear_ey_launch_info(int B, int S, int N, int M, int K, int activation,
+int fused_linear_ey_launch_info(int B, int S, int N, int M, int K, int activation, int link,
                                 int* info) {
   if (!valid(B, S, N, M, K, activation)) return (int)cudaErrorInvalidValue;
   const void* fn;
@@ -1260,7 +1395,7 @@ int fused_linear_ey_launch_info(int B, int S, int N, int M, int K, int activatio
   size_t smem;
   int nc, coalitions;
   if (route(K, activation) == kRouteRegs) {
-    const RegsPlan p = regs_plan(B, S, N, M, K);
+    const RegsPlan p = regs_plan(B, S, N, M, K, link != kLinkNone);
     fn = reinterpret_cast<const void*>(p.fn);
     blocks = p.blocks;
     smem = p.smem;

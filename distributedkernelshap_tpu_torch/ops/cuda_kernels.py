@@ -42,6 +42,7 @@ from typing import Dict, Iterable, List, Optional
 import torch
 
 from distributedkernelshap_tpu_torch.models.predictors import ACTIVATIONS
+from distributedkernelshap_tpu_torch.ops.links import convert_to_link
 from distributedkernelshap_tpu_torch.runtime.compile_cache import compile_events
 from distributedkernelshap_tpu_torch.utils import REPO_ROOT
 
@@ -73,10 +74,10 @@ _VOID, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: the limit function the wrapper's constant must agree with
 _SYMBOLS = {
     "fused_linear_ey": {
-        "fused_linear_ey_launch": ([_VOID] * 7 + [_INT] * 6 + [_VOID], _INT),
+        "fused_linear_ey_launch": ([_VOID] * 9 + [_INT] * 7 + [_VOID], _INT),
         "fused_linear_ey_scratch_floats": ([_INT] * 4, _LONG),
         "fused_linear_ey_max_sigmoid_k": ([], _INT),
-        "fused_linear_ey_launch_info": ([_INT] * 6 + [_VOID], _INT),
+        "fused_linear_ey_launch_info": ([_INT] * 7 + [_VOID], _INT),
         "fused_linear_ey_route": ([_INT] * 2, _INT),
     },
     "exact_tree_phi": {
@@ -112,6 +113,9 @@ _ACTIVATION_CODE = {"softmax": 0, "sigmoid": 1}
 #: the sigmoid form (sigmoid, and softmax at K = 2), the factored general
 #: softmax, and its small-K route with everything of a (b, s) in registers
 EY_ROUTES = ("sigmoid", "factored", "regs")
+#: ``fused_linear_ey``'s epilogue links, by the code its C interface takes
+#: (``kLinkIdentity``, ``kLinkLogit``; 0 writes ``ey`` itself)
+EY_LINK_CODES = {"identity": 1, "logit": 2}
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: kernels whose library this process compiled (their load is no cache hit)
@@ -239,46 +243,83 @@ def _check(XWg, bgWg, bgW, bgw, mask, activation: str):
     return B, S, N, M, K
 
 
+def _check_epilogue(XWg, link, expected_value, fx_minus_e) -> None:
+    """Validate the epilogue's inputs of a call whose ``XWg`` is ``(B, M,
+    K)``: ``link`` None (and no tensors) or a name of ``EY_LINK_CODES``
+    with ``expected_value (K,)`` and ``fx_minus_e (B, K)``, contiguous
+    float32 on ``XWg``'s device."""
+
+    if link is None:
+        if expected_value is not None or fx_minus_e is not None:
+            raise ValueError("expected_value and fx_minus_e need a link")
+        return
+    if link not in EY_LINK_CODES:
+        raise ValueError(f"link must be one of {sorted(EY_LINK_CODES)} or None, got {link!r}")
+    B, _, K = XWg.shape
+    for name, t, shape in (("expected_value", expected_value, (K,)),
+                           ("fx_minus_e", fx_minus_e, (B, K))):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 \
+                or t.device != XWg.device or not t.is_contiguous():
+            raise TypeError(f"{name} must be a contiguous float32 tensor on {XWg.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+
+
 def fused_linear_ey(XWg: torch.Tensor, bgWg: torch.Tensor, bgW: torch.Tensor,
                     bgw: torch.Tensor, mask: torch.Tensor,
-                    activation: str = "softmax") -> torch.Tensor:
+                    activation: str = "softmax", *, link: Optional[str] = None,
+                    expected_value: Optional[torch.Tensor] = None,
+                    fx_minus_e: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused ``ey`` for a logits-linear predictor.
 
     ``XWg (B, M, K)`` per-group instance logits, ``bgWg (N, M, K)`` per-group
     background logits, ``bgW (N, K)`` full background logits (bias
     included), ``bgw (N,)`` background weights (normalised here: the binary
     softmax path needs Σ bgw = 1), ``mask (S, M)`` coalition masks; all
-    contiguous float32 on one device.  Returns ``ey (B, S, K)``.
+    contiguous float32 on one device.  Returns ``ey (B, S, K)``; with a
+    ``link`` (``'identity'`` or ``'logit'``), the epilogue's ``link(ey) −
+    expected_value − zl·fx_minus_e`` instead, ``zl = mask[:, -1]``: the
+    weighted least squares' right-hand operand (:func:`wls_operand`), from
+    ``expected_value (K,)`` in link space and ``fx_minus_e (B, K)``.
 
     CUDA tensors launch ``csrc/fused_linear_ey.cu`` (building it on first
-    use) and count one in ``fused_linear_ey.launches`` and one under the
-    route the library took (:func:`ey_route`) in
-    ``fused_linear_ey.route_launches``; a failed build or launch raises.
-    The kernel takes any K for softmax (every K but 2 through its factored
-    general softmax, with ``S·N·K`` floats of scratch: the small-K route up
-    to the library's threshold, the class-tiled kernel past it) and up to
+    use) and count one in ``fused_linear_ey.launches``, one under the route
+    the library took (:func:`ey_route`) in ``fused_linear_ey.route_launches``
+    and, with a link, one in ``fused_linear_ey.epilogue_launches``; a failed
+    build or launch raises.  The kernel writes the operand at its store,
+    bit for bit what :func:`ey_epilogue_plain` makes of its ``ey`` where the
+    card's ``logf`` is torch's; on the small-K route as a ``(B, S, K)``
+    view of ``(S, B, K)`` memory (:func:`operand_coalition_major`).  It
+    takes any K for softmax (every K but 2 through its factored general
+    softmax, with ``S·N·K`` floats of scratch: the small-K route up to the
+    library's threshold, the class-tiled kernel past it) and up to
     ``MAX_SIGMOID_K`` for sigmoid, and raises above that.  CPU tensors run
     :func:`fused_linear_ey_plain`."""
 
     B, S, N, M, K = _check(XWg, bgWg, bgW, bgw, mask, activation)
+    _check_epilogue(XWg, link, expected_value, fx_minus_e)
+    epilogue = {"link": link, "expected_value": expected_value, "fx_minus_e": fx_minus_e}
     if XWg.device.type == "cpu":
-        return fused_linear_ey_plain(XWg, bgWg, bgW, bgw, mask, activation)
+        return fused_linear_ey_plain(XWg, bgWg, bgW, bgw, mask, activation, **epilogue)
     if activation == "sigmoid" and K > MAX_SIGMOID_K:
         raise ValueError(
             f"the fused_linear_ey kernel takes at most {MAX_SIGMOID_K} sigmoid "
             f"classes (one a block on the grid's z axis), got {K}; explain wider "
             "models with ShapConfig(use_kernel=False)")
-    return _ey_launch(XWg, bgWg, bgW, bgw, mask, _ACTIVATION_CODE[activation])
+    return _ey_launch(XWg, bgWg, bgW, bgw, mask, _ACTIVATION_CODE[activation], **epilogue)
 
 
 fused_linear_ey.launches = 0
 fused_linear_ey.route_launches = dict.fromkeys(EY_ROUTES, 0)
+fused_linear_ey.epilogue_launches = 0
 
 
-def _ey_launch(XWg, bgWg, bgW, bgw, mask, code: int) -> torch.Tensor:
-    """Launch ``csrc/fused_linear_ey.cu`` with activation ``code`` on card
-    tensors that :func:`_check` passed; raises off a CUDA device and on a
-    failed build or launch."""
+def _ey_launch(XWg, bgWg, bgW, bgw, mask, code: int, link=None, expected_value=None,
+               fx_minus_e=None) -> torch.Tensor:
+    """Launch ``csrc/fused_linear_ey.cu`` with activation ``code`` (and the
+    epilogue of ``link``, if any) on card tensors that :func:`_check` and
+    :func:`_check_epilogue` passed; raises off a CUDA device and on a failed
+    build or launch."""
 
     if XWg.device.type != "cuda":
         raise ValueError(f"fused_linear_ey runs on cuda or cpu, not {XWg.device}")
@@ -286,30 +327,47 @@ def _ey_launch(XWg, bgWg, bgW, bgw, mask, code: int) -> torch.Tensor:
     N, S = bgWg.shape[0], mask.shape[0]
     lib = _library("fused_linear_ey")
     bgw = (bgw / bgw.sum()).contiguous()
-    out = torch.empty((B, S, K), dtype=torch.float32, device=XWg.device)
+    if operand_coalition_major(lib, K, code, link):
+        out = torch.empty((S, B, K), dtype=torch.float32, device=XWg.device).permute(1, 0, 2)
+    else:
+        out = torch.empty((B, S, K), dtype=torch.float32, device=XWg.device)
     if B == 0 or S == 0:
         return out
     n_scratch = lib.fused_linear_ey_scratch_floats(S, N, K, code)
     scratch = torch.empty((n_scratch,), dtype=torch.float32, device=XWg.device) \
         if n_scratch else None
+    ev, fxme = (None, None) if link is None else (expected_value.data_ptr(),
+                                                  fx_minus_e.data_ptr())
     with torch.cuda.device(XWg.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_linear_ey_launch(
             XWg.data_ptr(), bgWg.data_ptr(), bgW.data_ptr(), bgw.data_ptr(),
             mask.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            B, S, N, M, K, code, stream)
+            ev, fxme, B, S, N, M, K, code, EY_LINK_CODES.get(link, 0), stream)
     if err:
         raise RuntimeError(f"fused_linear_ey launch failed with CUDA error {err}")
-    _count_ey_launch(lib, K, code)
+    _count_ey_launch(lib, K, code, link is not None)
     return out
 
 
-def _count_ey_launch(lib, K: int, code: int) -> None:
-    """Count one :func:`fused_linear_ey` launch, and one under the route the
-    library ``lib`` took for ``K`` classes and activation ``code``."""
+def operand_coalition_major(lib, K: int, code: int, link) -> bool:
+    """Whether the library ``lib`` writes a launch's output coalition-major,
+    ``(S, B, K)`` in memory (the wrapper hands back its ``(B, S, K)``
+    view): the small-K route's operand, laid out as the contraction's bmm
+    reads it (``ops/explain.normal_rhs``), so no transposing copy of it
+    follows."""
+
+    return link is not None and EY_ROUTES[lib.fused_linear_ey_route(K, code)] == "regs"
+
+
+def _count_ey_launch(lib, K: int, code: int, epilogue: bool = False) -> None:
+    """Count one :func:`fused_linear_ey` launch, one under the route the
+    library ``lib`` took for ``K`` classes and activation ``code`` and,
+    where it wrote the least squares' operand, one epilogue launch."""
 
     fused_linear_ey.launches += 1
     fused_linear_ey.route_launches[EY_ROUTES[lib.fused_linear_ey_route(K, code)]] += 1
+    fused_linear_ey.epilogue_launches += bool(epilogue)
 
 
 def ey_route(K: int, activation: str = "softmax") -> str:
@@ -323,9 +381,10 @@ def ey_route(K: int, activation: str = "softmax") -> str:
     return EY_ROUTES[code]
 
 
-def ey_launch_info(B: int, S: int, N: int, M: int, K: int,
-                   activation: str = "softmax") -> Dict[str, int]:
-    """What a :func:`fused_linear_ey` call at these sizes launches on the
+def ey_launch_info(B: int, S: int, N: int, M: int, K: int, activation: str = "softmax",
+                   link: Optional[str] = None) -> Dict[str, int]:
+    """What a :func:`fused_linear_ey` call at these sizes (with the epilogue
+    of ``link``, if any) launches on the
     card: ``blocks``, ``threads`` a block, dynamic ``smem_bytes``, resident
     ``blocks_per_sm`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
     ``registers`` and ``local_bytes`` a thread (``cudaFuncGetAttributes``),
@@ -339,7 +398,7 @@ def ey_launch_info(B: int, S: int, N: int, M: int, K: int,
     lib = _library("fused_linear_ey")
     info = (ctypes.c_int * 8)()
     err = lib.fused_linear_ey_launch_info(B, S, N, M, K, _ACTIVATION_CODE[activation],
-                                          ctypes.addressof(info))
+                                          EY_LINK_CODES.get(link, 0), ctypes.addressof(info))
     if err:
         raise RuntimeError(f"fused_linear_ey launch info failed with CUDA error {err}")
     keys = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "registers",
@@ -389,18 +448,43 @@ def ey_softmax_tau() -> float:
     return _ey_source_float("kTau")
 
 
+def wls_operand(ey_adj: torch.Tensor, zl: torch.Tensor,
+                fx_minus_e: torch.Tensor) -> torch.Tensor:
+    """The right-hand operand of the weighted least squares, ``ey_adj −
+    zl·(f(x) − E)`` ``(B, S, K)``, from ``ey_adj = link(ey) − E``, the last
+    group's mask column ``zl (S,)`` and ``fx_minus_e (B, K)``: the term the
+    eliminated last coefficient leaves on the right, in torch (what
+    :func:`fused_linear_ey`'s epilogue writes at its store)."""
+
+    return ey_adj - zl[None, :, None] * fx_minus_e[:, None, :]
+
+
+def ey_epilogue_plain(ey: torch.Tensor, mask: torch.Tensor, link: str,
+                      expected_value: torch.Tensor, fx_minus_e: torch.Tensor) -> torch.Tensor:
+    """:func:`fused_linear_ey`'s epilogue in torch, on its raw ``ey``:
+    ``link(ey) − E``, then :func:`wls_operand`, the ops and order the
+    explain path runs where the kernel does not write the operand."""
+
+    ey_adj = convert_to_link(link)(ey) - expected_value[None, None, :]
+    return wls_operand(ey_adj, mask[:, -1], fx_minus_e)
+
+
 def fused_linear_ey_plain(XWg: torch.Tensor, bgWg: torch.Tensor, bgW: torch.Tensor,
                           bgw: torch.Tensor, mask: torch.Tensor,
                           activation: str = "softmax",
-                          chunk: Optional[int] = None) -> torch.Tensor:
+                          chunk: Optional[int] = None, *, link: Optional[str] = None,
+                          expected_value: Optional[torch.Tensor] = None,
+                          fx_minus_e: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`fused_linear_ey` in plain PyTorch, on any device and for any
     number of classes: the same branches (the binary-softmax shortcut with
     k=0 as the complement), with the ``(B, c, N, K)`` logits tensor
     materialised ``chunk`` coalitions at a time (default: ``2**25`` elements
     a chunk).  The binary branch's largest intermediate is K-free, so it
-    takes twice the rows per chunk."""
+    takes twice the rows per chunk.  With a ``link`` the same epilogue,
+    :func:`ey_epilogue_plain` on the whole ``ey``."""
 
     B, S, N, M, K = _check(XWg, bgWg, bgW, bgw, mask, activation)
+    _check_epilogue(XWg, link, expected_value, fx_minus_e)
     bgw = bgw / bgw.sum()
     out = torch.empty((B, S, K), dtype=torch.float32, device=XWg.device)
     c = chunk or max(1, min(S, (1 << 25) // max(1, B * N * K)))
@@ -415,15 +499,17 @@ def fused_linear_ey_plain(XWg: torch.Tensor, bgWg: torch.Tensor, bgW: torch.Tens
             ey1 = torch.sigmoid(dp[:, :, None] - dt2[None]) @ bgw
             out[:, s0:s0 + 2 * c, 1] = ey1
             out[:, s0:s0 + 2 * c, 0] = 1.0 - ey1
+    else:
+        act = ACTIVATIONS[activation]
+        for s0 in range(0, S, c):
+            mc = mask[s0:s0 + c]
+            p1 = torch.einsum("sm,bmk->bsk", mc, XWg)        # (B, c, K)
+            t2 = torch.einsum("sm,nmk->snk", mc, bgWg)       # (c, N, K)
+            logits = p1[:, :, None, :] + bgW[None, None] - t2[None]
+            out[:, s0:s0 + c] = torch.einsum("bcnk,n->bck", act(logits), bgw)
+    if link is None:
         return out
-    act = ACTIVATIONS[activation]
-    for s0 in range(0, S, c):
-        mc = mask[s0:s0 + c]
-        p1 = torch.einsum("sm,bmk->bsk", mc, XWg)        # (B, c, K)
-        t2 = torch.einsum("sm,nmk->snk", mc, bgWg)       # (c, N, K)
-        logits = p1[:, :, None, :] + bgW[None, None] - t2[None]
-        out[:, s0:s0 + c] = torch.einsum("bcnk,n->bck", act(logits), bgw)
-    return out
+    return ey_epilogue_plain(out, mask, link, expected_value, fx_minus_e)
 
 
 # ---------------------------------------------------------------------- #

@@ -40,8 +40,10 @@ import torch
 
 from distributedkernelshap_tpu_torch.models.predictors import ACTIVATIONS, BasePredictor
 from distributedkernelshap_tpu_torch.ops.cuda_kernels import (
+    EY_LINK_CODES,
     fused_linear_ey,
     fused_linear_ey_plain,
+    wls_operand,
 )
 from distributedkernelshap_tpu_torch.ops.links import convert_to_link
 from distributedkernelshap_tpu_torch.profiling import span
@@ -301,7 +303,7 @@ def _ey_generic(predictor: BasePredictor, X, bg, bgw_n, zc, chunk: int):
 
 
 def _ey_linear(W, b, activation: str, X, bg, bgw_n, mask, G, chunk: int,
-               use_kernel: bool = False):
+               use_kernel: bool = False, epilogue: Optional[dict] = None):
     """Fast path for logits-linear predictors, in **group space**.
 
     For masked input ``m = x⊙z + bg⊙(1-z)`` with ``z = mask @ G`` the logits
@@ -310,7 +312,10 @@ def _ey_linear(W, b, activation: str, X, bg, bgw_n, mask, G, chunk: int,
     ``t2 = mask @ bgWg`` (the same per-group reduction of the background)
     and ``bgW = bg @ W + b``.  For ``activation='identity'`` the whole N axis
     collapses analytically; otherwise ``use_kernel`` selects the fused
-    kernel or its plain version, chunked over the coalition axis."""
+    kernel or its plain version, chunked over the coalition axis.  An
+    ``epilogue`` (``link``, ``expected_value``, ``fx_minus_e``: see
+    :func:`kernel_writes_operand`) goes to the kernel, which then returns
+    the least squares' operand in place of ``ey``."""
 
     GW = G[:, :, None] * W[None, :, :]                    # (M, D, K)
     XWg = torch.einsum("bd,mdk->bmk", X, GW)              # (B, M, K)
@@ -331,21 +336,47 @@ def _ey_linear(W, b, activation: str, X, bg, bgw_n, mask, G, chunk: int,
         # a CUDA tensor launches the kernel or raises; a CPU tensor runs
         # the kernel's plain version
         record_kernel_path("ey", "cuda" if X.is_cuda else "plain")
-        return fused_linear_ey(*args)
+        return fused_linear_ey(*args, **(epilogue or {}))
     record_kernel_path("ey", "plain")
     return fused_linear_ey_plain(*args, chunk=chunk)
+
+
+def kernel_writes_operand(X, use_kernel: bool, with_ey: bool, link) -> bool:
+    """Whether the linear route hands ``fused_linear_ey`` its epilogue, so
+    the kernel writes the least squares' operand ``link(ey) − E − zl·(f(x)
+    − E)`` at its store and no torch pass over ``(B, S, K)`` follows it:
+    where the kernel launches (``use_kernel`` on CUDA tensors), no caller
+    wants ``ey_adj`` back (``with_ey``) and the link is a named one.  CPU
+    tensors, the plain route and a callable link keep the torch ops."""
+
+    return use_kernel and X.is_cuda and not with_ey and isinstance(link, str) \
+        and link in EY_LINK_CODES
+
+
+def gram_matrix(mask, w):
+    """``(A, Aw)``: the Gram matrix of the constrained WLS, its last group
+    eliminated, and ``Aw``, the weighted eliminated mask its right-hand
+    sides contract with (:func:`normal_rhs`)."""
+
+    zl = mask[:, -1]
+    Zt = mask[:, :-1] - zl[:, None]            # (S, M-1)
+    Aw = Zt * w[:, None]                       # (S, M-1)
+    return Aw.T @ Zt, Aw
+
+
+def normal_rhs(Aw, operand):
+    """Right-hand sides ``(B, K, M-1)`` of the constrained WLS from its
+    operand ``(B, S, K)`` (:func:`wls_operand`, or what ``fused_linear_ey``'s
+    epilogue wrote)."""
+
+    return torch.einsum("sm,bsk->bkm", Aw, operand)
 
 
 def normal_equations(mask, w, ey_adj, fx_minus_e):
     """Gram matrix and right-hand sides of the constrained WLS."""
 
-    zl = mask[:, -1]
-    Zt = mask[:, :-1] - zl[:, None]            # (S, M-1)
-    Aw = Zt * w[:, None]                       # (S, M-1)
-    A = Aw.T @ Zt
-    rhs = torch.einsum("sm,bsk->bkm", Aw,
-                       ey_adj - zl[None, :, None] * fx_minus_e[:, None, :])
-    return A, rhs
+    A, Aw = gram_matrix(mask, w)
+    return A, normal_rhs(Aw, wls_operand(ey_adj, mask[:, -1], fx_minus_e))
 
 
 def solve_from_factor(chol, rhs, fx_minus_e):
@@ -386,10 +417,17 @@ def _wls_solve(mask, w, ey_adj, fx_minus_e, ridge):
     last group's coefficient with the additivity constraint, then solves the
     ``(M-1)``-dim normal equations once for all ``B·K`` right-hand sides."""
 
+    return _wls_solve_operand(mask, w, wls_operand(ey_adj, mask[:, -1], fx_minus_e),
+                              fx_minus_e, ridge)
+
+
+def _wls_solve_operand(mask, w, operand, fx_minus_e, ridge):
+    """:func:`_wls_solve` from the operand ``ey_adj − zl·(f(x) − E)``."""
+
     if mask.shape[1] == 1:
         return fx_minus_e[:, :, None]
-    A, rhs = normal_equations(mask, w, ey_adj, fx_minus_e)
-    return solve_from_normal(A, rhs, fx_minus_e, ridge)
+    A, Aw = gram_matrix(mask, w)
+    return solve_from_normal(A, normal_rhs(Aw, operand), fx_minus_e, ridge)
 
 
 def build_explainer_fn(predictor: BasePredictor, config: ShapConfig = ShapConfig(),
@@ -402,7 +440,11 @@ def build_explainer_fn(predictor: BasePredictor, config: ShapConfig = ShapConfig
     ``raw_prediction (B, K)`` (both in link space), plus ``ey_adj
     (B, S, K)`` when ``with_ey``.  The masked evaluation takes the linear
     route for a logits-linear predictor, else the predictor's
-    ``masked_ey`` where it has one that fits, else ``_ey_generic``."""
+    ``masked_ey`` where it has one that fits, else ``_ey_generic``.  Where
+    :func:`kernel_writes_operand` holds, the linear route's kernel writes
+    the least squares' operand itself (f(x) and E are formed first); else
+    the link and the operand are torch ops on ``ey``, bit for bit the
+    same."""
 
     link_fn = convert_to_link(config.link)
     linear = predictor.linear_decomposition
@@ -417,12 +459,26 @@ def build_explainer_fn(predictor: BasePredictor, config: ShapConfig = ShapConfig
         N = bg.shape[0]
         bgw_n = bgw / bgw.sum()
 
+        fx = link_fn(predictor(X))                                # (B, K)
+        e_out = torch.einsum("nk,n->k", predictor(bg), bgw_n)     # raw expected output
+        expected_value = link_fn(e_out)                           # (K,)
+        fx_minus_e = fx - expected_value[None, :]
+
+        operand = None
         if linear is not None:
             W, b, activation = linear
             chunk = config.coalition_chunk or _auto_chunk(S, B * N * K,
                                                           config.target_chunk_elems)
+            use_kernel = resolve_use_kernel(config.use_kernel, X.device)
+            epilogue = None
+            if activation != "identity" and kernel_writes_operand(X, use_kernel, with_ey,
+                                                                  config.link):
+                epilogue = {"link": config.link, "expected_value": expected_value,
+                            "fx_minus_e": fx_minus_e}
             ey = _ey_linear(W, b, activation, X, bg, bgw_n, mask, G, chunk,
-                            use_kernel=resolve_use_kernel(config.use_kernel, X.device))
+                            use_kernel=use_kernel, epilogue=epilogue)
+            if epilogue is not None:
+                operand = ey
         elif _use_masked_ey(predictor, B, N, S, M, config):
             # structure-aware path: split-condition / first-layer sums
             # separate into instance and background halves
@@ -439,13 +495,10 @@ def build_explainer_fn(predictor: BasePredictor, config: ShapConfig = ShapConfig
                                                           config.target_chunk_elems)
             ey = _ey_generic(predictor, X, bg, bgw_n, zc, chunk)
 
-        fx = link_fn(predictor(X))                                # (B, K)
-        e_out = torch.einsum("nk,n->k", predictor(bg), bgw_n)     # raw expected output
-        expected_value = link_fn(e_out)                           # (K,)
-
-        ey_adj = link_fn(ey) - expected_value[None, None, :]
-        fx_minus_e = fx - expected_value[None, :]
-        phi = _wls_solve(mask, weights, ey_adj, fx_minus_e, config.ridge)
+        if operand is None:
+            ey_adj = link_fn(ey) - expected_value[None, None, :]
+            operand = wls_operand(ey_adj, mask[:, -1], fx_minus_e)
+        phi = _wls_solve_operand(mask, weights, operand, fx_minus_e, config.ridge)
 
         out = {
             "shap_values": phi,                # (B, K, M)
@@ -500,14 +553,11 @@ def build_linear_plan_consts_fn(predictor: BasePredictor, config: ShapConfig,
                   "expected_value": link_fn(e_out)}
         S, M = mask.shape
         if M > 1:
-            # the Gram matrix factorised here (normal_equations' formula):
-            # a request pays only the triangular solve
-            zl = mask[:, -1]
-            Zt = mask[:, :-1] - zl[:, None]
-            Aw = Zt * weights[:, None]
-            A = Aw.T @ Zt + config.ridge * torch.eye(M - 1, dtype=mask.dtype,
-                                                      device=mask.device)
-            consts.update(zl=zl, Aw=Aw, chol=cholesky_or_nan(A))
+            # the Gram matrix factorised here: a request pays only the
+            # triangular solve
+            A, Aw = gram_matrix(mask, weights)
+            A = A + config.ridge * torch.eye(M - 1, dtype=mask.dtype, device=mask.device)
+            consts.update(zl=mask[:, -1], Aw=Aw, chol=cholesky_or_nan(A))
         if variant == "identity":
             consts["e_bgW"] = torch.einsum("nk,n->k", bgW, bgw_n)
             consts["t2w"] = torch.einsum("sm,nmk,n->sk", mask, bgWg, bgw_n)
@@ -580,9 +630,7 @@ def build_linear_cached_fn(predictor: BasePredictor, config: ShapConfig, chunk: 
         if M == 1:
             phi = fx_minus_e[:, :, None]
         else:
-            zl = consts["zl"]
-            rhs = torch.einsum("sm,bsk->bkm", consts["Aw"],
-                               ey_adj - zl[None, :, None] * fx_minus_e[:, None, :])
+            rhs = normal_rhs(consts["Aw"], wls_operand(ey_adj, consts["zl"], fx_minus_e))
             phi = solve_from_factor(consts["chol"], rhs, fx_minus_e)
         return {
             "shap_values": phi,                # (B, K, M)

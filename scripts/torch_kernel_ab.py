@@ -11,8 +11,9 @@ with this checkout's ``nvcc`` flags into ``build/base_kernels/`` and called
 through their C interface.
 
 - ``--kernel ey``: ``csrc/fused_linear_ey.cu`` of both checkouts through
-  ``fused_linear_ey_launch`` (with the general softmax's scratch where the
-  source takes it; the background weights normalised and the buffers
+  ``fused_linear_ey_launch`` (with the general softmax's scratch, and the
+  epilogue's link and tensors, where the source takes them; the background
+  weights normalised and the buffers
   allocated as the wrapper does, once and outside the timed launches, and
   the wrapper's own checks out of both arms, so the times at small shapes
   compare kernels, not host issue), at the headline inputs of
@@ -24,6 +25,13 @@ through their C interface.
   headline shape, at one Covertype chunk (B = 65536, K = 7, S = 2072; both
   at a tenth of the reps) and at K = 7 over 48 groups (B = 8192, S =
   2048), N = 100, M = 12 elsewhere; the outputs must agree within 1e-5.
+  Then the epilogue's own cost, at the Covertype chunk, at K = 3, 8 and 16
+  (B = 512, S = 1024), at K = 100 and at the headline: the base's raw
+  ``ey`` against this checkout writing the logit link's least-squares
+  operand (``link=2``, E and f(x) − E seeded), whose output is held to the
+  torch ops on the base's ``ey`` (``ey_epilogue_plain``): bit for bit
+  where the card's ``logf`` is torch's, and within 1e-3 (ROADMAP C.9's
+  floor) in any case; a base that has the epilogue runs it too.
 - ``--kernel exact``: ``csrc/exact_tree_phi.cu`` and
   ``csrc/exact_tree_inter.cu`` through the C interface of the base's
   sources, read from them: the one before the weight tables moved to the
@@ -78,13 +86,17 @@ SOURCES = {"ey": ("fused_linear_ey",), "exact": ("exact_tree_phi", "exact_tree_i
 
 
 def interface(source: str) -> str:
-    """The C interface of a kernel source: ``"ey"`` (the general softmax's
-    scratch after ``out``) or ``"ey_no_scratch"`` (before it); for an exact kernel
+    """The C interface of a kernel source: ``"ey_epilogue"`` (the scratch,
+    then the epilogue's E and f(x) − E after ``out``, its link after the
+    activation), ``"ey"`` (the general softmax's scratch after ``out``) or
+    ``"ey_no_scratch"`` (before it); for an exact kernel
     ``"binomial"`` (the binomial table built on the card), ``"tables"`` (the
     wrapper's weight tables, the dead bit in the group word) or ``"slots"``
     (the tables, a slot table and a dead-flag array)."""
 
     if "fused_linear_ey_launch(" in source:
+        if "const float* fxme" in source:
+            return "ey_epilogue"
         return "ey" if "float* scratch" in source else "ey_no_scratch"
     if "void* zdead" in source:
         return "slots"
@@ -92,7 +104,8 @@ def interface(source: str) -> str:
 
 
 #: launch argument types per interface
-_ARGS = {"ey": [_VOID] * 7 + [_INT] * 6 + [_VOID],
+_ARGS = {"ey_epilogue": [_VOID] * 9 + [_INT] * 7 + [_VOID],
+         "ey": [_VOID] * 7 + [_INT] * 6 + [_VOID],
          "ey_no_scratch": [_VOID] * 6 + [_INT] * 6 + [_VOID],
          "binomial": [_VOID] * 10 + [_INT] * 6 + [_VOID],
          "tables": [_VOID] * 10 + [_INT] * 6 + [_VOID],
@@ -123,7 +136,7 @@ def build_base(base: Path, kernel: str):
         lib.interface = interface((csrc / f"{name}.cu").read_text())
         getattr(lib, f"{name}_launch").argtypes = _ARGS[lib.interface]
         getattr(lib, f"{name}_launch").restype = _INT
-        if lib.interface == "ey":
+        if lib.interface in ("ey", "ey_epilogue"):
             lib.fused_linear_ey_scratch_floats.argtypes = [_INT] * 4
             lib.fused_linear_ey_scratch_floats.restype = ctypes.c_longlong
         if kernel == "exact":
@@ -132,36 +145,48 @@ def build_base(base: Path, kernel: str):
     return libs
 
 
-def ey_launcher(lib, args, activation):
+def ey_launcher(lib, args, activation, epilogue=None):
     """A launch of a checkout's ``fused_linear_ey`` library ``lib`` on
     ``args`` as the wrapper makes it (the background weights normalised,
     the output and any scratch allocated), those done once: the returned
-    function only calls the C interface and returns the output."""
+    function only calls the C interface and returns the output.
+    ``epilogue``, ``(link code, E, f(x) − E)``, asks an ``"ey_epilogue"``
+    library for the least squares' operand in place of ``ey``."""
 
     import torch
+
+    from distributedkernelshap_tpu_torch.ops import cuda_kernels
 
     XWg, bgWg, bgW, bgw, mask = args
     B, M, K = XWg.shape
     N, S = bgWg.shape[0], mask.shape[0]
     code = {"softmax": 0, "sigmoid": 1}[activation]
+    if epilogue is not None and lib.interface != "ey_epilogue":
+        raise ValueError(f"a {lib.interface!r} library has no epilogue")
     bgw = (bgw / bgw.sum()).contiguous()
-    out = torch.empty((B, S, K), dtype=torch.float32, device=XWg.device)
+    if epilogue is not None and cuda_kernels.operand_coalition_major(lib, K, code, "logit"):
+        out = torch.empty((S, B, K), dtype=torch.float32, device=XWg.device).permute(1, 0, 2)
+    else:
+        out = torch.empty((B, S, K), dtype=torch.float32, device=XWg.device)
     ptrs = [t.data_ptr() for t in (XWg, bgWg, bgW, bgw, mask, out)]
-    scratch = None
-    if lib.interface == "ey":
+    scratch, link = None, []
+    if lib.interface in ("ey", "ey_epilogue"):
         n = lib.fused_linear_ey_scratch_floats(S, N, K, code)
         scratch = torch.empty((n,), dtype=torch.float32, device=XWg.device) if n else None
         ptrs.append(None if scratch is None else scratch.data_ptr())
+    if lib.interface == "ey_epilogue":
+        ptrs += [None, None] if epilogue is None else [t.data_ptr() for t in epilogue[1:]]
+        link = [0 if epilogue is None else epilogue[0]]
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
-        err = lib.fused_linear_ey_launch(*ptrs, B, S, N, M, K, code, stream)
+        err = lib.fused_linear_ey_launch(*ptrs, B, S, N, M, K, code, *link, stream)
         if err:
             raise RuntimeError(f"fused_linear_ey launch failed with CUDA error {err}")
         return out
 
     # the launcher holds only pointers: it keeps their tensors alive
-    launch.buffers = (args, bgw, scratch)
+    launch.buffers = (args, bgw, scratch, epilogue)
     return launch
 
 
@@ -212,17 +237,19 @@ def exact_base_call(lib, name, args, dmax):
 
 
 def ey_cases(base, seed, device):
-    """``(label, shape, run_base, run_this, agree, reps_divisor)`` for
-    ``--kernel ey``; ``agree(got, ref)`` gives the max abs difference and
-    whether it is within the bar."""
+    """``(label, shape, run_base, run_this, agree, reps_divisor, expect)``
+    for ``--kernel ey``; ``agree(got, ref)`` gives the max abs difference
+    and whether it is within the bar, ``expect`` (or None) what this
+    checkout should give for the base's output."""
 
     import numpy as np
+    import torch
 
     import chip_smoke as cs
     from distributedkernelshap_tpu_torch.ops import cuda_kernels
 
     mine = cuda_kernels._library("fused_linear_ey")
-    mine.interface = "ey"
+    mine.interface = "ey_epilogue"
     rng = np.random.default_rng(seed)
     M, N = len(cs.ADULT_WIDTHS), cs.N_BACKGROUND
     mask = cs.coalition_plan_mask()
@@ -244,11 +271,35 @@ def ey_cases(base, seed, device):
         diff = float((got - ref).abs().max())
         return diff, diff <= cs.EY_ATOL
 
+    def operand_agree(got, ref):
+        diff = float((got - ref).abs().max())
+        return diff, diff <= cs.PHI_ATOL
+
     cases = []
+    epilogue_of = {"general softmax K=7, Covertype chunk", "general softmax K=3",
+                   "general softmax K=8", "general softmax K=16",
+                   "general softmax K=100, headline shape", "headline binary softmax"}
     for label, act, B, S, K, m, div in specs:
         kargs = cs.group_space_inputs(rng, B, S, N, 48 if "M=48" in label else M, K, device, m)
-        cases.append((label, [B, S, N, M, K], ey_launcher(base["fused_linear_ey"], kargs, act),
-                      ey_launcher(mine, kargs, act), agree, div))
+        run_base = ey_launcher(base["fused_linear_ey"], kargs, act)
+        cases.append((label, [B, S, N, M, K], run_base, ey_launcher(mine, kargs, act), agree,
+                      div, None))
+        if label not in epilogue_of:
+            continue
+        # the logit link's operand, from a seeded E and f(x) - E of logit size
+        ev = torch.tensor(rng.normal(size=K), dtype=torch.float32, device=device)
+        fxme = torch.tensor(rng.normal(scale=2.0, size=(B, K)), dtype=torch.float32,
+                            device=device)
+
+        def expect(ref, mask=kargs[4], ev=ev, fxme=fxme):
+            return cuda_kernels.ey_epilogue_plain(ref, mask, "logit", ev, fxme)
+
+        epi = (cuda_kernels.EY_LINK_CODES["logit"], ev, fxme)
+        if base["fused_linear_ey"].interface == "ey_epilogue":
+            # a base with the epilogue runs it too
+            run_base, expect = ey_launcher(base["fused_linear_ey"], kargs, act, epi), None
+        cases.append((f"{label}, logit epilogue", [B, S, N, M, K], run_base,
+                      ey_launcher(mine, kargs, act, epi), operand_agree, div, expect))
     return cases
 
 
@@ -310,7 +361,7 @@ def exact_cases(base, seed, device):
                       lambda name=name, kargs=kargs, d=d: exact_base_call(base[name], name,
                                                                           kargs, d),
                       lambda name=name, kargs=kargs, d=d: mine[name](*kargs, dmax=d),
-                      bitwise(agree) if fixture else agree, 1))
+                      bitwise(agree) if fixture else agree, 1, None))
     return cases
 
 
@@ -385,9 +436,11 @@ def main() -> int:
     make = ey_cases if args.kernel == "ey" else exact_cases
     cases = make(base, args.seed, device)
     record = {"card": card, "kernel": args.kernel, "reps": args.reps, "cases": []}
-    for label, shape, run_base, run_mine, agree, div in cases:
+    for label, shape, run_base, run_mine, agree, div, expect in cases:
         got = run_mine().clone()
         ref = run_base()
+        if expect is not None:
+            ref = expect(ref)
         torch.cuda.synchronize()
         if not bool(got.isfinite().all()):
             raise AssertionError(f"{label}: this checkout's output is not finite")

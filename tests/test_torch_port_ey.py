@@ -209,3 +209,168 @@ def test_ey_bound_recount_at_headline(design, want_ms):
     general = cs.ey_bound_ms(B, S, N, M, 7, "softmax", 132, 1.98e9, design=design)
     assert (general == cs.ey_bound_ms(B, S, N, M, 7, "softmax", 132, 1.98e9,
                                       design="factored")) == (design != "unfactored")
+
+
+# ---------------------------------------------------------------------- #
+# The epilogue: the least squares' operand written at the kernel's store
+
+
+def _torch_route(ey, mask, link, ev, fxme):
+    """What the explain path does to a raw ``ey`` where the kernel does not
+    write the operand, spelled out: the link, ``− E``, then ``−
+    zl·(f(x) − E)``."""
+
+    from distributedkernelshap_tpu_torch.ops.links import logit_link
+
+    ey_adj = (logit_link(ey) if link == "logit" else ey) - ev[None, None, :]
+    return ey_adj - mask[:, -1][None, :, None] * fxme[:, None, :]
+
+
+@pytest.mark.parametrize("link", ["logit", "identity"])
+@pytest.mark.parametrize("K,activation", [(2, "softmax"), (2, "sigmoid"), (3, "sigmoid")])
+@pytest.mark.parametrize("kind", ("random", "large logits"))
+def test_plain_epilogue_is_the_torch_route(kind, K, activation, link):
+    """``fused_linear_ey_plain`` with the epilogue writes, bit for bit, what
+    the torch ops make of its raw ``ey`` on the sigmoid form's routes
+    (binary softmax, sigmoid), large logits saturating p at the clip."""
+
+    args = [torch.as_tensor(a) for a in _inputs(kind, 12, 40, 9, 5, K, activation, seed=K)]
+    rng = np.random.default_rng(K)
+    ev = torch.tensor(rng.normal(size=K), dtype=torch.float32)
+    fxme = torch.tensor(rng.normal(scale=2.0, size=(12, K)), dtype=torch.float32)
+    raw = tck.fused_linear_ey_plain(*args, activation)
+    got = tck.fused_linear_ey_plain(*args, activation, link=link, expected_value=ev,
+                                    fx_minus_e=fxme)
+    assert torch.equal(got, _torch_route(raw, args[4], link, ev, fxme))
+    # the wrapper takes the same epilogue on the CPU, and checks its inputs
+    assert torch.equal(tck.fused_linear_ey(*args, activation, link=link, expected_value=ev,
+                                           fx_minus_e=fxme), got)
+    with pytest.raises(ValueError):
+        tck.fused_linear_ey(*args, activation, link=link, expected_value=ev,
+                            fx_minus_e=fxme[:-1].contiguous())
+    with pytest.raises(ValueError):
+        tck.fused_linear_ey(*args, activation, expected_value=ev, fx_minus_e=fxme)
+
+
+def _linear_task(K, activation, seed=0, B=10, D=9, N=7):
+    from distributedkernelshap_tpu_torch.models.predictors import LinearPredictor
+    from distributedkernelshap_tpu_torch.ops import explain as ex
+    from distributedkernelshap_tpu_torch.ops.coalitions import coalition_plan
+
+    rng = np.random.default_rng(seed)
+    groups = [[0, 1], [2], [3, 4, 5], [6], [7, 8]]
+    plan = coalition_plan(len(groups), None, seed=0)
+    pred = LinearPredictor(torch.tensor(rng.normal(size=(D, K)), dtype=torch.float32),
+                           torch.tensor(rng.normal(size=K), dtype=torch.float32),
+                           activation=activation, device="cpu")
+    args = (torch.tensor(rng.normal(size=(B, D)), dtype=torch.float32),
+            torch.tensor(rng.normal(size=(N, D)), dtype=torch.float32),
+            torch.ones(N), torch.as_tensor(plan.mask, dtype=torch.float32),
+            torch.as_tensor(plan.weights, dtype=torch.float32),
+            torch.as_tensor(ex.groups_to_matrix(groups, D)))
+    return pred, args
+
+
+def _as_on_card(monkeypatch):
+    """The explain path's epilogue gate as it decides on CUDA tensors, for
+    the CPU tensors here (whose wrapper runs the plain epilogue), and a
+    record of each ``fused_linear_ey`` call's keywords and output."""
+
+    from types import SimpleNamespace
+
+    from distributedkernelshap_tpu_torch.ops import explain as ex
+
+    gate, wrapper, calls = ex.kernel_writes_operand, ex.fused_linear_ey, []
+
+    def recorded(*a, **k):
+        out = wrapper(*a, **k)
+        calls.append((k, out))
+        return out
+
+    monkeypatch.setattr(ex, "kernel_writes_operand",
+                        lambda X, *a: gate(SimpleNamespace(is_cuda=True), *a))
+    monkeypatch.setattr(ex, "fused_linear_ey", recorded)
+    return calls
+
+
+@pytest.mark.parametrize("link", ["logit", "identity"])
+@pytest.mark.parametrize("K,activation", [(2, "softmax"), (7, "softmax"), (3, "sigmoid")])
+def test_explain_on_the_kernels_operand_is_bit_identical(K, activation, link, monkeypatch):
+    """``build_explainer_fn`` where the kernel writes the operand gives the
+    torch route's ``shap_values``, E and f(x) bit for bit, one epilogue a
+    call; with ``with_ey`` it keeps the torch route and returns today's
+    ``ey_adj``."""
+
+    from distributedkernelshap_tpu_torch.ops import explain as ex
+    from distributedkernelshap_tpu_torch.ops.links import convert_to_link
+
+    pred, args = _linear_task(K, activation)
+    cfg = ex.ShapConfig(link=link, use_kernel=True)
+    want = ex.build_explainer_fn(pred, cfg)(*args)
+    calls = _as_on_card(monkeypatch)
+    got = ex.build_explainer_fn(pred, cfg)(*args)
+    assert [k.get("link") for k, _ in calls] == [link]
+    for key in ("shap_values", "expected_value", "raw_prediction"):
+        assert torch.equal(got[key], want[key]), key
+    calls.clear()
+    got = ex.build_explainer_fn(pred, cfg, with_ey=True)(*args)
+    assert [k for k, _ in calls] == [{}]
+    assert torch.equal(got["shap_values"], want["shap_values"])
+    assert torch.equal(got["ey_adj"], convert_to_link(link)(calls[0][1]) - got["expected_value"])
+
+
+@pytest.mark.parametrize("route", ["direct", "chunked", "masked_ey", "callable link",
+                                   "plain route", "cpu"])
+def test_epilogue_engages_only_where_the_kernel_feeds_the_solve(route, monkeypatch):
+    """The epilogue goes to the kernel once a call (once a chunk through the
+    engine's instance chunks) on the direct linear route, and never where
+    the torch ops must see ``ey``: an ensemble's members (``masked_ey``
+    averages their ``ey`` before the link), a callable link, the plain
+    route, CPU tensors; phi is the same bits either way."""
+
+    from types import SimpleNamespace
+
+    from distributedkernelshap_tpu_torch import EngineConfig, KernelShap
+    from distributedkernelshap_tpu_torch.models.compose import MeanEnsemblePredictor
+    from distributedkernelshap_tpu_torch.ops import explain as ex
+    from distributedkernelshap_tpu_torch.ops.links import logit_link
+
+    gate = ex.kernel_writes_operand
+    card = SimpleNamespace(is_cuda=True)
+    assert gate(card, True, False, "logit") and gate(card, True, False, "identity")
+    assert not gate(card, True, True, "logit") and not gate(card, False, False, "logit")
+    assert not gate(card, True, False, logit_link)
+    assert not gate(torch.zeros(1), True, False, "logit")
+
+    pred, args = _linear_task(3, "softmax", seed=1, B=20)
+    link, use_kernel = "logit", True
+    if route == "masked_ey":
+        pred = MeanEnsemblePredictor([pred, _linear_task(3, "softmax", seed=2, B=20)[0]])
+    elif route == "callable link":
+        link = logit_link
+    elif route == "plain route":
+        use_kernel = False
+    if route == "chunked":
+        groups = [[0, 1], [2], [3, 4, 5], [6], [7, 8]]
+
+        def explain():
+            explainer = KernelShap(pred, link="logit", seed=3, device="cpu",
+                                   engine_config=EngineConfig(
+                                       shap=ex.ShapConfig(use_kernel=True),
+                                       instance_chunk=8))
+            explainer.fit(args[1].numpy(), group_names=[str(g) for g in groups],
+                          groups=groups)
+            expl = explainer.explain(args[0].numpy(), silent=True, l1_reg=False)
+            return np.stack([np.asarray(v) for v in expl.shap_values], 1)
+    else:
+        def explain():
+            cfg = ex.ShapConfig(link=link, use_kernel=use_kernel)
+            return ex.build_explainer_fn(pred, cfg)(*args)["shap_values"]
+    want = explain()
+    calls = [] if route == "cpu" else _as_on_card(monkeypatch)
+    got = explain()
+    epilogues = sum(k.get("link") is not None for k, _ in calls)
+    assert epilogues == {"direct": 1, "chunked": 3}.get(route, 0), calls
+    if route == "masked_ey":
+        assert pred.linear_decomposition is None and pred.supports_masked_ey
+    assert np.array_equal(np.asarray(got), np.asarray(want))

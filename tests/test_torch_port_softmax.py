@@ -137,11 +137,13 @@ def emulate_softmax(XWg, bgWg, bgW, bgw, mask, tau=TAU, nr=None):
     return out, {"triples": D.size, "exact_route": int((~factored).sum())}
 
 
-def emulate_softmax_regs(XWg, bgWg, bgW, bgw, mask, tau=TAU):
+def emulate_softmax_regs(XWg, bgWg, bgW, bgw, mask, tau=TAU, epilogue=None):
     """The small-K route's arithmetic (``softmax_factored_kernel_regs``) in
     float32 numpy: the same u, v, D and r, the output sums one fmaf chain a
     (b, s, k) over every background row in order, ``ey = u · acc``, then
-    the exact route in background order.  Returns ``(ey, stats)``."""
+    the exact route in background order; with an ``epilogue`` ``(link, E,
+    f(x) − E)``, the flush's store of the operand (:func:`emulate_store`).
+    Returns ``(out, stats)``."""
 
     N = bgWg.shape[0]
     with np.errstate(over="ignore", under="ignore", invalid="ignore", divide="ignore"):
@@ -150,6 +152,8 @@ def emulate_softmax_regs(XWg, bgWg, bgW, bgw, mask, tau=TAU):
         for n in range(N):
             acc = _fma(r[:, :, n:n + 1], v[None, :, n, :], acc)
         out = _exact_route((u * acc).astype(F32), p1, tp, w, factored, range(N))
+    if epilogue is not None:
+        out = emulate_store(out, mask, *epilogue)
     return out, {"triples": D.size, "exact_route": int((~factored).sum())}
 
 
@@ -282,15 +286,21 @@ def test_ey_bound_recount_general_softmax(case, shape, want_ms, old_ms):
 
 def test_kernel_ab_reads_the_parents_ey_interface():
     """``scripts/torch_kernel_ab.py`` tells this checkout's ``fused_linear_ey``
-    C interface (with the general softmax's scratch) from the one before it,
-    and passes each its arguments."""
+    C interface (the scratch, then the epilogue's E and f(x) − E, and its
+    link) from the two before it (the scratch alone; neither), and passes
+    each its arguments."""
 
     from scripts import torch_kernel_ab as ab
 
-    assert ab.interface((tck.CSRC_DIR / "fused_linear_ey.cu").read_text()) == "ey"
+    assert ab.interface((tck.CSRC_DIR / "fused_linear_ey.cu").read_text()) == "ey_epilogue"
+    parent = ("int fused_linear_ey_launch(const float* XWg, ..., float* out, float* scratch,\n"
+              "                           int B, int S, int N, int M, int K, int activation,")
+    assert ab.interface(parent) == "ey"
     old = "int fused_linear_ey_launch(const float* XWg, ..., float* out, int B, int S,"
     assert ab.interface(old) == "ey_no_scratch"
-    assert ab._ARGS["ey"] == tck._SYMBOLS["fused_linear_ey"]["fused_linear_ey_launch"][0]
+    assert ab._ARGS["ey_epilogue"] == \
+        tck._SYMBOLS["fused_linear_ey"]["fused_linear_ey_launch"][0]
+    assert len(ab._ARGS["ey_epilogue"]) == len(ab._ARGS["ey"]) + 3
     assert len(ab._ARGS["ey_no_scratch"]) == len(ab._ARGS["ey"]) - 1
 
 
@@ -336,6 +346,38 @@ def test_kernel_ab_launcher_keeps_its_inputs_alive(monkeypatch):
     out = launch()
     assert out.shape == (4, 8, 5) and len(calls) == 1 and len(calls[0]) == 14
     assert calls[0][0] == refs[0]().data_ptr() and calls[0][4] == refs[4]().data_ptr()
+
+
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_kernel_ab_launcher_passes_the_epilogue(monkeypatch, epilogue):
+    """On this checkout's C interface the A/B launcher passes the scratch,
+    then E and f(x) − E (null without an epilogue), and the link code after
+    the activation, into an output laid out as the small-K route writes the
+    operand (coalition-major); a library without the epilogue refuses
+    one."""
+
+    from types import SimpleNamespace
+
+    from scripts import torch_kernel_ab as ab
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: SimpleNamespace(cuda_stream=0))
+    calls = []
+    lib = SimpleNamespace(interface="ey_epilogue",
+                          fused_linear_ey_scratch_floats=lambda S, N, K, code: S * N * K,
+                          fused_linear_ey_route=lambda K, code: tck.EY_ROUTES.index("regs"),
+                          fused_linear_ey_launch=lambda *a: calls.append(a) or 0)
+    args = [torch.as_tensor(a) for a in _inputs("random", 4, 8, 3, 2, 5, seed=1)]
+    ev, fxme = _epilogue_tensors(np.random.default_rng(1), 4, 5)
+    epi = (tck.EY_LINK_CODES["logit"], ev, fxme) if epilogue else None
+    out = ab.ey_launcher(lib, args, "softmax", epi)()
+    assert out.shape == (4, 8, 5) and out.stride() == ((5, 20, 1) if epilogue else (40, 5, 1))
+    (call,) = calls
+    assert len(call) == len(ab._ARGS["ey_epilogue"])
+    assert call[7:9] == ((ev.data_ptr(), fxme.data_ptr()) if epilogue else (None, None))
+    assert call[-2] == (2 if epilogue else 0) and call[-3] == 0
+    if epilogue:
+        with pytest.raises(ValueError):
+            ab.ey_launcher(SimpleNamespace(interface="ey"), args, "softmax", epi)
 
 
 #: the class counts of the small-K route the tests take: 1, 3, 7 and 8 (one
@@ -417,7 +459,8 @@ def test_small_k_route_threshold_from_the_source():
 @pytest.mark.parametrize("code,route", [(0, "sigmoid"), (1, "factored"), (2, "regs")])
 def test_route_launches_count_the_librarys_route(monkeypatch, code, route):
     """Each launch counts once in ``fused_linear_ey.launches`` and once under
-    the route the library reports for its K and activation, and
+    the route the library reports for its K and activation, a launch that
+    wrote the least squares' operand once in ``epilogue_launches``, and
     ``ey_route`` names what the library reports; a K no route takes
     raises."""
 
@@ -432,11 +475,147 @@ def test_route_launches_count_the_librarys_route(monkeypatch, code, route):
     lib = SimpleNamespace(fused_linear_ey_route=route_of)
     monkeypatch.setattr(tck.fused_linear_ey, "launches", 0)
     monkeypatch.setattr(tck.fused_linear_ey, "route_launches", dict.fromkeys(tck.EY_ROUTES, 0))
+    monkeypatch.setattr(tck.fused_linear_ey, "epilogue_launches", 0)
     monkeypatch.setattr(tck, "_library", lambda name: lib)
     tck._count_ey_launch(lib, 7, 0)
-    tck._count_ey_launch(lib, 7, 0)
-    assert tck.fused_linear_ey.launches == 2
+    tck._count_ey_launch(lib, 7, 0, True)
+    assert tck.fused_linear_ey.launches == 2 and tck.fused_linear_ey.epilogue_launches == 1
     assert tck.fused_linear_ey.route_launches == {r: 2 * (r == route) for r in tck.EY_ROUTES}
     assert tck.ey_route(5, "sigmoid") == route and asked[-1] == (5, 1)
     with pytest.raises(ValueError):
         tck.ey_route(0)
+
+
+# ---------------------------------------------------------------------- #
+# The epilogue: the least squares' operand written at the kernel's store
+
+#: the logit link's clamp as the kernel holds it: the float nearest each
+#: double of ops/links.py (static_cast<float> in the source)
+LOGIT_LO, LOGIT_HI = F32(1e-7), F32(1.0 - 1e-7)
+
+
+def _torch_route(ey, mask, link, ev, fxme):
+    """What the explain path does to a raw ``ey`` where the kernel does not
+    write the operand, spelled out: the link, ``− E``, then ``−
+    zl·(f(x) − E)``."""
+
+    from distributedkernelshap_tpu_torch.ops.links import logit_link
+
+    ey_adj = (logit_link(ey) if link == "logit" else ey) - ev[None, None, :]
+    return ey_adj - mask[:, -1][None, :, None] * fxme[:, None, :]
+
+
+def emulate_store(ey, mask, link, ev, fxme):
+    """The kernel's ``wls_operand`` in float32 numpy, op for op: the clamp
+    by comparisons (NaN fails both), ``1 − p``, an IEEE division, the log
+    (torch's here, ``logf`` on the card), ``− E``, then ``− zl·fxme``."""
+
+    p = np.asarray(ey, F32)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        if link == "logit":
+            p = np.where(p < LOGIT_LO, LOGIT_LO, np.where(p > LOGIT_HI, LOGIT_HI, p))
+            r = (p / (F32(1.0) - p).astype(F32)).astype(F32)
+            p = torch.log(torch.from_numpy(r)).numpy()
+        zl = np.asarray(mask, F32)[:, -1]
+        return ((p - np.asarray(ev, F32)[None, None, :]).astype(F32)
+                - (zl[None, :, None] * np.asarray(fxme, F32)[:, None, :]).astype(F32))
+
+
+def _epilogue_tensors(rng, B, K):
+    return (torch.tensor(rng.normal(size=K), dtype=torch.float32),
+            torch.tensor(rng.normal(scale=2.0, size=(B, K)), dtype=torch.float32))
+
+
+@pytest.mark.parametrize("link", ["logit", "identity"])
+@pytest.mark.parametrize("K", (3, 7, 16, 17))
+def test_plain_epilogue_is_the_torch_route(K, link):
+    """``fused_linear_ey_plain`` with the epilogue writes, bit for bit, what
+    the torch ops make of its raw ``ey``, on either side of the small-K
+    route's last K."""
+
+    args = [torch.as_tensor(a) for a in _inputs("top classes apart", 8, 40, 9, 5, K, seed=K)]
+    ev, fxme = _epilogue_tensors(np.random.default_rng(K), 8, K)
+    raw = tck.fused_linear_ey_plain(*args, "softmax")
+    got = tck.fused_linear_ey_plain(*args, "softmax", link=link, expected_value=ev,
+                                    fx_minus_e=fxme)
+    assert torch.equal(got, _torch_route(raw, args[4], link, ev, fxme))
+    assert torch.equal(got, tck.ey_epilogue_plain(raw, args[4], link, ev, fxme))
+
+
+@pytest.mark.parametrize("link", ["logit", "identity"])
+def test_epilogue_store_at_the_clip_and_on_nan(link):
+    """The store's arithmetic, emulated op for op, gives the torch route's
+    bits at p = 0, 1, 1e-8, 1 − 1e-8, at the clip's bounds and between
+    them, and a NaN ``ey`` stays NaN; the source holds the clip's bounds as
+    the floats nearest ops/links.py's doubles, the ones torch.clamp
+    compares with."""
+
+    rng = np.random.default_rng(11)
+    edge = [0.0, 1.0, 1e-8, 1.0 - 1e-8, float(LOGIT_LO), float(LOGIT_HI), 0.5, np.nan,
+            float(np.nextafter(LOGIT_LO, F32(0))), float(np.nextafter(LOGIT_HI, F32(1)))]
+    ey = rng.random((4, len(edge) + 20, 3)).astype(F32)
+    ey[:, :len(edge), :] = np.asarray(edge, F32)[None, :, None]
+    mask = (rng.random((ey.shape[1], 5)) < 0.5).astype(F32)
+    ev, fxme = _epilogue_tensors(rng, 4, 3)
+    want = _torch_route(torch.from_numpy(ey), torch.from_numpy(mask), link, ev, fxme).numpy()
+    got = emulate_store(ey, mask, link, ev.numpy(), fxme.numpy())
+    assert np.array_equal(got, want, equal_nan=True)
+    assert np.isnan(got[:, 7]).all() and np.isnan(want[:, 7]).all()
+    if link == "logit":
+        from distributedkernelshap_tpu_torch.ops.links import _LOGIT_EPS
+
+        assert torch.clamp(torch.tensor([0.0, 1.0]), _LOGIT_EPS, 1.0 - _LOGIT_EPS).tolist() \
+            == [float(LOGIT_LO), float(LOGIT_HI)]
+        src = (tck.CSRC_DIR / "fused_linear_ey.cu").read_text()
+        assert "constexpr float kLogitLo = static_cast<float>(1e-7);" in src
+        assert "constexpr float kLogitHi = static_cast<float>(1.0 - 1e-7);" in src
+        assert "logf(__fdiv_rn(p, __fsub_rn(1.0f, p)))" in src
+        assert "__logf" not in src
+
+
+@pytest.mark.parametrize("link", ["logit", "identity"])
+@pytest.mark.parametrize("K", (3, 7, tck.ey_regs_max_k()))
+def test_small_k_route_emulation_with_the_store(K, link):
+    """The small-K route's emulation with the epilogue at its flush: its
+    store is the torch route on its own ``ey`` bit for bit, and against the
+    plain version's operand it keeps the kernel's 1e-5 bar on ``ey``,
+    stretched by the logit's slope ``1/(p(1 − p))`` at the clipped p."""
+
+    args = _inputs("top classes apart", 8, 64, 9, 5, K, seed=80 + K)
+    mask = args[4]
+    ev, fxme = _epilogue_tensors(np.random.default_rng(80 + K), 8, K)
+    got, stats = emulate_softmax_regs(*args, epilogue=(link, ev.numpy(), fxme.numpy()))
+    raw, _ = emulate_softmax_regs(*args)
+    assert stats["exact_route"] > 0
+    assert np.array_equal(got, _torch_route(torch.from_numpy(raw), torch.from_numpy(mask),
+                                            link, ev, fxme).numpy())
+    targs = [torch.as_tensor(a) for a in args]
+    plain = tck.fused_linear_ey_plain(*targs, "softmax", link=link, expected_value=ev,
+                                      fx_minus_e=fxme).numpy()
+    slope = 1.0
+    if link == "logit":
+        ref = _plain(args)
+        p = np.clip(np.minimum(raw, ref), LOGIT_LO, 0.5)
+        q = np.clip(np.maximum(raw, ref), 0.5, LOGIT_HI)
+        slope = 1.0 / np.minimum(p * (1.0 - p), q * (1.0 - q))
+    assert (np.abs(got - plain) <= 1.001 * cs.EY_ATOL * slope).all()
+
+
+@pytest.mark.parametrize("code,route", [(0, "sigmoid"), (1, "factored"), (2, "regs")])
+def test_operand_layout_follows_the_route(code, route):
+    """The small-K route writes the operand coalition-major, and the
+    contraction gives the same bits on that layout's ``(B, S, K)`` view as
+    on a contiguous copy (its bmm reads the same ``(S, B·K)`` matrix)."""
+
+    from types import SimpleNamespace
+
+    from distributedkernelshap_tpu_torch.ops.explain import normal_rhs
+
+    lib = SimpleNamespace(fused_linear_ey_route=lambda K, act: code)
+    assert tck.operand_coalition_major(lib, 7, 0, "logit") == (route == "regs")
+    assert not tck.operand_coalition_major(lib, 7, 0, None)
+    rng = np.random.default_rng(3)
+    sbk = torch.tensor(rng.normal(size=(40, 6, 7)), dtype=torch.float32)
+    Aw = torch.tensor(rng.normal(size=(40, 4)), dtype=torch.float32)
+    view = sbk.permute(1, 0, 2)
+    assert torch.equal(normal_rhs(Aw, view), normal_rhs(Aw, view.contiguous()))

@@ -276,7 +276,7 @@ def test_kernel_ab_reads_each_c_interface():
 
     got = {name: ab.interface((tck.CSRC_DIR / f"{name}.cu").read_text())
            for name in tck.KERNELS}
-    assert got == {"fused_linear_ey": "ey", "exact_tree_phi": "slots",
+    assert got == {"fused_linear_ey": "ey_epilogue", "exact_tree_phi": "slots",
                    "exact_tree_inter": "slots"}
     assert ab.interface("long long exact_tree_phi_smem_bytes(int M) {") == "tables"
     assert ab.interface("int exact_tree_phi_launch(..., void* zbits, float* table") \
